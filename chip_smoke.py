@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port's serving path on one NVIDIA GPU.
+"""Smoke run of the PyTorch/CUDA port's serving and estimator paths on one
+NVIDIA GPU.
 
     python3 chip_smoke.py            # from the repository root, one GPU
 
@@ -8,20 +9,28 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
 1. env      -- torch/CUDA versions, the card's name and power limit.
 2. build    -- compiles csrc/*.cu with nvcc (kernels/_build.py), timed.
 3. kernels  -- each kernel against its plain PyTorch version on the card, in
-               float32 and bfloat16, at the cUNet's decoder shapes (B=16,
-               256x256 input) and one odd shape; K3 in every combination of
-               cb / scale+shift / relu; one backward per autograd.Function.
+               float32 and bfloat16: K1 (AdaIN), K2 (2x upsample) and K3
+               (upsample+conv) at the cUNet's decoder shapes (B=16, 256x256
+               input) and one odd shape, K3 in every combination of cb /
+               scale+shift / relu; K4 (identity bottleneck) at one site per
+               ResNet-101 layer (B=16, 224x224 input) and one odd shape,
+               with folded weights from random running statistics and
+               non-zero biases; one backward per autograd.Function.
                Tolerances (max abs error):
                  float32:  1e-5 * max(1, max|plain|) -- float32 reassociation
                            over up to 4608 products (TF32 is off here);
                  bfloat16: 2^-6 * max(1, max|plain|) -- the plain chain
-                           rounds to bf16 after each op, the kernel once.
+                           rounds to bf16 after each op, the kernel once (K4
+                           and its plain version round at the same points
+                           and differ by summation order and the last
+                           rounding).
 4. e2e      -- a seeded reference-format .pt bundle loaded through
-               WeatherTransfer.load in the plain, use_pallas (K1) and
+               WeatherTransfer.load in the plain, use_pallas (K1 + K2) and
                fuse_upconv (K3) configurations; translate and translate_u8 at
                B=16, 256x256.  Asserts 3 launches per forward of each kernel
-               configuration; float32 kernel configurations within MAE 1e-5
-               of the plain one; bfloat16 within MAE 1e-3 of its own float32;
+               of the configuration; float32 kernel configurations within
+               MAE 1e-5 of the plain one; bfloat16 within MAE 1e-3 of its own
+               float32;
                the plain configuration on the card within MAE 1e-5 of the
                same model on the CPU at a small input.  Prints img/s at B=16
                and batch-1 p50 latency of each configuration, and of the
@@ -30,8 +39,26 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
 5. serve    -- a Batcher(max_batch=16) over the fuse_upconv transfer answers
                24 uint8 224x224 requests from 8 threads, each within 1 uint8
                step of a direct translate_u8.
-6. kernels  -- the summary line of every ported kernel (launches on the main
-               path of phases 4-5, error, times, bound).
+6. estimator -- a seeded ResNet-101 (random weights, random BatchNorm
+               parameters and running statistics) saved as a state-dict .pt
+               and loaded through load_estimator; fused_resnet_eval (K4)
+               built from the same weights; B=16, 224x224.  Asserts 29 K4
+               launches per fused forward; float32 fused logits within
+               2e-4 * max(1, max|logits|) of the module's eval forward;
+               bfloat16 logits (plain and fused) within 0.25 * max(1,
+               max|logits|) of the float32 module (bf16 keeps 8 bits
+               through 101 layers of a random network), the fused ones no
+               further from it than twice the plain ones; the plain module
+               on the card within 2e-4 * max(1, max|logits|) of the same
+               module on the CPU at 64x64.  Prints img/s of the plain and
+               the fused forward.
+               Then class_transfer_consistency over two batches of 8 at
+               224x224 with the use_pallas transfer and the fused
+               classifier (K1, K2 and K4 in one path): every prediction in
+               range and equal to the plain classifier's except where the
+               top two logits are closer than the tolerance.
+7. kernels  -- the summary line of every ported kernel (launches on the main
+               paths of phases 4-6, error, times, bound).
 
 The last line is {"ok": true, "device": {...}}.  Float32 comparisons run
 with TF32 off for cuDNN convs and matmuls (set at the start of the run).
@@ -63,8 +90,23 @@ K1_SITES = {"adain3": (16, 512, 32, 32), "adain2": (16, 256, 64, 64),
             "adain1": (16, 128, 128, 128), "odd": (2, 8, 5, 7)}
 K3_SITES = {"up3": (16, 512, 32, 32, 256), "up2": (16, 256, 64, 64, 128),
             "up1": (16, 128, 128, 128, 64), "odd": (2, 8, 5, 7, 4)}
-MAIN_SITES = {"adain": ("adain3", "adain2", "adain1"),
-              "upconv": ("up3", "up2", "up1")}
+K2_SITES = {"upsample3": (16, 512, 32, 32), "upsample2": (16, 256, 64, 64),
+            "upsample1": (16, 128, 128, 128), "odd": (2, 8, 5, 7)}
+# one identity block per ResNet-101 layer at a 224x224 input, batch 16
+K4_SITES = {"layer1": (16, 256, 56, 56), "layer2": (16, 512, 28, 28),
+            "layer3": (16, 1024, 14, 14), "layer4": (16, 2048, 7, 7),
+            "odd": (2, 64, 5, 7)}
+# sites of each kernel on its main path, with their count in one forward
+MAIN_SITES = {"adain": {"adain3": 1, "adain2": 1, "adain1": 1},
+              "upsample": {"upsample3": 1, "upsample2": 1, "upsample1": 1},
+              "upconv": {"up3": 1, "up2": 1, "up1": 1},
+              "bottleneck": {"layer1": 2, "layer2": 3, "layer3": 22,
+                             "layer4": 2}}
+LOGIT_TOL = 2e-4      # float32 logits, relative to max(1, max|logits|)
+# bfloat16 logits against the float32 module: the seeded random network
+# amplifies a rounding error some 300x on its way to the logits (float32's
+# 6e-8 arrives as 2e-5), so bfloat16's 2^-9 arrives as O(0.1)
+LOGIT_TOL_BF16 = 0.25
 
 
 def emit(obj) -> None:
@@ -133,7 +175,10 @@ def phase_build():
 def phase_kernels():
     """Each kernel against its plain version.  Returns per-kernel, per-dtype
     summaries over the three main-path sites."""
-    from weather_unet_tpu_torch.kernels import adain as k1, upconv as k3
+    import torch.nn.functional as F
+
+    from weather_unet_tpu_torch.kernels import (
+        adain as k1, bottleneck as k4, upconv as k3, upsample as k2)
     from weather_unet_tpu_torch.ops.norm import _style_stats
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -142,7 +187,7 @@ def phase_kernels():
         return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
     failures = []
-    summary = {"adain": {}, "upconv": {}}
+    summary = {"adain": {}, "upsample": {}, "upconv": {}, "bottleneck": {}}
     for dt in DTYPES:
         for site, (b, c, h, w) in K1_SITES.items():
             x, y = randn(b, c, h, w, dtype=dt), randn(b, c * 4, dtype=dt)
@@ -202,13 +247,86 @@ def phase_kernels():
                    "bound_by": by, "gflop": flops / 1e9}
             emit(rec)
             summary["upconv"].setdefault(dt, {})[site] = rec
-    failures += check_backward(k1, k3)
+        for site, (b, c, h, w) in K2_SITES.items():
+            x = randn(b, c, h, w, dtype=dt)
+            # the plain result first, and alive while the kernel runs: the
+            # kernel's output buffer cannot be memory that already held it
+            ref = k2.upsample2x_fused_ref(x)
+            out = k2.upsample2x_fused(x)
+            err = max_err(out, ref)
+            tol = check(f"upsample {site} {DT_NAME[dt]}", err, ref, dt,
+                        failures)
+            # a channels-last input is copied to NCHW by the wrapper
+            err_cl = max_err(k2.upsample2x_fused(
+                x.contiguous(memory_format=torch.channels_last)), ref)
+            check(f"upsample {site} {DT_NAME[dt]} channels_last", err_cl, ref,
+                  dt, failures)
+            ms = time_ms(lambda: k2.upsample2x_fused(x))
+            plain_ms = time_ms(lambda: k2.upsample2x_fused_ref(x))
+            library_ms = time_ms(lambda: F.interpolate(
+                x, scale_factor=2, mode="bilinear", align_corners=True))
+            bms, by = bound(nbytes(x, out), 8.0 * out.numel(), dt)
+            rec = {"phase": "kernel", "kernel": "upsample", "site": site,
+                   "dtype": DT_NAME[dt], "shape": [b, c, h, w],
+                   "max_abs_err": err, "channels_last_max_abs_err": err_cl,
+                   "tol": tol, "ms": ms, "launch_only_ms": ms,
+                   "plain_ms": plain_ms, "library_ms": library_ms,
+                   "bound_ms": bms, "bound_by": by}
+            emit(rec)
+            summary["upsample"].setdefault(dt, {})[site] = rec
+        for site, (b, c, h, w) in K4_SITES.items():
+            p = c // 4
+            x = randn(b, c, h, w, dtype=dt)
+            wts = k4.fold_bottleneck(random_bottleneck_state(c, p, gen))
+            wts = tuple(a.to(dt) if a.dim() > 1 else a for a in wts)
+            if not all(float(a.abs().min()) > 0 for a in wts[1::2]):
+                raise AssertionError("bottleneck biases must be non-zero")
+            ref = k4.bottleneck_eval_reference(x, *wts)
+            out = k4.fused_bottleneck_eval(x, *wts)
+            err = max_err(out, ref)
+            tol = check(f"bottleneck {site} {DT_NAME[dt]}", err, ref, dt,
+                        failures)
+            ms = time_ms(lambda: k4.fused_bottleneck_eval(x, *wts))
+            plain_ms = time_ms(lambda: k4.bottleneck_eval_reference(x, *wts))
+            flops = 2.0 * b * h * w * (2 * c * p + 9 * p * p)
+            bms, by = bound(nbytes(x, out, *wts), flops, dt)
+            rec = {"phase": "kernel", "kernel": "bottleneck", "site": site,
+                   "dtype": DT_NAME[dt], "shape": [b, c, h, w],
+                   "max_abs_err": err, "tol": tol, "ms": ms,
+                   "launch_only_ms": ms, "plain_ms": plain_ms,
+                   "library_ms": None, "bound_ms": bms, "bound_by": by,
+                   "gflop": flops / 1e9,
+                   "nonzero_share": float((out != 0).float().mean())}
+            emit(rec)
+            summary["bottleneck"].setdefault(dt, {})[site] = rec
+    failures += check_backward(k1, k2, k3)
     if failures:
         raise AssertionError("kernel checks failed:\n" + "\n".join(failures))
     return summary
 
 
-def check_backward(k1, k3):
+def random_bottleneck_state(c, p, gen):
+    """State dict of one identity bottleneck on the card: conv weights
+    scaled to keep activations O(1), BatchNorm scale and running variance
+    uniform in [0.5, 2), non-zero shift and running mean."""
+    def randn(*shape, std=1.0):
+        return std * torch.randn(*shape, generator=gen, device="cuda")
+
+    def uniform(n):
+        return torch.rand(n, generator=gen, device="cuda") * 1.5 + 0.5
+
+    sd = {"conv1.weight": randn(p, c, 1, 1, std=(2.0 / c) ** 0.5),
+          "conv2.weight": randn(p, p, 3, 3, std=(2.0 / (9 * p)) ** 0.5),
+          "conv3.weight": randn(c, p, 1, 1, std=(2.0 / p) ** 0.5)}
+    for name, n in (("bn1", p), ("bn2", p), ("bn3", c)):
+        sd[f"{name}.weight"] = uniform(n)
+        sd[f"{name}.bias"] = randn(n, std=0.3)
+        sd[f"{name}.running_mean"] = randn(n, std=0.3)
+        sd[f"{name}.running_var"] = uniform(n)
+    return sd
+
+
+def check_backward(k1, k2, k3):
     """Gradients through each autograd.Function (kernel forward, plain
     recompute backward) against autograd of the plain version."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
@@ -223,6 +341,9 @@ def check_backward(k1, k3):
     cases = {
         "adain": ((leaf(4, 64, 16, 16), leaf(4, 256)),
                   lambda a: k1.adain_fused(*a), lambda a: k1.adain_fused_ref(*a)),
+        "upsample": ((leaf(2, 16, 9, 12),),
+                     lambda a: k2.upsample2x_fused(*a),
+                     lambda a: k2.upsample2x_fused_ref(*a)),
         "upconv": ((leaf(2, 16, 8, 12), leaf(8, 16, 3, 3),
                     leaf(2, 8, 16, 24), leaf(2, 16, lo=0.5), leaf(2, 16)),
                    lambda a: k3.upconv_block_fused(*a, True),
@@ -241,8 +362,8 @@ def check_backward(k1, k3):
 
 
 def phase_e2e(path, counters, launch_totals):
-    """The three configurations end to end; returns the fuse_upconv float32
-    transfer for the serving phase."""
+    """The three configurations end to end; returns the transfers by
+    (configuration, dtype) for the later phases."""
     from weather_unet_tpu_torch.api import WeatherTransfer
     from weather_unet_tpu_torch.models import ConditionalUNet
 
@@ -263,7 +384,7 @@ def phase_e2e(path, counters, launch_totals):
         return WeatherTransfer.load(path, dtype=dt, device="cuda",
                                     fuse_upconv=(config == "fuse_upconv"))
 
-    expect = {"plain": {}, "use_pallas": {"adain": 3},
+    expect = {"plain": {}, "use_pallas": {"adain": 3, "upsample": 3},
               "fuse_upconv": {"upconv": 3}}
     outs, wts = {}, {}
     for dt in DTYPES:
@@ -327,7 +448,7 @@ def phase_e2e(path, counters, launch_totals):
     finally:
         torch.backends.cudnn.allow_tf32 = False
     check_card_vs_cpu(sd)
-    return wts["fuse_upconv", torch.float32]
+    return wts
 
 
 def measure(wt, x_dev, c_dev, counters, launch_totals):
@@ -417,30 +538,204 @@ def phase_serve(wt, counters, launch_totals):
         raise AssertionError("Batcher batches did not run K3 3 times each")
 
 
+def make_estimator_checkpoint(path):
+    """A seeded ResNet-101 saved as a state-dict .pt: random conv and fc
+    weights, random BatchNorm scale and shift, and running statistics that
+    are one batch's statistics (so activations stay O(1) through 101
+    layers) perturbed at random per channel.  The last BatchNorm of each
+    block gets a smaller scale, as zero-init-residual training leaves it:
+    with scales around 1 there, float32 rounding alone moves this random
+    network's logits by 2e-4 (against a float64 forward), the size of the
+    bar the fused forward is held to."""
+    from weather_unet_tpu_torch.models import Bottleneck, ResNet101
+    from weather_unet_tpu_torch.models.common import BatchNorm2d
+
+    gen = torch.Generator().manual_seed(SEED + 4)
+    model = ResNet101(5, generator=gen)
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
+    with torch.no_grad():
+        for bn in bns:
+            bn.weight.uniform_(0.5, 1.5, generator=gen)
+            bn.bias.normal_(0.0, 0.1, generator=gen)
+            bn.momentum = 1.0           # running := this batch's statistics
+        for m in model.modules():
+            if isinstance(m, Bottleneck):
+                m.bn3.weight.uniform_(0.2, 0.6, generator=gen)
+        model.cuda().train()
+        model((torch.rand(16, 3, 224, 224, generator=gen) * 2 - 1).cuda())
+        model.cpu().eval()
+        for bn in bns:
+            bn.momentum = 0.1
+            n = bn.num_features
+            bn.running_mean += (0.1 * bn.running_var.sqrt()
+                                * torch.randn(n, generator=gen))
+            bn.running_var *= torch.empty(n).uniform_(0.8, 1.25,
+                                                      generator=gen)
+    torch.save(model.state_dict(), path)
+
+
+def ips_of(fn, batch, n=10):
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return n * batch / (time.perf_counter() - t0)
+
+
+def phase_estimator(path, transfer, counters, launch_totals):
+    """The frozen ResNet-101 through load_estimator (plain module) and
+    through fused_resnet_eval (K4), then the class-transfer consistency
+    evaluation over the use_pallas transfer and the fused classifier."""
+    from weather_unet_tpu_torch.cli.common import load_estimator
+    from weather_unet_tpu_torch.evaluation.transfer import (
+        class_transfer_consistency)
+    from weather_unet_tpu_torch.kernels.bottleneck import fused_resnet_eval
+
+    def counted(fn, want):
+        for m in counters.values():
+            m.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: m.launches for k, m in counters.items()}
+        if got != {k: want.get(k, 0) for k in counters}:
+            raise AssertionError(f"estimator path: launches {got} != {want}")
+        for k in counters:
+            launch_totals[k] += got[k]
+        return out
+
+    def rel(a, b):
+        return max_err(a, b) / max(1.0, float(b.float().abs().max()))
+
+    rng = np.random.default_rng(SEED + 5)
+    b, size = 16, 224
+    x = torch.from_numpy(rng.uniform(-1, 1, (b, size, size, 3))
+                         .astype(np.float32)).cuda()
+    x_nchw = x.permute(0, 3, 1, 2).contiguous()
+    logits, fused_by_dt, plain_by_dt = {}, {}, {}
+    for dt in DTYPES:
+        plain = plain_by_dt[dt] = load_estimator(path, dtype=dt)
+        fused = fused_by_dt[dt] = fused_resnet_eval(plain.model)
+        got_plain = counted(lambda: plain(x), {})
+        got_fused = counted(lambda: fused(x_nchw), {"bottleneck": 29})
+        for name, t in (("plain", got_plain), ("fused", got_fused)):
+            if t.shape != (b, 5) or not bool(torch.isfinite(t).all()):
+                raise AssertionError(f"estimator {name} {DT_NAME[dt]}: "
+                                     f"shape {tuple(t.shape)} or non-finite")
+        logits[dt] = got_plain
+        ref = logits[torch.float32]
+        rec = {"phase": "estimator", "dtype": DT_NAME[dt], "batch": b,
+               "size": size, "k4_launches_per_forward": 29,
+               "max_abs_logit": float(ref.abs().max()),
+               "fused_vs_plain_rel": rel(got_fused, got_plain),
+               "img_per_s_plain": ips_of(lambda: plain(x), b)}
+        before = counters["bottleneck"].launches
+        rec["img_per_s_fused"] = ips_of(lambda: fused(x_nchw), b)
+        launch_totals["bottleneck"] += (counters["bottleneck"].launches
+                                        - before)
+        if dt == torch.float32:
+            rec["tol"] = LOGIT_TOL
+            ok = rec["fused_vs_plain_rel"] <= LOGIT_TOL
+        else:
+            rec["plain_vs_float32_rel"] = rel(got_plain, ref)
+            rec["fused_vs_float32_rel"] = rel(got_fused, ref)
+            rec["tol"] = LOGIT_TOL_BF16
+            ok = (max(rec["plain_vs_float32_rel"],
+                      rec["fused_vs_float32_rel"]) <= LOGIT_TOL_BF16
+                  and rec["fused_vs_float32_rel"]
+                  <= 2 * rec["plain_vs_float32_rel"])
+        emit(rec)
+        if not ok:
+            raise AssertionError(f"estimator {DT_NAME[dt]}: logits differ "
+                                 f"beyond the tolerance: {rec}")
+
+    # the plain module on the card against the same module on the CPU
+    xs = rng.uniform(-1, 1, (2, 64, 64, 3)).astype(np.float32)
+    on_cpu = load_estimator(path, device="cpu")(xs)
+    on_card = plain_by_dt[torch.float32](xs).cpu()
+    r = rel(on_card, on_cpu)
+    emit({"phase": "estimator_card_vs_cpu", "shape": [2, 64, 64, 3],
+          "rel_err": r, "tol": LOGIT_TOL})
+    if not r <= LOGIT_TOL:
+        raise AssertionError(f"estimator card vs CPU rel err {r}")
+
+    # K1, K2 and K4 in one path: translate to every class, re-classify
+    batches = [rng.uniform(-1, 1, (8, size, size, 3)).astype(np.float32)
+               for _ in range(2)]
+    seen = {"fused": [], "plain": []}
+
+    def classifier(name, fn):
+        def classify(images):
+            out = fn(images)
+            seen[name].append(out.float().cpu())
+            return out
+        return classify
+
+    fused = fused_by_dt[torch.float32]
+    y_true, y_fused = counted(
+        lambda: class_transfer_consistency(
+            transfer, classifier("fused", lambda im: fused(
+                im.permute(0, 3, 1, 2))), batches),
+        {"adain": 6, "upsample": 6, "bottleneck": 58})
+    _, y_plain = class_transfer_consistency(
+        transfer, classifier("plain", plain_by_dt[torch.float32]), batches)
+    lp = torch.cat(seen["plain"])
+    top2 = lp.topk(2, dim=1).values
+    margin = (top2[:, 0] - top2[:, 1]).numpy()
+    tol = 2 * LOGIT_TOL * max(1.0, float(lp.abs().max()))
+    differ = y_fused != y_plain
+    emit({"phase": "class_transfer_consistency", "labels": int(y_true.size),
+          "agree_with_request": float((y_fused == y_true).mean()),
+          "fused_differs_from_plain": int(differ.sum()),
+          "logits_rel_err": rel(torch.cat(seen["fused"]), lp),
+          "classes_predicted": sorted(set(y_fused.tolist()))})
+    want_true = np.repeat(np.arange(5), 8).tolist() * 2
+    if (y_fused.shape != (80,) or y_true.tolist() != want_true
+            or y_fused.min() < 0 or y_fused.max() > 4):
+        raise AssertionError("class_transfer_consistency: wrong labels")
+    if (differ & (margin >= tol)).any():
+        raise AssertionError("fused and plain classifiers disagree beyond "
+                             "the logit tolerance")
+
+
 def kernels_line(summary, launch_totals):
     meta = {
         "adain": ("weather_unet_tpu_torch/csrc/adain.cu",
                   "weather_unet_tpu/kernels/adain_pallas.py:74"),
+        "upsample": ("weather_unet_tpu_torch/csrc/upsample.cu",
+                     "weather_unet_tpu/kernels/upsample_pallas.py:169"),
         "upconv": ("weather_unet_tpu_torch/csrc/upconv.cu",
                    "weather_unet_tpu/kernels/upconv_pallas.py:145"),
+        "bottleneck": ("weather_unet_tpu_torch/csrc/bottleneck.cu",
+                       "weather_unet_tpu/kernels/bottleneck_pallas.py:92"),
     }
     entries = []
     for name, (source, replaces) in meta.items():
         per_dt = {}
         for dt in DTYPES:
-            recs = [summary[name][dt][s] for s in MAIN_SITES[name]]
+            recs = [(summary[name][dt][s], n)
+                    for s, n in MAIN_SITES[name].items()]
+
+            def total(key):
+                if any(r.get(key) is None for r, _ in recs):
+                    return None
+                return sum(n * r[key] for r, n in recs)
+
             per_dt[DT_NAME[dt]] = {
-                "max_abs_err": max(r["max_abs_err"] for r in recs),
-                "ms": sum(r["ms"] for r in recs),
-                "launch_only_ms": sum(r["launch_only_ms"] for r in recs),
-                "plain_ms": sum(r["plain_ms"] for r in recs),
-                "bound_ms": sum(r["bound_ms"] for r in recs),
-                "bound_by": recs[0]["bound_by"]}
+                "max_abs_err": max(r["max_abs_err"] for r, _ in recs),
+                "ms": total("ms"),
+                "launch_only_ms": total("launch_only_ms"),
+                "plain_ms": total("plain_ms"),
+                "bound_ms": total("bound_ms"),
+                "bound_by": max(recs, key=lambda rn: rn[1] * rn[0]["bound_ms"]
+                                )[0]["bound_by"],
+                "library_ms": total("library_ms")}
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces, "launches": launch_totals[name],
-                 **per_dt["bfloat16"], "library_ms": None,
-                 "dtype": "bfloat16", "sites": list(MAIN_SITES[name]),
-                 "float32": per_dt["float32"]}
+                 **per_dt["bfloat16"], "dtype": "bfloat16",
+                 "sites": MAIN_SITES[name], "float32": per_dt["float32"]}
         entries.append(entry)
     emit({"kernels": entries})
 
@@ -449,12 +744,13 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available; this "
                          "script runs the port on a GPU")
-    from weather_unet_tpu_torch.kernels import adain as k1, upconv as k3
+    from weather_unet_tpu_torch.kernels import (
+        adain as k1, bottleneck as k4, upconv as k3, upsample as k2)
     from weather_unet_tpu_torch.models import ConditionalUNet
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    counters = {"adain": k1, "upconv": k3}
+    counters = {"adain": k1, "upsample": k2, "upconv": k3, "bottleneck": k4}
 
     phase_env()
     phase_build()
@@ -466,8 +762,13 @@ def main():
         path = os.path.join(tmp, "cunet.pt")
         torch.save({"inference": ConditionalUNet(5).state_dict(), "epoch": 0,
                     "global_step": 0}, path)
-        serving = phase_e2e(path, counters, launch_totals)
-    phase_serve(serving, counters, launch_totals)
+        wts = phase_e2e(path, counters, launch_totals)
+        phase_serve(wts["fuse_upconv", torch.float32], counters,
+                    launch_totals)
+        est_path = os.path.join(tmp, "estimator.pt")
+        make_estimator_checkpoint(est_path)
+        phase_estimator(est_path, wts["use_pallas", torch.float32], counters,
+                        launch_totals)
     for name, total in launch_totals.items():
         if total == 0:
             raise AssertionError(f"{name} kernel never ran on the main path")

@@ -9,7 +9,8 @@ so there run it as
 
 Tolerances: float32 max abs error 1e-5 * max(1, max|plain|) with TF32 off
 (summation order only); bfloat16 2^-6 * max(1, max|plain|) (the plain chain
-rounds to bf16 after every op, the kernels once).
+rounds to bf16 after every op, the kernels once; K4 and its plain version
+round at the same points and differ by summation order).
 """
 
 import numpy as np
@@ -17,8 +18,9 @@ import pytest
 import torch
 
 from weather_unet_tpu_torch.api import WeatherTransfer
-from weather_unet_tpu_torch.kernels import adain as k1, upconv as k3
-from weather_unet_tpu_torch.models import ConditionalUNet
+from weather_unet_tpu_torch.kernels import (
+    adain as k1, bottleneck as k4, upconv as k3, upsample as k2)
+from weather_unet_tpu_torch.models import ConditionalUNet, ResNet
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -6}
@@ -93,6 +95,100 @@ def test_kernels_refuse_non_contiguous_input(cuda):
         k1.adain_kernel(x, s, s, 1e-5)
     with pytest.raises(ValueError, match="contiguous"):
         k3.upconv_kernel(x, torch.zeros(3, 4, 3, 3, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        k2.upsample_kernel(x)
+    w = bottleneck_weights(4, 4, torch.float32, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        k4.bottleneck_kernel(x, *w)
+
+
+def test_upsample_matches_plain(cuda):
+    for dtype in (torch.float32, torch.bfloat16):
+        g = torch.Generator(device=cuda).manual_seed(2)
+        n = k2.launches
+        shapes = ((2, 8, 5, 7), (1, 3, 1, 6), (1, 3, 6, 1), (3, 16, 32, 32),
+                  (1, 2, 17, 130))
+        for shape in shapes:
+            x = torch.randn(*shape, generator=g, device=cuda).to(dtype)
+            ref = k2.upsample2x_fused_ref(x)
+            assert_close(k2.upsample2x_fused(x), ref, dtype)
+            # strided and channels-last inputs are made contiguous by the wrapper
+            assert_close(k2.upsample2x_fused(
+                x.contiguous(memory_format=torch.channels_last)), ref, dtype)
+            assert_close(k2.upsample2x_fused(x.transpose(2, 3)),
+                         k2.upsample2x_fused_ref(x.transpose(2, 3)), dtype)
+        torch.cuda.synchronize()
+        assert k2.launches == n + 3 * len(shapes)
+        x = torch.randn(2, 4, 6, 9, generator=g, device=cuda).requires_grad_()
+        g1, = torch.autograd.grad(torch.sin(k2.upsample2x_fused(x)).sum(), x)
+        g2, = torch.autograd.grad(torch.sin(k2.upsample2x_fused_ref(x)).sum(), x)
+        assert float((g1 - g2).abs().max()) <= 1e-4
+
+
+def bottleneck_weights(c, p, dtype, device, seed=3):
+    """Kernel weights of a C -> P -> C block with non-zero biases."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape, std=1.0):
+        return std * torch.randn(*shape, generator=g, device=device)
+
+    return ((randn(c, p, std=c ** -0.5)).to(dtype),
+            torch.rand(p, generator=g, device=device) + 0.5,
+            (randn(9, p, p, std=(9 * p) ** -0.5)).to(dtype), randn(p),
+            (randn(p, c, std=p ** -0.5)).to(dtype), randn(c))
+
+
+def test_bottleneck_matches_plain(cuda):
+    for dtype in (torch.float32, torch.bfloat16):
+        g = torch.Generator(device=cuda).manual_seed(4)
+        n = k4.launches
+        # shapes that make the launcher pick each of its tiles (8x8, 4x8, 4x4,
+        # 2x4 on a 132-SM card) with ragged edges, and the smallest channels
+        shapes = ((4, 128, 48, 47), (2, 128, 48, 45), (2, 128, 30, 35),
+                  (2, 128, 23, 21), (2, 64, 5, 7), (1, 4, 1, 1), (3, 2048, 7, 7))
+        for b, c, h, w in shapes:
+            x = torch.randn(b, c, h, w, generator=g, device=cuda).to(dtype)
+            wts = bottleneck_weights(c, max(c // 4, 4), dtype, cuda)
+            ref = k4.bottleneck_eval_reference(x, *wts)
+            assert_close(k4.fused_bottleneck_eval(x, *wts), ref, dtype)
+        torch.cuda.synchronize()
+        assert k4.launches == n + len(shapes)
+        # the 3x3 pads t1 with 0, not relu(b1): x = 0, w1 = 0, w2 = 1 count the
+        # in-image neighbours of each pixel
+        p = 4
+        z = torch.zeros(p, device=cuda)
+        out = k4.fused_bottleneck_eval(
+            torch.zeros(1, p, 5, 6, device=cuda, dtype=dtype),
+            torch.zeros(p, p, device=cuda), torch.full((p,), 2.0, device=cuda),
+            torch.ones(9, p, p, device=cuda), z, torch.eye(p, device=cuda), z)
+        assert [float(out[0, 0, i, j]) for i, j in ((2, 3), (0, 3), (4, 5))] == [
+            9 * p * 2.0, 6 * p * 2.0, 4 * p * 2.0]
+
+
+def test_fused_resnet_eval_on_gpu_matches_cpu_module(cuda):
+    model = ResNet((2, 1, 2, 1), 5, generator=torch.Generator().manual_seed(5))
+    g = torch.Generator().manual_seed(6)
+    with torch.no_grad():
+        for name, buf in model.named_buffers():
+            if name.endswith("running_var"):
+                buf.uniform_(0.5, 2.0, generator=g)
+            elif name.endswith("running_mean"):
+                buf.normal_(0.0, 0.1, generator=g)
+        for name, par in model.named_parameters():
+            if "bn" in name or "downsample.1" in name:
+                par.copy_(torch.rand(par.shape, generator=g) + 0.5
+                          if name.endswith("weight")
+                          else 0.1 * torch.randn(par.shape, generator=g))
+    model.eval()
+    x = torch.randn(3, 3, 64, 64, generator=g)
+    with torch.no_grad():
+        want = model(x)
+    assert float(want.std()) > 1e-3
+    n = k4.launches
+    got = k4.fused_resnet_eval(model.to(cuda))(x.to(cuda))
+    assert k4.launches == n + 2        # the identity blocks of layers 1 and 3
+    assert float((got.cpu() - want).abs().max()) <= 2e-4 * max(
+        1.0, float(want.abs().max()))
 
 
 def test_serving_configurations_on_gpu_match_cpu(cuda):
@@ -106,13 +202,13 @@ def test_serving_configurations_on_gpu_match_cpu(cuda):
     cpu_model = ConditionalUNet(5)
     cpu_model.load_state_dict(sd)
     want = WeatherTransfer(cpu_model, device="cpu").translate(x, c).numpy()
-    for kw, counter in (({}, None), ({"use_pallas": True}, k1),
-                        ({"fuse_upconv": True}, k3)):
+    for kw, counters in (({}, ()), ({"use_pallas": True}, (k1, k2)),
+                         ({"fuse_upconv": True}, (k3,))):
         model = ConditionalUNet(5, **kw)
         model.load_state_dict(sd)
         wt = WeatherTransfer(model)
-        before = None if counter is None else counter.launches
+        before = [m.launches for m in (k1, k2, k3)]
         got = wt.translate(x, c).cpu().numpy()
-        if counter is not None:
-            assert counter.launches == before + 3
+        assert [m.launches for m in (k1, k2, k3)] == [
+            n + 3 * (m in counters) for n, m in zip(before, (k1, k2, k3))]
         assert float(np.abs(got - want).mean()) <= 1e-5, kw

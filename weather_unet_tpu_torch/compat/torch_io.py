@@ -1,5 +1,5 @@
-"""Reference ``.pt`` loading and cUNet weight conversion from/to the JAX
-package's Flax variable tree (numpy arrays on both sides).
+"""Reference ``.pt`` loading and cUNet / ResNet weight conversion from/to the
+JAX package's Flax variable trees (numpy arrays on both sides).
 
 The reference saves GAN checkpoints as ``{'inference': state_dict,
 'discriminator': state_dict, 'epoch', 'global_step'}``.  The port's modules
@@ -10,7 +10,11 @@ with ``strict=True``; the converters here only carry JAX parameters across
 * conv layout OIHW <-> HWIO and linear ``(out, in)`` <-> ``(in, out)``,
 * the unused ``adain{i}.emb.weight`` embedding of the reference AdaIN:
   dropped going to JAX, synthesized (N(0, 1), seeded) coming from it so a
-  strict ``load_state_dict`` succeeds.
+  strict ``load_state_dict`` succeeds,
+* ResNet BatchNorm ``scale/bias/mean/var`` <-> ``weight/bias/running_mean/
+  running_var`` (+ ``num_batches_tracked``, which JAX does not keep), flat
+  ``layer3_22`` <-> dotted ``layer3.22`` block names, ``downsample_conv/_bn``
+  <-> ``downsample.0/.1``.
 """
 
 from __future__ import annotations
@@ -88,3 +92,94 @@ def cunet_state_dict_to_jax(sd) -> Dict[str, Any]:
     p["conv_last"] = {"kernel": _conv_in(sd["conv_last.weight"]),
                       "bias": _np(sd["conv_last.bias"])}
     return {"params": p}
+
+
+# ---------------------------------------------------------------- ResNet
+
+def _infer_block_counts(keys, sep: str) -> tuple:
+    """Bottlenecks per layer from key names ``layer3.22.*`` (sep ".") or
+    ``layer3_22`` (sep "_")."""
+    counts = []
+    for li in range(1, 5):
+        n = 0
+        while any(k == f"layer{li}{sep}{n}"
+                  or k.startswith(f"layer{li}{sep}{n}.") for k in keys):
+            n += 1
+        counts.append(n)
+    return tuple(counts)
+
+
+def strip_module_prefix(sd) -> Dict[str, Any]:
+    """Drop the ``module.`` that ``nn.DataParallel`` puts before every key."""
+    return {k[len("module."):] if k.startswith("module.") else k: v
+            for k, v in sd.items()}
+
+
+def resnet_state_dict_from_jax(variables,
+                               block_counts=None) -> Dict[str, np.ndarray]:
+    """Flax ``ResNet`` variables (params + batch_stats) -> torchvision-layout
+    state dict (numpy).  ``block_counts=None`` infers the depth from the
+    block names."""
+    p, bs = variables["params"], variables["batch_stats"]
+    if block_counts is None:
+        block_counts = _infer_block_counts(p.keys(), "_")
+    sd: Dict[str, np.ndarray] = {
+        "conv1.weight": _conv_out(p["conv1"]["kernel"])}
+
+    def emit_bn(tkey, pb, sb):
+        sd[f"{tkey}.weight"] = _np(pb["scale"])
+        sd[f"{tkey}.bias"] = _np(pb["bias"])
+        sd[f"{tkey}.running_mean"] = _np(sb["mean"])
+        sd[f"{tkey}.running_var"] = _np(sb["var"])
+        sd[f"{tkey}.num_batches_tracked"] = np.array(0, dtype=np.int64)
+
+    emit_bn("bn1", p["bn1"], bs["bn1"])
+    for li, n_blocks in enumerate(block_counts):
+        for bi in range(n_blocks):
+            t, f = f"layer{li + 1}.{bi}", f"layer{li + 1}_{bi}"
+            for k in (1, 2, 3):
+                sd[f"{t}.conv{k}.weight"] = _conv_out(
+                    p[f][f"conv{k}"]["kernel"])
+                emit_bn(f"{t}.bn{k}", p[f][f"bn{k}"], bs[f][f"bn{k}"])
+            if "downsample_conv" in p[f]:
+                sd[f"{t}.downsample.0.weight"] = _conv_out(
+                    p[f]["downsample_conv"]["kernel"])
+                emit_bn(f"{t}.downsample.1", p[f]["downsample_bn"],
+                        bs[f]["downsample_bn"])
+    sd["fc.weight"] = _lin(p["fc"]["kernel"])
+    sd["fc.bias"] = _np(p["fc"]["bias"])
+    return sd
+
+
+def resnet_state_dict_to_jax(sd, block_counts=None) -> Dict[str, Any]:
+    """torchvision-layout ResNet state dict -> Flax variables (numpy).  A
+    leading ``module.`` is stripped; ``num_batches_tracked`` is dropped;
+    ``block_counts=None`` infers the depth from the key names."""
+    sd = strip_module_prefix(sd)
+    if block_counts is None:
+        block_counts = _infer_block_counts(sd.keys(), ".")
+
+    def bn(prefix):
+        return ({"scale": _np(sd[f"{prefix}.weight"]),
+                 "bias": _np(sd[f"{prefix}.bias"])},
+                {"mean": _np(sd[f"{prefix}.running_mean"]),
+                 "var": _np(sd[f"{prefix}.running_var"])})
+
+    p: Dict[str, Any] = {"conv1": {"kernel": _conv_in(sd["conv1.weight"])}}
+    bs: Dict[str, Any] = {}
+    p["bn1"], bs["bn1"] = bn("bn1")
+    for li, n_blocks in enumerate(block_counts):
+        for bi in range(n_blocks):
+            t, f = f"layer{li + 1}.{bi}", f"layer{li + 1}_{bi}"
+            p[f], bs[f] = {}, {}
+            for k in (1, 2, 3):
+                p[f][f"conv{k}"] = {
+                    "kernel": _conv_in(sd[f"{t}.conv{k}.weight"])}
+                p[f][f"bn{k}"], bs[f][f"bn{k}"] = bn(f"{t}.bn{k}")
+            if f"{t}.downsample.0.weight" in sd:
+                p[f]["downsample_conv"] = {
+                    "kernel": _conv_in(sd[f"{t}.downsample.0.weight"])}
+                p[f]["downsample_bn"], bs[f]["downsample_bn"] = bn(
+                    f"{t}.downsample.1")
+    p["fc"] = {"kernel": _lin(sd["fc.weight"]), "bias": _np(sd["fc.bias"])}
+    return {"params": p, "batch_stats": bs}

@@ -15,14 +15,13 @@ from __future__ import annotations
 import ctypes
 import functools
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
 from weather_unet_tpu_torch.kernels import _build
 from weather_unet_tpu_torch.ops.convs import conv2d
 from weather_unet_tpu_torch.ops.resize import (
-    _x2_taps, upsample_bilinear_align_corners)
+    _tap_tables, upsample_bilinear_align_corners)
 
 launches = 0   # kernel launches so far (plain-version calls do not count)
 
@@ -54,18 +53,6 @@ def _entry():
                    + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib, fn
-
-
-@functools.lru_cache(maxsize=64)
-def _tap_tables(h: int, w: int, device: torch.device):
-    """The kernel's tap tables on ``device``: int32 ``[i0 rows | i1 rows |
-    i0 cols | i1 cols]`` and float32 ``[f rows | f cols]``."""
-    hi0, hi1, hf = _x2_taps(h)
-    wi0, wi1, wf = _x2_taps(w)
-    idx = np.concatenate([hi0, hi1, wi0, wi1]).astype(np.int32)
-    frac = np.concatenate([hf, wf]).astype(np.float32)
-    return (torch.from_numpy(idx).to(device),
-            torch.from_numpy(frac).to(device))
 
 
 def _ptr(t):

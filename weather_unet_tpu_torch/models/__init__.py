@@ -2,5 +2,8 @@
 
 from weather_unet_tpu_torch.models.cunet import (
     AdaINBlock, ConditionalUNet, RDoubleConv)
+from weather_unet_tpu_torch.models.resnet import (
+    Bottleneck, ResNet, ResNet50, ResNet101)
 
-__all__ = ["AdaINBlock", "ConditionalUNet", "RDoubleConv"]
+__all__ = ["AdaINBlock", "Bottleneck", "ConditionalUNet", "RDoubleConv",
+           "ResNet", "ResNet50", "ResNet101"]

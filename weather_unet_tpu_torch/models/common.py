@@ -7,6 +7,7 @@ rebuilds exactly its init and ``x @ W.T + b``.
 
 from __future__ import annotations
 
+import torch
 import torch.nn as nn
 
 from weather_unet_tpu_torch.kernels.upconv import upconv_block_fused
@@ -50,3 +51,55 @@ class TorchConv(nn.Conv2d):
                      padding=self.padding)
         return out + conv2d(skip, w[:, cx:], None, stride=self.stride,
                             padding=self.padding)
+
+
+class BatchNorm2d(nn.Module):
+    """BatchNorm2d over NCHW with the JAX module's (= torch's) semantics and
+    ``nn.BatchNorm2d``'s parameter and buffer names.
+
+    Eval mode (``module.eval()``) normalizes with the running statistics.
+    Train mode normalizes with the *biased* batch variance, computed in two
+    passes (``mean((x - mean)^2)``: the one-pass form cancels for
+    near-constant channels), and blends the *unbiased* one into
+    ``running_var``: ``new = (1 - momentum) * old + momentum * batch``.
+    Statistics and the normalization run in float32 whatever the input
+    type; the result is cast back to it.
+    """
+
+    def __init__(self, num_features: int, momentum: float = 0.1,
+                 eps: float = 1e-5, affine: bool = True):
+        super().__init__()
+        self.num_features = num_features
+        self.momentum = momentum
+        self.eps = eps
+        if affine:
+            self.weight = nn.Parameter(torch.ones(num_features))
+            self.bias = nn.Parameter(torch.zeros(num_features))
+        else:
+            self.register_parameter("weight", None)
+            self.register_parameter("bias", None)
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+        self.register_buffer("num_batches_tracked",
+                             torch.tensor(0, dtype=torch.long))
+
+    def forward(self, x):
+        xf = x.float()
+        if self.training:
+            n = x.shape[0] * x.shape[2] * x.shape[3]
+            mean = xf.mean(dim=(0, 2, 3))
+            var = (xf - mean[:, None, None]).square().mean(dim=(0, 2, 3))
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(1 - m).add_(m * mean)
+                self.running_var.mul_(1 - m).add_(
+                    m * var * (n / max(n - 1, 1)))
+                self.num_batches_tracked += 1
+        else:
+            mean, var = self.running_mean.float(), self.running_var.float()
+        inv = torch.rsqrt(var + self.eps)
+        y = (xf - mean[:, None, None]) * inv[:, None, None]
+        if self.weight is not None:
+            y = (y * self.weight.float()[:, None, None]
+                 + self.bias.float()[:, None, None])
+        return y.to(x.dtype)

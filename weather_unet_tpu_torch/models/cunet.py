@@ -20,6 +20,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from weather_unet_tpu_torch.kernels.adain import adain_fused
+from weather_unet_tpu_torch.kernels.upsample import upsample2x_fused
 from weather_unet_tpu_torch.models.common import TorchConv
 from weather_unet_tpu_torch.ops.convs import max_pool_2x2
 from weather_unet_tpu_torch.ops.norm import adain, adain_scale_shift
@@ -73,11 +74,17 @@ class AdaINBlock(nn.Module):
 class ConditionalUNet(nn.Module):
     """4-down/3-up conditional U-Net.
 
-    ``use_pallas`` routes the decoder AdaINs through the K1 kernel
-    (``kernels/adain.py``); ``fuse_upconv`` routes decoder entries through
-    the K3 kernel (``kernels/upconv.py``): ``True`` fuses every level, a
-    tuple of level indices (3 = coarsest .. 1 = finest) a subset.  The names
-    follow the JAX package.  ``dtype`` is the parameter and compute dtype.
+    ``use_pallas`` switches the unfused decoder entries to the hand-written
+    kernels: the AdaINs run through K1 (``kernels/adain.py``) and the 2x
+    upsamples after them through K2 (``kernels/upsample.py``).  This is the
+    one place where the port's flag does more than the JAX package's, which
+    turns on its AdaIN kernel only and leaves the upsample to XLA; the
+    result is the same within the float32 tolerance either way.
+    ``fuse_upconv`` routes decoder entries through the K3 kernel
+    (``kernels/upconv.py``), which contains both: ``True`` fuses every
+    level, a tuple of level indices (3 = coarsest .. 1 = finest) a subset.
+    The names follow the JAX package.  ``dtype`` is the parameter and
+    compute dtype.
     ``dropout_rate`` is the training-time dropout (identity in eval).
     """
 
@@ -125,5 +132,7 @@ class ConditionalUNet(nn.Module):
                 mod = blk(h, c, return_scale_shift=True)
                 h = up(h, skip=skip, fused_upsample=True, mod=mod)
             else:
-                h = up(upsample_bilinear_align_corners(blk(h, c)), skip=skip)
+                upsample = (upsample2x_fused if self.use_pallas
+                            else upsample_bilinear_align_corners)
+                h = up(upsample(blk(h, c)), skip=skip)
         return torch.tanh(self.conv_last(h))

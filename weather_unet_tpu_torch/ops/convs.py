@@ -17,3 +17,9 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor, bias=None, *, stride=1,
 def max_pool_2x2(x: torch.Tensor):
     """MaxPool2d(kernel=2, stride=2), floor mode."""
     return F.max_pool2d(x, kernel_size=2, stride=2)
+
+
+def max_pool(x: torch.Tensor, window: int, stride: int, padding: int = 0):
+    """General max pool, floor mode; the padding counts as -inf (ResNet's
+    3x3/2 pool with padding 1)."""
+    return F.max_pool2d(x, kernel_size=window, stride=stride, padding=padding)

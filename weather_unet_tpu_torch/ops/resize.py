@@ -5,11 +5,13 @@ mode='bilinear', align_corners=True)``; the plain form here is that same
 call, ``F.interpolate`` (a PyTorch kernel, memory-bound, no dense matmul).
 Output row ``i`` reads source coordinate ``i * (n_in - 1) / (n_out - 1)``.
 
-The numpy tables below are the JAX package's, copied: ``_x2_taps`` feeds the
-fused upsample+conv kernel (``kernels/upconv.py``) its 2-tap indices and
-float32 weights; ``_interp_matrix_np`` is the dense form of the same weights
-and ``_x2_shift_weights`` their even/odd-phase form (the tests hold all
-three to one another and to the JAX package).
+The numpy tables below are the JAX package's, copied: ``_x2_taps`` gives the
+2-tap indices and float32 weights that ``_tap_tables`` ships to the device
+for the upsample kernel (``kernels/upsample.py``) and the fused
+upsample+conv kernel (``kernels/upconv.py``); ``_interp_matrix_np`` is the
+dense form of the same weights (the upsample kernel's backward uses it) and
+``_x2_shift_weights`` their even/odd-phase form (the tests hold all three to
+one another and to the JAX package).
 """
 
 from __future__ import annotations
@@ -70,6 +72,19 @@ def _x2_shift_weights(n_in: int):
     a = m / (2 * n_in - 1)
     b = (n_in - 1 - m) / (2 * n_in - 1)
     return a.astype(np.float32), b.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=64)
+def _tap_tables(h: int, w: int, device: torch.device):
+    """The kernels' tap tables of an (h, w) -> (2h, 2w) upsample on
+    ``device``: int32 ``[i0 rows | i1 rows | i0 cols | i1 cols]`` and float32
+    ``[f rows | f cols]``."""
+    hi0, hi1, hf = _x2_taps(h)
+    wi0, wi1, wf = _x2_taps(w)
+    idx = np.concatenate([hi0, hi1, wi0, wi1]).astype(np.int32)
+    frac = np.concatenate([hf, wf]).astype(np.float32)
+    return (torch.from_numpy(idx).to(device),
+            torch.from_numpy(frac).to(device))
 
 
 def upsample_bilinear_align_corners(x: torch.Tensor, scale: int = 2):
