@@ -16,14 +16,20 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                ResNet-101 layer (B=16, 224x224 input) and one odd shape,
                with folded weights from random running statistics and
                non-zero biases; one backward per autograd.Function.
+               In bfloat16 K3 and K4 run their tensor-core kernels (asserted
+               from their counters; the records name the plan that ran and
+               the TFLOP/s reached), K4 also once under every other plan
+               that fits the site (tile rows x width, "/n" for a cluster of n
+               blocks sharing the tile, "k64" for reduction chunks of 64); in
+               float32, and at the odd K3 shape, the CUDA-core kernels.
                Tolerances (max abs error):
                  float32:  1e-5 * max(1, max|plain|) -- float32 reassociation
                            over up to 4608 products (TF32 is off here);
                  bfloat16: 2^-6 * max(1, max|plain|) -- the plain chain
                            rounds to bf16 after each op, the kernel once (K4
                            and its plain version round at the same points
-                           and differ by summation order and the last
-                           rounding).
+                           and differ by the order in which the tensor cores
+                           sum, which can move a rounding by one bf16 step).
 4. e2e      -- a seeded reference-format .pt bundle loaded through
                WeatherTransfer.load in the plain, use_pallas (K1 + K2) and
                fuse_upconv (K3) configurations; translate and translate_u8 at
@@ -43,7 +49,8 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                parameters and running statistics) saved as a state-dict .pt
                and loaded through load_estimator; fused_resnet_eval (K4)
                built from the same weights; B=16, 224x224.  Asserts 29 K4
-               launches per fused forward; float32 fused logits within
+               launches per fused forward, in bfloat16 all 29 of them on the
+               tensor cores; float32 fused logits within
                2e-4 * max(1, max|logits|) of the module's eval forward;
                bfloat16 logits (plain and fused) within 0.25 * max(1,
                max|logits|) of the float32 module (bf16 keeps 8 bits
@@ -228,7 +235,12 @@ def phase_kernels():
                         check(f"upconv {site} {DT_NAME[dt]} {key}", err, ref,
                               dt, failures)
                         combos[key] = err
+            tc_before = k3.tensor_core_launches
             out = k3.upconv_block_fused(x, wt, cb, sc, sh, True)
+            on_tc = k3.tensor_core_launches == tc_before + 1
+            if on_tc != k3.takes_tensor_cores(dt, c):
+                failures.append(f"upconv {site} {DT_NAME[dt]}: tensor cores "
+                                f"{on_tc}, the rule says otherwise")
             ref = k3.upconv_block_ref(x, wt, cb, sc, sh, True)
             err = max_err(out, ref)
             tol = check(f"upconv {site} {DT_NAME[dt]}", err, ref, dt, failures)
@@ -244,7 +256,10 @@ def phase_kernels():
                    "max_abs_err": err, "tol": tol, "combos_max_abs_err": combos,
                    "ms": ms, "launch_only_ms": launch_ms,
                    "plain_ms": plain_ms, "bound_ms": bms,
-                   "bound_by": by, "gflop": flops / 1e9}
+                   "bound_by": by, "gflop": flops / 1e9,
+                   "tflops": flops / launch_ms / 1e9,
+                   "variant": ("tensor cores " + k3.plan_upconv(c, o)["name"]
+                               if on_tc else "cuda cores")}
             emit(rec)
             summary["upconv"].setdefault(dt, {})[site] = rec
         for site, (b, c, h, w) in K2_SITES.items():
@@ -282,11 +297,19 @@ def phase_kernels():
             if not all(float(a.abs().min()) > 0 for a in wts[1::2]):
                 raise AssertionError("bottleneck biases must be non-zero")
             ref = k4.bottleneck_eval_reference(x, *wts)
+            on_tc = k4.takes_tensor_cores(dt, c, p, h, w)
+            # the model packs the tensor-core kernel's weights once
+            # (fused_resnet_eval), so the timed call takes them packed
+            args = (k4.pack_bottleneck(*wts, dt),) if on_tc else wts
+            tc_before = k4.tensor_core_launches
             out = k4.fused_bottleneck_eval(x, *wts)
+            if (k4.tensor_core_launches - tc_before == 1) != on_tc:
+                failures.append(f"bottleneck {site} {DT_NAME[dt]}: wrong "
+                                f"kernel for the rule")
             err = max_err(out, ref)
             tol = check(f"bottleneck {site} {DT_NAME[dt]}", err, ref, dt,
                         failures)
-            ms = time_ms(lambda: k4.fused_bottleneck_eval(x, *wts))
+            ms = time_ms(lambda: k4.fused_bottleneck_eval(x, *args))
             plain_ms = time_ms(lambda: k4.bottleneck_eval_reference(x, *wts))
             flops = 2.0 * b * h * w * (2 * c * p + 9 * p * p)
             bms, by = bound(nbytes(x, out, *wts), flops, dt)
@@ -295,8 +318,26 @@ def phase_kernels():
                    "max_abs_err": err, "tol": tol, "ms": ms,
                    "launch_only_ms": ms, "plain_ms": plain_ms,
                    "library_ms": None, "bound_ms": bms, "bound_by": by,
-                   "gflop": flops / 1e9,
+                   "gflop": flops / 1e9, "tflops": flops / ms / 1e9,
+                   "variant": "cuda cores",
                    "nonzero_share": float((out != 0).float().mean())}
+            if on_tc:
+                # every tile plan that fits, the chosen one first; the others
+                # forced, checked, and timed at one repetition
+                plans = k4.bottleneck_plans(b, c, p, h, w)
+                rec["variant"] = "tensor cores " + plans[0]["name"]
+                rec["plans"] = {}
+                for plan in plans:
+                    got = k4.bottleneck_tc_kernel(x, args[0], plan)
+                    perr = max_err(got, ref)
+                    check(f"bottleneck {site} plan {plan['name']}", perr, ref,
+                          dt, failures)
+                    rec["plans"][plan["name"]] = {
+                        "max_abs_err": perr, "stages": plan["stages"],
+                        "smem": plan["smem"],
+                        "ms": ms if plan is plans[0] else time_ms(
+                            lambda: k4.bottleneck_tc_kernel(x, args[0], plan),
+                            reps=1, warmup=1)}
             emit(rec)
             summary["bottleneck"].setdefault(dt, {})[site] = rec
     failures += check_backward(k1, k2, k3)
@@ -592,6 +633,7 @@ def phase_estimator(path, transfer, counters, launch_totals):
     from weather_unet_tpu_torch.cli.common import load_estimator
     from weather_unet_tpu_torch.evaluation.transfer import (
         class_transfer_consistency)
+    from weather_unet_tpu_torch.kernels import bottleneck as k4
     from weather_unet_tpu_torch.kernels.bottleneck import fused_resnet_eval
 
     def counted(fn, want):
@@ -619,7 +661,13 @@ def phase_estimator(path, transfer, counters, launch_totals):
         plain = plain_by_dt[dt] = load_estimator(path, dtype=dt)
         fused = fused_by_dt[dt] = fused_resnet_eval(plain.model)
         got_plain = counted(lambda: plain(x), {})
+        k4.tensor_core_launches = 0
         got_fused = counted(lambda: fused(x_nchw), {"bottleneck": 29})
+        want_tc = 29 if dt == torch.bfloat16 else 0
+        if k4.tensor_core_launches != want_tc:
+            raise AssertionError(
+                f"estimator {DT_NAME[dt]}: {k4.tensor_core_launches} of the "
+                f"29 K4 launches ran on the tensor cores, expected {want_tc}")
         for name, t in (("plain", got_plain), ("fused", got_fused)):
             if t.shape != (b, 5) or not bool(torch.isfinite(t).all()):
                 raise AssertionError(f"estimator {name} {DT_NAME[dt]}: "
@@ -628,6 +676,7 @@ def phase_estimator(path, transfer, counters, launch_totals):
         ref = logits[torch.float32]
         rec = {"phase": "estimator", "dtype": DT_NAME[dt], "batch": b,
                "size": size, "k4_launches_per_forward": 29,
+               "k4_tensor_core_launches_per_forward": want_tc,
                "max_abs_logit": float(ref.abs().max()),
                "fused_vs_plain_rel": rel(got_fused, got_plain),
                "img_per_s_plain": ips_of(lambda: plain(x), b)}
@@ -708,7 +757,7 @@ def kernels_line(summary, launch_totals):
                      "weather_unet_tpu/kernels/upsample_pallas.py:169"),
         "upconv": ("weather_unet_tpu_torch/csrc/upconv.cu",
                    "weather_unet_tpu/kernels/upconv_pallas.py:145"),
-        "bottleneck": ("weather_unet_tpu_torch/csrc/bottleneck.cu",
+        "bottleneck": ("weather_unet_tpu_torch/csrc/bottleneck_tc.cuh",
                        "weather_unet_tpu/kernels/bottleneck_pallas.py:92"),
     }
     entries = []
@@ -732,6 +781,12 @@ def kernels_line(summary, launch_totals):
                 "bound_by": max(recs, key=lambda rn: rn[1] * rn[0]["bound_ms"]
                                 )[0]["bound_by"],
                 "library_ms": total("library_ms")}
+            if "gflop" in recs[0][0]:
+                per_dt[DT_NAME[dt]]["tflops"] = (
+                    total("gflop") / per_dt[DT_NAME[dt]]["launch_only_ms"])
+                per_dt[DT_NAME[dt]]["variant"] = {
+                    s: r["variant"] for (r, _), s in zip(recs,
+                                                         MAIN_SITES[name])}
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces, "launches": launch_totals[name],
                  **per_dt["bfloat16"], "dtype": "bfloat16",

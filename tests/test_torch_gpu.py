@@ -11,6 +11,10 @@ Tolerances: float32 max abs error 1e-5 * max(1, max|plain|) with TF32 off
 (summation order only); bfloat16 2^-6 * max(1, max|plain|) (the plain chain
 rounds to bf16 after every op, the kernels once; K4 and its plain version
 round at the same points and differ by summation order).
+
+In bfloat16 K3 and K4 run their tensor-core kernels where the shape allows
+(``takes_tensor_cores``).  A K4 tile plan is forced by passing one of
+``bottleneck_plans(...)`` to ``bottleneck_tc_kernel(x, packed, plan)``.
 """
 
 import numpy as np
@@ -100,6 +104,14 @@ def test_kernels_refuse_non_contiguous_input(cuda):
     w = bottleneck_weights(4, 4, torch.float32, cuda)
     with pytest.raises(ValueError, match="contiguous"):
         k4.bottleneck_kernel(x, *w)
+    xb = torch.zeros(2, 16, 6, 6, device=cuda,
+                     dtype=torch.bfloat16).transpose(2, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        k4.bottleneck_tc_kernel(xb, k4.pack_bottleneck(
+            *bottleneck_weights(16, 16, torch.bfloat16, cuda)))
+    with pytest.raises(ValueError, match="contiguous"):
+        k3.upconv_kernel(xb, torch.zeros(3, 16, 3, 3, device=cuda,
+                                         dtype=torch.bfloat16))
 
 
 def test_upsample_matches_plain(cuda):
@@ -163,6 +175,91 @@ def test_bottleneck_matches_plain(cuda):
             torch.ones(9, p, p, device=cuda), z, torch.eye(p, device=cuda), z)
         assert [float(out[0, 0, i, j]) for i, j in ((2, 3), (0, 3), (4, 5))] == [
             9 * p * 2.0, 6 * p * 2.0, 4 * p * 2.0]
+
+
+def test_bottleneck_tensor_cores_under_every_plan(cuda):
+    """bfloat16 K4 under every tile plan that fits: ragged last tiles (H not
+    a multiple of the tile's rows), rows whose staged segments are misaligned
+    (W = 7, 21, 30), non-zero b1, and the zero halo."""
+    dt = torch.bfloat16
+    g = torch.Generator(device=cuda).manual_seed(7)
+    shapes = ((2, 64, 5, 7), (3, 128, 23, 21), (2, 64, 9, 30), (1, 32, 4, 4),
+              (2, 512, 15, 14), (2, 2048, 7, 7), (1, 64, 3, 100))
+    for b, c, h, w in shapes:
+        p = max(c // 4, 16)
+        x = torch.randn(b, c, h, w, generator=g, device=cuda).to(dt)
+        wts = bottleneck_weights(c, p, dt, cuda)
+        assert float(wts[1].abs().min()) > 0
+        ref = k4.bottleneck_eval_reference(x, *wts)
+        packed = k4.pack_bottleneck(*wts, dt)
+        plans = k4.bottleneck_plans(b, c, p, h, w)
+        assert plans and k4.takes_tensor_cores(dt, c, p, h, w)
+        n, n_tc = k4.launches, k4.tensor_core_launches
+        for plan in plans:
+            assert_close(k4.bottleneck_tc_kernel(x, packed, plan), ref, dt)
+        # the wrapper takes the same route, packed or not
+        assert_close(k4.fused_bottleneck_eval(x, *wts), ref, dt)
+        assert_close(k4.fused_bottleneck_eval(x, packed), ref, dt)
+        torch.cuda.synchronize()
+        assert k4.launches - n == k4.tensor_core_launches - n_tc == len(plans) + 2
+    # the 3x3 pads t1 with 0, not relu(b1): x = 0, w1 = 0, w2 = 1 count the
+    # in-image neighbours of each pixel, under every plan
+    p = 16
+    z = torch.zeros(p, device=cuda)
+    packed = k4.pack_bottleneck(
+        torch.zeros(p, p, device=cuda), torch.full((p,), 2.0, device=cuda),
+        torch.ones(9, p, p, device=cuda), z, torch.eye(p, device=cuda), z, dt)
+    x = torch.zeros(1, p, 5, 6, device=cuda, dtype=dt)
+    for plan in k4.bottleneck_plans(1, p, p, 5, 6):
+        out = k4.bottleneck_tc_kernel(x, packed, plan)
+        assert [float(out[0, 0, i, j]) for i, j in ((2, 3), (0, 3), (4, 5))] == [
+            9 * p * 2.0, 6 * p * 2.0, 4 * p * 2.0], plan["name"]
+    # a shape no tile fits goes to the CUDA cores, by the rule
+    x = torch.randn(1, 64, 2, 300, generator=g, device=cuda).to(dt)
+    wts = bottleneck_weights(64, 16, dt, cuda)
+    n_tc = k4.tensor_core_launches
+    assert_close(k4.fused_bottleneck_eval(x, *wts),
+                 k4.bottleneck_eval_reference(x, *wts), dt)
+    assert k4.tensor_core_launches == n_tc
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_upconv_every_option_ragged_and_wide(cuda, dtype):
+    """K3 in every cb / modulation / relu combination at a ragged shape, at
+    shapes with more output channels than one block's N tile (64 or 128), and
+    at a width whose rows are not 16-byte aligned; bfloat16 runs the
+    tensor-core kernel wherever C is a multiple of 16."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    for b, c, h, w, o in ((2, 16, 5, 7, 4), (1, 32, 14, 14, 72),
+                          (2, 48, 28, 28, 130), (2, 8, 5, 7, 4),
+                          (1, 16, 9, 20, 64)):
+        x = torch.randn(b, c, h, w, generator=g, device=cuda).to(dtype)
+        wt = (torch.randn(o, c, 3, 3, generator=g, device=cuda)
+              / (9 * c) ** 0.5).to(dtype)
+        cb = torch.randn(b, o, 2 * h, 2 * w, generator=g, device=cuda).to(dtype)
+        sc = torch.rand(b, c, generator=g, device=cuda) + 0.5
+        sh = torch.randn(b, c, generator=g, device=cuda)
+        n, n_tc = k3.launches, k3.tensor_core_launches
+        for use_cb in (False, True):
+            for use_mod in (False, True):
+                for relu in (False, True):
+                    kw = dict(cb=cb if use_cb else None,
+                              scale=sc if use_mod else None,
+                              shift=sh if use_mod else None, relu=relu)
+                    assert_close(k3.upsample2x_conv3x3(x, wt, **kw),
+                                 k3.upsample2x_conv3x3_ref(x, wt, **kw), dtype)
+        torch.cuda.synchronize()
+        assert k3.launches == n + 8
+        assert k3.tensor_core_launches - n_tc == (
+            8 if k3.takes_tensor_cores(dtype, c) else 0)
+    # zero padding after modulation: a constant image with a shift has its
+    # border pixels see fewer taps
+    x = torch.zeros(1, 16, 4, 4, device=cuda, dtype=dtype)
+    wt = torch.ones(1, 16, 3, 3, device=cuda, dtype=dtype)
+    out = k3.upsample2x_conv3x3(x, wt, scale=torch.ones(1, 16, device=cuda),
+                                shift=torch.ones(1, 16, device=cuda))
+    assert [float(out[0, 0, i, j]) for i, j in ((3, 3), (0, 3), (7, 7))] == [
+        9 * 16.0, 6 * 16.0, 4 * 16.0]
 
 
 def test_fused_resnet_eval_on_gpu_matches_cpu_module(cuda):

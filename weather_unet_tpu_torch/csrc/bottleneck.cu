@@ -9,34 +9,86 @@
 //     out = relu(conv1x1(t2, w3) + b3 + x)     (B, C, H, W)
 // in ONE launch: t1 and t2 never reach device memory.  The 3x3 pads t1 with
 // zeros, so halo positions outside the image are written as 0 (never
-// relu(b1), which a conv1x1 of a zero input would give).  Products are in x's
-// type, biases and accumulators in float32.
+// relu(b1), which a conv1x1 of a zero input would give).
 //
 // What bounds it on this card: operations in layers 2-4 (2*17*P^2 flops per
 // pixel against 2*C values moved); layer 1 (P = 64) is near the ridge.
 //
-// Design (the simple, correct first version).  The TPU kernel holds a whole
-// image in VMEM; a block here has at most 227 KB of shared memory, so the
-// image is tiled: a block owns a TH x TW tile of output pixels of one image,
-// plus a 1-pixel halo for t1.  Three phases, separated by __syncthreads():
+// Two kernels, chosen by the wrapper on dtype and shape alone
+// (kernels/bottleneck.py::takes_tensor_cores):
+//
+//   * bfloat16 with C and P multiples of 16: the tensor-core kernel
+//     (bottleneck_tc.cuh, built as bottleneck_tc32.cu and bottleneck_tc64.cu,
+//     one library per size of its reduction chunks, so that the two compile
+//     side by side).  The TPU kernel holds a whole image in VMEM; here a
+//     block owns TH full rows of one image (the whole image where it fits)
+//     and runs three matrix products back to back with mma.sync m16n8k16
+//     (bf16 operands, float32 accumulators):
+//       1. t1 on the (TH+2) x (W+2) halo region.  x is brought in by cp.async
+//          as it lies: a channel's rows of the halo region are one contiguous
+//          run of its NCHW plane, copied as the 16-byte pieces that cover it
+//          (so each run starts at its own misalignment), 32 or 64 channels a
+//          chunk, and repacked to [position][channel] bf16 in
+//          shared memory (double-buffered, so the repack of chunk k+1 overlaps
+//          the products of chunk k); the weights w1 (P, C) come through the
+//          same cp.async ring.  The epilogue writes relu(acc + b1) as bf16 to
+//          t1 [position][channel] in shared memory, and 0 at positions outside
+//          the image and in the rows that pad M to a multiple of 16.
+//       2. t2 on the tile: nine taps, each the same ldmatrix with the row
+//          address moved by dy * (W + 2) + dx; weights (9, P, P) [tap][out]
+//          [in] streamed through the ring.  t2 goes to shared memory as bf16.
+//       3. the last product from t2, weights (C, P); the float32 sums plus b3
+//          are staged in shared memory [channel][pixel], laid out as the tile
+//          lies in a plane of the output (full rows: one contiguous run a
+//          channel), so that the residual read of x (from L2: it was read a
+//          moment ago) and the store are coalesced, 8 bytes a thread where
+//          the runs are aligned.
+//     The weights are packed once per model (pack_bottleneck: every operand
+//     [column][k], k contiguous, which is what the B-operand ldmatrix wants)
+//     and no thread reads a weight from global memory in an inner loop.  The
+//     tile, the number of ring stages and the shared-memory layout are chosen
+//     by a pure Python function (plan_bottleneck) and passed in: fewer, larger
+//     tiles, so that the weights streamed for a tile serve many pixels (a 7x7
+//     image is one tile with no recomputed halo).
+//     Few, large tiles leave SMs idle (16 images of 7x7 are 16 tiles for 132
+//     SMs), so a tile can be shared by a thread block cluster of 2 or 4
+//     blocks: block r of the cluster computes columns [r N / CS, (r+1) N / CS)
+//     of each of the three products from its own slice of the weights (so
+//     each block streams 1 / CS of them), and writes its slice of t1 and of
+//     t2 into the shared memory of every block of the cluster (distributed
+//     shared memory: mapa + st.shared::cluster), with a cluster barrier after
+//     phase 1 and after phase 2.  Every block stages all of x for phase 1;
+//     t1 and t2 still never reach device memory.
+//     Rounding: operands are bf16, sums float32, t1 and t2 rounded to bf16,
+//     exactly as the plain version (bottleneck_eval_reference) does it; the
+//     mma adds its products in another order than cuDNN's float32 kernels, so
+//     the two differ by float32 reassociation and, where that flips the
+//     rounding of t1, t2 or the output, by one bf16 step.  The measured error
+//     is therefore no longer exactly 0; the bound stays 2^-6 * max(1, max|y|).
+//
+//   * float32, and bfloat16 shapes with C or P not a multiple of 16: the
+//     CUDA-core kernel (the first version of this port, this file): float32 fmaf
+//     over 4x4 register tiles.  float32 is held to 1e-5 * max|y| of cuDNN with
+//     TF32 off; a TF32 mma keeps 10 mantissa bits and cannot meet that, so
+//     float32 stays off the tensor cores.
+//
+// CUDA-core kernel.  A block owns a TH x TW tile of output pixels of one
+// image, plus a 1-pixel halo for t1.  Three phases, separated by
+// __syncthreads():
 //   1. t1 on the (TH+2) x (TW+2) halo region, all P channels -> shared memory;
 //   2. t2 on the tile, all P channels, from t1 in shared memory -> shared
 //      memory;
 //   3. the last product from t2 in shared memory, + b3 + x, ReLU -> device
 //      memory.
-// Each phase is a small matrix product [positions x K] . [K x channels] on the
-// CUDA cores: a thread owns a register tile of 4 positions x 4 channels and
-// loops over K; thread tiles are dealt round-robin to the 256 threads with the
-// channel index fastest, so a warp reads 128 consecutive weights of one K row
-// (coalesced, served by L1/L2; the weights of a layer stay in the 50 MB L2)
-// and broadcasts its 4 activations.  t1 and t2 are rounded to x's type and
-// kept in shared memory as float32, so the inner loops of phases 2 and 3
-// convert no activation (bf16 weights are still converted as they are read).
-// The launcher picks the tile, the largest of 8x8, 4x8, 4x4, 2x4 that fits
-// shared memory and still gives one block per SM (a 7x7 image at B=16 needs
-// the smallest to fill the card), and opts in to more than 48 KB of dynamic
-// shared memory.  Moving the three products to the tensor cores (mma/wgmma on
-// bf16) is the next step for speed.
+// Each phase is a small matrix product [positions x K] . [K x channels]: a
+// thread owns a register tile of 4 positions x 4 channels and loops over K;
+// thread tiles are dealt round-robin to the 256 threads with the channel
+// index fastest, so a warp reads 128 consecutive weights of one K row
+// (coalesced, served by L1/L2) and broadcasts its 4 activations.  t1 and t2
+// are rounded to x's type and kept in shared memory as float32.  The launcher
+// picks the tile, the largest of 8x8, 4x8, 4x4, 2x4 that fits shared memory
+// and still gives one block per SM, and opts in to more than 48 KB of dynamic
+// shared memory.
 
 #include "wut_kernels.h"
 

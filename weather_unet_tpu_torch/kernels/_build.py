@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels and load them with ctypes.
 
 Each ``csrc/*.cu`` is compiled on its own by ``nvcc`` into a shared library
-with a plain C interface (``csrc/wut_kernels.h``), all sources at once, at
-first use.  Libraries go to ``weather_unet_tpu_torch/_build/`` (listed in
+with a plain C interface (``csrc/wut_kernels.h``; ``csrc/wut_mma.cuh`` holds
+the tensor-core and asynchronous-copy device code that K3 and K4 share), all
+sources at once, at first use.  Libraries go to ``weather_unet_tpu_torch/_build/`` (listed in
 ``.gitignore``), named by a digest of the sources and flags, so a later
 process with the same sources loads them without compiling.  A failed build
 raises with the compiler's output.
@@ -45,7 +46,7 @@ def _nvcc() -> str:
 
 def _target(src: Path) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for dep in sorted(CSRC.glob("*.h")) + [src]:
+    for dep in sorted([*CSRC.glob("*.h"), *CSRC.glob("*.cuh")]) + [src]:
         h.update(dep.read_bytes())
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 

@@ -1,4 +1,5 @@
-"""K4: fused eval-mode ResNet identity bottleneck (``csrc/bottleneck.cu``),
+"""K4: fused eval-mode ResNet identity bottleneck (``csrc/bottleneck.cu``,
+``csrc/bottleneck_tc.cuh``),
 the port of ``weather_unet_tpu/kernels/bottleneck_pallas.py``.
 
 ``fused_bottleneck_eval(x, w1, b1, w2, b2, w3, b3)`` computes
@@ -10,6 +11,15 @@ accumulators in float32, and the intermediates are rounded to ``x``'s type
 before the next product.  ``bottleneck_eval_reference`` is the plain version:
 the same arithmetic, rounding at the same points, in PyTorch ops.
 
+On CUDA tensors one of two kernels runs, by a rule on dtype and shape alone
+(``takes_tensor_cores``): bfloat16 with ``C`` and ``P`` multiples of 16 goes
+to the tensor-core kernel (``mma.sync`` on bf16 operands, weights packed by
+``pack_bottleneck`` and streamed through shared memory, the tile chosen by
+``plan_bottleneck``); float32, and bfloat16 at other channel counts, go to
+the CUDA-core kernel.  float32 stays off the tensor cores because its bar is
+1e-5 of cuDNN with TF32 off, which a TF32 product (10 mantissa bits) cannot
+meet.
+
 ``fused_resnet_eval(model)`` runs a whole frozen ResNet with every identity
 block through the kernel and the stem, the four stride/projection blocks
 and the head on folded convs (cuDNN), as the JAX package leaves them to
@@ -20,7 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Mapping, Sequence
+from typing import Mapping, NamedTuple, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -29,6 +39,12 @@ from weather_unet_tpu_torch.kernels import _build
 from weather_unet_tpu_torch.ops.convs import conv2d, max_pool
 
 launches = 0   # kernel launches so far (plain-version calls do not count)
+tensor_core_launches = 0   # those of them that ran the tensor-core kernel
+
+SMEM_LIMIT = 232_448   # bytes of shared memory a block can opt in to (sm_90)
+_PAD = 8               # csrc/wut_mma.cuh: kPad, padding of a staged row
+_WARPS = 8             # csrc/bottleneck_tc.cuh: kWarps, warps a block
+_MI = 6                # ... kMI, m-tiles (16 rows) a warp holds at most
 
 
 def fold_bn(weight, bias, running_mean, running_var, eps: float = 1e-5):
@@ -86,6 +102,185 @@ def bottleneck_eval_reference(x, w1, b1, w2, b2, w3, b3):
     return F.relu(y).to(dt)
 
 
+class PackedBottleneck(NamedTuple):
+    """The tensor-core kernel's weights: every product's B operand as
+    ``[column][k]`` with the reduction index ``k`` contiguous."""
+    w1: torch.Tensor   # (P, C)     [out][in]
+    b1: torch.Tensor   # (P,) float32
+    w2: torch.Tensor   # (9, P, P)  [tap][out][in]
+    b2: torch.Tensor   # (P,) float32
+    w3: torch.Tensor   # (C, P)     [out][in]
+    b3: torch.Tensor   # (C,) float32
+
+
+def pack_bottleneck(w1, b1, w2, b2, w3, b3,
+                    dtype=torch.bfloat16) -> PackedBottleneck:
+    """``fold_bottleneck``'s weights (``w1 (C, P)``, ``w2 (9, P, P)`` as
+    [tap][in][out], ``w3 (P, C)``) in the tensor-core kernel's layout, cast
+    to ``dtype``: a permutation, nothing else."""
+    return PackedBottleneck(
+        w1.t().contiguous().to(dtype), b1.float(),
+        w2.transpose(1, 2).contiguous().to(dtype), b2.float(),
+        w3.t().contiguous().to(dtype), b3.float())
+
+
+def unpack_bottleneck(packed: PackedBottleneck):
+    """Inverse of ``pack_bottleneck`` (the dtype stays the packed one)."""
+    return (packed.w1.t().contiguous(), packed.b1,
+            packed.w2.transpose(1, 2).contiguous(), packed.b2,
+            packed.w3.t().contiguous(), packed.b3)
+
+
+def takes_tensor_cores(dtype, c: int, p: int, h: Optional[int] = None,
+                       w: Optional[int] = None) -> bool:
+    """The rule that picks the CUDA kernel, on dtype and shape alone:
+    bfloat16 with ``C`` and ``P`` multiples of 16 runs on the tensor cores,
+    everything else (float32; other channel counts) on the CUDA cores.  With
+    the image's ``h`` and ``w`` given, the image must also have a tile that
+    fits shared memory (``bottleneck_plans``): a row of more than 256 pixels,
+    or a row too wide for its channels, goes to the CUDA cores too."""
+    if dtype != torch.bfloat16 or c % 16 or p % 16:
+        return False
+    return h is None or bool(bottleneck_plans(1, c, p, h, w))
+
+
+def _round_up(a: int, m: int) -> int:
+    return -(-a // m) * m
+
+
+def _warps_along_n(n: int, mtiles: int, mi: int) -> int:
+    """Warps (of ``_WARPS``) laid along N, 32 columns each; the rest lie
+    along M with ``mi`` m-tiles each.  The widest split that still covers
+    ``mtiles`` in one pass, so that the weights are streamed once; failing
+    that the narrowest."""
+    fits = [wgn for wgn in (8, 4, 2, 1)
+            if wgn == 1 or 32 * wgn <= _round_up(n, 32)]
+    for wgn in fits:
+        if (_WARPS // wgn) * mi >= mtiles:
+            return wgn
+    return fits[-1]
+
+
+def _tile_plan(c, p, w, th, cs, kc, smem_limit, mi=_MI) -> Optional[dict]:
+    """Shared-memory layout of the tensor-core kernel for a tile of ``th``
+    full rows shared by a cluster of ``cs`` blocks (each computes ``1 / cs``
+    of every product's columns), stepping through the reductions in chunks
+    of ``kc`` values, or None where it does not fit.  Mirrors
+    csrc/bottleneck_tc.cuh."""
+    nh, nt = (th + 2) * (w + 2), th * w
+    # a staged channel of x: its rows of the halo region as they lie, from
+    # the 16-byte boundary before them
+    rs = _round_up((th + 2) * w + 7, 8)
+    if nt > 256 or rs // 8 > 128:                 # kMaxNT, 32 * kPieces
+        return None
+    if cs > 1 and (c % (32 * cs) or p % (32 * cs)):
+        return None
+    if kc > 32 and min(c, p) <= 32:      # a chunk no reduction would fill
+        return None
+    mh, mt = _round_up(nh, 16), _round_up(nt, 16)
+    ld1, ldk = p + _PAD, kc + _PAD
+    wgn12 = _warps_along_n(p // cs, mh // 16, mi)
+    widest3 = _warps_along_n(c // cs, mt // 16, mi)
+    # region A: t1, then the float32 output stage; B: t2, in phase 1 the
+    # repacked and the staged x; W: the weight ring; T: the position table.
+    # The widest phase 3 first (fewest passes over t2), with 4 stages, then
+    # 3; a narrower one needs a smaller ring and a smaller output stage.
+    for wgn3, stages in [(wg, st) for wg in (8, 4, 2, 1) if wg <= widest3
+                         for st in (4, 3)]:
+        region_a = _round_up(max(mh * ld1 * 2, 32 * wgn3 * nt * 4), 128)
+        x_stage = 2 * mh * ldk * 2 + stages * kc * rs * 2
+        region_b = _round_up(max(mt * ld1 * 2, x_stage), 128)
+        ring = stages * 32 * max(wgn12, wgn3) * ldk * 2
+        smem = region_a + region_b + ring + mh * 4
+        if smem <= smem_limit:
+            break
+    else:
+        return None
+    name = f"{th}x{w}" + (f"/{cs}" if cs > 1 else "") + (
+        "k64" if kc == 64 else "")
+    return {"name": name, "th": th, "cs": cs, "kc": kc, "mi": mi,
+            "stages": stages, "rs": rs, "wgn12": wgn12, "wgn3": wgn3,
+            "off_b": region_a, "off_w": region_a + region_b,
+            "off_t": region_a + region_b + ring, "smem": smem,
+            "m_halo": mh, "m_tile": mt}
+
+
+# candidate tile heights, cut to the image; the whole image is always one
+_TILE_ROWS = (16, 14, 8, 7, 4, 2, 1)
+# candidate cluster sizes: blocks that share a tile and split its columns
+_CLUSTERS = (1, 2, 4)
+
+
+def _plan_cost(plan, b, c, p, h, w, sms) -> float:
+    """Rough seconds of one launch under ``plan``, fitted to times measured
+    on an H100 (``chip_smoke.py`` runs every plan): blocks run in waves of one
+    per SM; a block steps through its three products in chunks of ``kc``
+    reduction values, and a chunk costs a fixed time (a barrier, a wait for
+    the copies, the operand loads) plus its copies from L2 (weights, in
+    phase 1 also x, with the repack) plus its mma; then the residual read
+    and the store.  Clusters pay for their barriers and for writing the
+    intermediates into every block, and fewer of their blocks fit the card
+    at once (clusters of 4 leave SMs of a GPC unused).  The whole launch is
+    no faster than L2 delivers the weights."""
+    th, mi, cs, kc = plan["th"], plan["mi"], plan["cs"], plan["kc"]
+    mh, mt = plan["m_halo"], plan["m_tile"]
+    blocks = b * -(-h // th) * cs
+    slots = sms if cs == 1 else (sms // 16) * 16 * (1.0 if cs == 2 else 0.75)
+
+    def phase(mtiles, wgn, n_slice, k_chunks, x_rows):
+        along_m = _WARPS // wgn
+        passes_m = -(-mtiles // (along_m * mi))
+        per_warp = -(-mtiles // (along_m * passes_m))
+        passes_n = -(-n_slice // (32 * wgn))
+        chunk = 0.7e-6 + (kc / 32) * ((32 * wgn + x_rows) * 1.2e-9
+                                      + per_warp * 0.07e-6)
+        return passes_n * passes_m * k_chunks * chunk, passes_m
+
+    t1, pm12 = phase(mh // 16, plan["wgn12"], p // cs, -(-c // kc), mh)
+    t2, _ = phase(mt // 16, plan["wgn12"], p // cs, 9 * -(-p // kc), 0)
+    t3, pm3 = phase(mt // 16, plan["wgn3"], c // cs, -(-p // kc), 0)
+    per_block = t1 + t2 + t3 + th * w * (c // cs) / 4096 * 1e-6
+    if cs > 1:
+        per_block *= 1.25
+    weights = 2.0 * (pm12 * (c * p + 9 * p * p) + pm3 * p * c) / cs
+    return max(-(-blocks // int(slots)) * per_block, blocks * weights / 4e12)
+
+
+@functools.lru_cache(maxsize=512)
+def bottleneck_plans(b, c, p, h, w, sms: int = 132,
+                     smem_limit: int = SMEM_LIMIT) -> tuple:
+    """Every plan of the tensor-core kernel that fits ``smem_limit`` for
+    x (b, c, h, w) with p mid channels, the cheapest (``_plan_cost``) first;
+    plans whose tile is the whole image come before all others.  A tile is a
+    number of full rows of the image; a cluster of 1, 2 or 4 blocks shares
+    it; the reductions go in chunks of 32 or 64 values."""
+    rows = sorted({min(th, h) for th in _TILE_ROWS + (h,)})
+    plans = [pl for th in rows for cs in _CLUSTERS for kc in (32, 64)
+             if (pl := _tile_plan(c, p, w, th, cs, kc, smem_limit))]
+    return tuple(sorted(plans, key=lambda pl: (
+        pl["th"] < h, _plan_cost(pl, b, c, p, h, w, sms))))
+
+
+def plan_bottleneck(b, c, p, h, w, sms: int = 132,
+                    smem_limit: int = SMEM_LIMIT) -> dict:
+    """The tensor-core kernel's plan for x (b, c, h, w) with p mid channels
+    on a card with ``sms`` SMs: tile rows, blocks a cluster, m-tiles a warp,
+    ring stages, the staged rows' stride, warps along N, shared-memory
+    offsets and bytes.  The whole image where one block can hold it (a 7x7
+    image has then no recomputed halo at all), else the cheapest number of
+    full rows: fewer, larger tiles, so that the weights streamed for a tile
+    serve many pixels.  Where that leaves SMs idle, a cluster of 2 or 4
+    blocks shares the tile: each computes a slice of every product's
+    columns from its own slice of the weights and hands its slice of the
+    intermediates to the others through distributed shared memory."""
+    plans = bottleneck_plans(b, c, p, h, w, sms, smem_limit)
+    if not plans:
+        raise ValueError(f"no tile of the bottleneck kernel fits "
+                         f"{smem_limit} bytes of shared memory at C={c}, "
+                         f"P={p}, W={w}")
+    return plans[0]
+
+
 @functools.cache
 def _entry():
     lib = _build.library("bottleneck")
@@ -93,26 +288,24 @@ def _entry():
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
                    + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    return lib, fn
+    # (reduction chunk, cluster?) -> the tensor-core kernel built for it
+    tc = {}
+    for kc, cluster in ((32, False), (32, True), (64, False), (64, True)):
+        entry = _build.library(
+            f"bottleneck_tc{kc}" + "c" * cluster).wut_bottleneck_tc
+        entry.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 17
+                          + [ctypes.c_void_p])
+        entry.restype = ctypes.c_int
+        tc[kc, cluster] = entry
+    return lib, fn, tc
 
 
-def bottleneck_kernel(x, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
-    """Launch K4 on CUDA tensors: x (B, C, H, W) float32/bfloat16; w1 (C, P),
-    w2 (9, P, P), w3 (P, C) of x's type; b1, b2 (P,), b3 (C,) float32; all
-    contiguous; P and C multiples of 4."""
-    global launches
-    if x.dim() != 4 or x.dtype not in _build.DTYPE_CODES:
-        raise ValueError(f"bottleneck kernel takes a 4-D float32/bfloat16 x, "
-                         f"got {tuple(x.shape)} {x.dtype}")
-    b, c, h, w = x.shape
-    p = w1.shape[-1]
-    if p % 4 or c % 4:
-        raise ValueError(f"bottleneck kernel needs C and P to be multiples "
-                         f"of 4, got C={c}, P={p}")
-    checks = [("x", x, x.shape, x.dtype), ("w1", w1, (c, p), x.dtype),
-              ("b1", b1, (p,), torch.float32), ("w2", w2, (9, p, p), x.dtype),
-              ("b2", b2, (p,), torch.float32), ("w3", w3, (p, c), x.dtype),
-              ("b3", b3, (c,), torch.float32)]
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _check_inputs(x, checks):
     for name, t, shape, dtype in checks:
         if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
             raise ValueError(f"{name} must be {dtype} of shape {tuple(shape)},"
@@ -127,10 +320,30 @@ def bottleneck_kernel(x, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
         if t.data_ptr() % 16:
             raise ValueError(f"bottleneck kernel input {name} must be "
                              f"16-byte aligned")
+
+
+def bottleneck_kernel(x, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
+    """Launch the CUDA-core K4 on CUDA tensors: x (B, C, H, W)
+    float32/bfloat16; w1 (C, P), w2 (9, P, P), w3 (P, C) of x's type; b1, b2
+    (P,), b3 (C,) float32; all contiguous; P and C multiples of 4."""
+    global launches
+    if x.dim() != 4 or x.dtype not in _build.DTYPE_CODES:
+        raise ValueError(f"bottleneck kernel takes a 4-D float32/bfloat16 x, "
+                         f"got {tuple(x.shape)} {x.dtype}")
+    b, c, h, w = x.shape
+    p = w1.shape[-1]
+    if p % 4 or c % 4:
+        raise ValueError(f"bottleneck kernel needs C and P to be multiples "
+                         f"of 4, got C={c}, P={p}")
+    _check_inputs(x, [
+        ("x", x, x.shape, x.dtype), ("w1", w1, (c, p), x.dtype),
+        ("b1", b1, (p,), torch.float32), ("w2", w2, (9, p, p), x.dtype),
+        ("b2", b2, (p,), torch.float32), ("w3", w3, (p, c), x.dtype),
+        ("b3", b3, (c,), torch.float32)])
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    lib, fn = _entry()
+    lib, fn, _ = _entry()
     err = fn(_build.DTYPE_CODES[x.dtype], x.data_ptr(), w1.data_ptr(),
              b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), w3.data_ptr(),
              b3.data_ptr(), out.data_ptr(), b, c, p, h, w, x.device.index,
@@ -140,14 +353,71 @@ def bottleneck_kernel(x, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
     return out
 
 
-def fused_bottleneck_eval(x, w1, b1, w2, b2, w3, b3):
+def bottleneck_tc_kernel(x, packed: PackedBottleneck,
+                         plan: Optional[dict] = None) -> torch.Tensor:
+    """Launch the tensor-core K4 on CUDA tensors: x (B, C, H, W) bfloat16,
+    contiguous; ``packed`` from ``pack_bottleneck`` in bfloat16; C and P
+    multiples of 16.  ``plan`` (one of ``bottleneck_plans``) forces a tile;
+    by default ``plan_bottleneck`` picks it for this card."""
+    global launches, tensor_core_launches
+    if x.dim() != 4 or x.dtype != torch.bfloat16:
+        raise ValueError(f"tensor-core bottleneck kernel takes a 4-D "
+                         f"bfloat16 x, got {tuple(x.shape)} {x.dtype}")
+    b, c, h, w = x.shape
+    p = packed.w1.shape[0]
+    if not takes_tensor_cores(x.dtype, c, p):
+        raise ValueError(f"tensor-core bottleneck kernel needs C and P to be "
+                         f"multiples of 16, got C={c}, P={p}")
+
+    _check_inputs(x, [
+        ("x", x, x.shape, x.dtype), ("w1", packed.w1, (p, c), x.dtype),
+        ("b1", packed.b1, (p,), torch.float32),
+        ("w2", packed.w2, (9, p, p), x.dtype),
+        ("b2", packed.b2, (p,), torch.float32),
+        ("w3", packed.w3, (c, p), x.dtype),
+        ("b3", packed.b3, (c,), torch.float32)])
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    if plan is None:
+        plan = plan_bottleneck(b, c, p, h, w, _sm_count(x.device.index))
+    lib, _, tc = _entry()
+    err = tc[plan["kc"], plan["cs"] > 1](
+             x.data_ptr(), packed.w1.data_ptr(), packed.b1.data_ptr(),
+             packed.w2.data_ptr(), packed.b2.data_ptr(), packed.w3.data_ptr(),
+             packed.b3.data_ptr(), out.data_ptr(), b, c, p, h, w,
+             plan["th"], plan["cs"], plan["kc"], plan["stages"], plan["rs"],
+             plan["wgn12"], plan["wgn3"], plan["off_b"], plan["off_w"],
+             plan["off_t"], plan["smem"], x.device.index,
+             _build.stream_of(x))
+    _build.check_launch(lib, err, "bottleneck (tensor cores)")
+    launches += 1
+    tensor_core_launches += 1
+    return out
+
+
+def fused_bottleneck_eval(x, w1, b1=None, w2=None, b2=None, w3=None, b3=None):
     """``relu(bn3(conv3(relu(bn2(conv2(relu(bn1(conv1(x)))))))) + x)`` with
-    all BNs folded (eval mode), NCHW; weights from ``fold_bottleneck``, cast
-    to ``x``'s type here if they are not yet.  K4 on CUDA tensors, the plain
-    version on CPU tensors."""
-    if not _build.is_cuda(x):
-        return bottleneck_eval_reference(x, w1, b1, w2, b2, w3, b3)
+    all BNs folded (eval mode), NCHW.  The weights are ``fold_bottleneck``'s
+    six tensors, cast to ``x``'s type here if they are not yet, or one
+    ``PackedBottleneck`` in place of ``w1`` (packed once per model, which
+    saves the packing a bfloat16 call would otherwise do).  On CUDA tensors
+    K4 runs (``takes_tensor_cores`` says which kernel), on CPU tensors the
+    plain version."""
+    packed = w1 if isinstance(w1, PackedBottleneck) else None
     dt = x.dtype
+    if not _build.is_cuda(x):
+        if packed is not None:
+            w1, b1, w2, b2, w3, b3 = unpack_bottleneck(packed)
+        return bottleneck_eval_reference(x, w1, b1, w2, b2, w3, b3)
+    _, c, h, w = x.shape
+    p = packed.w1.shape[0] if packed is not None else w1.shape[-1]
+    if takes_tensor_cores(dt, c, p, h, w):
+        if packed is None:
+            packed = pack_bottleneck(w1, b1, w2, b2, w3, b3, dt)
+        return bottleneck_tc_kernel(x.contiguous(), packed)
+    if packed is not None:
+        w1, b1, w2, b2, w3, b3 = unpack_bottleneck(packed)
     return bottleneck_kernel(
         x.contiguous(), w1.to(dt), b1.float(), w2.to(dt), b2.float(),
         w3.to(dt), b3.float())
@@ -192,9 +462,13 @@ class _FusedBottleneck:
     """An identity block through ``fused_bottleneck_eval``."""
 
     def __init__(self, block, dtype):
-        self.weights = tuple(
-            a.to(dtype) if a.dim() > 1 else a
-            for a in fold_bottleneck(block.state_dict()))
+        folded = fold_bottleneck(block.state_dict())
+        c, p = folded[0].shape
+        if takes_tensor_cores(dtype, c, p):   # packed once, not per call
+            self.weights = (pack_bottleneck(*folded, dtype),)
+        else:
+            self.weights = tuple(a.to(dtype) if a.dim() > 1 else a
+                                 for a in folded)
 
     def __call__(self, x):
         return fused_bottleneck_eval(x, *self.weights)

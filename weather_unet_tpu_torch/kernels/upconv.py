@@ -8,6 +8,14 @@ weights, no bias (in the decoder the bias rides on the skip-path conv
 ``cb``).  The plain version ``upsample2x_conv3x3_ref`` is that chain in
 PyTorch ops.  Gradients recompute through the plain version, as the JAX
 package's VJPs do.
+
+On CUDA tensors one of two kernels runs, by a rule on dtype and shape alone
+(``takes_tensor_cores``): bfloat16 with ``C`` a multiple of 16 goes to the
+tensor-core kernel (an implicit GEMM with ``mma.sync`` on bf16 operands, the
+weights pre-arranged by ``pack_upconv_weight``, the tile chosen by
+``plan_upconv``); float32, and bfloat16 at other channel counts, go to the
+CUDA-core kernel.  float32 stays off the tensor cores because its bar is 1e-5
+of cuDNN with TF32 off, which a TF32 product (10 mantissa bits) cannot meet.
 """
 
 from __future__ import annotations
@@ -24,6 +32,11 @@ from weather_unet_tpu_torch.ops.resize import (
     _tap_tables, upsample_bilinear_align_corners)
 
 launches = 0   # kernel launches so far (plain-version calls do not count)
+tensor_core_launches = 0   # those of them that ran the tensor-core kernel
+
+SMEM_LIMIT = 232_448   # bytes of shared memory a block can opt in to (sm_90)
+_KC = 16               # csrc/upconv.cu: tc::kKC, input channels a chunk
+_LDK = _KC + 8         # ... tc::kLDK, padded row of patch and weights
 
 
 def upsample2x_conv3x3_ref(x, weight, *, cb=None, scale=None, shift=None,
@@ -45,6 +58,54 @@ def upconv_block_ref(x, weight, cb, scale, shift, relu: bool = True):
                                   relu=relu)
 
 
+def takes_tensor_cores(dtype, c: int) -> bool:
+    """The rule that picks the CUDA kernel: bfloat16 with ``C`` a multiple of
+    16 runs on the tensor cores, everything else on the CUDA cores."""
+    return dtype == torch.bfloat16 and c >= 16 and c % 16 == 0
+
+
+def pack_upconv_weight(weight: torch.Tensor) -> torch.Tensor:
+    """OIHW ``(O, C, 3, 3)`` -> the tensor-core kernel's ``(9, O, C)`` as
+    [tap][out][in], the reduction index contiguous: a permutation."""
+    o, c = weight.shape[:2]
+    return weight.permute(2, 3, 0, 1).reshape(9, o, c).contiguous()
+
+
+def unpack_upconv_weight(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``pack_upconv_weight``."""
+    _, o, c = packed.shape
+    return packed.reshape(3, 3, o, c).permute(2, 3, 0, 1).contiguous()
+
+
+def _round_up(a: int, m: int) -> int:
+    return -(-a // m) * m
+
+
+@functools.lru_cache(maxsize=128)
+def plan_upconv(c: int, o: int, smem_limit: int = SMEM_LIMIT) -> dict:
+    """The tensor-core kernel's plan for ``C`` input and ``O`` output
+    channels: 8 warps of 64 pixels x 32 channels each.  With more than 64
+    output channels a block owns 8x16 pixels x 128 channels (the patch is
+    built ``ceil(O / 128)`` times per tile), otherwise 16x16 pixels x 64
+    channels (built once, and less halo per pixel).  Mirrors
+    csrc/upconv.cu."""
+    th, tw, wgn = (8, 16, 4) if o > 64 else (16, 16, 2)
+    nb, m, npos = 32 * wgn, th * tw, (th + 2) * (tw + 2)
+    lh, rs = th // 2 + 3, _round_up(tw // 2 + 3 + 7, 8)
+    off_mod = _round_up(_round_up(npos * 4, 8) + npos * 8, 16)
+    off_patch = _round_up(off_mod + c * 8, 128)
+    off_raw = off_patch + 2 * npos * _LDK * 2
+    off_w = off_raw + 2 * _KC * lh * rs * 2
+    smem = max(off_w + 3 * 3 * nb * _LDK * 2, off_patch + nb * (m + 4) * 4)
+    if smem > smem_limit:
+        raise ValueError(f"the upconv kernel's tile needs {smem} bytes of "
+                         f"shared memory at C={c}, over {smem_limit}")
+    return {"name": f"{th}x{tw}x{nb}", "th": th, "tw": tw, "wgn": wgn,
+            "nb": nb, "lh": lh, "rs": rs, "off_mod": off_mod,
+            "off_patch": off_patch, "off_raw": off_raw, "off_w": off_w,
+            "smem": smem}
+
+
 @functools.cache
 def _entry():
     lib = _build.library("upconv")
@@ -52,7 +113,11 @@ def _entry():
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
                    + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    return lib, fn
+    tc = lib.wut_upconv_tc
+    tc.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 17
+                   + [ctypes.c_void_p])
+    tc.restype = ctypes.c_int
+    return lib, fn, tc
 
 
 def _ptr(t):
@@ -63,8 +128,10 @@ def upconv_kernel(x, weight, cb=None, scale=None, shift=None,
                   relu: bool = False) -> torch.Tensor:
     """Launch K3 on CUDA tensors.  x (B, C, H, W) and cb (B, O, 2H, 2W)
     contiguous, weight (O, C, 3, 3), all of one dtype (float32/bfloat16);
-    scale, shift (B, C) float32 contiguous, both or neither."""
-    global launches
+    scale, shift (B, C) float32 contiguous, both or neither.  bfloat16 with
+    C a multiple of 16 runs the tensor-core kernel, everything else the
+    CUDA-core kernel (``takes_tensor_cores``)."""
+    global launches, tensor_core_launches
     if x.dim() != 4 or x.dtype not in _build.DTYPE_CODES:
         raise ValueError(f"upconv kernel takes a 4-D float32/bfloat16 x, got "
                          f"{tuple(x.shape)} {x.dtype}")
@@ -94,14 +161,28 @@ def upconv_kernel(x, weight, cb=None, scale=None, shift=None,
     out = torch.empty((b, o, 2 * h, 2 * w), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    w_t = weight.permute(1, 2, 3, 0).contiguous()     # (C, 3, 3, O)
     idx, frac = _tap_tables(h, w, x.device)
-    lib, fn = _entry()
-    err = fn(_build.DTYPE_CODES[x.dtype], x.data_ptr(), w_t.data_ptr(),
-             _ptr(cb), _ptr(scale), _ptr(shift), idx.data_ptr(),
-             frac.data_ptr(), out.data_ptr(), b, c, h, w, o, int(relu),
-             x.device.index, _build.stream_of(x))
-    _build.check_launch(lib, err, "upconv")
+    lib, fn, tc = _entry()
+    if takes_tensor_cores(x.dtype, c):
+        if x.data_ptr() % 16 or (cb is not None and cb.data_ptr() % 4):
+            raise ValueError("upconv kernel inputs must be 16-byte aligned")
+        plan = plan_upconv(c, o)
+        w_t = pack_upconv_weight(weight)              # (9, O, C)
+        err = tc(x.data_ptr(), w_t.data_ptr(), _ptr(cb), _ptr(scale),
+                 _ptr(shift), idx.data_ptr(), frac.data_ptr(), out.data_ptr(),
+                 b, c, h, w, o, int(relu), plan["th"], plan["tw"],
+                 plan["wgn"], plan["lh"], plan["rs"], plan["off_mod"],
+                 plan["off_patch"], plan["off_raw"], plan["off_w"],
+                 plan["smem"], x.device.index, _build.stream_of(x))
+        _build.check_launch(lib, err, "upconv (tensor cores)")
+        tensor_core_launches += 1
+    else:
+        w_t = weight.permute(1, 2, 3, 0).contiguous()     # (C, 3, 3, O)
+        err = fn(_build.DTYPE_CODES[x.dtype], x.data_ptr(), w_t.data_ptr(),
+                 _ptr(cb), _ptr(scale), _ptr(shift), idx.data_ptr(),
+                 frac.data_ptr(), out.data_ptr(), b, c, h, w, o, int(relu),
+                 x.device.index, _build.stream_of(x))
+        _build.check_launch(lib, err, "upconv")
     launches += 1
     return out
 
