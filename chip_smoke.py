@@ -11,7 +11,20 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
 3. kernels  -- each kernel against its plain PyTorch version on the card, in
                float32 and bfloat16: K1 (AdaIN), K2 (2x upsample) and K3
                (upsample+conv) at the cUNet's decoder shapes (B=16, 256x256
-               input) and one odd shape, K3 in every combination of cb /
+               input) and one odd shape; K1 also at a plane too large to
+               hold on chip (its re-reading path), K2 also at a full-width
+               site whose rows are not 16-byte aligned (its scalar path);
+               K1 and K2 under every plan (``adain_plans``,
+               ``upsample_plans``), each timed on the device at the main
+               sites, where each is also asserted (torch.profiler) to run
+               exactly one device kernel a call.  K1/K2 records carry three times:
+               "ms" the wall time of one wrapper call (CUDA events around
+               the Python call, host time included), "device_ms" (=
+               "launch_only_ms") the kernel's own duration from
+               torch.profiler (CUPTI), "cold_l2_ms" the same while rotating
+               among input copies of more than 64 MB (the 50 MB L2 cannot
+               hold the input from one call to the next).  K3 in every
+               combination of cb /
                scale+shift / relu; K4 (identity bottleneck) at one site per
                ResNet-101 layer (B=16, 224x224 input) and one odd shape,
                with folded weights from random running statistics and
@@ -73,6 +86,7 @@ with TF32 off for cuDNN convs and matmuls (set at the start of the run).
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import subprocess
@@ -83,6 +97,8 @@ import time
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 
 SEED = 0
 PEAK_BYTES_PER_S = 3.35e12                       # H100 SXM HBM3
@@ -94,11 +110,13 @@ DT_NAME = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 
 # decoder sites of the cUNet at a 256x256 input, batch 16
 K1_SITES = {"adain3": (16, 512, 32, 32), "adain2": (16, 256, 64, 64),
-            "adain1": (16, 128, 128, 128), "odd": (2, 8, 5, 7)}
+            "adain1": (16, 128, 128, 128), "odd": (2, 8, 5, 7),
+            "beyond_chip": (2, 8, 256, 256)}   # re-reading path
 K3_SITES = {"up3": (16, 512, 32, 32, 256), "up2": (16, 256, 64, 64, 128),
             "up1": (16, 128, 128, 128, 64), "odd": (2, 8, 5, 7, 4)}
 K2_SITES = {"upsample3": (16, 512, 32, 32), "upsample2": (16, 256, 64, 64),
-            "upsample1": (16, 128, 128, 128), "odd": (2, 8, 5, 7)}
+            "upsample1": (16, 128, 128, 128), "odd": (2, 8, 5, 7),
+            "unaligned": (16, 128, 128, 127)}  # scalar path
 # one identity block per ResNet-101 layer at a 224x224 input, batch 16
 K4_SITES = {"layer1": (16, 256, 56, 56), "layer2": (16, 512, 28, 28),
             "layer3": (16, 1024, 14, 14), "layer4": (16, 2048, 7, 7),
@@ -132,6 +150,65 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         end.record()
     torch.cuda.synchronize()
     return float(np.median([s.elapsed_time(e) for s, e in pairs]))
+
+
+def device_kernels(fn, reps: int = 1, tries: int = 5):
+    """(names, device ms per call) of the GPU work ``fn`` launches, from the
+    kernel durations torch.profiler (CUPTI) records, no host time: per
+    kernel name the median duration times its launches a call (rounded, at
+    least 1), so a profile that loses some records still counts each
+    kernel of the call once.  A profile can also come back with no device
+    record at all (seen on the H100 after many profiles in a row); it is
+    taken again, up to ``tries`` times.  ([], None) if every one was
+    empty."""
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by_name.setdefault(e.name, []).append(
+                    e.time_range.elapsed_us())
+        if by_name:
+            ms = sum(float(np.median(us)) * max(1, round(len(us) / reps))
+                     for us in by_name.values()) / 1e3
+            return [n for n, us in by_name.items() for _ in us], ms
+    return [], None
+
+
+def device_ms(fn, reps: int = 20, warmup: int = 3):
+    for _ in range(warmup):
+        fn()
+    return device_kernels(fn, reps)[1]
+
+
+def cold_l2_ms(fn, x, reps: int = 20):
+    """Device ms of ``fn(x')`` rotating among copies x' of x that hold more
+    than 64 MB together, so no call finds its input in the 50 MB L2."""
+    copies = [x.clone() for _ in range(min(64, -(-(64 << 20)
+                                                 // nbytes(x))))]
+    it = itertools.cycle(copies)
+    return device_ms(lambda: fn(next(it)), reps=max(reps, len(copies)))
+
+
+def one_kernel(name, fn, failures, calls: int = 5, tries: int = 5):
+    """The device kernels of ``calls`` calls of ``fn``, which must be one
+    kernel a call.  A profile can lose records, so a profile passes with
+    exactly ``calls`` records of one name, fails outright with a second
+    name or more records, and is taken again with fewer."""
+    for _ in range(tries):
+        names = device_kernels(fn, calls)[0]
+        if len(set(names)) > 1 or len(names) > calls:
+            break
+        if len(names) == calls:
+            return names[:1]
+    failures.append(f"{name}: {len(names)} device kernels in {calls} calls "
+                    f"({sorted(set(names))}), expected 1 a call")
+    return names
 
 
 def nbytes(*ts) -> int:
@@ -186,7 +263,6 @@ def phase_kernels():
 
     from weather_unet_tpu_torch.kernels import (
         adain as k1, bottleneck as k4, upconv as k3, upsample as k2)
-    from weather_unet_tpu_torch.ops.norm import _style_stats
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 
@@ -198,21 +274,36 @@ def phase_kernels():
     for dt in DTYPES:
         for site, (b, c, h, w) in K1_SITES.items():
             x, y = randn(b, c, h, w, dtype=dt), randn(b, c * 4, dtype=dt)
+            name = f"adain {site} {DT_NAME[dt]}"
             out = k1.adain_fused(x, y)
             ref = k1.adain_fused_ref(x, y)
             err = max_err(out, ref)
-            tol = check(f"adain {site} {DT_NAME[dt]}", err, ref, dt, failures)
-            ms = time_ms(lambda: k1.adain_fused(x, y))
-            y_mean, y_scale = _style_stats(y, b, c, 1e-5)
-            launch_ms = time_ms(lambda: k1.adain_kernel(x, y_scale, y_mean,
-                                                        1e-5))
-            plain_ms = time_ms(lambda: k1.adain_fused_ref(x, y))
-            bms, by = bound(nbytes(x, y, out), 6.0 * x.numel(), dt)
+            tol = check(name, err, ref, dt, failures)
+            main = site in MAIN_SITES["adain"]
+            plan = k1.plan_adain(b, c, h, w, dt)
+            plans = {}
+            for pl in k1.adain_plans(b, c, h, w, dt):
+                perr = max_err(k1.adain_kernel(x, y, 1e-5, pl), ref)
+                check(f"{name} plan {pl['name']}", perr, ref, dt, failures)
+                plans[pl["name"]] = {"max_abs_err": perr}
+                if main:
+                    plans[pl["name"]]["device_ms"] = device_ms(
+                        lambda: k1.adain_kernel(x, y, 1e-5, pl), reps=5)
             rec = {"phase": "kernel", "kernel": "adain", "site": site,
                    "dtype": DT_NAME[dt], "shape": [b, c, h, w],
-                   "max_abs_err": err, "tol": tol, "ms": ms,
-                   "launch_only_ms": launch_ms, "plain_ms": plain_ms,
-                   "bound_ms": bms, "bound_by": by}
+                   "plan": plan["name"], "max_abs_err": err, "tol": tol,
+                   "device_kernels_per_call": one_kernel(
+                       name, lambda: k1.adain_fused(x, y), failures)
+                   if main else None,
+                   "ms": time_ms(lambda: k1.adain_fused(x, y)),
+                   "device_ms": device_ms(lambda: k1.adain_fused(x, y)),
+                   "cold_l2_ms": cold_l2_ms(
+                       lambda xx: k1.adain_fused(xx, y), x),
+                   "plain_ms": time_ms(lambda: k1.adain_fused_ref(x, y)),
+                   "library_ms": None, "plans": plans}
+            rec["launch_only_ms"] = rec["device_ms"]
+            rec["bound_ms"], rec["bound_by"] = bound(nbytes(x, y, out),
+                                                     6.0 * x.numel(), dt)
             emit(rec)
             summary["adain"].setdefault(dt, {})[site] = rec
         for site, (b, c, h, w, o) in K3_SITES.items():
@@ -264,29 +355,45 @@ def phase_kernels():
             summary["upconv"].setdefault(dt, {})[site] = rec
         for site, (b, c, h, w) in K2_SITES.items():
             x = randn(b, c, h, w, dtype=dt)
+            name = f"upsample {site} {DT_NAME[dt]}"
             # the plain result first, and alive while the kernel runs: the
             # kernel's output buffer cannot be memory that already held it
             ref = k2.upsample2x_fused_ref(x)
             out = k2.upsample2x_fused(x)
             err = max_err(out, ref)
-            tol = check(f"upsample {site} {DT_NAME[dt]}", err, ref, dt,
-                        failures)
+            tol = check(name, err, ref, dt, failures)
             # a channels-last input is copied to NCHW by the wrapper
             err_cl = max_err(k2.upsample2x_fused(
                 x.contiguous(memory_format=torch.channels_last)), ref)
-            check(f"upsample {site} {DT_NAME[dt]} channels_last", err_cl, ref,
-                  dt, failures)
-            ms = time_ms(lambda: k2.upsample2x_fused(x))
-            plain_ms = time_ms(lambda: k2.upsample2x_fused_ref(x))
-            library_ms = time_ms(lambda: F.interpolate(
-                x, scale_factor=2, mode="bilinear", align_corners=True))
-            bms, by = bound(nbytes(x, out), 8.0 * out.numel(), dt)
+            check(f"{name} channels_last", err_cl, ref, dt, failures)
+            main = site in MAIN_SITES["upsample"]
+            plan = k2.plan_upsample(b, c, h, w, dt)
+            plans = {}
+            for pl in k2.upsample_plans(b, c, h, w, dt):
+                perr = max_err(k2.upsample_kernel(x, pl), ref)
+                check(f"{name} plan {pl['name']}", perr, ref, dt, failures)
+                plans[pl["name"]] = {"max_abs_err": perr, "smem": pl["smem"]}
+                if main:
+                    plans[pl["name"]]["device_ms"] = device_ms(
+                        lambda: k2.upsample_kernel(x, pl), reps=5)
             rec = {"phase": "kernel", "kernel": "upsample", "site": site,
                    "dtype": DT_NAME[dt], "shape": [b, c, h, w],
-                   "max_abs_err": err, "channels_last_max_abs_err": err_cl,
-                   "tol": tol, "ms": ms, "launch_only_ms": ms,
-                   "plain_ms": plain_ms, "library_ms": library_ms,
-                   "bound_ms": bms, "bound_by": by}
+                   "plan": plan["name"], "max_abs_err": err,
+                   "channels_last_max_abs_err": err_cl, "tol": tol,
+                   "device_kernels_per_call": one_kernel(
+                       name, lambda: k2.upsample2x_fused(x), failures)
+                   if main else None,
+                   "ms": time_ms(lambda: k2.upsample2x_fused(x)),
+                   "device_ms": device_ms(lambda: k2.upsample2x_fused(x)),
+                   "cold_l2_ms": cold_l2_ms(k2.upsample2x_fused, x),
+                   "plain_ms": time_ms(lambda: k2.upsample2x_fused_ref(x)),
+                   "library_ms": time_ms(lambda: F.interpolate(
+                       x, scale_factor=2, mode="bilinear",
+                       align_corners=True)),
+                   "plans": plans}
+            rec["launch_only_ms"] = rec["device_ms"]
+            rec["bound_ms"], rec["bound_by"] = bound(nbytes(x, out),
+                                                     8.0 * out.numel(), dt)
             emit(rec)
             summary["upsample"].setdefault(dt, {})[site] = rec
         for site, (b, c, h, w) in K4_SITES.items():
@@ -776,6 +883,8 @@ def kernels_line(summary, launch_totals):
                 "max_abs_err": max(r["max_abs_err"] for r, _ in recs),
                 "ms": total("ms"),
                 "launch_only_ms": total("launch_only_ms"),
+                "device_ms": total("device_ms"),
+                "cold_l2_ms": total("cold_l2_ms"),
                 "plain_ms": total("plain_ms"),
                 "bound_ms": total("bound_ms"),
                 "bound_by": max(recs, key=lambda rn: rn[1] * rn[0]["bound_ms"]

@@ -14,12 +14,16 @@ round at the same points and differ by summation order).
 
 In bfloat16 K3 and K4 run their tensor-core kernels where the shape allows
 (``takes_tensor_cores``).  A K4 tile plan is forced by passing one of
-``bottleneck_plans(...)`` to ``bottleneck_tc_kernel(x, packed, plan)``.
+``bottleneck_plans(...)`` to ``bottleneck_tc_kernel(x, packed, plan)``; a K1
+or K2 plan by passing one of ``adain_plans(...)`` / ``upsample_plans(...)``
+to ``adain_kernel(x, y_proj, eps, plan)`` / ``upsample_kernel(x, plan)``.
 """
 
 import numpy as np
 import pytest
 import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 
 from weather_unet_tpu_torch.api import WeatherTransfer
 from weather_unet_tpu_torch.kernels import (
@@ -94,9 +98,11 @@ def test_kernel_backwards_match_plain_autograd(cuda):
 
 def test_kernels_refuse_non_contiguous_input(cuda):
     x = torch.zeros(2, 4, 6, 6, device=cuda).transpose(2, 3)
-    s = torch.zeros(2, 4, device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
-        k1.adain_kernel(x, s, s, 1e-5)
+        k1.adain_kernel(x, torch.zeros(2, 16, device=cuda), 1e-5)
+    with pytest.raises(ValueError, match="contiguous"):
+        k1.adain_kernel(x.contiguous(),
+                        torch.zeros(16, 2, device=cuda).t(), 1e-5)
     with pytest.raises(ValueError, match="contiguous"):
         k3.upconv_kernel(x, torch.zeros(3, 4, 3, 3, device=cuda))
     with pytest.raises(ValueError, match="contiguous"):
@@ -135,6 +141,105 @@ def test_upsample_matches_plain(cuda):
         g1, = torch.autograd.grad(torch.sin(k2.upsample2x_fused(x)).sum(), x)
         g2, = torch.autograd.grad(torch.sin(k2.upsample2x_fused_ref(x)).sum(), x)
         assert float((g1 - g2).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_adain_every_plan(cuda, dtype):
+    """K1 under every plan at a tiny plane, at the 32x32 site's small-plane
+    path (one warp a plane, fewer samples), at a 128x128 plane held by 16
+    warps, at a plane beyond the on-chip limit (re-read), and at a plane
+    whose size is not a multiple of a 16-byte load; y_proj in float32 and
+    in bfloat16, whatever x's dtype."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    for b, c, h, w in ((2, 8, 5, 7), (2, 64, 32, 32), (1, 4, 128, 128),
+                       (1, 3, 150, 150), (2, 3, 1, 1), (1, 2, 9, 9)):
+        x = (3 * torch.randn(b, c, h, w, generator=g, device=cuda) + 1).to(
+            dtype)
+        y32 = torch.randn(b, 4 * c, generator=g, device=cuda)
+        for y in (y32, y32.to(torch.bfloat16)):
+            ref = k1.adain_fused_ref(x, y)
+            plans = k1.adain_plans(b, c, h, w, dtype)
+            assert plans[0] == k1.plan_adain(b, c, h, w, dtype)
+            n = k1.launches
+            for plan in plans:
+                assert_close(k1.adain_kernel(x, y, 1e-5, plan), ref, dtype)
+            assert_close(k1.adain_fused(x, y), ref, dtype)
+            torch.cuda.synchronize()
+            assert k1.launches == n + len(plans) + 1
+    # a plane of one value: variance 0 (divided by max(n - 1, 1)), out = y_mean
+    x = torch.full((1, 2, 1, 1), 5.0, device=cuda, dtype=dtype)
+    y = torch.tensor([[1.0, 2.0, 3.0, 6.0, 0.0, 0.0, 4.0, 4.0]], device=cuda)
+    assert k1.adain_fused(x, y).float().flatten().tolist() == [3.0, 2.0]
+
+
+def table_upsample(x):
+    """The kernel's arithmetic in float64: x blended with the tap weights of
+    ops/resize.py.  F.interpolate computes its source coordinate in float32,
+    which on rows of a few hundred values moves it more than 1e-5 from
+    these weights."""
+    from weather_unet_tpu_torch.ops.resize import _interp_matrix_np
+
+    h, w = x.shape[2:]
+    mh, mw = (torch.from_numpy(_interp_matrix_np(2 * n, n)).double().to(
+        x.device) for n in (h, w))
+    return torch.einsum("oh,bchw,pw->bcop", mh, x.double(), mw)
+
+
+def test_upsample_every_plan(cuda):
+    """K2 under every plan, against its own tables in float64: widths whose
+    rows are 16-byte aligned and not, H = 1, W = 1, several planes a block,
+    strips of rows, rows longer than a block's 256 threads, a misaligned
+    input view (the staged run starts inside a 16-byte piece)."""
+    g = torch.Generator(device=cuda).manual_seed(10)
+    shapes = ((2, 8, 5, 7), (1, 3, 1, 6), (1, 3, 6, 1), (1, 1, 1, 1),
+              (3, 16, 32, 32), (1, 2, 17, 130), (2, 4, 64, 66),
+              (1, 2, 100, 12), (1, 1, 9, 300))
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in shapes:
+            x = torch.randn(*shape, generator=g, device=cuda).to(dtype)
+            ref = table_upsample(x)
+            plans = k2.upsample_plans(*shape, dtype)
+            assert plans[0] == k2.plan_upsample(*shape, dtype)
+            n = k2.launches
+            for plan in plans:
+                assert_close(k2.upsample_kernel(x, plan), ref, dtype)
+            torch.cuda.synchronize()
+            assert k2.launches == n + len(plans)
+        flat = torch.randn(1 + 2 * 4 * 16 * 16, generator=g,
+                           device=cuda).to(dtype)
+        x = flat[1:].view(2, 4, 16, 16)          # contiguous, 2-4 bytes off
+        assert x.data_ptr() % 16
+        for plan in k2.upsample_plans(2, 4, 16, 16, dtype):
+            assert_close(k2.upsample_kernel(x, plan), table_upsample(x),
+                         dtype)
+
+
+def test_one_device_kernel_a_call(cuda):
+    """torch.profiler sees exactly one device kernel, and no other device
+    work, in one adain_fused and one upsample2x_fused call on contiguous
+    CUDA inputs: the wrappers do no PyTorch arithmetic on the card."""
+    x = torch.randn(2, 16, 32, 32, device=cuda, dtype=torch.bfloat16)
+    y = torch.randn(2, 64, device=cuda, dtype=torch.bfloat16)
+    calls = 5
+    for fn in (lambda: k1.adain_fused(x, y), lambda: k2.upsample2x_fused(x)):
+        fn()                                    # tap tables cached
+        torch.cuda.synchronize()
+        # a profile can lose records: one name, never more than one record
+        # a call, and one profile of five with all of them
+        counts = []
+        for _ in range(5):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+            names = [e.name for e in prof.events()
+                     if e.device_type == DeviceType.CUDA]
+            assert len(set(names)) <= 1 and len(names) <= calls, names
+            counts.append(len(names))
+            if len(names) == calls:
+                break
+        assert counts[-1] == calls, counts
 
 
 def bottleneck_weights(c, p, dtype, device, seed=3):

@@ -52,13 +52,13 @@ def test_adain_cpu_runs_plain_and_counts_nothing(rng):
 
 def test_adain_kernel_refuses_what_it_cannot_take():
     x = torch.zeros(2, 4, 3, 3)
-    s = torch.zeros(2, 4)
+    y = torch.zeros(2, 16)
     with pytest.raises(ValueError, match="CUDA"):
-        k1.adain_kernel(x, s, s, 1e-5)               # CPU tensors
+        k1.adain_kernel(x, y, 1e-5)                  # CPU tensors
     with pytest.raises(ValueError, match="float32"):
-        k1.adain_kernel(x.double(), s, s, 1e-5)
-    with pytest.raises(ValueError, match="y_scale"):
-        k1.adain_kernel(x, torch.zeros(2, 5), s, 1e-5)
+        k1.adain_kernel(x.double(), y, 1e-5)
+    with pytest.raises(ValueError, match="y_proj"):
+        k1.adain_kernel(x, torch.zeros(2, 5), 1e-5)
     with pytest.raises(ValueError, match="device"):
         k1.adain_fused(x.to("meta"), torch.zeros(2, 16, device="meta"))
 

@@ -1,0 +1,170 @@
+#!/usr/bin/env python3
+"""K1 (AdaIN) and K2 (2x upsample): an earlier version of their CUDA sources
+against the current one, on one GPU, in turns old, new, new, old.
+
+    python3 tools/compare_stream_kernels.py --old DIR [--reps 20]
+
+DIR holds the earlier ``adain.cu``, ``upsample.cu`` and ``wut_kernels.h``
+with the plain C interface they had before plans (``wut_adain(dtype, x,
+y_scale, y_mean, out, planes, hw, eps, device, stream)``, ``wut_upsample2x(
+dtype, x, tap_idx, tap_frac, out, planes, H, W, device, stream)``), for
+example from git, into a git-ignored directory::
+
+    mkdir -p _chip_tmp/old
+    git archive <commit> weather_unet_tpu_torch/csrc \\
+        | tar -x -C _chip_tmp/old --strip-components=2
+
+They are built here with the flags of ``kernels/_build.py``.  At the three
+decoder sites of the cUNet (B=16, 256x256 input), in float32 and bfloat16,
+each version is timed on the device (kernel durations from torch.profiler,
+``chip_smoke.device_ms``; the mean of its two turns):
+the old K1 kernel alone, the old K1 wrapper (its PyTorch style statistics
+and the kernel), the new K1 (one kernel), the old and the new K2.  Prints
+the card's name and power limit first, one JSON line per site and dtype,
+and a last line with the sums over the three sites.  Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+from chip_smoke import device_ms, time_ms  # noqa: E402
+
+SITES = {"3": (16, 512, 32, 32), "2": (16, 256, 64, 64),
+         "1": (16, 128, 128, 128)}
+
+
+def build_old(src_dir: Path, out_dir: Path) -> dict:
+    from weather_unet_tpu_torch.kernels import _build
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in ("adain", "upsample"):
+        so = out_dir / f"old_{name}.so"
+        procs[name] = (so, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(src_dir), "-o",
+             str(so), str(src_dir / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (so, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"old {name}.cu failed to build:\n{log}")
+        libs[name] = ctypes.CDLL(str(so))
+    fa = libs["adain"].wut_adain
+    fa.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_float, ctypes.c_int,
+        ctypes.c_void_p]
+    fa.restype = ctypes.c_int
+    fu = libs["upsample"].wut_upsample2x
+    fu.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
+                   + [ctypes.c_longlong] + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p])
+    fu.restype = ctypes.c_int
+    return {"adain": fa, "upsample": fu}
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--old", required=True, type=Path)
+    ap.add_argument("--reps", type=int, default=20)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("compare_stream_kernels: no CUDA device")
+    from weather_unet_tpu_torch.kernels import _build
+    from weather_unet_tpu_torch.kernels import adain as k1, upsample as k2
+    from weather_unet_tpu_torch.ops.norm import _style_stats
+    from weather_unet_tpu_torch.ops.resize import _tap_tables
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip(), flush=True)
+    old = build_old(args.old, ROOT / "_chip_tmp" / "old_build")
+    _build.build_all()
+    eps, dev = 1e-5, torch.device("cuda")
+
+    def old_adain(x, y_scale, y_mean):
+        out = torch.empty_like(x)
+        b, c, h, w = x.shape
+        err = old["adain"](_build.DTYPE_CODES[x.dtype], x.data_ptr(),
+                           y_scale.data_ptr(), y_mean.data_ptr(),
+                           out.data_ptr(), b * c, h * w, eps, dev.index or 0,
+                           _build.stream_of(x))
+        assert err == 0, err
+        return out
+
+    def old_adain_wrapper(x, y):
+        y_mean, y_scale = _style_stats(y, x.shape[0], x.shape[1], eps)
+        return old_adain(x, y_scale.contiguous(), y_mean.contiguous())
+
+    def old_upsample(x):
+        b, c, h, w = x.shape
+        out = torch.empty((b, c, 2 * h, 2 * w), dtype=x.dtype, device=dev)
+        idx, frac = _tap_tables(h, w, dev)
+        err = old["upsample"](_build.DTYPE_CODES[x.dtype], x.data_ptr(),
+                              idx.data_ptr(), frac.data_ptr(), out.data_ptr(),
+                              b * c, h, w, dev.index or 0,
+                              _build.stream_of(x))
+        assert err == 0, err
+        return out
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    sums = {}
+    for dt in (torch.bfloat16, torch.float32):
+        dname = str(dt).split(".")[-1]
+        for site, (b, c, h, w) in SITES.items():
+            x = torch.randn(b, c, h, w, generator=gen, device=dev).to(dt)
+            y = torch.randn(b, 4 * c, generator=gen, device=dev).to(dt)
+            y_mean, y_scale = _style_stats(y, b, c, eps)
+            y_scale, y_mean = y_scale.contiguous(), y_mean.contiguous()
+            cands = {
+                "adain_old_kernel": lambda: old_adain(x, y_scale, y_mean),
+                "adain_old_wrapper": lambda: old_adain_wrapper(x, y),
+                "adain_new": lambda: k1.adain_fused(x, y),
+                "upsample_old": lambda: old_upsample(x),
+                "upsample_new": lambda: k2.upsample2x_fused(x)}
+            # the versions agree before they are timed
+            for a, b_ in (("adain_old_wrapper", "adain_new"),
+                          ("upsample_old", "upsample_new")):
+                diff = float((cands[a]().float() - cands[b_]().float())
+                             .abs().max())
+                assert diff <= 2.0 ** -6 * 8, (a, b_, diff)
+            rec = {"dtype": dname, "site": site, "shape": [b, c, h, w]}
+            for kind, (o, n) in {"adain": ("adain_old_wrapper", "adain_new"),
+                                 "upsample": ("upsample_old",
+                                              "upsample_new")}.items():
+                turns = []
+                for name in (o, n, n, o):
+                    turns.append((name, device_ms(cands[name], args.reps)))
+                rec[kind] = {"turns": turns}
+                for name in (o, n):   # the mean of its two turns
+                    rec[kind][name] = sum(t for nm, t in turns
+                                          if nm == name) / 2
+            rec["adain"]["adain_old_kernel"] = device_ms(
+                cands["adain_old_kernel"], args.reps)
+            rec["adain"]["wall_ms"] = {
+                name: time_ms(cands[name]) for name in
+                ("adain_old_wrapper", "adain_new")}
+            print(json.dumps(rec), flush=True)
+            for kind in ("adain", "upsample"):
+                for name, v in rec[kind].items():
+                    if isinstance(v, float):
+                        key = f"{dname} {name}"
+                        sums[key] = sums.get(key, 0.0) + v
+    print(json.dumps({"sum_over_sites_device_ms": sums}), flush=True)
+
+
+if __name__ == "__main__":
+    os.chdir(ROOT)
+    main()

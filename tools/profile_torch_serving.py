@@ -7,7 +7,8 @@ For each configuration (plain, use_pallas, fuse_upconv) and dtype (bf16,
 f32 with cuDNN's TF32 left at PyTorch's default), runs ``translate`` under
 ``torch.profiler`` and prints one JSON line: wall ms per forward, the
 device's busy share (summed kernel time over wall time), device time by
-kind of kernel (conv, upsample, layout transpose, ...), and the kernels that
+kind of kernel (each of the port's kernels K1-K4 by its name, conv,
+``F.interpolate``'s upsample, layout transpose, ...), and the kernels that
 take the most device time, grouped by name.  Seeded random weights.
 The first line is the card's name and power limit from nvidia-smi.  Needs a
 CUDA device; imports nothing of the JAX package.
@@ -29,10 +30,13 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-CATEGORIES = (   # first match wins
+CATEGORIES = (   # first match wins; the port's kernels by their names
     ("layout transpose", ("nchwToNhwc", "nhwcToNchw")),
-    ("port kernels", ("upconv_kernel", "adain_kernel")),
-    ("upsample", ("upsample",)),
+    ("K1 adain", ("adain_kernel",)),
+    ("K2 upsample", ("upsample2x_kernel",)),
+    ("K3 upconv", ("upconv_kernel", "upconv_tc_kernel")),
+    ("K4 bottleneck", ("bottleneck_kernel", "bottleneck_tc_kernel")),
+    ("upsample (F.interpolate)", ("upsample",)),
     ("conv", ("xmma", "implicit_gemm", "conv", "cudnn", "gemm")),
     ("elementwise/reduce", ("elementwise", "reduce", "pool")),
 )

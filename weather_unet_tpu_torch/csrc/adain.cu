@@ -1,98 +1,239 @@
-// K1: fused AdaIN for Hopper (sm_90a).
+// K1: fused AdaIN for Hopper (sm_90a), one launch per call.
 //
 // Replaces weather_unet_tpu/kernels/adain_pallas.py::_adain_pallas_impl
-// (kernel body _adain_kernel): per (sample, channel), two-pass float32 mean
-// and UNBIASED variance over H*W, then
-//     out = x * scale + shift,  scale = y_scale * rsqrt(var + eps),
-//                               shift = y_mean - mean * scale,
-// where y_scale = sqrt(var4 + eps) and y_mean come from the 4 projected style
-// values of the channel (computed by the wrapper, kernels/adain.py).
+// (kernel body _adain_kernel): per (sample, channel) plane, two-pass float32
+// mean and UNBIASED variance over H*W, then
+//     out = (x - mean) * scale + y_mean,  scale = y_scale * rsqrt(var + eps)
+// (the plain version's order: x * scale + (y_mean - mean * scale) would
+// cancel where |mean| is large against the plane's spread),
+// where y_mean and y_scale = sqrt(var4 + eps) are the mean and unbiased
+// variance of the plane's 4 projected style values y_proj[b, 4c:4c+4]
+// (ops/norm.py::_style_stats), computed here in float32 from y_proj as it
+// comes (float32 or bf16).  The JAX wrapper rounds y_scale / y_mean to x's
+// dtype before its launch (adain_pallas.py:102-103); this kernel keeps them
+// in float32, as both packages' plain `adain` does, and is held to that.
 //
-// What bounds it on this card: bytes.  It does ~5 flops per element, far
-// below the ~295 flops/byte the H100 needs before compute matters; the floor
-// is one read of x and one write of out at 3.35 TB/s.
+// What bounds it on this card: bytes.  About 6 flops per element against
+// the ~295 flops/byte the H100 needs before compute matters; the floor is
+// one read of x and one write of out at 3.35 TB/s.
 //
-// Design: in NCHW one (b, c) plane is H*W contiguous elements, so one block
-// owns one plane and every pass is a coalesced stream.  Partial sums live in
-// float32 registers, reduced by warp shuffles plus one shared-memory step.
-// The plane is read three times (mean, variance, modulate); at the cUNet's
-// sizes (<= 64 KB a plane) the second and third reads mostly come from L2.
-// Keeping the plane on chip between passes is left to a later change.
+// Design (the shape comes from kernels/adain.py::plan_adain):
+// - One launch, no PyTorch arithmetic around it: the style statistics are
+//   the plane's own 4 values, read by every thread of the plane.
+// - On chip: `wp` warps own a plane and hold it in registers, up to
+//   kPerThread values a thread, loaded once with 16-byte loads (8 bf16 or 4
+//   float32; 1 element where H*W is not a multiple of that).  The mean, the
+//   sum of squared deviations from it (two-pass: never E[x^2] - mean^2,
+//   which cancels in bf16) and the modulated output all come from those
+//   registers, so x is read from device memory once.  Small planes (1024
+//   values at the cUNet's 32x32 site) take one warp each, several planes a
+//   block, and reduce with shuffles alone; a 128x128 plane takes a block of
+//   16 warps, reduced through 2 x 16 floats of shared memory.
+// - Planes beyond wp = 16 warps x 32 lanes x kPerThread values (16384) take
+//   the re-reading path of the same kernel: a block of 16 warps per plane,
+//   three passes over the plane in device memory (mean, deviations,
+//   modulate).
 
 #include "wut_kernels.h"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kMaxThreads = 512;
+constexpr int kPerThread = 32;  // values a thread holds on chip
 
-// Sum of v over the block; every thread gets the result.  shm holds 32 floats.
-__device__ __forceinline__ float block_sum(float v, float* shm) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  __syncthreads();  // shm may still be read by a previous call
-  if (lane == 0) shm[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    v = lane < (kThreads >> 5) ? shm[lane] : 0.f;
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-    if (lane == 0) shm[0] = v;
+// kVW consecutive elements of T as float32, one load (16 bytes, or one
+// element when kVW == 1)
+template <typename T, int kVW>
+__device__ __forceinline__ void load(const T* p, float* v) {
+  if constexpr (kVW == 1) {
+    v[0] = wut::to_f32(p[0]);
+  } else if constexpr (sizeof(T) == 4) {
+    const float4 f = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
+  } else {
+    const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+    v[0] = wut::bf16_lo(u.x); v[1] = wut::bf16_hi(u.x);
+    v[2] = wut::bf16_lo(u.y); v[3] = wut::bf16_hi(u.y);
+    v[4] = wut::bf16_lo(u.z); v[5] = wut::bf16_hi(u.z);
+    v[6] = wut::bf16_lo(u.w); v[7] = wut::bf16_hi(u.w);
   }
-  __syncthreads();
-  return shm[0];
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-adain_kernel(const T* __restrict__ x, const float* __restrict__ y_scale,
-             const float* __restrict__ y_mean, T* __restrict__ out,
-             long long hw, float eps) {
-  __shared__ float shm[32];
-  const long long plane = blockIdx.x;
-  const T* xp = x + plane * hw;
-  T* op = out + plane * hw;
-
-  float s = 0.f;
-  for (long long i = threadIdx.x; i < hw; i += kThreads) s += wut::to_f32(xp[i]);
-  const float mean = block_sum(s, shm) / static_cast<float>(hw);
-
-  float ss = 0.f;
-  for (long long i = threadIdx.x; i < hw; i += kThreads) {
-    const float d = wut::to_f32(xp[i]) - mean;
-    ss += d * d;
+template <typename T, int kVW>
+__device__ __forceinline__ void store(T* p, const float* v) {
+  if constexpr (kVW == 1) {
+    p[0] = wut::from_f32<T>(v[0]);
+  } else if constexpr (sizeof(T) == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    *reinterpret_cast<uint4*>(p) = make_uint4(
+        wut::pack_bf16x2(v[0], v[1]), wut::pack_bf16x2(v[2], v[3]),
+        wut::pack_bf16x2(v[4], v[5]), wut::pack_bf16x2(v[6], v[7]));
   }
-  const float var =
-      block_sum(ss, shm) / static_cast<float>(hw > 1 ? hw - 1 : 1);
+}
 
-  const float scale = y_scale[plane] * rsqrtf(var + eps);
-  const float shift = y_mean[plane] - mean * scale;
-  for (long long i = threadIdx.x; i < hw; i += kThreads)
-    op[i] = wut::from_f32<T>(wut::to_f32(xp[i]) * scale + shift);
+// Sum of v over the wp warps of this thread's plane; every thread of the
+// plane gets it.  buf holds one float a warp and is used once per launch.
+__device__ __forceinline__ float plane_sum(float v, float* buf, int wp,
+                                           int slot) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  if (wp == 1) return v;
+  if ((threadIdx.x & 31) == 0) buf[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float s = 0.f;
+  for (int k = 0; k < wp; ++k) s += buf[slot * wp + k];
+  return s;
+}
+
+template <typename T, int kVW>
+__global__ void __launch_bounds__(kMaxThreads, 2)
+adain_kernel(const T* __restrict__ x, const void* __restrict__ y_proj,
+             int y_bf16, T* __restrict__ out, long long planes,
+             long long hw, int wp, int ppb, int on_chip, float eps) {
+  constexpr int kN = kPerThread / kVW;  // loads a thread holds on chip
+  __shared__ float red[2][kMaxThreads / 32];
+  const int warp = threadIdx.x >> 5;
+  const int slot = warp / wp;  // this warp's plane within the block
+  const long long plane = static_cast<long long>(blockIdx.x) * ppb + slot;
+  const bool live = plane < planes;  // dead warps still reach the barriers
+  const int t = (warp - slot * wp) * 32 + (threadIdx.x & 31);
+  const int nt = wp * 32;
+  const long long nv = hw / kVW;
+  const T* xp = x + (live ? plane : 0) * hw;
+  T* op = out + (live ? plane : 0) * hw;
+
+  // style statistics: float32, two-pass, unbiased over the 4 values
+  float ys[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const long long i = (live ? plane : 0) * 4 + k;
+    ys[k] = y_bf16 ? __bfloat162float(
+                         static_cast<const __nv_bfloat16*>(y_proj)[i])
+                   : static_cast<const float*>(y_proj)[i];
+  }
+  const float y_mean = (ys[0] + ys[1] + ys[2] + ys[3]) / 4.f;
+  float y_ss = 0.f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) y_ss += (ys[k] - y_mean) * (ys[k] - y_mean);
+  const float y_scale = sqrtf(y_ss / 4.f * (4.f / 3.f) + eps);
+  const float inv_n = 1.f / static_cast<float>(hw);
+  const float inv_n1 = 1.f / static_cast<float>(hw > 1 ? hw - 1 : 1);
+
+  if (on_chip) {  // hw <= 16 x 32 x kPerThread: 32-bit indices
+    const int nvi = static_cast<int>(nv);
+    float v[kPerThread];
+#pragma unroll
+    for (int k = 0; k < kN; ++k) {
+      const int i = t + k * nt;
+      if (live && i < nvi) {
+        load<T, kVW>(xp + i * kVW, v + k * kVW);
+      } else {
+#pragma unroll
+        for (int j = 0; j < kVW; ++j) v[k * kVW + j] = 0.f;
+      }
+    }
+    float s = 0.f;
+#pragma unroll
+    for (int j = 0; j < kPerThread; ++j) s += v[j];
+    const float mean = plane_sum(s, red[0], wp, slot) * inv_n;
+    float ss = 0.f;
+#pragma unroll
+    for (int k = 0; k < kN; ++k) {
+      if (t + k * nt < nvi) {
+#pragma unroll
+        for (int j = 0; j < kVW; ++j) {
+          const float d = v[k * kVW + j] - mean;
+          ss += d * d;
+        }
+      }
+    }
+    const float var = plane_sum(ss, red[1], wp, slot) * inv_n1;
+    const float scale = y_scale * rsqrtf(var + eps);
+#pragma unroll
+    for (int k = 0; k < kN; ++k) {
+      const int i = t + k * nt;
+      if (live && i < nvi) {
+        float o[kVW];
+#pragma unroll
+        for (int j = 0; j < kVW; ++j)
+          o[j] = (v[k * kVW + j] - mean) * scale + y_mean;
+        store<T, kVW>(op + i * kVW, o);
+      }
+    }
+    return;
+  }
+
+  // re-reading path: a block per plane, three passes over device memory
+  float w[kVW];
+  float s = 0.f;
+#pragma unroll 4
+  for (long long i = t; i < nv; i += nt) {
+    load<T, kVW>(xp + i * kVW, w);
+#pragma unroll
+    for (int j = 0; j < kVW; ++j) s += w[j];
+  }
+  const float mean = plane_sum(s, red[0], wp, slot) * inv_n;
+  float ss = 0.f;
+#pragma unroll 4
+  for (long long i = t; i < nv; i += nt) {
+    load<T, kVW>(xp + i * kVW, w);
+#pragma unroll
+    for (int j = 0; j < kVW; ++j) ss += (w[j] - mean) * (w[j] - mean);
+  }
+  const float var = plane_sum(ss, red[1], wp, slot) * inv_n1;
+  const float scale = y_scale * rsqrtf(var + eps);
+#pragma unroll 4
+  for (long long i = t; i < nv; i += nt) {
+    load<T, kVW>(xp + i * kVW, w);
+#pragma unroll
+    for (int j = 0; j < kVW; ++j) w[j] = (w[j] - mean) * scale + y_mean;
+    store<T, kVW>(op + i * kVW, w);
+  }
+}
+
+template <typename T, int kVW>
+cudaError_t launch(const void* x, const void* y, int y_bf16, void* out,
+                   long long planes, long long hw, int wp, int ppb,
+                   int on_chip, float eps, cudaStream_t st) {
+  const long long blocks = (planes + ppb - 1) / ppb;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  adain_kernel<T, kVW><<<static_cast<unsigned>(blocks), wp * ppb * 32, 0,
+                         st>>>(static_cast<const T*>(x), y, y_bf16,
+                               static_cast<T*>(out), planes, hw, wp, ppb,
+                               on_chip, eps);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// x, out: (planes, hw) contiguous, planes = B*C; y_scale, y_mean: (planes,)
-// float32.
-WUT_API int wut_adain(int dtype, const void* x, const void* y_scale,
-                      const void* y_mean, void* out, long long planes,
-                      long long hw, float eps, int device, void* stream) {
+// x, out: (planes = B*C, hw) contiguous, 16-byte aligned when vec;
+// y_proj: (B, 4C) contiguous, float32 (y_dtype 0) or bf16 (1).  vec, wp
+// (warps a plane), ppb (planes a block) and on_chip come from
+// kernels/adain.py::plan_adain.
+WUT_API int wut_adain(int dtype, const void* x, const void* y_proj,
+                      int y_dtype, void* out, long long planes, long long hw,
+                      int vec, int wp, int ppb, int on_chip, float eps,
+                      int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(static_cast<unsigned>(planes));
-  const float* ys = static_cast<const float*>(y_scale);
-  const float* ym = static_cast<const float*>(y_mean);
-  if (dtype == WUT_F32) {
-    adain_kernel<float><<<grid, kThreads, 0, st>>>(
-        static_cast<const float*>(x), ys, ym, static_cast<float*>(out), hw,
-        eps);
-  } else if (dtype == WUT_BF16) {
-    adain_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), ys, ym,
-        static_cast<__nv_bfloat16*>(out), hw, eps);
-  } else {
+  if (wp < 1 || ppb < 1 || wp * ppb * 32 > kMaxThreads ||
+      (on_chip && static_cast<long long>(wp) * 32 * kPerThread < hw) ||
+      (!on_chip && ppb != 1) || (y_dtype != WUT_F32 && y_dtype != WUT_BF16))
     return cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int yb = y_dtype == WUT_BF16;
+  if (dtype == WUT_F32) {
+    if (vec) return launch<float, 4>(x, y_proj, yb, out, planes, hw, wp, ppb,
+                                     on_chip, eps, st);
+    return launch<float, 1>(x, y_proj, yb, out, planes, hw, wp, ppb, on_chip,
+                            eps, st);
   }
-  return cudaGetLastError();
+  if (dtype == WUT_BF16) {
+    if (vec) return launch<__nv_bfloat16, 8>(x, y_proj, yb, out, planes, hw,
+                                             wp, ppb, on_chip, eps, st);
+    return launch<__nv_bfloat16, 1>(x, y_proj, yb, out, planes, hw, wp, ppb,
+                                    on_chip, eps, st);
+  }
+  return cudaErrorInvalidValue;
 }

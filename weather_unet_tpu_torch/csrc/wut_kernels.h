@@ -35,4 +35,20 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);  // round to nearest even, as torch's .to()
 }
 
+// two floats -> two bf16 in one 32-bit word (lo first in memory), rounded
+// to nearest even as __floats2bfloat162_rn, without taking a local's
+// address (which can cost a stack frame)
+__device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
+  unsigned u;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(u) : "f"(hi), "f"(lo));
+  return u;
+}
+// the two bf16 of a 32-bit word as floats (exact)
+__device__ __forceinline__ float bf16_lo(unsigned u) {
+  return __uint_as_float(u << 16);
+}
+__device__ __forceinline__ float bf16_hi(unsigned u) {
+  return __uint_as_float(u & 0xffff0000u);
+}
+
 }  // namespace wut

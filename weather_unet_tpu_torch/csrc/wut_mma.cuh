@@ -154,11 +154,6 @@ __device__ __forceinline__ void st_cluster_u32(uint32_t addr, uint32_t rank,
                : "memory");
 }
 
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // Rows of an NCHW bf16 tensor "as they lie": for channels kk in [0, kc) of
 // the planes starting at element plane0 (= (b * C + c0) * H * W), rows
 // [ylo, ylo + nrows) and columns [xlo, xlo + ncols) (all inside the image),

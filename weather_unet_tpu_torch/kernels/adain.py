@@ -3,11 +3,13 @@
 
 Same semantics as ``ops.norm.adain`` (its plain version): per-(b, c) float32
 mean and unbiased variance over H*W, modulated by the style statistics of
-the 4 projected values of each channel.  The wrapper computes those style
-statistics (``y_scale = sqrt(var4 + eps)``, ``y_mean``, both float32) from
-the channel-major ``(B, C, 4)`` view of ``y_proj``, as the JAX wrapper does,
-and the kernel does the rest in one launch.  Gradients recompute through the
-plain ``adain`` -- the JAX package's own VJP.
+the 4 projected values of each channel.  One launch per call: the kernel
+reads ``y_proj`` (B, 4C) itself and computes each plane's style statistics
+(``y_mean``, ``y_scale = sqrt(var4 + eps)``) in float32, so the wrapper does
+no PyTorch arithmetic on a CUDA tensor.  ``plan_adain`` gives the kernel's
+shape: warps per plane, planes per block, and whether a plane is held on
+chip or re-read.  Gradients recompute through the plain ``adain`` -- the JAX
+package's own VJP.
 """
 
 from __future__ import annotations
@@ -18,38 +20,88 @@ import functools
 import torch
 
 from weather_unet_tpu_torch.kernels import _build
-from weather_unet_tpu_torch.ops.norm import _style_stats, adain
+from weather_unet_tpu_torch.ops.norm import adain
 
 launches = 0   # kernel launches so far (plain-version calls do not count)
 
 adain_fused_ref = adain   # the plain version
+
+MAX_THREADS = 512    # a block of the kernel (csrc/adain.cu kMaxThreads)
+PER_THREAD = 32      # values a thread holds on chip (kPerThread)
+BLOCK_WARPS = 8      # warps a block aims at when planes are small
+
+
+@functools.lru_cache(maxsize=256)
+def plan_adain(b: int, c: int, h: int, w: int, dtype, vec_ok: bool = True,
+               warps: int = 0, on_chip: bool = True) -> dict:
+    """The kernel's shape for x (b, c, h, w): ``vec`` elements a load (16
+    bytes, or 1 where H*W is not a multiple of that or ``vec_ok`` is False),
+    ``wp`` warps a plane (at least enough to hold the plane in registers at
+    ``PER_THREAD`` values a thread, or ``warps`` if larger), ``ppb`` planes a
+    block, and ``on_chip``: the plane is held in registers and read once;
+    otherwise (a plane beyond 16 warps, or ``on_chip=False``) a block of 16
+    warps re-reads it from device memory.  Mirrors csrc/adain.cu."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    hw = h * w
+    vec = 16 // esize if vec_ok and hw % (16 // esize) == 0 else 1
+    need = max(1, -(-hw // (32 * PER_THREAD)))
+    wp = max(need, warps)
+    max_wp = MAX_THREADS // 32
+    if on_chip and wp <= max_wp:
+        ppb = max(1, min(b * c, BLOCK_WARPS // wp))
+    else:
+        wp, ppb, on_chip = max_wp, 1, False
+    name = (f"{wp}w" + (f"x{ppb}p" if ppb > 1 else "") + f" v{vec}"
+            + ("" if on_chip else " reread"))
+    return {"name": name, "vec": vec, "wp": wp, "ppb": ppb,
+            "on_chip": on_chip, "threads": 32 * wp * ppb,
+            "smem": 2 * max_wp * 4, "grid": -(-(b * c) // ppb)}
+
+
+def adain_plans(b: int, c: int, h: int, w: int, dtype) -> list:
+    """Every plan the kernel takes for this shape, the chosen one first:
+    twice the warps a plane, the re-reading path, and the scalar loads."""
+    plans = [plan_adain(b, c, h, w, dtype)]
+    for vec_ok in (True, False):
+        wp = plans[0]["wp"]
+        plans += [plan_adain(b, c, h, w, dtype, vec_ok, wp),
+                  plan_adain(b, c, h, w, dtype, vec_ok, 2 * wp),
+                  plan_adain(b, c, h, w, dtype, vec_ok, on_chip=False)]
+    seen, out = set(), []
+    for pl in plans:
+        if pl["name"] not in seen:
+            seen.add(pl["name"])
+            out.append(pl)
+    return out
 
 
 @functools.cache
 def _entry():
     lib = _build.library("adain")
     fn = lib.wut_adain
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_float, ctypes.c_int,
-        ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                    ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
+                    ctypes.c_longlong] + [ctypes.c_int] * 4
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib, fn
 
 
-def adain_kernel(x: torch.Tensor, y_scale: torch.Tensor,
-                 y_mean: torch.Tensor, eps: float) -> torch.Tensor:
+def adain_kernel(x: torch.Tensor, y_proj: torch.Tensor, eps: float,
+                 plan: dict = None) -> torch.Tensor:
     """Launch K1 on CUDA tensors: x (B, C, H, W) float32/bfloat16
-    contiguous; y_scale, y_mean (B, C) float32 contiguous."""
+    contiguous; y_proj (B, 4C) float32/bfloat16 contiguous.  ``plan``
+    defaults to ``plan_adain``; one of ``adain_plans`` forces another."""
     global launches
     if x.dim() != 4 or x.dtype not in _build.DTYPE_CODES:
         raise ValueError(f"adain kernel takes a 4-D float32/bfloat16 x, got "
                          f"{tuple(x.shape)} {x.dtype}")
     b, c, h, w = x.shape
-    for name, t in (("y_scale", y_scale), ("y_mean", y_mean)):
-        if t.shape != (b, c) or t.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32 of shape {(b, c)}, got "
-                             f"{tuple(t.shape)} {t.dtype}")
-    for t in (x, y_scale, y_mean):
+    if y_proj.shape != (b, 4 * c) or y_proj.dtype not in _build.DTYPE_CODES:
+        raise ValueError(f"y_proj must be float32/bfloat16 of shape "
+                         f"{(b, 4 * c)}, got {tuple(y_proj.shape)} "
+                         f"{y_proj.dtype}")
+    for t in (x, y_proj):
         if not t.is_cuda or t.device != x.device:
             raise ValueError("adain kernel inputs must share one CUDA device")
         if not t.is_contiguous():
@@ -57,10 +109,17 @@ def adain_kernel(x: torch.Tensor, y_scale: torch.Tensor,
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
+    if plan is None:
+        plan = plan_adain(b, c, h, w, x.dtype,
+                          vec_ok=x.data_ptr() % 16 == 0)
+    if plan["vec"] > 1 and (x.data_ptr() % 16 or out.data_ptr() % 16):
+        raise ValueError("adain kernel's 16-byte loads need 16-byte aligned "
+                         "x and out")
     lib, fn = _entry()
-    err = fn(_build.DTYPE_CODES[x.dtype], x.data_ptr(), y_scale.data_ptr(),
-             y_mean.data_ptr(), out.data_ptr(), b * c, h * w, eps,
-             x.device.index, _build.stream_of(x))
+    err = fn(_build.DTYPE_CODES[x.dtype], x.data_ptr(), y_proj.data_ptr(),
+             _build.DTYPE_CODES[y_proj.dtype], out.data_ptr(), b * c, h * w,
+             int(plan["vec"] > 1), plan["wp"], plan["ppb"],
+             int(plan["on_chip"]), eps, x.device.index, _build.stream_of(x))
     _build.check_launch(lib, err, "adain")
     launches += 1
     return out
@@ -73,8 +132,8 @@ class _AdaIN(torch.autograd.Function):
         ctx.eps = eps
         if not _build.is_cuda(x):
             return adain(x, y_proj, eps)
-        y_mean, y_scale = _style_stats(y_proj, x.shape[0], x.shape[1], eps)
-        return adain_kernel(x, y_scale.contiguous(), y_mean.contiguous(), eps)
+        # a strided input is copied into the dense NCHW layout the kernel reads
+        return adain_kernel(x.contiguous(), y_proj.contiguous(), eps)
 
     @staticmethod
     def backward(ctx, g):
