@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port's serving and estimator paths on one
-NVIDIA GPU.
+"""Smoke run of the PyTorch/CUDA port's serving, estimator and GAN training
+paths on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the repository root, one GPU
 
@@ -36,7 +36,9 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                blocks sharing the tile, "k64" for reduction chunks of 64); in
                float32, and at the odd K3 shape, the CUDA-core kernels.
                Tolerances (max abs error):
-                 float32:  1e-5 * max(1, max|plain|) -- float32 reassociation
+                 K1, K2 and K4 also at the GAN step's sites (decoder at a
+               224x224 input, batch 8; ResNet-101 at batch 8).
+               float32:  1e-5 * max(1, max|plain|) -- float32 reassociation
                            over up to 4608 products (TF32 is off here);
                  bfloat16: 2^-6 * max(1, max|plain|) -- the plain chain
                            rounds to bf16 after each op, the kernel once (K4
@@ -70,16 +72,69 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                through 101 layers of a random network), the fused ones no
                further from it than twice the plain ones; the plain module
                on the card within 2e-4 * max(1, max|logits|) of the same
-               module on the CPU at 64x64.  Prints img/s of the plain and
-               the fused forward.
+               module on the CPU at 64x64.  Prints img/s of the plain
+               forward under torch.inference_mode and with autograd on
+               (load_estimator's apply as it is), and of the fused one.
                Then class_transfer_consistency over two batches of 8 at
                224x224 with the use_pallas transfer and the fused
                classifier (K1, K2 and K4 in one path): every prediction in
                range and equal to the plain classifier's except where the
                top two logits are closer than the tolerance.
-7. kernels  -- the summary line of every ported kernel (launches on the main
-               paths of phases 4-6, error, times, bound).
+7. gan      -- the GAN combined step (train/gan.py) at full width: the
+               7.8 M-parameter cUNet, the SNDisc and the seeded ResNet-101
+               of phase 6 through load_estimator; 224x224, batch 8, est mode
+               (GanConfig's defaults), conditions from the estimator.
+               The K4-routed estimator's logits (29 K4 launches without
+               autograd, none with it) against the plain module's on one
+               batch of 8, at phase 6's tolerances.
+               Parity at dropout 0: one step from one seed in each of the
+               eight configurations (float32 / bfloat16, plain / use_pallas
+               generator -- K1 + K2, 6 launches each --, plain / K4-routed
+               estimator), compared in pairs that differ in one thing.
+               Float32 (TF32 off), use_pallas against plain under each
+               route: losses within rel 1e-4; Adam's two moments (the
+               gradient and its square) within 1e-4 of the network's
+               largest element plus twice the float32 floor (how far the
+               plain step's moments move when its images move by one or
+               two roundings: G's gradient sums cancel, so ~1e-3 at full
+               width); updated parameters within the Adam sign-flip bound
+               (fewer than 0.5% of the elements beyond 5e-5, none beyond
+               2.2 * lr); u within 1e-4.  The K4 route against the plain
+               one (plain generator) to the same bars plus twice
+               route_sensitivity (loss_con divides by the distance between
+               a sample's two conditions, so the route's condition error
+               moves the step by up to its ratio to that distance).
+               Bfloat16: use_pallas against the float32 plain generator
+               under the same route, no further from it than twice the
+               bfloat16 plain generator is, plus 2^-7 (losses; the
+               moments' relative L2 error); the K4 route against the plain
+               one within that bar plus twice its bfloat16
+               route_sensitivity.  The use_pallas step at 32x32, batch 2,
+               with a depth-(1, 1, 1, 1) estimator on the card against the
+               CPU, to the float32 use_pallas
+               bars.  Steady state at
+               dropout 0.3 in float32 and bfloat16 (float32 master
+               weights), plain and use_pallas generator, plain and
+               K4-routed estimator (its stop-gradient forwards through
+               fused_resnet_eval, 58 K4 launches a step; the forward on G's
+               output through the plain module): 2 warm-up, 5 timed, 1
+               D-only and 1 profiled step each, asserting the launches of
+               every step (6 K1 + 6 K2 a combined step, 3 + 3 a D-only
+               one), finite losses, every u advanced and the step counts.
+               Prints the median step ms (host clock around a synchronized
+               step), img/s, peak memory, the device time of one step
+               (union of its kernels from torch.profiler) over the median
+               step, its kernel count and top kernels by device time, and
+               the estimator's share (its two stop-gradient
+               forwards and the forward + input backward on G's output,
+               timed apart).  Then the evaluation step once at batch 8:
+               finite metrics, fakes (8, 8, 3, 224, 224), u not moved.
+8. kernels  -- the summary line of every ported kernel (launches on the main
+               paths of phases 4-7; error, times and bound over one serving
+               forward's sites and, under "gan_step_forward", over one GAN
+               generator (K1, K2) or estimator (K4) forward's).
 
+Every phase line carries "t_s", the seconds since the script started.
 The last line is {"ok": true, "device": {...}}.  Float32 comparisons run
 with TF32 off for cuDNN convs and matmuls (set at the start of the run).
 """
@@ -108,37 +163,56 @@ TOL_REL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -6}
 DTYPES = (torch.float32, torch.bfloat16)
 DT_NAME = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 
-# decoder sites of the cUNet at a 256x256 input, batch 16
+# decoder sites of the cUNet at a 256x256 input, batch 16 (serving), and at
+# a 224x224 input, batch 8 (the GAN step, "gan_*")
 K1_SITES = {"adain3": (16, 512, 32, 32), "adain2": (16, 256, 64, 64),
             "adain1": (16, 128, 128, 128), "odd": (2, 8, 5, 7),
-            "beyond_chip": (2, 8, 256, 256)}   # re-reading path
+            "beyond_chip": (2, 8, 256, 256),   # re-reading path
+            "gan_adain3": (8, 512, 28, 28), "gan_adain2": (8, 256, 56, 56),
+            "gan_adain1": (8, 128, 112, 112)}
 K3_SITES = {"up3": (16, 512, 32, 32, 256), "up2": (16, 256, 64, 64, 128),
             "up1": (16, 128, 128, 128, 64), "odd": (2, 8, 5, 7, 4)}
 K2_SITES = {"upsample3": (16, 512, 32, 32), "upsample2": (16, 256, 64, 64),
             "upsample1": (16, 128, 128, 128), "odd": (2, 8, 5, 7),
-            "unaligned": (16, 128, 128, 127)}  # scalar path
+            "unaligned": (16, 128, 128, 127),  # scalar path
+            "gan_upsample3": (8, 512, 28, 28),
+            "gan_upsample2": (8, 256, 56, 56),
+            "gan_upsample1": (8, 128, 112, 112)}
 # one identity block per ResNet-101 layer at a 224x224 input, batch 16
+# (the estimator phase) and batch 8 (the GAN step's estimator, "gan_*")
 K4_SITES = {"layer1": (16, 256, 56, 56), "layer2": (16, 512, 28, 28),
             "layer3": (16, 1024, 14, 14), "layer4": (16, 2048, 7, 7),
-            "odd": (2, 64, 5, 7)}
-# sites of each kernel on its main path, with their count in one forward
+            "odd": (2, 64, 5, 7),
+            "gan_layer1": (8, 256, 56, 56), "gan_layer2": (8, 512, 28, 28),
+            "gan_layer3": (8, 1024, 14, 14), "gan_layer4": (8, 2048, 7, 7)}
+# sites of each kernel on its main paths, with their count in one forward:
+# serving (and the estimator phase) ...
 MAIN_SITES = {"adain": {"adain3": 1, "adain2": 1, "adain1": 1},
               "upsample": {"upsample3": 1, "upsample2": 1, "upsample1": 1},
               "upconv": {"up3": 1, "up2": 1, "up1": 1},
               "bottleneck": {"layer1": 2, "layer2": 3, "layer3": 22,
                              "layer4": 2}}
+# ... and the GAN step (K3 does not run in train mode)
+GAN_SITES = {"adain": {"gan_adain3": 1, "gan_adain2": 1, "gan_adain1": 1},
+             "upsample": {"gan_upsample3": 1, "gan_upsample2": 1,
+                          "gan_upsample1": 1},
+             "bottleneck": {"gan_layer1": 2, "gan_layer2": 3,
+                            "gan_layer3": 22, "gan_layer4": 2}}
 LOGIT_TOL = 2e-4      # float32 logits, relative to max(1, max|logits|)
 # bfloat16 logits against the float32 module: the seeded random network
 # amplifies a rounding error some 300x on its way to the logits (float32's
 # 6e-8 arrives as 2e-5), so bfloat16's 2^-9 arrives as O(0.1)
 LOGIT_TOL_BF16 = 0.25
+START = time.perf_counter()
 
 
 def emit(obj) -> None:
+    if "phase" in obj:      # seconds since the script started
+        obj = {**obj, "t_s": time.perf_counter() - START}
     print(json.dumps(obj), flush=True)
 
 
-def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     """Median of per-call CUDA-event times, after warm-up."""
     for _ in range(warmup):
         fn()
@@ -180,13 +254,13 @@ def device_kernels(fn, reps: int = 1, tries: int = 5):
     return [], None
 
 
-def device_ms(fn, reps: int = 20, warmup: int = 3):
+def device_ms(fn, reps: int = 10, warmup: int = 2):
     for _ in range(warmup):
         fn()
     return device_kernels(fn, reps)[1]
 
 
-def cold_l2_ms(fn, x, reps: int = 20):
+def cold_l2_ms(fn, x, reps: int = 10):
     """Device ms of ``fn(x')`` rotating among copies x' of x that hold more
     than 64 MB together, so no call finds its input in the 50 MB L2."""
     copies = [x.clone() for _ in range(min(64, -(-(64 << 20)
@@ -219,6 +293,10 @@ def bound(n_bytes: int, flops: float, dtype) -> tuple:
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def on_main_path(kernel, site) -> bool:
+    return site in MAIN_SITES[kernel] or site in GAN_SITES.get(kernel, {})
 
 
 def max_err(out, ref) -> float:
@@ -279,7 +357,7 @@ def phase_kernels():
             ref = k1.adain_fused_ref(x, y)
             err = max_err(out, ref)
             tol = check(name, err, ref, dt, failures)
-            main = site in MAIN_SITES["adain"]
+            main = on_main_path("adain", site)
             plan = k1.plan_adain(b, c, h, w, dt)
             plans = {}
             for pl in k1.adain_plans(b, c, h, w, dt):
@@ -366,7 +444,7 @@ def phase_kernels():
             err_cl = max_err(k2.upsample2x_fused(
                 x.contiguous(memory_format=torch.channels_last)), ref)
             check(f"{name} channels_last", err_cl, ref, dt, failures)
-            main = site in MAIN_SITES["upsample"]
+            main = on_main_path("upsample", site)
             plan = k2.plan_upsample(b, c, h, w, dt)
             plans = {}
             for pl in k2.upsample_plans(b, c, h, w, dt):
@@ -606,14 +684,14 @@ def measure(wt, x_dev, c_dev, counters, launch_totals):
     for _ in range(2):
         wt.translate(x_dev, c_dev)
     torch.cuda.synchronize()
-    n = 10
+    n = 5
     t0 = time.perf_counter()
     for _ in range(n):
         wt.translate(x_dev, c_dev)
     torch.cuda.synchronize()
     ips = n * x_dev.shape[0] / (time.perf_counter() - t0)
     lat = []
-    for _ in range(22):
+    for _ in range(12):
         t0 = time.perf_counter()
         wt.translate(x_dev[:1], c_dev[:1]).cpu()
         lat.append(time.perf_counter() - t0)
@@ -785,8 +863,20 @@ def phase_estimator(path, transfer, counters, launch_totals):
                "size": size, "k4_launches_per_forward": 29,
                "k4_tensor_core_launches_per_forward": want_tc,
                "max_abs_logit": float(ref.abs().max()),
-               "fused_vs_plain_rel": rel(got_fused, got_plain),
-               "img_per_s_plain": ips_of(lambda: plain(x), b)}
+               "fused_vs_plain_rel": rel(got_fused, got_plain)}
+        # the plain module as a caller without a graph runs it (under
+        # inference_mode) and with autograd on (what load_estimator's apply
+        # does alone: nothing requires a gradient, so no graph is kept),
+        # interleaved to show the spread between readings
+        runs = {"inference_mode": [], "autograd_on": []}
+        for mode in ("inference_mode", "autograd_on", "autograd_on",
+                     "inference_mode"):
+            with torch.inference_mode(mode == "inference_mode"):
+                runs[mode].append(ips_of(lambda: plain(x), b))
+        rec["img_per_s_plain"] = float(np.mean(runs["inference_mode"]))
+        rec["img_per_s_plain_autograd_on"] = float(np.mean(
+            runs["autograd_on"]))
+        rec["img_per_s_plain_readings"] = runs
         before = counters["bottleneck"].launches
         rec["img_per_s_fused"] = ips_of(lambda: fused(x_nchw), b)
         launch_totals["bottleneck"] += (counters["bottleneck"].launches
@@ -856,50 +946,590 @@ def phase_estimator(path, transfer, counters, launch_totals):
                              "the logit tolerance")
 
 
+GAN_PARITY_MOVE = 5e-5   # bulk bar of an updated parameter (half an update)
+# float32 parity bar of two steps that differ in the generator's kernels
+# (K1/K2 sum in another order than the plain chain): losses relative to each
+# loss, Adam moments relative to the network's largest element
+GAN_TOL = 1e-4
+BF16_ULP = 2.0 ** -7      # floor of a bfloat16 comparison: two roundings
+
+
+def counted_run(fn, counters, launch_totals, want=None, what=""):
+    """Run ``fn`` with every launch count set to 0 just before it and read
+    just after; the launches join the main-path totals.  With ``want``
+    (kernel -> launches) any other count raises."""
+    for m in counters.values():
+        m.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    got = {k: m.launches for k, m in counters.items()}
+    for k in counters:
+        launch_totals[k] += got[k]
+    if want is not None and got != {k: want.get(k, 0) for k in counters}:
+        raise AssertionError(f"{what}: launches {got} != {want}")
+    return out, got
+
+
+def gan_snapshot(state, metrics):
+    """What a parity check compares after one step, on the CPU: the losses;
+    per network the updated parameters and Adam's two moments, flattened in
+    parameter order (with beta1 = 0 the first moment after one step is the
+    gradient itself, plus lr/20 of the parameter: the coupled L2); and the
+    u vectors."""
+    snap = {"losses": {k: float(v) for k, v in metrics.items()}}
+    for net in ("gen", "disc"):
+        ts = getattr(state, net)
+        named = [(k, p) for k, p in ts.module.named_parameters()
+                 if p in ts.optimizer.state]
+
+        def flat(ts_):
+            return torch.cat([t.detach().float().flatten()
+                              for t in ts_]).cpu()
+
+        snap[net] = {"names": [k for k, _ in named],
+                     "params": flat(p for _, p in named),
+                     "exp_avg": flat(ts.optimizer.state[p]["exp_avg"]
+                                     for _, p in named),
+                     "exp_avg_sq_root": flat(
+                         ts.optimizer.state[p]["exp_avg_sq"]
+                         for _, p in named).sqrt()}
+    snap["u"] = {k: v.float().cpu()
+                 for k, v in state.disc.module.state_dict().items()
+                 if k.endswith("weight_u")}
+    return snap
+
+
+def snapshot_errs(a, b):
+    """a against b: each loss's relative error, each network's moments' max
+    abs error over the network's largest element and their relative L2
+    error, the parameters' Adam sign-flip statistics, and u's max abs
+    error."""
+    rec = {"loss_rel_err": {
+        k: abs(a["losses"][k] - v) / max(abs(v), 1e-30)
+        for k, v in b["losses"].items()}}
+    for net in ("gen", "disc"):
+        if a[net]["names"] != b[net]["names"]:
+            raise AssertionError(f"{net}: parameters updated differ")
+        for key in ("exp_avg", "exp_avg_sq_root"):
+            ref = b[net][key]
+            rec[f"{net}_{key}_rel_err"] = float(
+                (a[net][key] - ref).abs().max()) / float(ref.abs().max())
+            rec[f"{net}_{key}_rel_l2"] = float(
+                (a[net][key] - ref).norm() / ref.norm())
+        diff = (a[net]["params"] - b[net]["params"]).abs()
+        rec[f"{net}_loose_share"] = float((diff > GAN_PARITY_MOVE).float()
+                                          .mean())
+        rec[f"{net}_max_move_diff"] = float(diff.max())
+    rec["u_max_abs_err"] = max(float((v - b["u"][k]).abs().max())
+                               for k, v in a["u"].items())
+    return rec
+
+
+MOMENT_KEYS = [f"{net}_{key}_rel_err" for net in ("gen", "disc")
+               for key in ("exp_avg", "exp_avg_sq_root")]
+L2_KEYS = [k.replace("_rel_err", "_rel_l2") for k in MOMENT_KEYS]
+# an input perturbation of one or two float32 roundings: the float32 floor
+# of a GAN step's agreement (float32_floor)
+ONE_ROUNDING = 2.0 ** -23
+
+
+def float32_floor(run, x, against):
+    """How far the plain float32 step moves when its images move by one or
+    two roundings (x * (1 +- 2^-23)): per moment key the larger of the two
+    errors against the unperturbed step ``against``.  Any two float32
+    computations of the step that round differently split by about this
+    much: the cUNet's gradient sums cancel (the biases before each AdaIN's
+    mean subtraction), so G's moments move by ~1e-3 of the largest at full
+    width.  ``run(images) -> snapshot``."""
+    errs = [snapshot_errs(run(x * (1 + sign * ONE_ROUNDING)), against)
+            for sign in (1, -1)]
+    return {k: max(e[k] for e in errs) for k in MOMENT_KEYS}
+
+
+def gan_states_agree(a, b, lr, tol, what, floor, extra=0.0):
+    """Two float32 GAN steps from one state: losses within rel ``tol`` (plus
+    ``extra``); Adam's moments (the gradient and the square root of its
+    square) within ``tol`` of the network's largest element plus twice the
+    step's float32 ``floor`` (plus ``extra``); updated parameters within
+    the Adam sign-flip bound (fewer than 0.5% of the elements beyond 5e-5,
+    none beyond 2.2 * lr: with beta1 = 0 an update is about lr * sign(g),
+    so an element whose gradient lies below the float noise may step either
+    way, and only the moments see a gradient of the wrong size); u within
+    1e-4.  Returns the record."""
+    rec = snapshot_errs(a, b)
+    fails = [f"{k} rel err {v}" for k, v in rec["loss_rel_err"].items()
+             if not v <= tol + extra]
+    fails += [f"{k} {rec[k]} (floor {floor[k]})" for k in MOMENT_KEYS
+              if not rec[k] <= tol + 2 * floor[k] + extra]
+    for net in ("gen", "disc"):
+        if not (rec[f"{net}_loose_share"] < 5e-3
+                and rec[f"{net}_max_move_diff"] <= 2.2 * lr + 1e-6):
+            fails.append(f"{net} parameters: {rec[f'{net}_loose_share']} "
+                         f"loose, max {rec[f'{net}_max_move_diff']}")
+    if not rec["u_max_abs_err"] <= 1e-4:
+        fails.append(f"u max abs err {rec['u_max_abs_err']}")
+    rec.update(tol=tol, extra=extra, float32_floor=floor)
+    if fails:
+        raise AssertionError(f"{what}: " + "; ".join(fails))
+    return rec
+
+
+def bf16_states_agree(cand, ref, base, base_ref, what, extra=0.0):
+    """A bfloat16 step ``cand`` held to ``ref`` no worse than the bfloat16
+    step ``base`` is to its float32 counterpart ``base_ref``: every loss
+    within twice base's error plus two bfloat16 roundings of the loss (plus
+    ``extra``), every moment's relative L2 error within twice base's plus
+    two roundings (plus ``extra``; bfloat16 moves G's most cancelling
+    gradient sums by their own size, so the largest element's error is
+    noise, the L2 over millions is not), u within twice base's error
+    plus 1e-4 (the third u update reads D's updated weights, and bfloat16
+    gradients flip the sign of some of Adam's steps).  Returns the record
+    of cand against ref, with base's errors beside it."""
+    rec, rb = snapshot_errs(cand, ref), snapshot_errs(base, base_ref)
+    fails = [f"{k} rel err {v} (bf16 plain {rb['loss_rel_err'][k]})"
+             for k, v in rec["loss_rel_err"].items()
+             if not v <= 2 * rb["loss_rel_err"][k] + BF16_ULP + extra]
+    fails += [f"{k} {rec[k]} (bf16 plain {rb[k]})" for k in L2_KEYS
+              if not rec[k] <= 2 * rb[k] + BF16_ULP + extra]
+    if not rec["u_max_abs_err"] <= 2 * rb["u_max_abs_err"] + 1e-4:
+        fails.append(f"u max abs err {rec['u_max_abs_err']} (bf16 plain "
+                     f"{rb['u_max_abs_err']})")
+    rec["extra"] = extra
+    rec["bf16_plain_vs_float32"] = {k: rb[k] for k in
+                                    ["loss_rel_err", *L2_KEYS,
+                                     "u_max_abs_err"]}
+    if fails:
+        raise AssertionError(f"{what}: " + "; ".join(fails))
+    return rec
+
+
+def route_sensitivity(plain, routed, images, rand, eps):
+    """How far the K4 route can move a float32 step: ``loss_con`` divides
+    each sample's reconstruction error by the distance between its two
+    conditions, mean_c |pred - rand| + eps, so a condition error delta
+    moves that sample's weight, and its share of G's gradient, by up to
+    (mean_c |d pred| + mean_c |d rand|) / distance.  The largest such ratio
+    over the batch, from the two estimators' conditions on these images."""
+    with torch.no_grad():
+        pred_p, rand_p = plain(images).float(), plain(rand).float()
+        pred_k, rand_k = routed(images).float(), routed(rand).float()
+    delta = ((pred_k - pred_p).abs().mean(dim=1)
+             + (rand_k - rand_p).abs().mean(dim=1))
+    dist = (pred_p - rand_p).abs().mean(dim=1) + eps
+    return float((delta / dist).max()), float(dist.min())
+
+
+def u_vectors(disc):
+    return {k: v.clone() for k, v in disc.state_dict().items()
+            if k.endswith("weight_u") and v.numel() > 1}
+
+
+def step_profile(fn, top=12):
+    """One call of ``fn`` under torch.profiler (CUPTI): the device time (the
+    union of its CUDA kernels' intervals; annotation ranges such as
+    ``Optimizer.step#Adam.step`` are not kernels), the number of kernels,
+    and the ``top`` kernel names by summed duration (ms)."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, end = 0.0, None
+    for s, e in spans:
+        if end is None or s > end:
+            busy += e - s
+            end = e
+        elif e > end:
+            busy += e - end
+            end = e
+    by_name = {}
+    for e in kernels:
+        by_name[e.name[:90]] = (by_name.get(e.name[:90], 0.0)
+                                + e.time_range.elapsed_us() / 1e3)
+    names = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return busy / 1e3, len(kernels), dict(names)
+
+
+def estimators(path, dt, route, cache):
+    """The GAN step's estimator over NCHW images, from the state-dict .pt
+    through load_estimator: ``plain`` is its differentiable apply (the module
+    forward); ``k4`` sends the forwards that run without autograd (the
+    stop-gradient conditions) through fused_resnet_eval and the one forward
+    whose gradient reaches G through the same apply.  Both routes of a
+    dtype share one loaded module, kept in ``cache``."""
+    from weather_unet_tpu_torch.cli.common import load_estimator
+    from weather_unet_tpu_torch.kernels.bottleneck import fused_resnet_eval
+
+    if (dt, route) in cache:
+        return cache[dt, route]
+    apply = load_estimator(path, dtype=dt, device="cuda")
+
+    def plain(images):
+        return apply(images.permute(0, 2, 3, 1))
+
+    fused = fused_resnet_eval(apply.model)
+
+    def k4_routed(images):
+        return plain(images) if torch.is_grad_enabled() else fused(images)
+
+    cache[dt, "plain"], cache[dt, "k4"] = plain, k4_routed
+    return cache[dt, route]
+
+
+def wall_ms(fn, n=3):
+    """Median host-clock ms of ``n`` synchronized calls, after one warm-up."""
+    fn()
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times)) * 1e3
+
+
+def phase_gan(est_path, counters, launch_totals):
+    """The GAN combined step (train/gan.py) on the card at full width: the
+    7.8 M-parameter cUNet (plain and use_pallas = K1 + K2), the SNDisc, and
+    the seeded ResNet-101 through load_estimator (plain, or its no-grad
+    forwards through K4); 224x224, batch 8, est mode (GanConfig's
+    defaults)."""
+    from weather_unet_tpu_torch.core.rng import train_generator
+    from weather_unet_tpu_torch.models import ResNet
+    from weather_unet_tpu_torch.train.gan import (
+        GanConfig, build_gan_state, make_eval_step, make_gan_step)
+
+    cfg = GanConfig()
+    b, size = cfg.batch_size, cfg.input_size
+    rng = np.random.default_rng(SEED + 6)
+
+    def batch(bb, ss, device="cuda"):
+        return torch.from_numpy(rng.uniform(-1, 1, (bb, 3, ss, ss)).astype(
+            np.float32)).to(device)
+
+    images, rand = batch(b, size), batch(b, size)
+    zeros = torch.zeros(b, dtype=torch.long, device="cuda")
+
+    # 0. the K4-routed estimator against the plain module on one batch of
+    #    8 (comparison launches: they join no main-path total)
+    est_cache = {}
+    logits = {}
+    for dt in DTYPES:
+        plain = estimators(est_path, dt, "plain", est_cache)
+        routed = estimators(est_path, dt, "k4", est_cache)
+        with torch.no_grad():
+            lp = plain(images)
+            n0 = counters["bottleneck"].launches
+            lr_ = routed(images)
+            torch.cuda.synchronize()
+            n_k4 = counters["bottleneck"].launches - n0
+        n0 = counters["bottleneck"].launches
+        routed(images)              # autograd on: the plain module
+        torch.cuda.synchronize()
+        n_k4_grad = counters["bottleneck"].launches - n0
+        logits[dt] = lp
+        ref = logits[torch.float32]
+        rec = {"phase": "gan_estimator", "dtype": DT_NAME[dt], "batch": b,
+               "k4_launches_no_grad": n_k4, "k4_launches_grad": n_k4_grad,
+               "routed_vs_plain_rel": max_err(lr_, lp) / max(
+                   1.0, float(lp.float().abs().max()))}
+        if dt == torch.float32:
+            rec["tol"] = LOGIT_TOL
+            ok = rec["routed_vs_plain_rel"] <= LOGIT_TOL
+        else:
+            scale = max(1.0, float(ref.abs().max()))
+            rec["plain_vs_float32_rel"] = max_err(lp, ref) / scale
+            rec["routed_vs_float32_rel"] = max_err(lr_, ref) / scale
+            rec["tol"] = LOGIT_TOL_BF16
+            ok = (max(rec["plain_vs_float32_rel"],
+                      rec["routed_vs_float32_rel"]) <= LOGIT_TOL_BF16
+                  and rec["routed_vs_float32_rel"]
+                  <= 2 * rec["plain_vs_float32_rel"])
+        emit(rec)
+        if not (ok and n_k4 == 29 and n_k4_grad == 0):
+            raise AssertionError(f"gan estimator {DT_NAME[dt]}: {rec}")
+
+    # 1. parity on the card, dropout 0, one combined step from one seed in
+    #    each of the eight configurations, compared in pairs below
+    def parity_step(dt, use_pallas, route, x=images, count=True):
+        cfg0 = GanConfig(dropout_rate=0.0, dtype=dt)
+        gen, disc, state = build_gan_state(cfg0, SEED, "cuda",
+                                           use_pallas=use_pallas)
+        step = make_gan_step(
+            gen, disc, estimators(est_path, dt, route, est_cache), cfg0)
+
+        def run():
+            return step(state, x, zeros, rand, zeros,
+                        train_generator(SEED, "cuda"), do_g=True)
+
+        if count:
+            want = {"adain": 6 * use_pallas, "upsample": 6 * use_pallas,
+                    "bottleneck": 58 * (route == "k4")}
+            (state, m), _ = counted_run(
+                run, counters, launch_totals, want,
+                f"gan parity {DT_NAME[dt]} use_pallas={use_pallas} "
+                f"est={route}")
+        else:
+            state, m = run()
+        return gan_snapshot(state, m)
+
+    snaps = {(dt, use_pallas, route): parity_step(dt, use_pallas, route)
+             for dt in DTYPES for use_pallas in (False, True)
+             for route in ("plain", "k4")}
+    # float32: pairs that differ in one thing -- the generator's kernels
+    # under each estimator route at GAN_TOL plus twice the float32 floor,
+    # and the route under the plain generator at that bar plus twice
+    # route_sensitivity
+    f32, bf = torch.float32, torch.bfloat16
+    floor = float32_floor(
+        lambda x: parity_step(f32, False, "plain", x, count=False), images,
+        snaps[f32, False, "plain"])
+    sens = {dt: route_sensitivity(
+        estimators(est_path, dt, "plain", est_cache),
+        estimators(est_path, dt, "k4", est_cache), images, rand,
+        cfg.con_eps) for dt in DTYPES}
+    pairs = [((f32, True, "plain"), (f32, False, "plain"), GAN_TOL),
+             ((f32, True, "k4"), (f32, False, "k4"), GAN_TOL),
+             ((f32, False, "k4"), (f32, False, "plain"), GAN_TOL)]
+    # bfloat16: the use_pallas generator against the float32 plain one under
+    # the same route, no further from it than the bfloat16 plain generator
+    # is; the route under the plain generator within that bar plus twice
+    # its bfloat16 route_sensitivity (the K4 route itself is held by its
+    # logits above)
+    pairs += [((bf, True, r), (f32, False, r), (bf, False, r))
+              for r in ("plain", "k4")]
+    pairs += [((bf, False, "k4"), (bf, False, "plain"), (bf, False, "plain"))]
+    for cand, against, tol in pairs:
+        what = (f"gan parity {DT_NAME[cand[0]]} use_pallas={cand[1]} "
+                f"est={cand[2]} against {DT_NAME[against[0]]} "
+                f"use_pallas={against[1]} est={against[2]}")
+        if cand[0] == f32:
+            extra = 2 * sens[f32][0] if cand[2] != against[2] else 0.0
+            rec = gan_states_agree(snaps[cand], snaps[against], cfg.lr, tol,
+                                   what, floor, extra)
+        else:
+            base = tol
+            extra = 2 * sens[bf][0] if cand[2] != against[2] else 0.0
+            rec = bf16_states_agree(snaps[cand], snaps[against], snaps[base],
+                                    snaps[(f32,) + base[1:]], what, extra)
+        if cand[2] != against[2]:
+            (rec["route_sensitivity"],
+             rec["min_condition_distance"]) = sens[cand[0]]
+        emit({"phase": "gan_parity", "dtype": DT_NAME[cand[0]],
+              "use_pallas": cand[1], "estimator": cand[2],
+              "against": {"dtype": DT_NAME[against[0]],
+                          "use_pallas": against[1], "estimator": against[2]},
+              "batch": b, "size": size, "losses": snaps[cand]["losses"],
+              **rec})
+    del snaps
+
+    # 2. the same step on the card against the CPU, 32x32, batch 2, a
+    #    depth-(1, 1, 1, 1) estimator
+    from weather_unet_tpu_torch.cli.common import load_estimator
+
+    small = os.path.join(os.path.dirname(est_path), "estimator_small.pt")
+    torch.save(ResNet((1, 1, 1, 1), 5, generator=torch.Generator()
+                      .manual_seed(SEED + 7)).state_dict(), small)
+    cfg_s = GanConfig(input_size=32, batch_size=2, dropout_rate=0.0)
+    xs, rs = batch(2, 32, "cpu"), batch(2, 32, "cpu")
+    def small_step(dev, x=xs, count=True):
+        apply = load_estimator(small, device=dev)
+        gen, disc, state = build_gan_state(cfg_s, SEED, dev, use_pallas=True)
+        step = make_gan_step(gen, disc,
+                             lambda im: apply(im.permute(0, 2, 3, 1)), cfg_s)
+        z = torch.zeros(2, dtype=torch.long, device=dev)
+
+        def run():
+            return step(state, x.to(dev), z, rs.to(dev), z,
+                        train_generator(SEED, dev), do_g=True)
+
+        if count:
+            want = {"adain": 6, "upsample": 6} if dev == "cuda" else {}
+            (state, m), _ = counted_run(run, counters, launch_totals, want,
+                                        f"gan small {dev}")
+        else:
+            state, m = run()
+        return gan_snapshot(state, m)
+
+    snaps = {dev: small_step(dev) for dev in ("cuda", "cpu")}
+    floor = float32_floor(lambda x: small_step("cpu", x, count=False), xs,
+                          snaps["cpu"])
+    rec = gan_states_agree(snaps["cuda"], snaps["cpu"], cfg_s.lr, GAN_TOL,
+                           "gan card vs CPU", floor)
+    emit({"phase": "gan_card_vs_cpu", "batch": 2, "size": 32, **rec})
+    del snaps
+
+    # 3. steady state at dropout 0.3: f32 and bf16 (float32 master weights),
+    #    plain and use_pallas generator, plain and K4-routed estimator
+    n_warm, n_timed = 2, 5
+    records = []
+    for dt in DTYPES:
+        for use_pallas in (False, True):
+            for route in ("plain", "k4"):
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                cfg_d = GanConfig(dtype=dt)
+                est = estimators(est_path, dt, route, est_cache)
+                gen, disc, state = build_gan_state(cfg_d, SEED, "cuda",
+                                                   use_pallas=use_pallas)
+                step = make_gan_step(gen, disc, est, cfg_d)
+                gen_rng = train_generator(SEED, "cuda")
+                per = {"adain": 6 * use_pallas, "upsample": 6 * use_pallas,
+                       "bottleneck": 58 * (route == "k4")}
+                u0 = u_vectors(disc)
+                what = (f"gan {DT_NAME[dt]} use_pallas={use_pallas} "
+                        f"est={route}")
+
+                def run(n, do_g=True):
+                    times, metrics = [], []
+                    for _ in range(n):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        _, m = step(state, images, zeros, rand, zeros,
+                                    gen_rng, do_g=do_g)
+                        torch.cuda.synchronize()
+                        times.append(time.perf_counter() - t0)
+                        metrics.append(m)
+                    return times, metrics
+
+                counted_run(lambda: run(n_warm), counters, launch_totals,
+                            {k: n_warm * v for k, v in per.items()}, what)
+                (times, metrics), _ = counted_run(
+                    lambda: run(n_timed), counters, launch_totals,
+                    {k: n_timed * v for k, v in per.items()}, what)
+                step_ms = float(np.median(times)) * 1e3
+                (_, d_only), _ = counted_run(
+                    lambda: run(1, do_g=False), counters, launch_totals,
+                    {k: v // 2 if k != "bottleneck" else v
+                     for k, v in per.items()}, what + " D only")
+                (device_ms_step, n_kernels, top), _ = counted_run(
+                    lambda: step_profile(lambda: run(1)), counters,
+                    launch_totals, per, what + " profiled")
+                steps = n_warm + n_timed + 2
+                finite = all(bool(torch.isfinite(v)) for m in metrics
+                             + d_only for v in m.values())
+                moved = all(not torch.equal(u, disc.state_dict()[k])
+                            for k, u in u0.items())
+                if not (finite and moved and state.global_step == steps
+                        and state.disc.step == steps
+                        and state.gen.step == steps - 1):
+                    raise AssertionError(
+                        f"{what}: finite {finite}, u moved {moved}, steps "
+                        f"{state.global_step}/{state.gen.step}/"
+                        f"{state.disc.step}")
+                # the estimator's share: its two stop-gradient forwards and
+                # the forward + input backward on G's output, timed apart
+                fake = gen(images, est(rand).detach(), train=True,
+                           generator=gen_rng).detach().requires_grad_()
+
+                def est_work():
+                    with torch.no_grad():
+                        est(images)
+                        est(rand)
+                    torch.autograd.grad(est(fake).sum(), fake)
+
+                est_ms, _ = counted_run(lambda: wall_ms(est_work), counters,
+                                        launch_totals)
+                rec = {"phase": "gan_step", "dtype": DT_NAME[dt],
+                       "use_pallas": use_pallas, "estimator": route,
+                       "batch": b, "size": size, "dropout": cfg_d.dropout_rate,
+                       "step_ms_median": step_ms,
+                       "step_ms_all": [t * 1e3 for t in times],
+                       "img_per_s": b / step_ms * 1e3,
+                       "peak_mem_gib": torch.cuda.max_memory_allocated()
+                       / 2 ** 30,
+                       "device_ms_one_step": device_ms_step,
+                       "device_busy_share": device_ms_step / step_ms,
+                       "device_kernels_one_step": n_kernels,
+                       "top_kernels_ms": top,
+                       "estimator_ms": est_ms,
+                       "estimator_share": est_ms / step_ms,
+                       "launches_per_step": per,
+                       "losses": {k: float(v) for k, v in metrics[-1].items()}}
+                emit(rec)
+                records.append(rec)
+                last = (gen, disc, state, est, cfg_d)
+                del step
+
+    # 4. the evaluation step once, batch 8, on the last configuration (bf16,
+    #    use_pallas, K4-routed estimator): 8 G forwards, 8 estimator forwards
+    gen, disc, state, est, cfg_d = last
+    refs = torch.eye(5, device="cuda")[torch.arange(b) % 5]
+    labels = torch.eye(5, device="cuda")[(torch.arange(b) + 1) % 5]
+    u0 = u_vectors(disc)
+    (metrics, fakes), _ = counted_run(
+        lambda: make_eval_step(gen, disc, est, cfg_d)(
+            state, images, labels, refs, train_generator(SEED, "cuda")),
+        counters, launch_totals,
+        {"adain": 3 * b, "upsample": 3 * b, "bottleneck": 29 * b},
+        "gan eval step")
+    ok = (tuple(fakes.shape) == (b, b, 3, size, size)
+          and all(bool(torch.isfinite(v)) for v in metrics.values())
+          and bool(torch.isfinite(fakes).all())
+          and all(torch.equal(u, disc.state_dict()[k])
+                  for k, u in u0.items()))
+    emit({"phase": "gan_eval", "dtype": DT_NAME[cfg_d.dtype],
+          "fakes_shape": list(fakes.shape),
+          "metrics": {k: float(v) for k, v in metrics.items()}, "ok": ok})
+    if not ok:
+        raise AssertionError("gan eval step: wrong shape, non-finite values "
+                             "or u moved")
+    return records
+
+
 def kernels_line(summary, launch_totals):
     meta = {
         "adain": ("weather_unet_tpu_torch/csrc/adain.cu",
                   "weather_unet_tpu/kernels/adain_pallas.py:74"),
         "upsample": ("weather_unet_tpu_torch/csrc/upsample.cu",
-                     "weather_unet_tpu/kernels/upsample_pallas.py:169"),
+                     "weather_unet_tpu/kernels/upsample_pallas.py:170"),
         "upconv": ("weather_unet_tpu_torch/csrc/upconv.cu",
                    "weather_unet_tpu/kernels/upconv_pallas.py:145"),
         "bottleneck": ("weather_unet_tpu_torch/csrc/bottleneck_tc.cuh",
                        "weather_unet_tpu/kernels/bottleneck_pallas.py:92"),
     }
+
+    def totals(name, dt, sites):
+        """One forward's worth of the kernel's records over ``sites``."""
+        recs = [(summary[name][dt][s], n) for s, n in sites.items()]
+
+        def total(key):
+            if any(r.get(key) is None for r, _ in recs):
+                return None
+            return sum(n * r[key] for r, n in recs)
+
+        out = {"max_abs_err": max(r["max_abs_err"] for r, _ in recs),
+               "ms": total("ms"), "launch_only_ms": total("launch_only_ms"),
+               "device_ms": total("device_ms"),
+               "cold_l2_ms": total("cold_l2_ms"),
+               "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
+               "bound_by": max(recs, key=lambda rn: rn[1] * rn[0]["bound_ms"]
+                               )[0]["bound_by"],
+               "library_ms": total("library_ms")}
+        if "gflop" in recs[0][0]:
+            out["tflops"] = total("gflop") / out["launch_only_ms"]
+            out["variant"] = {s: r["variant"]
+                              for (r, _), s in zip(recs, sites)}
+        return out
+
     entries = []
     for name, (source, replaces) in meta.items():
         per_dt = {}
         for dt in DTYPES:
-            recs = [(summary[name][dt][s], n)
-                    for s, n in MAIN_SITES[name].items()]
-
-            def total(key):
-                if any(r.get(key) is None for r, _ in recs):
-                    return None
-                return sum(n * r[key] for r, n in recs)
-
-            per_dt[DT_NAME[dt]] = {
-                "max_abs_err": max(r["max_abs_err"] for r, _ in recs),
-                "ms": total("ms"),
-                "launch_only_ms": total("launch_only_ms"),
-                "device_ms": total("device_ms"),
-                "cold_l2_ms": total("cold_l2_ms"),
-                "plain_ms": total("plain_ms"),
-                "bound_ms": total("bound_ms"),
-                "bound_by": max(recs, key=lambda rn: rn[1] * rn[0]["bound_ms"]
-                                )[0]["bound_by"],
-                "library_ms": total("library_ms")}
-            if "gflop" in recs[0][0]:
-                per_dt[DT_NAME[dt]]["tflops"] = (
-                    total("gflop") / per_dt[DT_NAME[dt]]["launch_only_ms"])
-                per_dt[DT_NAME[dt]]["variant"] = {
-                    s: r["variant"] for (r, _), s in zip(recs,
-                                                         MAIN_SITES[name])}
+            per_dt[DT_NAME[dt]] = totals(name, dt, MAIN_SITES[name])
+            if name in GAN_SITES:
+                per_dt[DT_NAME[dt]]["gan_step_forward"] = totals(
+                    name, dt, GAN_SITES[name])
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces, "launches": launch_totals[name],
                  **per_dt["bfloat16"], "dtype": "bfloat16",
-                 "sites": MAIN_SITES[name], "float32": per_dt["float32"]}
+                 "sites": MAIN_SITES[name],
+                 "gan_sites": GAN_SITES.get(name),
+                 "float32": per_dt["float32"]}
         entries.append(entry)
     emit({"kernels": entries})
 
@@ -933,6 +1563,7 @@ def main():
         make_estimator_checkpoint(est_path)
         phase_estimator(est_path, wts["use_pallas", torch.float32], counters,
                         launch_totals)
+        phase_gan(est_path, counters, launch_totals)
     for name, total in launch_totals.items():
         if total == 0:
             raise AssertionError(f"{name} kernel never ran on the main path")

@@ -194,4 +194,7 @@ def test_port_imports_no_jax():
     assert "weather_unet_tpu_torch.evaluation.transfer" in out["modules"]
     assert "weather_unet_tpu_torch.models.resnet" in out["modules"]
     assert "weather_unet_tpu_torch.kernels.bottleneck" in out["modules"]
+    assert "weather_unet_tpu_torch.train.gan" in out["modules"]
+    assert "weather_unet_tpu_torch.models.sndisc" in out["modules"]
+    assert "weather_unet_tpu_torch.ops.spectral" in out["modules"]
     assert out["bad"] == [] and out["built"] == 0

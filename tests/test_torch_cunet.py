@@ -90,7 +90,8 @@ def test_bf16_holds_to_own_f32(setup):
 def test_train_mode_and_bad_fused_conv_raise(setup):
     _, sd, x, c, _ = setup
     model = ConditionalUNet(5)
-    with pytest.raises(NotImplementedError, match="training"):
+    # train mode draws dropout masks, so it needs a generator for them
+    with pytest.raises(ValueError, match="generator"):
         model(torch.zeros(1, 3, 8, 8), torch.zeros(1, 5), train=True)
     with pytest.raises(ValueError, match="3x3"):
         model.conv_last(torch.zeros(1, 32, 4, 4), torch.zeros(1, 32, 8, 8),

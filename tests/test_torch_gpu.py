@@ -29,6 +29,8 @@ from weather_unet_tpu_torch.api import WeatherTransfer
 from weather_unet_tpu_torch.kernels import (
     adain as k1, bottleneck as k4, upconv as k3, upsample as k2)
 from weather_unet_tpu_torch.models import ConditionalUNet, ResNet
+from weather_unet_tpu_torch.train.gan import (
+    GanConfig, build_gan_state, make_gan_step)
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -6}
@@ -414,3 +416,93 @@ def test_serving_configurations_on_gpu_match_cpu(cuda):
         assert [m.launches for m in (k1, k2, k3)] == [
             n + 3 * (m in counters) for n, m in zip(before, (k1, k2, k3))]
         assert float(np.abs(got - want).mean()) <= 1e-5, kw
+
+
+def gan_step_once(device, use_pallas, scale=1.0):
+    """One combined GAN step (est mode, 32x32, batch 2, dropout 0) from a
+    seeded state on ``device``, with a linear estimator head on mean-pooled
+    pixels, its images multiplied by ``scale``.  Returns (state, metrics,
+    K1 launches, K2 launches)."""
+    cfg = GanConfig(input_size=32, batch_size=2, dropout_rate=0.0)
+    _, _, state = build_gan_state(cfg, 0, device, use_pallas=use_pallas)
+    rng = np.random.default_rng(4)
+    w = torch.from_numpy(rng.standard_normal((3, 5)).astype(np.float32)
+                         ).to(device)
+    images, rand = (torch.from_numpy(rng.uniform(-1, 1, (2, 3, 32, 32))
+                                     .astype(np.float32)).to(device)
+                    for _ in range(2))
+    z = torch.zeros(2, dtype=torch.long, device=device)
+    step = make_gan_step(state.gen.module, state.disc.module,
+                         lambda x: x.mean(dim=(2, 3)) @ w, cfg)
+    n1, n2 = k1.launches, k2.launches
+    state, m = step(state, images * scale, z, rand, z,
+                    torch.Generator(device=device).manual_seed(0), do_g=True)
+    return state, m, k1.launches - n1, k2.launches - n2
+
+
+def moments(state, net):
+    """(first, square root of the second) Adam moments of one network,
+    flattened in parameter order (with beta1 = 0, after one step the first
+    is the gradient itself)."""
+    ts = getattr(state, net)
+    stepped = [p for p in ts.module.parameters() if p in ts.optimizer.state]
+    return tuple(torch.cat([ts.optimizer.state[p][key].cpu().flatten()
+                            for p in stepped]) ** power
+                 for key, power in (("exp_avg", 1.0), ("exp_avg_sq", 0.5)))
+
+
+def moment_errs(a, b):
+    """Per network and moment, max |a - b| over the largest |b|."""
+    return {(net, i): float((x - y).abs().max() / y.abs().max())
+            for net in ("gen", "disc")
+            for i, (x, y) in enumerate(zip(moments(a, net), moments(b, net)))}
+
+
+def float32_floor(device, use_pallas, b):
+    """How far the step's moments move when its images move by one or two
+    float32 roundings (scale 1 +- 2^-23), against the unperturbed step b."""
+    errs = [moment_errs(gan_step_once(device, use_pallas,
+                                      1 + sign * 2.0 ** -23)[0], b)
+            for sign in (1, -1)]
+    return {k: max(e[k] for e in errs) for k in errs[0]}
+
+
+def assert_gan_steps_agree(a, b, ma, mb, floor, lr=1e-4):
+    """Losses within rel 1e-4; Adam's moments within 1e-4 of the network's
+    largest element plus twice ``floor`` (float32_floor: the cUNet's
+    gradient sums cancel, so any two float32 computations of the step split
+    by about that much); updated parameters within the Adam sign-flip bound
+    (fewer than 0.5% of the elements beyond 5e-5, none beyond 2.2 * lr: an
+    update is about lr * sign(g), so only the moments see a gradient of the
+    wrong size); u within 1e-4."""
+    for k in mb:
+        assert abs(float(ma[k]) - float(mb[k])) <= 1e-4 * abs(float(mb[k])), k
+    for net in ("gen", "disc"):
+        pa = dict(getattr(a, net).module.named_parameters())
+        pb = dict(getattr(b, net).module.named_parameters())
+        diff = torch.cat([(pa[k].detach().cpu() - pb[k].detach().cpu())
+                          .abs().flatten() for k in pb])
+        assert float((diff > 5e-5).float().mean()) < 5e-3, net
+        assert float(diff.max()) <= 2.2 * lr + 1e-6, net
+    for k, err in moment_errs(a, b).items():
+        assert err <= 1e-4 + 2 * floor[k], (k, err, floor[k])
+    ub = b.disc.module.state_dict()
+    for k, v in a.disc.module.state_dict().items():
+        if k.endswith("weight_u"):
+            assert float((v.cpu() - ub[k].cpu()).abs().max()) <= 1e-4, k
+
+
+def test_gan_step_use_pallas_matches_plain(cuda):
+    """The step through K1 and K2 (6 launches each: 3 per G forward, 2 G
+    forwards) against the plain step, float32 with TF32 off."""
+    a, ma, n1, n2 = gan_step_once(cuda, use_pallas=True)
+    b, mb, m1, m2 = gan_step_once(cuda, use_pallas=False)
+    assert (n1, n2, m1, m2) == (6, 6, 0, 0)
+    assert_gan_steps_agree(a, b, ma, mb, float32_floor(cuda, False, b))
+
+
+def test_gan_step_on_gpu_matches_cpu(cuda):
+    a, ma, n1, n2 = gan_step_once(cuda, use_pallas=True)
+    b, mb, _, _ = gan_step_once("cpu", use_pallas=True)
+    assert (n1, n2) == (6, 6)
+    assert_gan_steps_agree(a, b, ma, mb, float32_floor("cpu", True, b))

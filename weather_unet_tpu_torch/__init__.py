@@ -1,20 +1,23 @@
-"""PyTorch/CUDA port of the weather-transfer cUNet serving path and of the
-frozen ResNet-101 estimator/classifier path.
+"""PyTorch/CUDA port of the weather-transfer cUNet serving path, the frozen
+ResNet-101 estimator/classifier path and the GAN training step.
 
 The JAX package ``weather_unet_tpu`` is the reference; this package mirrors
 its module names so each counterpart is easy to find:
 
-* ``ops``        -- AdaIN statistics, the 2x align-corners upsample, conv/pool;
+* ``ops``        -- AdaIN statistics, the 2x align-corners upsample,
+                    conv/pool, spectral norm, dropout, losses, inits;
 * ``kernels``    -- hand-written CUDA kernels for Hopper (``csrc/*.cu``) with
                     their plain PyTorch versions and launch counters;
-* ``models``     -- ``ConditionalUNet`` and ``ResNet`` (``ResNet101``) with
-                    the reference state_dict names;
+* ``models``     -- ``ConditionalUNet``, ``SNDisc`` and ``ResNet``
+                    (``ResNet101``) with the reference state_dict names;
 * ``compat``     -- reference ``.pt`` loading and JAX-variable conversion;
 * ``api``        -- ``WeatherTransfer`` (translate / translate_u8 / ...);
 * ``cli.common`` -- ``load_transfer``, ``load_estimator``;
 * ``cli.serve``  -- the request ``Batcher``;
 * ``evaluation`` -- transfer-consistency evaluation over a ``WeatherTransfer``
-                    and an estimator or classifier.
+                    and an estimator or classifier;
+* ``core``       -- train-time generators, torch Adam, train states;
+* ``train.gan``  -- the GAN combined train step and its evaluation step.
 
 The package imports ``torch`` and never ``jax`` or ``weather_unet_tpu``.
 Entry points run on CUDA unless the caller passes ``device="cpu"``; without

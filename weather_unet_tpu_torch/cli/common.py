@@ -53,6 +53,12 @@ def load_estimator(path: str, num_classes: int = 5,
     itself is ``apply.model`` (``kernels.bottleneck.fused_resnet_eval`` takes
     it).
 
+    The network is frozen (eval mode, no parameter requires a gradient), but
+    ``apply`` is differentiable with respect to ``images``, as the JAX
+    package's is: the GAN step's weather-consistency loss sends its gradient
+    through ``apply(fake)`` into the generator.  Callers that want no graph
+    run it under ``torch.no_grad()`` or ``torch.inference_mode()``.
+
     Only state dicts load.  The reference saves its estimators as
     whole-model pickles, which need torchvision to unpickle; convert such a
     file once where torchvision is installed."""
@@ -81,9 +87,8 @@ def load_estimator(path: str, num_classes: int = 5,
             f"{num_classes} was requested — pass num_classes={ncls_ckpt}")
     model = ResNet(_infer_block_counts(sd.keys(), "."), num_classes, dtype)
     model.load_state_dict(sd, strict=True)
-    model = model.to(device).eval()
+    model = model.to(device).eval().requires_grad_(False)
 
-    @torch.inference_mode()
     def apply(images):
         x = torch.as_tensor(images).to(device)
         out = model(x.permute(0, 3, 1, 2))

@@ -1,5 +1,5 @@
-"""Reference ``.pt`` loading and cUNet / ResNet weight conversion from/to the
-JAX package's Flax variable trees (numpy arrays on both sides).
+"""Reference ``.pt`` loading and cUNet / SNDisc / ResNet weight conversion
+from/to the JAX package's Flax variable trees (numpy arrays on both sides).
 
 The reference saves GAN checkpoints as ``{'inference': state_dict,
 'discriminator': state_dict, 'epoch', 'global_step'}``.  The port's modules
@@ -11,6 +11,9 @@ with ``strict=True``; the converters here only carry JAX parameters across
 * the unused ``adain{i}.emb.weight`` embedding of the reference AdaIN:
   dropped going to JAX, synthesized (N(0, 1), seeded) coming from it so a
   strict ``load_state_dict`` succeeds,
+* SNDisc spectral norm: ``weight_orig``/``weight_u``/``weight_v`` <-> the
+  params ``kernel`` and the ``'spectral'`` collection's ``u`` (``weight_v``
+  is recomputed from ``u``, as the JAX package does),
 * ResNet BatchNorm ``scale/bias/mean/var`` <-> ``weight/bias/running_mean/
   running_var`` (+ ``num_batches_tracked``, which JAX does not keep), flat
   ``layer3_22`` <-> dotted ``layer3.22`` block names, ``downsample_conv/_bn``
@@ -92,6 +95,59 @@ def cunet_state_dict_to_jax(sd) -> Dict[str, Any]:
     p["conv_last"] = {"kernel": _conv_in(sd["conv_last.weight"]),
                       "bias": _np(sd["conv_last.bias"])}
     return {"params": p}
+
+
+# ---------------------------------------------------------------- SNDisc
+
+_DISC_BLOCKS = [(f"conv{i}", f"block{i}") for i in (1, 2, 3, 4)]
+_DISC_CONVS = ((0, "conv1"), (1, "conv2"))
+
+
+def sndisc_state_dict_from_jax(variables) -> Dict[str, np.ndarray]:
+    """Flax ``SNDisc`` variables (params + spectral) -> reference state dict
+    (numpy): ``weight_orig``, ``bias``, ``weight_u`` and ``weight_v =
+    normalize(W^T u)`` per spectral-norm layer."""
+    p, s = variables["params"], variables["spectral"]
+    sd: Dict[str, np.ndarray] = {}
+
+    def emit(tkey, w, bias, u):
+        w_mat = w.reshape(w.shape[0], -1)
+        u = _np(u)
+        v = w_mat.T @ u
+        v = v / (np.linalg.norm(v) + 1e-12)
+        sd[f"{tkey}.weight_orig"] = w
+        sd[f"{tkey}.bias"] = _np(bias)
+        sd[f"{tkey}.weight_u"] = u
+        sd[f"{tkey}.weight_v"] = v.astype(w.dtype)
+
+    for tname, fname in _DISC_BLOCKS:
+        for j, cname in _DISC_CONVS:
+            blk = p[fname][cname]
+            emit(f"{tname}.{j}", _conv_out(blk["kernel"]), blk["bias"],
+                 s[fname][cname]["u"])
+    for tname, fname in (("l", "linear"), ("embed", "embed")):
+        emit(tname, _lin(p[fname]["kernel"]), p[fname]["bias"],
+             s[fname]["u"])
+    return sd
+
+
+def sndisc_state_dict_to_jax(sd) -> Dict[str, Any]:
+    """Reference (or port) ``SNDisc`` state dict -> Flax variables (params +
+    spectral, numpy)."""
+    p: Dict[str, Any] = {}
+    s: Dict[str, Any] = {}
+    for tname, fname in _DISC_BLOCKS:
+        p[fname], s[fname] = {}, {}
+        for j, cname in _DISC_CONVS:
+            p[fname][cname] = {
+                "kernel": _conv_in(sd[f"{tname}.{j}.weight_orig"]),
+                "bias": _np(sd[f"{tname}.{j}.bias"])}
+            s[fname][cname] = {"u": _np(sd[f"{tname}.{j}.weight_u"])}
+    for tname, fname in (("l", "linear"), ("embed", "embed")):
+        p[fname] = {"kernel": _lin(sd[f"{tname}.weight_orig"]),
+                    "bias": _np(sd[f"{tname}.bias"])}
+        s[fname] = {"u": _np(sd[f"{tname}.weight_u"])}
+    return {"params": p, "spectral": s}
 
 
 # ---------------------------------------------------------------- ResNet

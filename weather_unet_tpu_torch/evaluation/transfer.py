@@ -6,7 +6,8 @@
 Each takes a ``WeatherTransfer`` and a ``classify`` / ``estimate`` callable
 (``cli.common.load_estimator`` returns one) over NHWC images in [-1, 1].
 The translate + re-classify / re-estimate compute runs on the transfer's
-device; the results come back as numpy arrays.
+device, without autograd (the callables may be differentiable); the results
+come back as numpy arrays.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ def _np(t) -> np.ndarray:
     return np.asarray(t)
 
 
+@torch.no_grad()
 def class_transfer_consistency(transfer, classify: Callable,
                                batches: Iterable, num_classes: int = 5):
     """Translate every batch to each class, re-classify the outputs, and
@@ -43,6 +45,7 @@ def class_transfer_consistency(transfer, classify: Callable,
     return np.asarray(y_true), np.asarray(y_pred)
 
 
+@torch.no_grad()
 def estimator_transfer_consistency(transfer, estimate: Callable,
                                    batches: Iterable, *,
                                    sigma: Optional[np.ndarray] = None) -> Dict:
@@ -79,6 +82,7 @@ def estimator_transfer_consistency(transfer, estimate: Callable,
     return out
 
 
+@torch.no_grad()
 def classifier_accuracy(classify: Callable, batches: Iterable):
     """``(y_true, y_pred, paths)`` over labeled batches ``(images, labels)``
     or ``(images, labels, paths)``; ``paths`` is empty when never given."""
@@ -93,6 +97,7 @@ def classifier_accuracy(classify: Callable, batches: Iterable):
     return np.asarray(y_true), np.asarray(y_pred), paths
 
 
+@torch.no_grad()
 def estimator_errors(estimate: Callable, batches: Iterable, *,
                      sigma: Optional[np.ndarray] = None) -> Dict:
     """Per-column estimator-vs-ground-truth errors over ``(images, signals)``

@@ -482,7 +482,10 @@ def fused_resnet_eval(model, fuse_layers: Sequence[int] = (1, 2, 3, 4)):
     The weights are folded here, once, from ``model``'s current parameters
     and running statistics, on the device they lie on.  Returns
     ``apply(images) -> logits`` for NCHW images; it matches
-    ``model.eval()(images)``."""
+    ``model.eval()(images)``.  K4 has no backward, so ``apply`` runs under
+    ``torch.no_grad()``: its logits are ordinary tensors without a graph,
+    which a later differentiated computation may take as inputs (an
+    inference-mode tensor could not be saved for backward)."""
     dt = model.dtype
     sd = model.state_dict()
     s, t = _fold_bn_of(sd, "bn1", 1e-5)
@@ -495,7 +498,7 @@ def fused_resnet_eval(model, fuse_layers: Sequence[int] = (1, 2, 3, 4)):
                 block, dt))
     fc_w, fc_b = model.fc.weight.detach(), model.fc.bias.detach()
 
-    @torch.inference_mode()
+    @torch.no_grad()
     def apply(images):
         x = _folded_conv(images.to(dt), *stem, stride=2, padding=3)
         x = max_pool(x, window=3, stride=2, padding=1)

@@ -2,16 +2,24 @@
 weights, ``(out, in)`` linear weights) and PyTorch default init.
 
 The dense layer is ``nn.Linear`` itself: the JAX package's ``TorchDense``
-rebuilds exactly its init and ``x @ W.T + b``.
+rebuilds exactly its init and ``x @ W.T + b``.  ``SNConv`` / ``SNDense`` are
+the spectral-normalized conv and linear of the discriminator, with the
+reference's spectral-norm state_dict names.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from weather_unet_tpu_torch.kernels.upconv import upconv_block_fused
+from weather_unet_tpu_torch.ops import inits
 from weather_unet_tpu_torch.ops.convs import conv2d
+from weather_unet_tpu_torch.ops.spectral import (
+    power_iteration, spectral_normalize, weight_matrix)
 
 
 class TorchConv(nn.Conv2d):
@@ -30,24 +38,29 @@ class TorchConv(nn.Conv2d):
     skip))`` followed by the block's ReLU, all in the kernel, so the result
     is post-activation.  There the bias rides on the skip conv ``cb`` the
     kernel adds.
+
+    The weight and bias are cast to x's dtype (a no-op when they already
+    have it): float32 master weights serve a bfloat16 forward, as the JAX
+    package's ``param_dtype`` does.
     """
 
     def forward(self, x, skip=None, fused_upsample: bool = False, mod=None):
+        w = self.weight.to(x.dtype)
+        bias = None if self.bias is None else self.bias.to(x.dtype)
         if skip is None:
-            return conv2d(x, self.weight, self.bias, stride=self.stride,
+            return conv2d(x, w, bias, stride=self.stride,
                           padding=self.padding)
         cx = x.shape[1]
-        w = self.weight
         if fused_upsample:
             if (self.kernel_size != (3, 3) or self.stride != (1, 1)
                     or self.padding != (1, 1)):
                 raise ValueError("fused_upsample requires a 3x3/stride-1/"
                                  "pad-1 conv")
-            cb = conv2d(skip, w[:, cx:], self.bias, padding=1)
+            cb = conv2d(skip, w[:, cx:], bias, padding=1)
             scale, shift = mod
             return upconv_block_fused(x, w[:, :cx], cb, scale, shift,
                                       relu=True)
-        out = conv2d(x, w[:, :cx], self.bias, stride=self.stride,
+        out = conv2d(x, w[:, :cx], bias, stride=self.stride,
                      padding=self.padding)
         return out + conv2d(skip, w[:, cx:], None, stride=self.stride,
                             padding=self.padding)
@@ -103,3 +116,76 @@ class BatchNorm2d(nn.Module):
             y = (y * self.weight.float()[:, None, None]
                  + self.bias.float()[:, None, None])
         return y.to(x.dtype)
+
+
+class _SpectralNorm(nn.Module):
+    """Shared state of ``SNConv`` / ``SNDense``: the parameter
+    ``weight_orig``, ``bias``, and the float32 power-iteration buffers
+    ``weight_u`` (out,) and ``weight_v`` (in * kh * kw,) -- the names of
+    ``torch.nn.utils.spectral_norm``, so a reference discriminator state
+    dict loads with ``strict=True``.  A state dict that also carries the
+    normalized ``weight`` (the JAX package's ``sndisc_to_torch`` writes it)
+    loads too: the key is dropped, as torch's spectral-norm load hook does.
+
+    ``weight_orig`` is normalized in float32 and cast to the input's dtype.
+    ``update_stats=True`` advances ``u`` (and stores ``v``) once; without it
+    the forward reads ``u`` and changes nothing.
+    """
+
+    def _init_sn(self, shape, gain: float, fan_in: int,
+                 generator: Optional[torch.Generator]):
+        self.weight_orig = nn.Parameter(
+            inits.xavier_uniform(gain)(shape, generator))
+        self.bias = nn.Parameter(
+            inits.torch_bias_init_for(fan_in)((shape[0],), generator))
+        u = inits.normal_unit((shape[0],), generator)
+        _, u, v = power_iteration(weight_matrix(self.weight_orig), u, False)
+        self.register_buffer("weight_u", u)
+        self.register_buffer("weight_v", v)
+
+    def normalized_weight(self, dtype, update_stats: bool) -> torch.Tensor:
+        w_bar, u, v = spectral_normalize(self.weight_orig.float(),
+                                         self.weight_u, update_stats)
+        if update_stats:
+            with torch.no_grad():
+                self.weight_u.copy_(u)
+                self.weight_v.copy_(v)
+        return w_bar.to(dtype)
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        state_dict.pop(prefix + "weight", None)
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
+
+class SNConv(_SpectralNorm):
+    """Spectral-normalized ``Conv2d`` (reference ``nets.py:26-33``),
+    xavier-uniform weight with ``gain``, PyTorch's default bias init."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
+                 stride: int = 1, padding: int = 1, gain: float = 1.0,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.stride, self.padding = stride, padding
+        self._init_sn((out_ch, in_ch, kernel_size, kernel_size), gain,
+                      in_ch * kernel_size * kernel_size, generator)
+
+    def forward(self, x, update_stats: bool = False):
+        w = self.normalized_weight(x.dtype, update_stats)
+        return conv2d(x, w, self.bias.to(x.dtype), stride=self.stride,
+                      padding=self.padding)
+
+
+class SNDense(_SpectralNorm):
+    """Spectral-normalized ``Linear`` (reference ``disc.py:21-25``),
+    xavier-uniform weight with ``gain``, PyTorch's default bias init."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 gain: float = 1.0,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self._init_sn((out_features, in_features), gain, in_features,
+                      generator)
+
+    def forward(self, x, update_stats: bool = False):
+        w = self.normalized_weight(x.dtype, update_stats)
+        return F.linear(x, w, self.bias.to(x.dtype))

@@ -1,11 +1,11 @@
-"""Conditional U-Net generator, eval forward -- the port of
+"""Conditional U-Net generator -- the port of
 ``weather_unet_tpu/models/cunet.py`` (reference ``cunet.py``).
 
 * encoder: 4 x ``RDoubleConv`` (conv3x3+ReLU x2) at 3->64->128->256->512 with
   2x2 max-pool between stages,
 * each decoder stage: AdaIN conditioned on the weather vector, bilinear 2x
-  upsample (align_corners=True), skip-concat in ``[x, skip]`` order, then
-  ``RDoubleConv``,
+  upsample (align_corners=True), dropout (train mode only), skip-concat in
+  ``[x, skip]`` order, then ``RDoubleConv``,
 * 1x1 conv to 3 channels + tanh.
 
 Modules run NCHW; parameter names are the reference state_dict's
@@ -15,6 +15,8 @@ Modules run NCHW; parameter names are the reference state_dict's
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -22,7 +24,9 @@ import torch.nn.functional as F
 from weather_unet_tpu_torch.kernels.adain import adain_fused
 from weather_unet_tpu_torch.kernels.upsample import upsample2x_fused
 from weather_unet_tpu_torch.models.common import TorchConv
+from weather_unet_tpu_torch.ops import inits
 from weather_unet_tpu_torch.ops.convs import max_pool_2x2
+from weather_unet_tpu_torch.ops.dropout import make_dropout
 from weather_unet_tpu_torch.ops.norm import adain, adain_scale_shift
 from weather_unet_tpu_torch.ops.resize import upsample_bilinear_align_corners
 
@@ -51,7 +55,8 @@ class AdaINBlock(nn.Module):
     """AdaIN conditioned on the weather vector: ``Linear(num_classes ->
     C*4)`` then the reference statistics (``ops/norm.py``).  ``emb`` is the
     reference's ``nn.Embedding(num_classes, num_classes)``, never used in its
-    forward, kept so the state_dict matches."""
+    forward, kept so the state_dict matches.  The projection runs in the
+    condition's dtype (its weights are cast to it)."""
 
     def __init__(self, num_classes: int, channels: int, eps: float = 1e-5,
                  use_pallas: bool = False):
@@ -62,7 +67,7 @@ class AdaINBlock(nn.Module):
         self.emb = nn.Embedding(num_classes, num_classes)
 
     def forward(self, x, c, return_scale_shift: bool = False):
-        y = self.l1(c)
+        y = F.linear(c, self.l1.weight.to(c.dtype), self.l1.bias.to(c.dtype))
         if return_scale_shift:
             # factored form for the fused upsample+conv kernel
             return adain_scale_shift(x, y, self.eps)
@@ -83,14 +88,25 @@ class ConditionalUNet(nn.Module):
     ``fuse_upconv`` routes decoder entries through the K3 kernel
     (``kernels/upconv.py``), which contains both: ``True`` fuses every
     level, a tuple of level indices (3 = coarsest .. 1 = finest) a subset.
-    The names follow the JAX package.  ``dtype`` is the parameter and
-    compute dtype.
-    ``dropout_rate`` is the training-time dropout (identity in eval).
+    The names follow the JAX package.  In train mode the fused entries are
+    off, as in the JAX package: dropout sits between the upsample and the
+    conv, so K3 serves eval forwards only.
+
+    ``dtype`` is the compute dtype, ``param_dtype`` the parameters' (``dtype``
+    by default, as serving runs; training passes float32, so a bfloat16 model
+    trains on float32 master weights cast to bfloat16 as each layer runs,
+    like the JAX package's ``param_dtype``).  ``dropout_rate`` is the
+    training-time dropout (``ops/dropout.py::make_dropout``).
+    ``generator`` seeds the init (PyTorch's default distributions, drawn
+    with ``ops/inits.py``); without it the layers keep their default init
+    from the global generator.
     """
 
     def __init__(self, num_classes: int = 5, dropout_rate: float = 0.3,
                  dtype: torch.dtype = torch.float32, use_pallas: bool = False,
-                 fuse_upconv=False):
+                 fuse_upconv=False,
+                 param_dtype: Optional[torch.dtype] = None,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         self.num_classes = num_classes
         self.dropout_rate = dropout_rate
@@ -110,15 +126,33 @@ class ConditionalUNet(nn.Module):
         self.adain2 = AdaINBlock(num_classes, 256, use_pallas=use_pallas)
         self.adain1 = AdaINBlock(num_classes, 128, use_pallas=use_pallas)
         self.conv_last = TorchConv(64, 3, 1, padding=0)
-        self.to(dtype)
+        if generator is not None:
+            self._init_from(generator)
+        self.to(dtype if param_dtype is None else param_dtype)
 
-    def forward(self, x, c, *, train: bool = False):
+    @torch.no_grad()
+    def _init_from(self, generator: torch.Generator):
+        for m in self.modules():
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
+                fan_in = m.weight[0].numel()
+                m.weight.copy_(inits.torch_kernel_init(m.weight.shape,
+                                                       generator))
+                m.bias.copy_(inits.torch_bias_init_for(fan_in)(
+                    m.bias.shape, generator))
+            elif isinstance(m, nn.Embedding):
+                m.weight.normal_(0.0, 1.0, generator=generator)
+
+    def forward(self, x, c, *, train: bool = False,
+                generator: Optional[torch.Generator] = None):
         """x: images (B, 3, H, W) in [-1, 1]; c: conditions (B, num_classes).
-        Returns (B, 3, H, W) in ``dtype``."""
-        if train:
-            raise NotImplementedError(
-                "train=True (dropout between upsample and conv) comes with "
-                "the port's training slice")
+        ``train`` turns on dropout after each decoder upsample, its masks
+        drawn from ``generator`` (required when ``dropout_rate > 0``; a
+        generator on x's device).  Returns (B, 3, H, W) in ``dtype``."""
+        if train and self.dropout_rate > 0 and generator is None:
+            raise ValueError("train=True with dropout needs a generator for "
+                             "the masks (core/rng.py::train_generator)")
+        drop = make_dropout(self.dropout_rate, not train)
+        fuse_levels = () if train else self.fuse_levels
         x = x.to(self.dtype)
         c = c.to(self.dtype)
         conv1 = self.dconv_down1(x)
@@ -128,11 +162,11 @@ class ConditionalUNet(nn.Module):
         for idx, skip in ((3, conv3), (2, conv2), (1, conv1)):
             blk = getattr(self, f"adain{idx}")
             up = getattr(self, f"dconv_up{idx}")
-            if idx in self.fuse_levels:
+            if idx in fuse_levels:
                 mod = blk(h, c, return_scale_shift=True)
                 h = up(h, skip=skip, fused_upsample=True, mod=mod)
             else:
                 upsample = (upsample2x_fused if self.use_pallas
                             else upsample_bilinear_align_corners)
-                h = up(upsample(blk(h, c)), skip=skip)
+                h = up(drop(upsample(blk(h, c)), generator), skip=skip)
         return torch.tanh(self.conv_last(h))

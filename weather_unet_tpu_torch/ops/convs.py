@@ -23,3 +23,14 @@ def max_pool(x: torch.Tensor, window: int, stride: int, padding: int = 0):
     """General max pool, floor mode; the padding counts as -inf (ResNet's
     3x3/2 pool with padding 1)."""
     return F.max_pool2d(x, kernel_size=window, stride=stride, padding=padding)
+
+
+def global_sum_pool(x: torch.Tensor):
+    """Sum over the spatial dims: (B, C, H, W) -> (B, C)."""
+    return x.sum(dim=(2, 3))
+
+
+def global_avg_pool(x: torch.Tensor):
+    """Mean over the spatial dims: (B, C, H, W) -> (B, C)
+    (``nn.AdaptiveAvgPool2d(1)``, flattened)."""
+    return x.mean(dim=(2, 3))

@@ -1,0 +1,76 @@
+"""Dropout from 16-bit random words -- the port of
+``weather_unet_tpu/ops/dropout.py``'s ``bits_dropout`` and ``make_dropout``.
+
+``bits_dropout`` keeps an element when its 16-bit random word is below
+``thresh = round((1 - rate) * 65536)``: the keep probability is quantized to
+1/65536 steps (rate 0.3 keeps 45875/65536), and kept values are scaled by
+``65536 / thresh`` in x's dtype, so in float32 E[output] == x.  Words are
+drawn as int16 in [-32768, 32768) and compared with ``thresh - 32768``: the
+same rule on a tensor of half the bytes of int32 words.
+
+Masks carry no cross-framework parity duty (the reference's ``nn.Dropout``;
+parity runs at rate 0), so the random stream differs from JAX's; the keep
+rule and the scale do not.  ``packed_dropout`` (8-bit lanes, rejected as a
+default in the JAX package) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Callable, Optional
+
+import torch
+
+_VALID = ("bits16", "torch")
+
+
+def _bernoulli_dropout(x: torch.Tensor, rate: float,
+                       generator: Optional[torch.Generator]) -> torch.Tensor:
+    """``nn.Dropout``'s rule: keep with probability ``1 - rate`` (a float32
+    uniform draw), scale kept values by ``1 / (1 - rate)``."""
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+
+
+def bits_dropout(x: torch.Tensor, rate: float,
+                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Inverted dropout from 16-bit random words (module docstring).  Falls
+    back to the Bernoulli rule when a 16-bit threshold cannot express the
+    rate."""
+    if rate <= 0.0:
+        return x
+    thresh = round((1.0 - rate) * 65536.0)
+    if not 0 < thresh < 65536:
+        return _bernoulli_dropout(x, rate, generator)
+    words = torch.randint(-32768, 32768, x.shape, generator=generator,
+                          device=x.device, dtype=torch.int16)
+    mask = words < thresh - 32768
+    scale = torch.tensor(65536.0 / thresh, dtype=x.dtype, device=x.device)
+    return torch.where(mask, x * scale, torch.zeros((), dtype=x.dtype,
+                                                    device=x.device))
+
+
+def default_impl() -> str:
+    """``WUT_DROPOUT``: ``bits16`` (default) or ``torch`` (the Bernoulli
+    rule of ``nn.Dropout``); anything else raises, since a typo falling
+    through to the default would draw another mask stream than asked."""
+    impl = os.environ.get("WUT_DROPOUT", "bits16")
+    if impl not in _VALID:
+        raise ValueError(f"WUT_DROPOUT={impl!r}: expected 'bits16' or "
+                         f"'torch'")
+    return impl
+
+
+def make_dropout(rate: float, deterministic: bool) -> Callable:
+    """The default dropout as ``drop(x, generator) -> Tensor``: the identity
+    when ``deterministic`` or ``rate == 0``, else ``bits_dropout`` or, with
+    ``WUT_DROPOUT=torch``, the Bernoulli rule."""
+    impl = default_impl()
+    if deterministic or rate == 0.0:
+        return lambda x, generator=None: x
+    if impl == "torch":
+        return lambda x, generator=None: _bernoulli_dropout(x, rate,
+                                                            generator)
+    return lambda x, generator=None: bits_dropout(x, rate, generator)
