@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port's serving, estimator and GAN training
-paths on one NVIDIA GPU.
+paths, and of its trainer and training CLI, on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the repository root, one GPU
 
@@ -129,8 +129,37 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                forwards and the forward + input backward on G's output,
                timed apart).  Then the evaluation step once at batch 8:
                finite metrics, fakes (8, 8, 3, 224, 224), u not moved.
-8. kernels  -- the summary line of every ported kernel (launches on the main
-               paths of phases 4-7; error, times and bound over one serving
+8. train    -- the trainer (train/loops.py) and the est training CLI at
+               full width, 224x224, batch 8, the seeded ResNet-101 through
+               cli/common.py::load_step_estimator (K4 route in bfloat16, the
+               module in float32).  First a line of what the host has
+               (Pillow, pandas, TensorBoard, libjpeg).  Then: the trainer's
+               first step at float32 (TF32 off), dropout 0, against
+               make_gan_step called by hand on the same batches, to phase
+               7's float32 bars; the trainer's launches a step (K1 6, K2 6,
+               K4 58 in bfloat16 and 0 in float32 a combined step, K1 and
+               K2 3 a D-only one); trainer img/s in bfloat16 and float32
+               (10 steps over an in-memory BatchLoader) beside the bare
+               step timed the same way on batches already on the card and
+               beside phase 7's, and the device busy share of 3 profiled
+               steps;
+               one async checkpoint save (blocking and total ms, file size),
+               restored bit for bit, and the export_torch bundle loaded
+               through load_transfer (strict).  Where Pillow is present, on
+               96 seeded 256x256 JPEGs: the est CLI in --image_only mode
+               (bf16, --augmentation, 4 workers, 2 epochs of 8 steps,
+               --export_torch) and, with pandas, in frame mode (one epoch,
+               evaluation every 4 steps), counting launches and the
+               trainer's own img/s windows; the loader alone (HostAugment,
+               4 workers) in img/s and whether it keeps up with the bf16
+               trainer; and the CLI in a child process stopped by SIGTERM
+               once its step-3 checkpoint lands (exit 0, a checkpoint at the
+               stop step), then relaunched in this process ("resumed
+               from", the fast-forward, a final global step of 2 epochs x
+               8).
+               Without Pillow, fit() over the in-memory loaders instead.
+9. kernels  -- the summary line of every ported kernel (launches on the main
+               paths of phases 4-8; error, times and bound over one serving
                forward's sites and, under "gan_step_forward", over one GAN
                generator (K1, K2) or estimator (K4) forward's).
 
@@ -141,9 +170,12 @@ with TF32 off for cuDNN convs and matmuls (set at the start of the run).
 
 from __future__ import annotations
 
+import contextlib
+import io
 import itertools
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -311,6 +343,7 @@ def check(name, err, ref, dtype, failures) -> float:
 
 
 def phase_env():
+    """Versions and the card; returns nvidia-smi's name and power limit."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -319,6 +352,7 @@ def phase_env():
     emit({"phase": "env", "python": sys.version.split()[0],
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0), "nvidia_smi": smi})
+    return smi
 
 
 def phase_build():
@@ -1154,28 +1188,16 @@ def step_profile(fn, top=12):
 
 
 def estimators(path, dt, route, cache):
-    """The GAN step's estimator over NCHW images, from the state-dict .pt
-    through load_estimator: ``plain`` is its differentiable apply (the module
-    forward); ``k4`` sends the forwards that run without autograd (the
+    """The GAN step's estimator over NCHW images through the package's
+    load_step_estimator with its route forced: ``plain`` is the module
+    forward; ``k4`` sends the forwards that run without autograd (the
     stop-gradient conditions) through fused_resnet_eval and the one forward
-    whose gradient reaches G through the same apply.  Both routes of a
-    dtype share one loaded module, kept in ``cache``."""
-    from weather_unet_tpu_torch.cli.common import load_estimator
-    from weather_unet_tpu_torch.kernels.bottleneck import fused_resnet_eval
+    whose gradient reaches G through the module.  Kept in ``cache``."""
+    from weather_unet_tpu_torch.cli.common import load_step_estimator
 
-    if (dt, route) in cache:
-        return cache[dt, route]
-    apply = load_estimator(path, dtype=dt, device="cuda")
-
-    def plain(images):
-        return apply(images.permute(0, 2, 3, 1))
-
-    fused = fused_resnet_eval(apply.model)
-
-    def k4_routed(images):
-        return plain(images) if torch.is_grad_enabled() else fused(images)
-
-    cache[dt, "plain"], cache[dt, "k4"] = plain, k4_routed
+    if (dt, route) not in cache:
+        cache[dt, route] = load_step_estimator(path, dtype=dt, device="cuda",
+                                               route=route)
     return cache[dt, route]
 
 
@@ -1481,6 +1503,428 @@ def phase_gan(est_path, counters, launch_totals):
     return records
 
 
+TRAIN_STEPS = 10          # timed trainer steps per dtype
+PROFILED_STEPS = 3        # trainer steps under torch.profiler
+N_JPEGS = 96              # synthetic 256x256 JPEGs for the CLI runs
+
+
+def host_packages():
+    """What the host offers the data path: Pillow, pandas and TensorBoard
+    (version, or None), and libjpeg's header and library (the JAX package's
+    native decode runtime needs them; the port's decode is Pillow's)."""
+    import ctypes.util
+    import importlib
+
+    out = {}
+    for mod in ("PIL", "pandas", "tensorboard"):
+        try:
+            out[mod.lower()] = importlib.import_module(mod).__version__
+        except ImportError:
+            out[mod.lower()] = None
+    out["jpeglib_h"] = any(os.path.exists(os.path.join(d, "jpeglib.h"))
+                           for d in ("/usr/include", "/usr/local/include"))
+    out["libjpeg"] = ctypes.util.find_library("jpeg")
+    return out
+
+
+def write_jpegs(root, n, size=256):
+    """``n`` seeded smooth-plus-noise RGB JPEGs of size x size; their
+    paths."""
+    from PIL import Image
+
+    rng = np.random.default_rng(SEED + 9)
+    yy, xx = np.mgrid[:size, :size]
+    paths = []
+    for i in range(n):
+        base = rng.uniform(0, 255, 3) * (0.5 + 0.5 * np.sin(
+            xx[..., None] / rng.uniform(8, 40)
+            + yy[..., None] / rng.uniform(8, 40)))
+        img = np.clip(base + rng.normal(0, 12, base.shape), 0, 255)
+        paths.append(os.path.join(root, f"{i:03d}.jpg"))
+        Image.fromarray(img.astype(np.uint8)).save(paths[-1], quality=90)
+    return paths
+
+
+def state_equal(a, b):
+    """Two GAN states hold bit-equal networks, Adam states and counters."""
+    for net in ("gen", "disc"):
+        ta, tb = getattr(a, net), getattr(b, net)
+        sa, sb = ta.module.state_dict(), tb.module.state_dict()
+        oa = ta.optimizer.state_dict()["state"]
+        ob = tb.optimizer.state_dict()["state"]
+        if (sa.keys() != sb.keys() or oa.keys() != ob.keys()
+                or ta.step != tb.step
+                or not all(torch.equal(v, sb[k]) for k, v in sa.items())
+                or not all(torch.equal(v, ob[i][k]) for i in oa
+                           for k, v in oa[i].items())):
+            return False
+    return (a.epoch, a.global_step) == (b.epoch, b.global_step)
+
+
+def train_cli(argv, eval_every, windows):
+    """``cli/train_transfer_est.py::main(argv)`` in this process with the
+    trainer's checkpoint/evaluation cadence at ``eval_every`` steps and its
+    summary window at 4; each window's ``perf/images_per_sec`` is appended
+    to ``windows``."""
+    from weather_unet_tpu_torch.cli.train_transfer_est import main
+    from weather_unet_tpu_torch.train.loops import WeatherTransferTrainer as T
+
+    saved = (T.EVAL_PER_STEP, T.DISPLAY_PER_STEP, T.update_summary)
+
+    def update_summary(self):
+        saved[2](self)
+        windows.append(self.scalar_dict.get("perf/images_per_sec"))
+
+    T.EVAL_PER_STEP, T.DISPLAY_PER_STEP, T.update_summary = (
+        eval_every, 4, update_summary)
+    try:
+        main(argv)
+    finally:
+        T.EVAL_PER_STEP, T.DISPLAY_PER_STEP, T.update_summary = saved
+
+
+# the CLI in a child process, its cadence checkpoint every 3 steps so that
+# the parent can send SIGTERM once training is under way
+PREEMPT_CHILD = ("import sys\n"
+                 "from weather_unet_tpu_torch.train.loops import "
+                 "WeatherTransferTrainer\n"
+                 "WeatherTransferTrainer.EVAL_PER_STEP = 3\n"
+                 "from weather_unet_tpu_torch.cli.train_transfer_est import "
+                 "main\n"
+                 "main(sys.argv[1:])\n")
+
+
+def run_child(argv, stop_when, timeout=240):
+    """Run the CLI in a child process and send it SIGTERM once the file
+    ``stop_when`` exists.  Returns (exit code, output, seconds).  The child
+    never outlives the call."""
+    import signal
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-c", PREEMPT_CHILD, *argv],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    try:
+        while (proc.poll() is None and not os.path.exists(stop_when)
+               and time.perf_counter() - t0 < timeout):
+            time.sleep(0.02)
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return proc.returncode, out, time.perf_counter() - t0
+
+
+def phase_train(est_path, counters, launch_totals, gan_records, smi):
+    """The trainer loop (train/loops.py) on the card at full width, 224x224,
+    batch 8: trainer = hand step (f32, dropout 0), launches per trainer
+    step, trainer img/s in bf16 and f32 beside the bare step's, the device
+    busy share, a checkpoint round trip and the reference export; then, on
+    seeded JPEGs, the est CLI (--image_only, bf16, --augmentation, 4
+    workers, 2 epochs; and the frame mode where pandas is present), the
+    loader alone, and SIGTERM -> checkpoint -> resume in a child process."""
+    from weather_unet_tpu_torch.cli.common import (
+        load_step_estimator, load_transfer)
+    from weather_unet_tpu_torch.core.rng import fold_seed
+    from weather_unet_tpu_torch.data.datasets import ImagePathDataset
+    from weather_unet_tpu_torch.data.pipeline import BatchLoader
+    from weather_unet_tpu_torch.data.transforms import (
+        HostAugment, normalize_batch)
+    from weather_unet_tpu_torch.train import checkpoint as ckpt
+    from weather_unet_tpu_torch.train.gan import (
+        GanConfig, build_gan_state, make_gan_step)
+    from weather_unet_tpu_torch.train.loops import WeatherTransferTrainer
+
+    t_phase = time.perf_counter()
+    host = host_packages()
+    emit({"phase": "train_host", **host,
+          "note": None if host["pil"] else
+          "no Pillow: the JPEG path is held on the CPU by the tests only"})
+    f32, bf = torch.float32, torch.bfloat16
+    b, size = 8, 224
+    rng = np.random.default_rng(SEED + 8)
+    # FlickrDataset's tuple layout, no decode and no transform
+    mem = [(rng.integers(0, 256, (size, size, 3), np.uint8),
+            np.zeros(5, np.float32), str(i))
+           for i in range(2 * TRAIN_STEPS * b)]
+
+    def loaders(n):
+        """A content and a random loader of ``n`` batches each, over
+        disjoint images: an image paired with itself puts its two
+        conditions at distance 0, where loss_con divides by eps alone."""
+        return (BatchLoader(mem[:n * b], b, shuffle=True, num_workers=4),
+                BatchLoader(mem[-n * b:], b, shuffle=True, seed=1,
+                            num_workers=4))
+
+    ests = {dt: load_step_estimator(est_path, dtype=dt, device="cuda")
+            for dt in (f32, bf)}
+    per = {f32: {"adain": 6, "upsample": 6},
+           bf: {"adain": 6, "upsample": 6, "bottleneck": 58}}
+    rec = {"phase": "train", "card": smi, "batch": b, "size": size}
+    with tempfile.TemporaryDirectory() as tmp:
+        def trainer(dt, name, **kw):
+            return WeatherTransferTrainer(
+                GanConfig(input_size=size, batch_size=b, dtype=dt, **kw),
+                ests[dt],
+                save_dir=os.path.join(tmp, "cp"), name=name,
+                log_dir=os.path.join(tmp, "runs"), device="cuda")
+
+        # 1. trainer = step: one combined step, f32 (TF32 off), dropout 0
+        tr = trainer(f32, "parity", dropout_rate=0.0)
+        counted_run(lambda: tr.train_epoch(*loaders(1)), counters,
+                    launch_totals, per[f32], "trainer f32 step")
+        got = gan_snapshot(tr.state, tr._last_metrics)
+        x_u8, r_u8 = (next(iter(ld))[0] for ld in loaders(1))
+        images = normalize_batch(torch.from_numpy(x_u8).cuda())
+        rand = normalize_batch(torch.from_numpy(r_u8).cuda())
+        zeros = torch.zeros(b, dtype=torch.long, device="cuda")
+
+        def hand(x):
+            cfg0 = GanConfig(input_size=size, batch_size=b, dropout_rate=0.0)
+            gen, disc, state = build_gan_state(cfg0, 0, "cuda",
+                                               use_pallas=True)
+            g = torch.Generator("cuda").manual_seed(fold_seed(1, 1))
+            state, m = make_gan_step(gen, disc, ests[f32], cfg0)(
+                state, x, zeros, rand, zeros, g, do_g=True)
+            return gan_snapshot(state, m)
+
+        want = hand(images)
+        floor = float32_floor(hand, images, want)
+        # the card's own run-to-run split of the same step, for reference
+        again = snapshot_errs(hand(images), want)
+        rec["hand_step_twice"] = {k: again[k] for k in (
+            "gen_loose_share", "gen_exp_avg_rel_err", "u_max_abs_err")}
+        rec["trainer_vs_step"] = gan_states_agree(
+            got, want, GanConfig().lr, GAN_TOL, "trainer vs hand step",
+            floor)
+        del tr, got, want
+
+        # 2. throughput and launches a step, bf16 (K4 route) and f32
+        for dt in (bf, f32):
+            tr = trainer(dt, f"speed_{DT_NAME[dt]}")
+            counted_run(lambda: tr.train_epoch(*loaders(2)), counters,
+                        launch_totals, {k: 2 * v for k, v in per[dt].items()},
+                        f"trainer {DT_NAME[dt]} warm-up")
+            t0 = time.perf_counter()
+            counted_run(lambda: tr.train_epoch(*loaders(TRAIN_STEPS)),
+                        counters, launch_totals,
+                        {k: TRAIN_STEPS * v for k, v in per[dt].items()},
+                        f"trainer {DT_NAME[dt]}")
+            step_ms = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
+            # the bare step timed the same way (host clock around the same
+            # number of unsynchronized steps) on two batches already
+            # normalized on the card: no loader, prefetch or normalize
+            bare_step = make_gan_step(tr.gen, tr.disc, ests[dt], tr.cfg)
+            x, r = (normalize_batch(torch.from_numpy(np.stack(
+                [m[0] for m in part])).cuda()) for part in (mem[:b],
+                                                             mem[-b:]))
+            z = torch.zeros(b, dtype=torch.long, device="cuda")
+            g = torch.Generator("cuda")
+
+            def bare_steps():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for i in range(TRAIN_STEPS):
+                    g.manual_seed(i)
+                    bare_step(tr.state, x, z, r, z, g, do_g=True)
+                torch.cuda.synchronize()
+                return (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
+
+            bare_ms, _ = counted_run(
+                bare_steps, counters, launch_totals,
+                {k: TRAIN_STEPS * v for k, v in per[dt].items()},
+                f"bare {DT_NAME[dt]} steps")
+            (busy_ms, n_kernels, _), _ = counted_run(
+                lambda: step_profile(
+                    lambda: tr.train_epoch(*loaders(PROFILED_STEPS))),
+                counters, launch_totals,
+                {k: PROFILED_STEPS * v for k, v in per[dt].items()},
+                f"trainer {DT_NAME[dt]} profiled")
+            bare = [r for r in gan_records if r["dtype"] == DT_NAME[dt]
+                    and r["use_pallas"] and r["estimator"]
+                    == ("k4" if dt == bf else "plain")][0]
+            rec[DT_NAME[dt]] = {
+                "trainer_step_ms": step_ms,
+                "trainer_img_per_s": b / step_ms * 1e3,
+                "bare_step_same_window_ms": bare_ms,
+                "bare_step_same_window_img_per_s": b / bare_ms * 1e3,
+                "phase_gan_bare_step_img_per_s": bare["img_per_s"],
+                "device_ms_per_step": busy_ms / PROFILED_STEPS,
+                "device_busy_share": busy_ms / PROFILED_STEPS / step_ms,
+                "kernels_per_step": n_kernels / PROFILED_STEPS,
+                "launches_per_step": per[dt]}
+            if dt == bf:
+                last = tr
+            else:
+                del tr
+        # a D-only step between two combined ones (GD_train_ratio 2)
+        tr2 = trainer(bf, "d_only", gd_train_ratio=2)
+        d_only = {"adain": 3, "upsample": 3, "bottleneck": 58}
+        counted_run(lambda: tr2.train_epoch(*loaders(2)), counters,
+                    launch_totals,
+                    {k: v + d_only[k] for k, v in per[bf].items()},
+                    "trainer bf16 D-only + combined")
+        del tr2
+
+        # 3. checkpoint: async save of the bf16 trainer, round trip, export
+        tree = ckpt.gan_tree(last.state, last.seed)
+        torch.cuda.synchronize()
+        saver = ckpt.AsyncCheckpointer()
+        t0 = time.perf_counter()
+        saver.save(tmp, "round_trip", last.state.global_step, tree)
+        t1 = time.perf_counter()
+        path = saver.wait()
+        t2 = time.perf_counter()
+        saver.close()
+        _, _, fresh = build_gan_state(
+            GanConfig(input_size=size, batch_size=b, dtype=bf), SEED + 1,
+            "cuda", use_pallas=True)
+        ckpt.restore_checkpoint(path, fresh)
+        export = os.path.join(tmp, "export.pt")
+        ckpt.export_torch_gan(export, last.gen, last.disc, last.state.epoch,
+                              last.state.global_step)
+        loaded = load_transfer(export, device="cuda").state_dict()
+        exported = all(torch.equal(v, loaded[k])
+                       for k, v in last.gen.state_dict().items())
+        rec["checkpoint"] = {
+            "blocking_ms": (t1 - t0) * 1e3, "total_ms": (t2 - t0) * 1e3,
+            "file_mib": os.path.getsize(path) / 2 ** 20,
+            "restored_bit_equal": state_equal(fresh, last.state),
+            "export_loads_strict": exported}
+        if not (rec["checkpoint"]["restored_bit_equal"] and exported):
+            raise AssertionError(f"checkpoint round trip: {rec['checkpoint']}")
+        del last, fresh, tree, loaded
+
+        if not host["pil"]:
+            # no JPEG decode here: fit() over the in-memory loaders
+            tr = trainer(bf, "fit", num_epoch=2)
+            counted_run(lambda: tr.fit(lambda: loaders(2)[0],
+                                       lambda: loaders(2)[1]),
+                        counters, launch_totals,
+                        {k: 4 * v for k, v in per[bf].items()}, "fit")
+            rec["seconds"] = time.perf_counter() - t_phase
+            emit(rec)
+            return
+
+        # 4. the est CLI on seeded JPEGs: --image_only (70% of them train:
+        #    67 images, 8 steps an epoch), 2 epochs, bf16, --augmentation,
+        #    4 workers
+        spe = int(N_JPEGS * 0.7) // b
+        jpegs = os.path.join(tmp, "jpegs")
+        os.makedirs(jpegs)
+        paths = write_jpegs(jpegs, N_JPEGS)
+        common = ["--estimator_path", est_path, "--image_root", jpegs,
+                  "--device", "cuda",
+                  "--dtype", "bf16", "--augmentation", "--num_workers", "4",
+                  "--batch_size", str(b), "--input_size", str(size),
+                  "--log_dir", os.path.join(tmp, "runs")]
+        cli_dir = os.path.join(tmp, "cli")
+        windows = []
+        t0 = time.perf_counter()
+        counted_run(lambda: train_cli(
+            ["--image_only", "--num_epoch", "2", "--export_torch",
+             "--save_dir", cli_dir, "--name", "image_only"] + common, 8,
+            windows), counters, launch_totals,
+            {k: 2 * spe * v for k, v in per[bf].items()},
+            "est CLI image_only")
+        cli_s = time.perf_counter() - t0
+        final = torch.load(ckpt.latest_checkpoint(cli_dir, "image_only"),
+                           weights_only=True)["global_step"]
+        rec["cli_image_only"] = {
+            "seconds": cli_s, "steps": final,
+            "window_img_per_s": windows,
+            "files": sorted(os.listdir(os.path.join(cli_dir, "image_only")))}
+        if final != 2 * spe:
+            raise AssertionError(f"est CLI image_only ended at step {final}")
+
+        # the frame mode: 2/3 train rows (64: 8 steps), the rest test rows
+        #    (the two cached test batches), one epoch, evaluation every 4
+        #    steps
+        if host["pandas"]:
+            import pandas as pd
+
+            frame = os.path.join(tmp, "frame.pkl")
+            n_train = N_JPEGS * 2 // 3
+            sig = rng.standard_normal((N_JPEGS, 5)) * 3 + 10
+            pd.DataFrame({
+                "photo": [f"{i:03d}" for i in range(N_JPEGS)],
+                "mode": ["train"] * n_train + ["test"] * (N_JPEGS - n_train),
+                **{c: sig[:, j] for j, c in enumerate(
+                    ["clouds", "temp", "humidity", "pressure",
+                     "windspeed"])},
+                "condition2": ["Clear"] * N_JPEGS}).to_pickle(frame)
+            evals = {"adain": 3 * b, "upsample": 3 * b,
+                     "bottleneck": 29 * b}
+            windows = []
+            counted_run(lambda: train_cli(
+                ["--pkl_path", frame, "--num_epoch", "1", "--save_dir",
+                 cli_dir, "--name", "frame"] + common, 4, windows),
+                counters, launch_totals,
+                {k: n_train // b * v + n_train // b // 4 * evals[k]
+                 for k, v in per[bf].items()},
+                "est CLI frame mode")
+            rec["cli_frame"] = {"window_img_per_s": windows, "files": sorted(
+                os.listdir(os.path.join(cli_dir, "frame")))}
+
+        # 5. the loader alone: HostAugment at 4 workers, two epochs
+        aug = HostAugment(size, resized_crop=True, brightness=0.5,
+                          contrast=0.3, saturation=0.3)
+        ds = ImagePathDataset(paths[:int(N_JPEGS * 0.7)],
+                              out_size=int(size * 1.15),
+                              transform=aug)
+        t0 = time.perf_counter()
+        n = 0
+        for epoch in range(2):
+            ld = BatchLoader(ds, b, shuffle=True, num_workers=4)
+            ld.set_epoch(epoch)
+            n += sum(len(batch[0]) for batch in ld)
+        loader_ips = n / (time.perf_counter() - t0)
+        # a step takes two batches, one from each loader
+        rec["loader"] = {
+            "img_per_s": loader_ips, "workers": 4,
+            "keeps_up_with_bf16_trainer":
+                loader_ips >= 2 * rec["bfloat16"]["trainer_img_per_s"]}
+
+        # 6. SIGTERM -> checkpoint -> resume: the CLI in a child process,
+        #    stopped once its step-3 checkpoint lands, then relaunched here
+        pre_dir = os.path.join(tmp, "preempt")
+        argv = ["--image_only", "--num_epoch", "2", "--save_dir", pre_dir,
+                "--name", "p"] + common
+        rc1, out1, s1 = run_child(argv, stop_when=os.path.join(
+            pre_dir, "p", f"ckpt_s{3:010d}.pt"))
+        stop = re.search(r"checkpointing at step (\d+)", out1)
+        stop_step = int(stop.group(1)) if stop else 0
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            counted_run(lambda: train_cli(argv, 3, []), counters,
+                        launch_totals,
+                        {k: (2 * spe - stop_step) * v
+                         for k, v in per[bf].items()}, "est CLI resumed")
+        out2 = buf.getvalue()
+        final = torch.load(ckpt.latest_checkpoint(pre_dir, "p"),
+                           weights_only=True)["global_step"]
+        rec["preemption"] = {
+            "stop_step": stop_step, "final_step": final,
+            "child_exit": rc1, "child_s": s1,
+            "resumed_s": time.perf_counter() - t0}
+        # a stop on an epoch's last step resumes with nothing to skip
+        ok = (rc1 == 0 and "preemption: signal 15" in out1
+              and 0 < stop_step < 2 * spe
+              and os.path.exists(ckpt.checkpoint_path(pre_dir, "p",
+                                                      stop_step))
+              and "resumed from" in out2
+              and ("resume: fast-forwarding" in out2 or stop_step % spe == 0)
+              and final == 2 * spe)
+        if not ok:
+            print(out1[-4000:], out2[-4000:], file=sys.stderr)
+            raise AssertionError(f"preemption: {rec['preemption']}")
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+
+
 def kernels_line(summary, launch_totals):
     meta = {
         "adain": ("weather_unet_tpu_torch/csrc/adain.cu",
@@ -1546,7 +1990,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     counters = {"adain": k1, "upsample": k2, "upconv": k3, "bottleneck": k4}
 
-    phase_env()
+    smi = phase_env()
     phase_build()
     summary = phase_kernels()
 
@@ -1563,7 +2007,8 @@ def main():
         make_estimator_checkpoint(est_path)
         phase_estimator(est_path, wts["use_pallas", torch.float32], counters,
                         launch_totals)
-        phase_gan(est_path, counters, launch_totals)
+        gan_records = phase_gan(est_path, counters, launch_totals)
+        phase_train(est_path, counters, launch_totals, gan_records, smi)
     for name, total in launch_totals.items():
         if total == 0:
             raise AssertionError(f"{name} kernel never ran on the main path")

@@ -182,7 +182,9 @@ def test_port_imports_no_jax():
         "from weather_unet_tpu_torch.kernels import _build\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'triton', 'weather_unet_tpu'))\n"
-        "print(json.dumps({'modules': names, 'bad': bad, "
+        "lazy = sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('PIL', 'pandas', 'tensorboard'))\n"
+        "print(json.dumps({'modules': names, 'bad': bad, 'lazy': lazy, "
         "'built': len(_build._libs)}))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -197,4 +199,11 @@ def test_port_imports_no_jax():
     assert "weather_unet_tpu_torch.train.gan" in out["modules"]
     assert "weather_unet_tpu_torch.models.sndisc" in out["modules"]
     assert "weather_unet_tpu_torch.ops.spectral" in out["modules"]
+    for name in ("data.datasets", "data.sampler", "data.transforms",
+                 "data.pipeline", "train.metrics", "train.preemption",
+                 "train.checkpoint", "train.loops", "cli.train_transfer_est",
+                 "cli.train_transfer_cls"):
+        assert f"weather_unet_tpu_torch.{name}" in out["modules"]
     assert out["bad"] == [] and out["built"] == 0
+    # Pillow, pandas and TensorBoard load only where a function needs them
+    assert out["lazy"] == []

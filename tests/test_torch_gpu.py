@@ -506,3 +506,53 @@ def test_gan_step_on_gpu_matches_cpu(cuda):
     b, mb, _, _ = gan_step_once("cpu", use_pallas=True)
     assert (n1, n2) == (6, 6)
     assert_gan_steps_agree(a, b, ma, mb, float32_floor("cpu", True, b))
+
+
+def test_device_prefetch_delivers_the_batches(cuda):
+    """Pinned copies on a side stream, depth 2, of the selected fields: the
+    same values as the CPU pass-through; other fields stay on the host."""
+    from weather_unet_tpu_torch.data.pipeline import device_prefetch
+
+    rng = np.random.default_rng(9)
+    batches = [(rng.integers(0, 256, (4, 64, 64, 3), np.uint8),
+                rng.standard_normal((4, 5)).astype(np.float32),
+                np.asarray([f"p{i}" for i in range(4)], dtype=object))
+               for _ in range(5)]
+    host = list(device_prefetch(iter(batches), "cpu"))
+    got = list(device_prefetch(iter(batches), cuda, depth=2,
+                               device_fields=[0]))
+    assert len(got) == len(host) == 5
+    for g, h in zip(got, host):
+        assert g[0].device.type == "cuda" and g[0].dtype == torch.uint8
+        torch.testing.assert_close(g[0].cpu(), torch.from_numpy(h[0]),
+                                   rtol=0, atol=0)
+        assert g[1] is h[1] and g[2] is h[2]
+
+
+def test_trainer_steps_launch_k1_k2_k4(cuda, tmp_path):
+    """Two trainer steps in bf16 (GD_train_ratio 2: a D-only step, then a
+    combined one) through load_step_estimator's K4 route over a
+    depth-(2, 2, 2, 2) ResNet (4 identity blocks): K1 and K2 3 + 6, K4 2 x 4
+    a step (the two stop-gradient forwards)."""
+    from weather_unet_tpu_torch.cli.common import load_step_estimator
+    from weather_unet_tpu_torch.data.pipeline import BatchLoader
+    from weather_unet_tpu_torch.train.loops import WeatherTransferTrainer
+
+    est = str(tmp_path / "est.pt")
+    torch.save(ResNet((2, 2, 2, 2), 5, generator=torch.Generator()
+                      .manual_seed(3)).state_dict(), est)
+    cfg = GanConfig(input_size=32, batch_size=2, gd_train_ratio=2,
+                    dtype=torch.bfloat16, num_epoch=1)
+    tr = WeatherTransferTrainer(
+        cfg, load_step_estimator(est, dtype=torch.bfloat16, device=cuda),
+        save_dir=str(tmp_path / "cp"), log_dir=str(tmp_path / "runs"),
+        device=cuda)
+    rng = np.random.default_rng(2)
+    data = [(rng.integers(0, 256, (32, 32, 3), np.uint8), True)
+            for _ in range(4)]
+    counts = {m: m.launches for m in (k1, k2, k4)}
+    assert tr.train_epoch(BatchLoader(data, 2), BatchLoader(data, 2))
+    torch.cuda.synchronize()
+    got = {m: m.launches - n for m, n in counts.items()}
+    assert got == {k1: 9, k2: 9, k4: 16}
+    assert (tr.state.global_step, tr.state.gen.step) == (2, 1)

@@ -1,5 +1,5 @@
 """PyTorch/CUDA port of the weather-transfer cUNet serving path, the frozen
-ResNet-101 estimator/classifier path and the GAN training step.
+ResNet-101 estimator/classifier path and the GAN training path.
 
 The JAX package ``weather_unet_tpu`` is the reference; this package mirrors
 its module names so each counterpart is easy to find:
@@ -12,12 +12,19 @@ its module names so each counterpart is easy to find:
                     (``ResNet101``) with the reference state_dict names;
 * ``compat``     -- reference ``.pt`` loading and JAX-variable conversion;
 * ``api``        -- ``WeatherTransfer`` (translate / translate_u8 / ...);
-* ``cli.common`` -- ``load_transfer``, ``load_estimator``;
+* ``cli.common`` -- ``load_transfer``, ``load_estimator``,
+                    ``load_step_estimator`` and the CLIs' data helpers;
 * ``cli.serve``  -- the request ``Batcher``;
+* ``cli.train_transfer_est`` / ``cli.train_transfer_cls`` -- the GAN
+                    training CLIs;
 * ``evaluation`` -- transfer-consistency evaluation over a ``WeatherTransfer``
                     and an estimator or classifier;
 * ``core``       -- train-time generators, torch Adam, train states;
-* ``train.gan``  -- the GAN combined train step and its evaluation step.
+* ``data``       -- datasets, the imbalance sampler, loader-thread
+                    augmentation, ``BatchLoader``, the GPU prefetch;
+* ``train``      -- the GAN combined train step and its evaluation step
+                    (``gan``), the trainer loop (``loops``), checkpoints,
+                    summaries and preemption handling.
 
 The package imports ``torch`` and never ``jax`` or ``weather_unet_tpu``.
 Entry points run on CUDA unless the caller passes ``device="cpu"``; without

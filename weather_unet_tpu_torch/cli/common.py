@@ -1,14 +1,19 @@
-"""Shared CLI plumbing: checkpoint loading."""
+"""Shared CLI plumbing: checkpoint and estimator loading, image listing, the
+Flickr frame."""
 
 from __future__ import annotations
 
+import os
 import pickle
+from glob import glob
+from typing import Optional, Sequence
 
 import torch
 
 from weather_unet_tpu_torch._device import DeviceLike, resolve_device
 from weather_unet_tpu_torch.compat.torch_io import (
     _infer_block_counts, load_torch_file, strip_module_prefix)
+from weather_unet_tpu_torch.data.datasets import SIGNAL_COLUMNS, zscore_columns
 from weather_unet_tpu_torch.models import ConditionalUNet, ResNet
 
 
@@ -96,3 +101,69 @@ def load_estimator(path: str, num_classes: int = 5,
 
     apply.model = model
     return apply
+
+
+def load_step_estimator(path: str, num_classes: int = 5,
+                        dtype: torch.dtype = torch.float32,
+                        device: DeviceLike = None,
+                        route: Optional[str] = None):
+    """The frozen estimator as the GAN step takes it: ``apply(images NCHW)
+    -> (B, num_classes)``, from ``load_estimator``'s module.
+
+    Route ``"k4"``: the forwards that run without autograd (the step's
+    stop-gradient conditions) go through ``fused_resnet_eval`` (K4), the
+    forward whose gradient reaches G through the module; ``"plain"``: every
+    forward through the module.  ``None`` picks K4 in bfloat16 on CUDA and
+    the module otherwise: on an H100 in bf16 the K4 route took 82-164 ms a
+    step against 97-246 with 2076 fewer launches, while in float32 K4's
+    CUDA-core kernel adds 27-30 device ms and the step is no faster
+    (``PERF.md`` §5, NVIDIA H100 80GB HBM3, 700 W)."""
+    device = resolve_device(device)
+    if route is None:
+        route = ("k4" if device.type == "cuda" and dtype == torch.bfloat16
+                 else "plain")
+    if route not in ("k4", "plain"):
+        raise ValueError(f"route must be 'k4', 'plain' or None, not {route!r}")
+    apply = load_estimator(path, num_classes, dtype, device=device)
+
+    def plain(images):
+        return apply(images.permute(0, 2, 3, 1))
+
+    if route == "plain":
+        return plain
+    from weather_unet_tpu_torch.kernels.bottleneck import fused_resnet_eval
+
+    fused = fused_resnet_eval(apply.model)
+
+    def k4_routed(images):
+        return plain(images) if torch.is_grad_enabled() else fused(images)
+
+    return k4_routed
+
+
+def list_images(root: str) -> list:
+    exts = (".jpg", ".jpeg", ".png")
+    return sorted(p for p in glob(os.path.join(root, "*"))
+                  if p.lower().endswith(exts))
+
+
+def wrap_decode_cache(aug, cache_dir, base_size: int, paths):
+    """``--decode_cache``: the JAX package decodes each image once into a
+    memmap here (``data/cache.py``).  Not ported yet: the transform passes
+    through when ``cache_dir`` is None, and anything else raises."""
+    if cache_dir is None:
+        return aug
+    raise NotImplementedError(
+        "decode cache not yet ported (ROADMAP.md queue 1, 'Decode cache')")
+
+
+def load_flickr_frame(pkl_path: str, columns: Sequence[str] = SIGNAL_COLUMNS,
+                      stats_pkl: Optional[str] = None):
+    """Read a dataframe pickle and z-score the signal columns against
+    ``stats_pkl`` (the reference's without-outlier frame,
+    ``t_est_train.py:126-131``) or itself.  Returns (df, mean, std)."""
+    import pandas as pd
+
+    df = pd.read_pickle(pkl_path)
+    stats_df = pd.read_pickle(stats_pkl) if stats_pkl else None
+    return zscore_columns(df, columns, stats_df=stats_df)

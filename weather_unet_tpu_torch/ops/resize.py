@@ -1,4 +1,5 @@
-"""Bilinear 2x upsample with PyTorch ``align_corners=True`` semantics.
+"""Bilinear 2x upsample with PyTorch ``align_corners=True`` semantics, and
+the general bilinear resize (``resize_bilinear_torch``) in either convention.
 
 The reference U-Net upsamples with ``nn.Upsample(scale_factor=2,
 mode='bilinear', align_corners=True)``; the plain form here is that same
@@ -91,3 +92,15 @@ def upsample_bilinear_align_corners(x: torch.Tensor, scale: int = 2):
     """``(B, C, H, W) -> (B, C, scale*H, scale*W)``, align_corners=True."""
     return F.interpolate(x, scale_factor=scale, mode="bilinear",
                          align_corners=True)
+
+
+def resize_bilinear_torch(x: torch.Tensor, out_h: int, out_w: int, *,
+                          align_corners: bool = True) -> torch.Tensor:
+    """NCHW bilinear resize, ``F.interpolate`` in either convention (the JAX
+    package's ``resize_bilinear_torch`` computes the same on NHWC with the
+    dense weights of ``_interp_matrix_np``).  Returns ``x`` itself when the
+    size already matches."""
+    if tuple(x.shape[-2:]) == (out_h, out_w):
+        return x
+    return F.interpolate(x, size=(out_h, out_w), mode="bilinear",
+                         align_corners=align_corners)

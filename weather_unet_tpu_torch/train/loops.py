@@ -1,0 +1,353 @@
+"""The GAN training loop -- the port of
+``weather_unet_tpu/train/loops.py::WeatherTransferTrainer`` (reference
+``WeatherTransfer`` driver, ``t_est_train.py:59-400``): steps, data,
+checkpoints, preemption and summaries on one device.
+
+Not ported yet (``ROADMAP.md`` queue 1), and refused with the item's name
+when asked for: the on-device augment (``device_augment``), the mesh,
+tensor parallelism, the AOT step cache and profiling (``plan``,
+``tensor_parallel``, ``aot_cache``, ``profile_dir``).  The supervised loop
+(``train_supervised``) comes with queue item 5.
+"""
+
+from __future__ import annotations
+
+import itertools
+import os
+import time
+from typing import Callable, Iterable, Optional
+
+import numpy as np
+import torch
+
+from weather_unet_tpu_torch._device import DeviceLike, resolve_device
+from weather_unet_tpu_torch.core.rng import fold_seed, train_generator
+from weather_unet_tpu_torch.data.pipeline import device_prefetch
+from weather_unet_tpu_torch.data.transforms import normalize_batch
+from weather_unet_tpu_torch.train import checkpoint as ckpt
+from weather_unet_tpu_torch.train.gan import (
+    GanConfig, build_gan_state, make_eval_step, make_gan_step)
+from weather_unet_tpu_torch.train.metrics import SummaryWriter, run_comment
+from weather_unet_tpu_torch.train.preemption import GracefulShutdown
+
+MESH_ITEM = "ROADMAP.md queue 1, 'Mesh, AOT and multi-process'"
+DEVICE_AUGMENT_ITEM = "ROADMAP.md queue 1, 'Device augment'"
+
+
+def _nhwc(t: torch.Tensor) -> np.ndarray:
+    return t.detach().float().permute(0, 2, 3, 1).cpu().numpy()
+
+
+class WeatherTransferTrainer:
+    """GAN weather-transfer training (reference ``t_est_train.py`` /
+    ``t_cls_train.py`` drivers).
+
+    ``est_apply(images NCHW) -> (B, num_classes)`` is the frozen weather
+    net's raw output (signals or logits), differentiable with respect to
+    its input (``cli/common.py::load_step_estimator`` builds it).  The
+    cadences are the reference's: a checkpoint and an evaluation every
+    ``EVAL_PER_STEP`` steps, summaries every ``DISPLAY_PER_STEP``, the
+    generator updated every ``gd_train_ratio``-th step
+    (``t_est_train.py:350-399``).  On CUDA the generator's decoder runs K1
+    and K2 (``use_pallas``).  ``device`` is CUDA unless given.
+    """
+
+    EVAL_PER_STEP = 1000
+    DISPLAY_PER_STEP = 1000
+
+    def __init__(self, cfg: GanConfig, est_apply: Callable, *,
+                 save_dir: str = "cp/transfer", name: str = "cUNet",
+                 log_dir: str = "runs", device_augment: bool = False,
+                 plan=None, seed: int = 0,
+                 export_torch: bool = False,
+                 profile_dir: Optional[str] = None, nan_guard: bool = False,
+                 max_rollbacks: int = 3, aot_cache: Optional[str] = None,
+                 tensor_parallel: bool = False, device: DeviceLike = None):
+        if device_augment:
+            raise NotImplementedError(
+                f"device_augment is not ported yet ({DEVICE_AUGMENT_ITEM}); "
+                f"augmentation runs in the loader threads (HostAugment)")
+        for flag, value in (("plan", plan), ("tensor_parallel",
+                                             tensor_parallel),
+                            ("aot_cache", aot_cache),
+                            ("profile_dir", profile_dir)):
+            if value:
+                raise NotImplementedError(
+                    f"{flag} is not ported yet ({MESH_ITEM})")
+        self.cfg = cfg
+        self.name = name
+        self.save_dir = save_dir
+        self.export_torch = export_torch
+        self.seed = seed
+        self.device = resolve_device(device)
+        self.writer = SummaryWriter(log_dir, comment=run_comment(
+            cfg.lr, cfg.batch_size, cfg.num_epoch, name))
+
+        self.gen, self.disc, self.state = build_gan_state(
+            cfg, seed, self.device, use_pallas=self.device.type == "cuda")
+        self._ckpt = ckpt.AsyncCheckpointer()
+        # host-side step mirror; the last checkpointed step guards the
+        # terminal save
+        self._gstep = self._saved_step = 0
+        self._resume()
+        self._step = make_gan_step(self.gen, self.disc, est_apply, cfg)
+        self._eval = make_eval_step(self.gen, self.disc, est_apply, cfg)
+
+        # each step's dropout generator is seeded from (base, global step)
+        self._base_seed = seed + 1
+        self._step_rng = torch.Generator(device=self.device)
+        self._eval_rng = train_generator(seed + 2, self.device)
+        self.scalar_dict = {}
+        self.image_dict = {}
+        self._last_metrics = None    # device tensors, read at the summary
+        self._all_step = 0
+        self._window_t0 = None
+        self._window_steps = 0
+        self.nan_guard = nan_guard
+        self.max_rollbacks = max_rollbacks
+        self._rollbacks = 0
+
+    # ------------------------------------------------------------- state io
+    def _resume(self):
+        path = ckpt.latest_checkpoint(self.save_dir, self.name)
+        if path:
+            ckpt.restore_checkpoint(path, self.state)
+            print(f"resumed from {path} at step {self.state.global_step}",
+                  flush=True)
+            self._gstep = self._saved_step = self.state.global_step
+
+    def _save(self):
+        """Checkpoint on the checkpointer's thread (the host copy is taken
+        here); with ``export_torch`` also the reference ``.pt`` bundle."""
+        step = self.state.global_step
+        self._ckpt.save(self.save_dir, self.name, step,
+                        ckpt.gan_tree(self.state, self.seed))
+        self._saved_step = step
+        if self.export_torch:
+            out = os.path.join(
+                self.save_dir, self.name,
+                f"{self.name}_e{self.state.epoch:04d}_s{step}.pt")
+            ckpt.export_torch_gan(out, self.gen, self.disc, self.state.epoch,
+                                  step)
+
+    # ------------------------------------------------------------- training
+    def train_epoch(self, train_loader: Iterable, random_loader: Iterable,
+                    test_batches=None, labeled: bool = False,
+                    stop: Optional[GracefulShutdown] = None,
+                    skip_batches: int = 0) -> bool:
+        """One epoch over the zipped content and condition streams
+        (``t_est_train.py:362``).  Batches are ``(uint8 NHWC images,
+        cond...)`` tuples from ``BatchLoader``; ``labeled`` reads field 1 as
+        int class ids (cls mode).  ``skip_batches`` fast-forwards past
+        batches a preempted run already trained on (they are loaded, not
+        copied to the device).  Returns False when stopped by ``stop``."""
+        cfg = self.cfg
+        try:    # the lambda ramp's denominator (t_est_train.py:355)
+            self._all_step = cfg.num_epoch * len(train_loader)
+        except TypeError:
+            self._all_step = 0
+        tl_it, rl_it = iter(train_loader), iter(random_loader)
+        if skip_batches:
+            tl_it = itertools.islice(tl_it, skip_batches, None)
+            rl_it = itertools.islice(rl_it, skip_batches, None)
+        # only the images go through the prefetch; labels are B ints
+        zipped = zip(
+            device_prefetch(tl_it, self.device, device_fields=[0]),
+            device_prefetch(rl_it, self.device, device_fields=[0]))
+        zeros = torch.zeros(cfg.batch_size, dtype=torch.long,
+                            device=self.device)
+        # no device -> host read in this loop: metrics stay on the device
+        # until the summary cadence
+        for data, rand_data in zipped:
+            if stop is not None and stop.requested:
+                # preemption: persist at the step boundary and stop; resume
+                # restores this state and fit() fast-forwards the epoch
+                if self.nan_guard and self._nonfinite_metrics():
+                    # a diverged state must never become the newest
+                    # checkpoint (it would poison resume and rollback)
+                    print(f"preemption: signal {stop.signum} at step "
+                          f"{self._gstep}, but metrics are non-finite — NOT "
+                          f"checkpointing the diverged state (resume will "
+                          f"use the last good checkpoint)", flush=True)
+                    self._ckpt.wait()
+                    return False
+                print(f"preemption: signal {stop.signum} — checkpointing at "
+                      f"step {self._gstep} and stopping", flush=True)
+                self._save()
+                self._ckpt.wait()   # the grace window must see the file
+                return False
+            if data[0].shape[0] != cfg.batch_size:
+                continue
+            if labeled:
+                c_d = torch.as_tensor(data[1]).to(self.device, torch.long)
+                c_r = torch.as_tensor(rand_data[1]).to(self.device,
+                                                       torch.long)
+            else:
+                c_d = c_r = zeros
+
+            self._gstep += 1
+            gstep = self._gstep
+            do_g = gstep % cfg.gd_train_ratio == 0
+            if self._window_t0 is None:
+                self._window_t0 = time.perf_counter()
+            images = normalize_batch(data[0], cfg.input_size)
+            rand = normalize_batch(rand_data[0], cfg.input_size)
+            self._step_rng.manual_seed(fold_seed(self._base_seed, gstep))
+            self.state, metrics = self._step(
+                self.state, images, c_d, rand, c_r, self._step_rng,
+                do_g=do_g)
+            self._last_metrics = metrics
+            self._window_steps += 1
+
+            if gstep % self.EVAL_PER_STEP == 0:
+                # failure detection before the save: a diverged state must
+                # not become the newest checkpoint
+                if self._maybe_rollback():
+                    continue
+                if self.nan_guard and self._nonfinite_metrics():
+                    continue
+                self._save()
+                if test_batches is not None:
+                    self.evaluate(test_batches)
+            if gstep % self.DISPLAY_PER_STEP == 0:
+                self.update_summary()
+        self.state.epoch += 1
+        self._ckpt.wait()   # this epoch's cadence saves are on disk now
+        return True
+
+    def _nonfinite_metrics(self) -> list:
+        """Names of the non-finite entries of the latest step's metrics (one
+        device read; [] before the first step)."""
+        if self._last_metrics is None:
+            return []
+        return [k for k, v in self._last_metrics.items()
+                if not np.isfinite(float(v))]
+
+    def _maybe_rollback(self) -> bool:
+        """With ``nan_guard``, when the latest metrics are non-finite:
+        restore the newest checkpoint and go on with re-seeded dropout, so
+        the retry does not replay the diverging trajectory.  At most
+        ``max_rollbacks`` times.  The data stream is not rewound.  Returns
+        True when it rolled back."""
+        if not self.nan_guard:
+            return False
+        bad = self._nonfinite_metrics()
+        if not bad:
+            return False
+        self._ckpt.wait()   # the newest checkpoint may still be in flight
+        path = ckpt.latest_checkpoint(self.save_dir, self.name)
+        if path is None or self._rollbacks >= self.max_rollbacks:
+            print(f"WARNING: non-finite metrics {bad} at step {self._gstep} "
+                  f"and no rollback available (checkpoint={path}, "
+                  f"rollbacks={self._rollbacks}/{self.max_rollbacks})",
+                  flush=True)
+            return False
+        self._rollbacks += 1
+        ckpt.restore_checkpoint(path, self.state)
+        self._gstep = self.state.global_step
+        self._base_seed = fold_seed(self._base_seed, self._rollbacks)
+        self._last_metrics = None    # do not log the diverged values
+        self._window_t0 = None       # the window spanned the restore
+        self._window_steps = 0
+        print(f"nan_guard: non-finite metrics {bad} — rolled back to {path} "
+              f"(step {self._gstep}, retry {self._rollbacks}/"
+              f"{self.max_rollbacks}, re-seeded)", flush=True)
+        return True
+
+    def evaluate(self, test_batches):
+        """Reference ``evaluation()`` (``t_est_train.py:285-334``) on two
+        cached test batches ``((images, labels), (ref_images, ref_labels))``
+        on the device: batch 0 translated to each of batch 1's
+        conditions."""
+        (images, labels), (_, ref_labels) = test_batches
+        metrics, fakes = self._eval(self.state, images, labels, ref_labels,
+                                    self._eval_rng)
+        self.scalar_dict.update(
+            {f"losses/{k}/test": float(v) for k, v in metrics.items()})
+        self.image_dict["images/test"] = np.concatenate(
+            [_nhwc(images)] + [_nhwc(f) for f in fakes], axis=2)
+
+    def update_summary(self):
+        """The only place training metrics are read back to the host; the
+        reads wait for every step issued, so the window's wall clock is the
+        steps' throughput (``perf/images_per_sec``)."""
+        step = self._gstep
+        if self._last_metrics is not None:
+            vals = {k: float(v) for k, v in self._last_metrics.items()}
+            bad = [k for k, v in vals.items() if not np.isfinite(v)]
+            if bad:
+                print(f"WARNING: non-finite training metrics at step {step}: "
+                      f"{bad} — run may have diverged", flush=True)
+            self.scalar_dict.update(
+                {f"losses/{k}/train": v for k, v in vals.items()})
+        if self._all_step:   # the lmda ramp (t_est_train.py:254,376-379)
+            self.scalar_dict["variables/lmda"] = (
+                self.cfg.lmda if self.cfg.lmda else step / self._all_step)
+        if self._window_steps and self._window_t0 is not None:
+            dt = time.perf_counter() - self._window_t0
+            self.scalar_dict["perf/steps_per_sec"] = self._window_steps / dt
+            self.scalar_dict["perf/step_time_ms/mean"] = (
+                dt / self._window_steps * 1e3)
+            self.scalar_dict["perf/images_per_sec"] = (
+                self._window_steps * self.cfg.batch_size / dt)
+        self._window_t0 = time.perf_counter()
+        self._window_steps = 0
+        if self.scalar_dict:
+            self.writer.add_scalars(self.scalar_dict, step)
+        for tag, imgs in self.image_dict.items():
+            self.writer.add_image_grid(tag, imgs, step)
+        self.image_dict = {}
+
+    def _epoch_skip(self, tl, rl, abs_ep: int) -> int:
+        """Batches of epoch ``abs_ep`` that a resumed run already trained
+        on: with both loaders sized and ``drop_last``, an epoch is exactly
+        ``min(len(tl), len(rl))`` steps, so the position in the epoch is
+        ``global_step - abs_ep * steps_per_epoch`` and the replay
+        (``set_epoch`` fixes the order) can be fast-forwarded.  Otherwise 0:
+        the epoch replays from its start, as a relaunch under the
+        reference's auto-resume would (``t_est_train.py:151-163``)."""
+        try:
+            spe = min(len(tl), len(rl))
+        except TypeError:
+            return 0
+        if not spe or not all(getattr(ld, "drop_last", False)
+                              for ld in (tl, rl)):
+            return 0
+        skip = self._gstep - abs_ep * spe
+        # skip == spe: a save on the epoch's last step (before the epoch
+        # count moved): the whole epoch is trained, so skip all of it
+        if 0 < skip <= spe:
+            print(f"resume: fast-forwarding {skip}/{spe} batches of epoch "
+                  f"{abs_ep} (already trained before preemption)", flush=True)
+            return skip
+        return 0
+
+    def fit(self, train_loader_fn: Callable[[], Iterable],
+            random_loader_fn: Callable[[], Iterable], test_batches=None,
+            labeled: bool = False):
+        """Train from the current (resumed) epoch to ``cfg.num_epoch``, each
+        epoch on fresh loaders set to the absolute epoch, then save the
+        final state if the cadence did not."""
+        try:
+            with GracefulShutdown() as stop:
+                while self.state.epoch < self.cfg.num_epoch:
+                    tl, rl = train_loader_fn(), random_loader_fn()
+                    abs_ep = self.state.epoch
+                    for ld in (tl, rl):
+                        se = getattr(ld, "set_epoch", None)
+                        if se is not None:
+                            se(abs_ep)
+                    if not self.train_epoch(
+                            tl, rl, test_batches=test_batches,
+                            labeled=labeled, stop=stop,
+                            skip_batches=self._epoch_skip(tl, rl, abs_ep)):
+                        print("Done: training (preempted)", flush=True)
+                        return
+                # terminal save, unless the state diverged
+                if self._gstep != self._saved_step and not (
+                        self.nan_guard and self._nonfinite_metrics()):
+                    self._save()
+            print("Done: training", flush=True)
+        finally:
+            # join the write and release the worker thread
+            self._ckpt.close()
