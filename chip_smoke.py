@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port's serving, estimator and GAN training
-paths, and of its trainer and training CLI, on one NVIDIA GPU.
+paths, of its trainer and training CLI, and of its data runtime and
+supervised pretraining, on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the repository root, one GPU
 
@@ -158,8 +159,42 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                from", the fast-forward, a final global step of 2 epochs x
                8).
                Without Pillow, fit() over the in-memory loaders instead.
-9. kernels  -- the summary line of every ported kernel (launches on the main
-               paths of phases 4-8; error, times and bound over one serving
+               One bf16 trainer step with device_augment (both batches
+               warped on the card, resized crop and jitter): K1 6, K2 6,
+               K4 58, finite losses.
+9. supervised -- the native runtime (a line of what the host has: c++,
+               jpeglib.h, whether -ljpeg links, the build's mode and
+               seconds; the runtime must be built), the decode cache, the
+               device augment and supervised pretraining.  The native
+               augment against the device augment on the card, same affine
+               and factors, 257x257 -> 224x224, 8 images: max abs
+               <= 1/255 + 1e-3 (uint8 rounding); the device augment on the
+               card against the CPU with the same draws: <= 1e-5.
+               augment_batch ms at B=64.  Loader img/s alone (96 seeded
+               256x256 JPEGs, 257x257 decode, --augmentation, 4 threads):
+               HostAugment, NativeAugment, CachedAugment(NativeAugment)
+               filling (epoch 1) and reading (epoch 2, every read a hit).
+               train_supervised card vs CPU: a depth-(1, 1, 1, 1) ResNet at
+               32x32, B=4, float32, one classifier and one estimator step:
+               losses rel 1e-4, BN statistics 1e-5, parameters within the
+               Adam sign-flip bound.  The frozen backbone (--pre_trained):
+               conv1-layer3 bit-identical after 3 bf16 steps of ResNet-101.
+               Full width (ResNet-101, 5 outputs, 42.5 M parameters,
+               224x224, B=64), bf16 and float32 (TF32 off), 2 warm-up and 5
+               timed steps through train_supervised each: the estimator step
+               over in-memory batches, the NativeAugment loader and the
+               device warp (augment_cfg), the classifier step in memory;
+               step ms (host clock, synchronized after each step), img/s,
+               peak memory, and the device busy share (device time of one
+               bare in-memory step over the step ms).  The estimator CLI
+               on the JPEGs with a pandas frame (--decode_cache
+               --augmentation --dtype bf16 -bs 8, 2 epochs of 8 steps),
+               then in a child process stopped by SIGTERM after its third
+               step and relaunched here ("resumed from", the fast-forward,
+               final step 16); the classifier CLI over a class-path split
+               (2 steps).  No K1-K4 launch anywhere in the phase.
+10. kernels -- the summary line of every ported kernel (launches on the main
+               paths of phases 4-9; error, times and bound over one serving
                forward's sites and, under "gan_step_forward", over one GAN
                generator (K1, K2) or estimator (K4) forward's).
 
@@ -171,6 +206,7 @@ with TF32 off for cuDNN convs and matmuls (set at the start of the run).
 from __future__ import annotations
 
 import contextlib
+import copy
 import io
 import itertools
 import json
@@ -1510,8 +1546,9 @@ N_JPEGS = 96              # synthetic 256x256 JPEGs for the CLI runs
 
 def host_packages():
     """What the host offers the data path: Pillow, pandas and TensorBoard
-    (version, or None), and libjpeg's header and library (the JAX package's
-    native decode runtime needs them; the port's decode is Pillow's)."""
+    (version, or None), and libjpeg's header and library (the native
+    runtime's decode needs them; without them it builds augment-only and
+    Pillow decodes)."""
     import ctypes.util
     import importlib
 
@@ -1767,6 +1804,22 @@ def phase_train(est_path, counters, launch_totals, gan_records, smi):
                     {k: v + d_only[k] for k, v in per[bf].items()},
                     "trainer bf16 D-only + combined")
         del tr2
+        # the device augment: both batches warped on the card (resized
+        # crop and jitter) in place of normalize_batch; the launches a
+        # step do not change
+        tr3 = WeatherTransferTrainer(
+            GanConfig(input_size=size, batch_size=b, dtype=bf), ests[bf],
+            save_dir=os.path.join(tmp, "cp"), name="device_augment",
+            log_dir=os.path.join(tmp, "runs"), device="cuda",
+            device_augment=True, augment=True)
+        counted_run(lambda: tr3.train_epoch(*loaders(1)), counters,
+                    launch_totals, per[bf], "trainer bf16 device_augment")
+        losses = {k: float(v) for k, v in tr3._last_metrics.items()}
+        rec["device_augment_step"] = {"losses": losses,
+                                      "launches_per_step": per[bf]}
+        if not all(np.isfinite(v) for v in losses.values()):
+            raise AssertionError(f"device_augment step: {losses}")
+        del tr3
 
         # 3. checkpoint: async save of the bf16 trainer, round trip, export
         tree = ckpt.gan_tree(last.state, last.seed)
@@ -1925,6 +1978,460 @@ def phase_train(est_path, counters, launch_totals, gan_records, smi):
     emit(rec)
 
 
+SUP_BATCH = 64            # the supervised CLIs' default batch
+SUP_SIZE = 224            # and input size
+SUP_WARMUP, SUP_TIMED = 2, 5
+AUG_TOL = 1 / 255 + 1e-3  # native (uint8) vs device augment
+# the supervised CLI in a child process; the step wrapper touches the file
+# argv[1] after the third step, so that the parent sends SIGTERM while the
+# run is under way
+PREEMPT_SUP_CHILD = (
+    "import sys\n"
+    "import weather_unet_tpu_torch.train.supervised as s\n"
+    "make, mark = s.make_estimator_step, sys.argv[1]\n"
+    "def marked():\n"
+    "    step, n = make(), [0]\n"
+    "    def run(*a):\n"
+    "        out = step(*a)\n"
+    "        n[0] += 1\n"
+    "        if n[0] == 3:\n"
+    "            open(mark, 'w').close()\n"
+    "        return out\n"
+    "    return run\n"
+    "s.make_estimator_step = marked\n"
+    "from weather_unet_tpu_torch.cli.train_estimator import main\n"
+    "main(sys.argv[2:])\n")
+
+
+class Labeled:
+    """A dataset's images with other targets: ``(ds[i][0], targets[i])``."""
+
+    def __init__(self, ds, targets):
+        self.ds, self.targets = ds, targets
+
+    def __len__(self):
+        return len(self.targets)
+
+    def __getitem__(self, i):
+        return self.ds[i][0], self.targets[i]
+
+
+def loader_ips(ds, epochs=(0,), b=32):
+    """img/s of a 4-thread BatchLoader over ``ds`` for the given epochs."""
+    from weather_unet_tpu_torch.data.pipeline import BatchLoader
+
+    t0 = time.perf_counter()
+    n = 0
+    for epoch in epochs:
+        ld = BatchLoader(ds, b, shuffle=True, num_workers=4)
+        ld.set_epoch(epoch)
+        n += sum(len(batch[0]) for batch in ld)
+    return n / (time.perf_counter() - t0)
+
+
+def sup_run(state, kind, loader, counters, launch_totals, what,
+            augment_cfg=None, test=()):
+    """``train_supervised`` over ``loader`` (SUP_WARMUP + SUP_TIMED
+    batches), one epoch, no kernel launched; the step synchronizes and
+    stamps the host clock after each update.  Returns the median ms of the
+    timed steps (the loop's time a step: loader wait, normalize or warp,
+    step), the peak memory and the last metrics."""
+    from weather_unet_tpu_torch.train import supervised as sup
+    from weather_unet_tpu_torch.train.loops import train_supervised
+
+    make = (sup.make_classifier_step if kind == "classifier"
+            else sup.make_estimator_step)
+    step, stamps, last = make(), [], {}
+
+    def timed(*a):
+        st, m = step(*a)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        last.update(m)
+        return st, m
+
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(
+            io.StringIO()):
+        counted_run(lambda: train_supervised(
+            timed, sup.make_eval_metrics(kind), lambda: loader,
+            lambda: iter(test), state=state, num_epoch=1,
+            input_size=SUP_SIZE,
+            augment_cfg=augment_cfg, save_dir=tmp, name=what,
+            save_per_epoch=1 << 30,
+            target_dtype=torch.long if kind == "classifier"
+            else torch.float32), counters, launch_totals, {}, what)
+    if len(stamps) != SUP_WARMUP + SUP_TIMED:
+        raise AssertionError(f"{what}: {len(stamps)} steps")
+    ms = float(np.median(np.diff(stamps[SUP_WARMUP - 1:]))) * 1e3
+    metrics = {k: float(v) for k, v in last.items()}
+    if not all(np.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"{what}: metrics {metrics}")
+    return {"step_ms": ms, "img_per_s": SUP_BATCH / ms * 1e3,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "metrics": metrics}
+
+
+def sup_params_agree(a, b, lr):
+    """Parameters of two supervised states after one step from the same
+    weights, over the whole network: the Adam sign-flip bound (fewer than
+    0.5% beyond 5e-5, none beyond 2.2 * lr)."""
+    pa = torch.cat([p.detach().float().cpu().ravel()
+                    for p in a.module.parameters()])
+    pb = torch.cat([p.detach().float().cpu().ravel()
+                    for p in b.module.parameters()])
+    d = (pa - pb).abs()
+    return {"loose_share": float((d > 5e-5).float().mean()),
+            "max_move_diff": float(d.max()),
+            "ok": bool((d > 5e-5).float().mean() < 5e-3
+                       and d.max() <= 2.2 * lr + 1e-6)}
+
+
+def phase_supervised(counters, launch_totals, smi):
+    """The native runtime, the decode cache, the device augment and
+    supervised ResNet-101 pretraining on the card: the runtime's build; the
+    native augment against the device augment (same affine and factors,
+    257x257 -> 224x224) and the device augment on the card against the
+    CPU; loader img/s of HostAugment, NativeAugment and the decode cache
+    (fill, then all hits) on 96 seeded 256x256 JPEGs; augment_batch ms at
+    B=64; train_supervised card vs CPU (depth-(1, 1, 1, 1), 32x32, B=4,
+    float32), the frozen backbone, and full-width timing (ResNet-101, 5
+    outputs, 224x224, B=64, bf16 and float32) over in-memory batches, the
+    native-augment loader and the device warp; the estimator CLI with the
+    decode cache, SIGTERM -> resume in a child process; the classifier
+    CLI.  The supervised path launches none of K1-K4 (asserted)."""
+    import shutil
+
+    from weather_unet_tpu_torch import runtime
+    from weather_unet_tpu_torch.data.cache import CachedAugment, DecodedCache
+    from weather_unet_tpu_torch.data.datasets import ImagePathDataset
+    from weather_unet_tpu_torch.data.pipeline import BatchLoader
+    from weather_unet_tpu_torch.data.transforms import (
+        AugmentConfig, HostAugment, NativeAugment, _affine_sample,
+        _color_jitter, affine_from_uniforms, augment_batch,
+        augment_from_uniforms, draw_uniforms, normalize_batch)
+    from weather_unet_tpu_torch.models import ResNet, ResNet101
+    from weather_unet_tpu_torch.train import checkpoint as ckpt
+    from weather_unet_tpu_torch.train import supervised as sup
+    from weather_unet_tpu_torch.train.loops import train_supervised
+
+    t_phase = time.perf_counter()
+    f32, bf = torch.float32, torch.bfloat16
+    rt = runtime.load()
+    if rt is None or not runtime.augment_available():
+        raise AssertionError(f"native runtime: {runtime.build_error()}")
+    emit({"phase": "supervised_host", "cxx": shutil.which("c++"),
+          "jpeglib_h": any(os.path.exists(os.path.join(d, "jpeglib.h"))
+                           for d in ("/usr/include", "/usr/local/include")),
+          "jpeg_links": runtime.jpeg_found(), "runtime_mode": rt.mode,
+          "runtime_build_s": rt.build_seconds, "runtime_so": rt.path.name})
+    rec = {"phase": "supervised", "card": smi, "batch": SUP_BATCH,
+           "size": SUP_SIZE, "runtime_mode": rt.mode}
+    cfg = AugmentConfig(out_size=SUP_SIZE, resized_crop=True,
+                        brightness=0.5, contrast=0.3, saturation=0.3)
+    base = int(SUP_SIZE * 1.15)                       # 257
+
+    # 1. native vs device augment, and the device augment card vs CPU
+    rng = np.random.default_rng(SEED + 10)
+    yy, xx = np.mgrid[:base, :base]
+    imgs = np.stack([np.clip(rng.uniform(0, 255, 3) * (0.5 + 0.5 * np.sin(
+        xx[..., None] / rng.uniform(8, 40) + yy[..., None]
+        / rng.uniform(8, 40))) + rng.normal(0, 12, (base, base, 3)), 0, 255)
+        for _ in range(8)]).astype(np.uint8)
+    x = torch.from_numpy(imgs).cuda()
+    u, fs = draw_uniforms(torch.Generator("cuda").manual_seed(SEED), 8, cfg)
+    mats = affine_from_uniforms(u, base, base, cfg)
+    dev = _color_jitter(_affine_sample(x, mats, SUP_SIZE), fs, cfg).cpu()
+    nat_err = max(float((torch.from_numpy(rt.augment_u8(
+        imgs[i], mats[i].cpu().numpy(), fs[i].cpu().numpy(),
+        SUP_SIZE)).float() / 255.0 - dev[i]).abs().max()) for i in range(8))
+    card_cpu_err = float((augment_from_uniforms(x, u, fs, cfg).cpu()
+                          - augment_from_uniforms(x.cpu(), u.cpu(),
+                                                  fs.cpu(), cfg)
+                          ).abs().max())
+    rec["augment_parity"] = {"native_vs_device_max_abs": nat_err,
+                             "tol": AUG_TOL,
+                             "card_vs_cpu_max_abs": card_cpu_err}
+    if not (nat_err <= AUG_TOL and card_cpu_err <= 1e-5):
+        raise AssertionError(f"augment parity: {rec['augment_parity']}")
+    # augment_batch a B=64 batch at 257x257 on the card
+    xb = torch.from_numpy(np.concatenate([imgs] * 8)).cuda()
+    g = torch.Generator("cuda").manual_seed(SEED)
+    rec["augment_batch_ms"] = time_ms(lambda: augment_batch(g, xb, cfg))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # 2. the loaders alone: 96 JPEGs, 257x257 decode, 4 threads
+        jpegs = os.path.join(tmp, "jpegs")
+        os.makedirs(jpegs)
+        paths = write_jpegs(jpegs, N_JPEGS)
+        aug_kw = dict(resized_crop=True, brightness=0.5, contrast=0.3,
+                      saturation=0.3)
+        loaders = {}
+        loaders["host_augment"] = loader_ips(ImagePathDataset(
+            paths, base, transform=HostAugment(SUP_SIZE, **aug_kw)))
+        native = NativeAugment(SUP_SIZE, **aug_kw)
+        loaders["native_augment"] = loader_ips(ImagePathDataset(
+            paths, base, transform=native))
+        cache = DecodedCache(os.path.join(tmp, "cache"), base, paths)
+        cached = ImagePathDataset(paths, base, transform=CachedAugment(
+            cache, NativeAugment(SUP_SIZE, **aug_kw)))
+        loaders["cache_epoch1_fill"] = loader_ips(cached, (0,))
+        fill = (cache.hits, cache.misses)
+        loaders["cache_epoch2_hits"] = loader_ips(cached, (1,))
+        hits = (cache.hits - fill[0], cache.misses - fill[1])
+        loaders["cache_reads"] = {"epoch1": fill, "epoch2": hits}
+        loaders["native_route"] = native.route
+        if fill != (0, N_JPEGS) or hits != (N_JPEGS, 0):
+            raise AssertionError(f"decode cache: {loaders['cache_reads']}")
+        rec["loader_img_per_s"] = loaders
+
+        # 3. train_supervised card vs CPU: depth-(1, 1, 1, 1), 32x32, B=4,
+        #    float32 (TF32 off), one step of each kind from one init
+        small = ResNet((1, 1, 1, 1), 5, generator=torch.Generator()
+                       .manual_seed(SEED + 11))
+        xs = rng.integers(0, 256, (4, 32, 32, 3), np.uint8)
+        targets = {"classifier": rng.integers(0, 5, 4),
+                   "estimator": rng.standard_normal((4, 5)).astype(
+                       np.float32)}
+        parity = {}
+        for kind in ("classifier", "estimator"):
+            out = {}
+            for dev_name in ("cuda", "cpu"):
+                model = ResNet((1, 1, 1, 1), 5)
+                model.load_state_dict(small.state_dict())
+                st = sup.build_supervised_state(model.to(dev_name), 1e-4,
+                                                1e-5)
+                with tempfile.TemporaryDirectory() as d:
+                    make = (sup.make_classifier_step
+                            if kind == "classifier"
+                            else sup.make_estimator_step)
+                    seen = {}
+
+                    def step(*a, make=make, seen=seen):
+                        st_, m = make()(*a)
+                        seen.update({k: float(v) for k, v in m.items()})
+                        return st_, m
+
+                    run = lambda: train_supervised(  # noqa: E731
+                        step, sup.make_eval_metrics(kind),
+                        lambda: [(xs, targets[kind])], lambda: iter(()),
+                        state=st, num_epoch=1, input_size=32, save_dir=d,
+                        name="p", target_dtype=torch.long
+                        if kind == "classifier" else torch.float32)
+                    with contextlib.redirect_stdout(io.StringIO()):
+                        if dev_name == "cuda":
+                            counted_run(run, counters, launch_totals, {},
+                                        f"supervised parity {kind}")
+                        else:
+                            run()
+                out[dev_name] = (st, seen)
+            (sc, mc), (sp, mp) = out["cuda"], out["cpu"]
+            loss_rel = max(abs(mc[k] - mp[k]) / max(abs(mp[k]), 1e-12)
+                           for k in mp if k != "accuracy")
+            stats = max(float((a.float().cpu() - b.float()).abs().max())
+                        for (n, a), b in zip(
+                            sc.module.state_dict().items(),
+                            sp.module.state_dict().values())
+                        if n.endswith(("running_mean", "running_var")))
+            parity[kind] = {"loss_rel_err": loss_rel,
+                            "bn_stats_max_abs": stats,
+                            **sup_params_agree(sc, sp, 1e-4)}
+            if not (loss_rel <= 1e-4 and stats <= 1e-5
+                    and parity[kind]["ok"]):
+                raise AssertionError(f"supervised card vs CPU: {parity}")
+        rec["card_vs_cpu"] = parity
+
+        # 4. full width: ResNet-101, 5 outputs, 224x224, B=64
+        mem = [(rng.integers(0, 256, (SUP_SIZE, SUP_SIZE, 3), np.uint8),
+                rng.standard_normal(5).astype(np.float32))
+               for _ in range(SUP_BATCH)]
+        mem257 = [(imgs[i % 8], mem[i][1]) for i in range(SUP_BATCH)]
+        order = list(range(SUP_BATCH)) * (SUP_WARMUP + SUP_TIMED)
+        jpeg_targets = [mem[i % SUP_BATCH][1] for i in range(N_JPEGS)]
+        jpeg_order = [i % N_JPEGS for i in range(
+            SUP_BATCH * (SUP_WARMUP + SUP_TIMED))]
+        # a full test batch and a partial one (padded and masked)
+        test = [(np.stack([m[0] for m in part]), np.stack([m[1] for m in
+                                                           part]))
+                for part in (mem, mem[:48])]
+
+        def batches(ds, idx):
+            return BatchLoader(ds, SUP_BATCH, sampler=idx, num_workers=4)
+
+        timing = {}
+        for dt in (bf, f32):
+            name = DT_NAME[dt]
+            model = ResNet101(5, dtype=dt, param_dtype=f32,
+                              generator=torch.Generator().manual_seed(SEED))
+            st = sup.build_supervised_state(model.cuda(), 1e-4, 1e-5)
+            rec["parameters"] = sum(p.numel() for p in model.parameters())
+            res = {}
+            res["estimator_memory"] = sup_run(
+                st, "estimator", batches(mem, order), counters,
+                launch_totals, f"est_mem_{name}", test=test)
+            res["estimator_native_loader"] = sup_run(
+                st, "estimator", batches(Labeled(ImagePathDataset(
+                    paths, base,
+                    transform=NativeAugment(SUP_SIZE, **aug_kw)),
+                    jpeg_targets), jpeg_order), counters, launch_totals,
+                f"est_native_{name}")
+            res["estimator_device_warp"] = sup_run(
+                st, "estimator", batches(mem257, order), counters,
+                launch_totals, f"est_warp_{name}", augment_cfg=cfg)
+            labels = [(m[0], i % 5) for i, m in enumerate(mem)]
+            res["classifier_memory"] = sup_run(
+                st, "classifier", batches(labels, order), counters,
+                launch_totals, f"cls_mem_{name}")
+            # device time of one bare estimator step on an in-memory batch
+            xm = torch.from_numpy(np.stack([m[0] for m in mem])).cuda()
+            tm = torch.from_numpy(np.stack([m[1] for m in mem])).cuda()
+            bare = sup.make_estimator_step()
+            busy, n_kernels, top = step_profile(
+                lambda: bare(st, normalize_batch(xm), tm))
+            for r in res.values():
+                r["device_busy_share"] = busy / r["step_ms"]
+            res["bare_step_device_ms"] = busy
+            res["bare_step_kernels"] = n_kernels
+            res["bare_step_top_kernels"] = top
+            timing[name] = res
+            if dt == bf:
+                # the frozen backbone: 3 steps, conv1-layer3 bit-identical
+                frozen_model = copy.deepcopy(model)
+                fst = sup.build_supervised_state(frozen_model, 1e-4, 1e-5,
+                                                 pre_trained=True)
+                names = sup.resnet_pretrained_frozen(frozen_model)
+                before = {n: p.detach().clone() for n, p in
+                          frozen_model.named_parameters()}
+                fstep = sup.make_estimator_step()
+                counted_run(lambda: [fstep(fst, normalize_batch(xm), tm)
+                                     for _ in range(3)], counters,
+                            launch_totals, {}, "frozen backbone")
+                after = dict(frozen_model.named_parameters())
+                same = all(torch.equal(after[n], before[n]) for n in names)
+                moved = all(not torch.equal(after[n], before[n])
+                            for n in after if n not in names)
+                rec["frozen_backbone"] = {
+                    "frozen_tensors": len(names),
+                    "bit_identical_after_3_steps": same,
+                    "trainable_all_moved": moved}
+                if not (same and moved):
+                    raise AssertionError(f"frozen: {rec['frozen_backbone']}")
+                del frozen_model, fst
+            del model, st, xm, tm
+            torch.cuda.empty_cache()
+        rec["timing"] = timing
+
+        # 5. the estimator CLI: 64 train rows (8 steps of 8), 32 test rows,
+        #    --decode_cache --augmentation --dtype bf16, 2 epochs; then a
+        #    child stopped by SIGTERM after its third step and relaunched
+        import pandas as pd
+
+        frame = os.path.join(tmp, "frame.pkl")
+        sig = rng.standard_normal((N_JPEGS, 5)) * 3 + 10
+        classes = ["Clear", "Clouds", "Rain", "Mist", "Snow"]
+        pd.DataFrame({
+            "photo": [f"{i:03d}" for i in range(N_JPEGS)],
+            "mode": ["train"] * 64 + ["test"] * (N_JPEGS - 64),
+            **{c: sig[:, j] for j, c in enumerate(
+                ["clouds", "temp", "humidity", "pressure", "windspeed"])},
+            "w_condition": [classes[i % 5] for i in range(N_JPEGS)],
+            "condition2": [classes[i % 5] for i in range(N_JPEGS)]}
+        ).to_pickle(frame)
+        common = ["--image_root", jpegs, "--pkl_path", frame, "--device",
+                  "cuda", "--decode_cache", os.path.join(tmp, "cli_cache"),
+                  "--augmentation", "--dtype", "bf16", "-bs", "8",
+                  "--num_epoch", "2", "--num_workers", "4", "--log_dir",
+                  os.path.join(tmp, "runs")]
+        from weather_unet_tpu_torch.cli.train_estimator import main as est
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            counted_run(lambda: est(common + ["--save_path", os.path.join(
+                tmp, "cp"), "--name", "est"]), counters, launch_totals, {},
+                "estimator CLI")
+        cli_s = time.perf_counter() - t0
+        final = torch.load(ckpt.latest_checkpoint(os.path.join(tmp, "cp"),
+                                                  "est"),
+                           weights_only=True)["global_step"]
+        route = re.search(r"train augment: (.*)", buf.getvalue())
+        rec["estimator_cli"] = {"seconds": cli_s, "final_step": final,
+                                "augment": route.group(1) if route
+                                else None}
+        if final != 16 or "Done: training" not in buf.getvalue():
+            raise AssertionError(f"estimator CLI: {rec['estimator_cli']}")
+
+        pre = os.path.join(tmp, "pre")
+        argv = common + ["--save_path", pre, "--name", "p"]
+        mark = os.path.join(tmp, "step3")
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-c", PREEMPT_SUP_CHILD, mark, *argv],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        try:
+            while (proc.poll() is None and not os.path.exists(mark)
+                   and time.perf_counter() - t0 < 240):
+                time.sleep(0.02)
+            proc.send_signal(__import__("signal").SIGTERM)
+            out1, _ = proc.communicate(timeout=240)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        child_s = time.perf_counter() - t0
+        stop = re.search(r"checkpointing at step (\d+)", out1)
+        stop_step = int(stop.group(1)) if stop else 0
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            counted_run(lambda: est(argv), counters, launch_totals, {},
+                        "estimator CLI resumed")
+        out2 = buf.getvalue()
+        final = torch.load(ckpt.latest_checkpoint(pre, "p"),
+                           weights_only=True)["global_step"]
+        rec["preemption"] = {"stop_step": stop_step, "final_step": final,
+                             "child_exit": proc.returncode,
+                             "child_s": child_s}
+        ok = (proc.returncode == 0 and "preemption: signal 15" in out1
+              and 0 < stop_step < 16
+              and os.path.exists(ckpt.checkpoint_path(pre, "p", stop_step))
+              and "resumed from" in out2
+              and ("resume: fast-forwarding" in out2 or stop_step % 8 == 0)
+              and final == 16)
+        if not ok:
+            print(out1[-4000:], out2[-4000:], file=sys.stderr)
+            raise AssertionError(f"supervised preemption: "
+                                 f"{rec['preemption']}")
+
+        # 6. the classifier CLI over a class-path split: 16 train paths (2
+        #    steps of 8), 8 test paths, one epoch
+        split = {"train": [], "test": []}
+        for i, p in enumerate(paths[:24]):
+            d = os.path.join(tmp, "i2w", ["sunny", "cloudy", "rain", "snow",
+                                          "foggy"][i % 5])
+            os.makedirs(d, exist_ok=True)
+            os.symlink(p, os.path.join(d, os.path.basename(p)))
+            split["train" if i < 16 else "test"].append(
+                os.path.join(d, os.path.basename(p)))
+        pd.to_pickle(split, os.path.join(tmp, "split.pkl"))
+        from weather_unet_tpu_torch.cli.train_classifier import main as cls
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            counted_run(lambda: cls(
+                ["--pkl_path", os.path.join(tmp, "split.pkl"), "--device",
+                 "cuda", "--augmentation", "--dtype", "bf16", "-bs", "8",
+                 "--num_epoch", "1", "--num_workers", "4", "--save_path",
+                 os.path.join(tmp, "cls"), "--name", "cls", "--log_dir",
+                 os.path.join(tmp, "runs")]), counters, launch_totals, {},
+                "classifier CLI")
+        final = torch.load(ckpt.latest_checkpoint(os.path.join(tmp, "cls"),
+                                                  "cls"),
+                           weights_only=True)["global_step"]
+        rec["classifier_cli_final_step"] = final
+        if final != 2:
+            raise AssertionError(f"classifier CLI ended at step {final}")
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+
+
 def kernels_line(summary, launch_totals):
     meta = {
         "adain": ("weather_unet_tpu_torch/csrc/adain.cu",
@@ -2009,6 +2516,7 @@ def main():
                         launch_totals)
         gan_records = phase_gan(est_path, counters, launch_totals)
         phase_train(est_path, counters, launch_totals, gan_records, smi)
+        phase_supervised(counters, launch_totals, smi)
     for name, total in launch_totals.items():
         if total == 0:
             raise AssertionError(f"{name} kernel never ran on the main path")

@@ -180,12 +180,14 @@ def test_port_imports_no_jax():
         "'weather_unet_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "from weather_unet_tpu_torch.kernels import _build\n"
+        "from weather_unet_tpu_torch import runtime\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'triton', 'weather_unet_tpu'))\n"
         "lazy = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('PIL', 'pandas', 'tensorboard'))\n"
         "print(json.dumps({'modules': names, 'bad': bad, 'lazy': lazy, "
-        "'built': len(_build._libs)}))\n")
+        "'built': len(_build._libs), 'runtime_built': len(runtime._builds)"
+        " + (runtime._jpeg_found is not None)}))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
@@ -202,8 +204,12 @@ def test_port_imports_no_jax():
     for name in ("data.datasets", "data.sampler", "data.transforms",
                  "data.pipeline", "train.metrics", "train.preemption",
                  "train.checkpoint", "train.loops", "cli.train_transfer_est",
-                 "cli.train_transfer_cls"):
+                 "cli.train_transfer_cls", "runtime", "data.cache",
+                 "train.supervised", "cli.train_classifier",
+                 "cli.train_estimator"):
         assert f"weather_unet_tpu_torch.{name}" in out["modules"]
     assert out["bad"] == [] and out["built"] == 0
+    # nor the native runtime (built at first use, not on import)
+    assert out["runtime_built"] == 0
     # Pillow, pandas and TensorBoard load only where a function needs them
     assert out["lazy"] == []

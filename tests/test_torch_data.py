@@ -116,8 +116,10 @@ def test_datasets_match_jax(corpus):
         assert len(port) == len(ref)
         for i in range(len(ref)):
             items_equal(port[i], ref[i])
-    with pytest.raises(NotImplementedError, match="native decode"):
-        ds._decode(paths[0], 32, prefer_native=True)
+    # the native decode is ported now: the JAX package's bytes
+    np.testing.assert_array_equal(
+        ds._decode(paths[0], 32, prefer_native=True),
+        jax_ds._decode(paths[0], 32, prefer_native=True))
 
 
 @pytest.mark.parametrize("config", list(AUG_KW))
@@ -126,7 +128,8 @@ def test_host_augment_streams_match_jax(corpus, config):
     its second draw), the counter stream, and fork_stream's copy."""
     paths = list_images(corpus["flickr"])[:6]
     images = [ds._decode(p, 40) for p in paths]
-    port = tf.make_train_augment(32, seed=5, **AUG_KW[config])
+    port = tf.make_train_augment(32, seed=5, prefer_native=False,
+                                 **AUG_KW[config])
     ref = jax_tf.HostAugment(32, seed=5, **AUG_KW[config])
     assert type(port) is tf.HostAugment
     for aug_p, aug_r in ((port, ref), (tf.fork_stream(port),
@@ -141,8 +144,9 @@ def test_host_augment_streams_match_jax(corpus, config):
         for img in images:
             assert np.array_equal(aug_p(img), aug_r(img))
     assert tf.fork_stream(port).seed == 6 and tf.fork_stream(None) is None
-    with pytest.raises(NotImplementedError, match="native augment"):
-        tf.make_train_augment(32, prefer_native=True)
+    # the native augment is ported now (tests/test_torch_runtime.py)
+    assert type(tf.make_train_augment(32, prefer_native=True)) is (
+        tf.NativeAugment)
 
 
 def test_batch_loaders_match_jax(corpus):
@@ -230,13 +234,13 @@ def test_resize_bilinear_matches_jax():
     assert resize_bilinear_torch(t, 13, 17) is t
 
 
-def test_cpu_prefetch_passes_batches_through_and_cache_refuses():
+def test_cpu_prefetch_passes_batches_through_and_cache_refuses(tmp_path):
+    """(The decode cache is ported now: ``wrap_decode_cache`` wraps.)"""
     batches = [(np.zeros((2, 4, 4, 3), np.uint8), np.arange(2))
                for _ in range(3)]
     out = list(pipe.device_prefetch(iter(batches), "cpu", depth=2))
     assert len(out) == 3 and all(o is b for o, b in zip(out, batches))
     aug = tf.HostAugment(8)
     assert wrap_decode_cache(aug, None, 8, []) is aug
-    with pytest.raises(NotImplementedError, match="decode cache not yet "
-                                                  "ported"):
-        wrap_decode_cache(aug, "cache_dir", 8, [])
+    wrapped = wrap_decode_cache(aug, str(tmp_path / "cache_dir"), 8, [])
+    assert wrapped.augment is aug and wrapped.cache.base == 8

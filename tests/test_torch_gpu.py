@@ -556,3 +556,44 @@ def test_trainer_steps_launch_k1_k2_k4(cuda, tmp_path):
     got = {m: m.launches - n for m, n in counts.items()}
     assert got == {k1: 9, k2: 9, k4: 16}
     assert (tr.state.global_step, tr.state.gen.step) == (2, 1)
+
+
+def smooth_images(n, size, seed):
+    """Seeded smooth-plus-noise uint8 NHWC images, photo-like."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:size, :size]
+    out = []
+    for _ in range(n):
+        base = rng.uniform(0, 255, 3) * (0.5 + 0.5 * np.sin(
+            xx[..., None] / rng.uniform(8, 40)
+            + yy[..., None] / rng.uniform(8, 40)))
+        out.append(np.clip(base + rng.normal(0, 12, base.shape), 0, 255))
+    return np.stack(out).astype(np.uint8)
+
+
+def test_device_augment_matches_native_and_cpu(cuda):
+    """The device augment on the card at 257x257 -> 224x224 with resized
+    crop and all three jitters: against the native C++ augment given the
+    same affine and factors, within one uint8 step + 1e-3 (the bar of
+    tests/test_native_augment.py: the C++ path rounds to uint8); against the
+    same call on the CPU with the same draws, within 1e-5 (float32)."""
+    from weather_unet_tpu_torch import runtime
+    from weather_unet_tpu_torch.data import transforms as tf
+
+    rt = runtime.build()
+    cfg = tf.AugmentConfig(out_size=224, resized_crop=True, brightness=0.5,
+                           contrast=0.3, saturation=0.3)
+    imgs = smooth_images(4, 257, 5)
+    x = torch.from_numpy(imgs).to(cuda)
+    u, fs = tf.draw_uniforms(torch.Generator(cuda).manual_seed(0), 4, cfg)
+    mats = tf.affine_from_uniforms(u, 257, 257, cfg)
+    dev = tf._color_jitter(tf._affine_sample(x, mats, 224), fs, cfg).cpu()
+    for i in range(4):
+        nat = rt.augment_u8(imgs[i], mats[i].cpu().numpy(),
+                            fs[i].cpu().numpy(), 224)
+        err = float((torch.from_numpy(nat).float() / 255.0 - dev[i]).abs()
+                    .max())
+        assert err <= 1 / 255 + 1e-3, (i, err)
+    card = tf.augment_from_uniforms(x, u, fs, cfg).cpu()
+    cpu = tf.augment_from_uniforms(x.cpu(), u.cpu(), fs.cpu(), cfg)
+    assert float((card - cpu).abs().max()) <= 1e-5

@@ -1,7 +1,7 @@
 """The port's training CLIs with ``--device cpu`` on seeded synthetic JPEGs,
 at 32x32, batch 2, with a depth-(1, 1, 1, 1) ResNet estimator: the est CLI
 over a pandas frame (with ``--stats_pkl``, ``--sampler`` and the cached test
-batches) and in ``--image_only`` mode (``--augmentation``); the cls CLI
+batches) and in ``--image_only`` mode (``--augmentation``, the decode cache); the cls CLI
 supervised on the Flickr frame, semi-supervised with cross-entropy on the
 i2w split, and on a bare directory.  Each run ends with its terminal
 checkpoint at epochs x steps per epoch.  The flags whose modules are not
@@ -73,10 +73,14 @@ def test_est_cli(data, tmp_path, mode, capsys):
         steps = 2 * 4                       # 8 train rows
     else:
         args = ["--image_root", data["flickr"], "--image_only",
-                "--augmentation", "--export_torch", "--dtype", "bf16"]
+                "--augmentation", "--export_torch", "--dtype", "bf16",
+                "--decode_cache", str(tmp_path / "cache")]
         steps = 2 * 4                       # 70% of 14 images = 9 -> 4
     est_cli.main(args + common(data, tmp_path))
-    assert "Done: training" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert "Done: training" in out
+    assert ("train augment: decode cache + native" in out
+            if mode == "image_only" else "train augment: native" in out)
     assert final_step(tmp_path) == steps
     if mode == "image_only":
         assert os.path.exists(tmp_path / "cp" / "run" / f"run_e0002_s{steps}.pt")
@@ -113,10 +117,6 @@ def test_unported_flags_and_missing_gpu(data, tmp_path, monkeypatch):
             with pytest.raises(SystemExit, match=item) as e:
                 cli.main(base + flag + common(data, tmp_path))
             assert e.value.code not in (0, None)
-        with pytest.raises(NotImplementedError,
-                           match="decode cache not yet ported"):
-            cli.main(base + ["--decode_cache", str(tmp_path)]
-                     + common(data, tmp_path))
     for cli in (est_cli, cls_cli):
         with pytest.raises(SystemExit, match="--pkl_path is required"):
             cli.main(["--image_root", data["flickr"], "--estimator_path",

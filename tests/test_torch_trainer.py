@@ -303,8 +303,7 @@ def test_export_torch_gan_matches_jax(tmp_path):
 
 def test_unported_options_and_missing_gpu_raise(tmp_path, monkeypatch):
     cfg = cfg_of()
-    for kw, item in ((dict(device_augment=True), "Device augment"),
-                     (dict(plan=object()), "Mesh, AOT and multi-process"),
+    for kw, item in ((dict(plan=object()), "Mesh, AOT and multi-process"),
                      (dict(tensor_parallel=True), "Mesh, AOT"),
                      (dict(aot_cache=str(tmp_path)), "Mesh, AOT"),
                      (dict(profile_dir=str(tmp_path)), "Mesh, AOT")):

@@ -148,13 +148,15 @@ def list_images(root: str) -> list:
 
 
 def wrap_decode_cache(aug, cache_dir, base_size: int, paths):
-    """``--decode_cache``: the JAX package decodes each image once into a
-    memmap here (``data/cache.py``).  Not ported yet: the transform passes
-    through when ``cache_dir`` is None, and anything else raises."""
-    if cache_dir is None:
+    """``--decode_cache``: wrap a train augmentation so each source image is
+    decoded once, at ``base_size``, into a memmap under ``cache_dir`` and
+    only augmented every epoch (``data/cache.py``).  No-op when
+    ``cache_dir`` is falsy."""
+    if not cache_dir:
         return aug
-    raise NotImplementedError(
-        "decode cache not yet ported (ROADMAP.md queue 1, 'Decode cache')")
+    from weather_unet_tpu_torch.data.cache import CachedAugment, DecodedCache
+
+    return CachedAugment(DecodedCache(cache_dir, base_size, paths), aug)
 
 
 def load_flickr_frame(pkl_path: str, columns: Sequence[str] = SIGNAL_COLUMNS,

@@ -55,8 +55,9 @@ def build_parser():
                         "(t_cls_train.py:119,138-144,441)")
     p.add_argument("--export_torch", action="store_true")
     p.add_argument("--decode_cache", type=str, default=None,
-                   help="not ported yet (ROADMAP.md queue 1, 'Decode "
-                        "cache')")
+                   help="decoded-image memmap cache dir: images decode once "
+                        "(first epoch), later epochs only augment "
+                        "(data/cache.py)")
     p.add_argument("--nan_guard", action="store_true",
                    help="on non-finite metrics, roll back to the newest "
                         "checkpoint and retry with re-seeded dropout "
@@ -141,6 +142,7 @@ def main(argv=None):
         test_set = FlickrDataset(args.image_root, df[df["mode"] == "test"],
                                  SIGNAL_COLUMNS, out_size=args.input_size,
                                  class_id=False)
+    print(f"train augment: {aug.route}", flush=True)
     train_loader, random_loader = loader_fns(args, train_set, aug)
     # raw logits; the step applies the softmax
     est_apply = load_step_estimator(args.estimator_path, dtype=dt,

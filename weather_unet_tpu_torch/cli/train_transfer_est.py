@@ -53,8 +53,9 @@ def build_parser():
     p.add_argument("--aot_cache", type=str, default=None,
                    help=f"not ported yet ({MESH_ITEM})")
     p.add_argument("--decode_cache", type=str, default=None,
-                   help="not ported yet (ROADMAP.md queue 1, 'Decode "
-                        "cache')")
+                   help="decoded-image memmap cache dir: images decode once "
+                        "(first epoch), later epochs only augment "
+                        "(data/cache.py)")
     p.add_argument("--tensor_parallel", type=int, default=1,
                    help=f"1 only; more is not ported yet ({MESH_ITEM})")
     p.add_argument("--dtype", choices=["f32", "bf16"], default="f32",
@@ -64,8 +65,7 @@ def build_parser():
 
 
 def refuse_unported(args) -> None:
-    """Exit non-zero, naming the roadmap item, for a mesh or AOT flag (the
-    decode cache refuses in ``wrap_decode_cache``)."""
+    """Exit non-zero, naming the roadmap item, for a mesh or AOT flag."""
     if args.aot_cache is not None:
         raise SystemExit(f"--aot_cache: not yet ported ({MESH_ITEM})")
     if args.tensor_parallel > 1:
@@ -165,6 +165,7 @@ def main(argv=None):
              for pid in train_df["photo"]])
         train_set = FlickrDataset(args.image_root, train_df, SIGNAL_COLUMNS,
                                   out_size=base, transform=aug)
+    print(f"train augment: {aug.route}", flush=True)
     train_loader, random_loader = loader_fns(args, train_set, aug)
     est_apply = load_step_estimator(args.estimator_path, dtype=dt,
                                     device=device)

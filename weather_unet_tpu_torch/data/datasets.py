@@ -2,10 +2,12 @@
 (reference loaders, ``dataset.py``).
 
 Datasets are plain indexable objects returning numpy records (uint8 HWC
-images); decode (Pillow, imported where it is used) happens in the loader's
-threads; augmentation beyond decode and resize is the dataset's
-``transform`` (``data/transforms.py::HostAugment``), normalization runs on
-the device (``transforms.normalize_batch``).
+images); decode (Pillow, imported where it is used, or the native runtime's
+libjpeg loader) happens in the loader's threads; augmentation beyond decode
+and resize is the dataset's ``transform`` (``data/transforms.py``:
+``HostAugment``, ``NativeAugment``, or ``data/cache.py::CachedAugment``
+around one), normalization runs on the device
+(``transforms.normalize_batch``).
 
 As in the JAX package: unreadable images raise after a bounded number of
 fallbacks to the next index (the reference retries the same index forever,
@@ -46,17 +48,26 @@ def zscore_columns(df, columns, stats_df=None):
 
 def _decode(path: str, out_size: Optional[int],
             prefer_native: Optional[bool] = None) -> np.ndarray:
-    """Image decode (Pillow) + optional square bilinear resize -> uint8 HWC.
+    """Image decode + optional square resize -> uint8 HWC.
 
-    The JAX package can decode JPEGs through its native libjpeg runtime
-    (``prefer_native``, or ``WUT_NATIVE_DECODE=1``); that runtime is not
-    ported yet, so asking for it raises."""
+    With ``prefer_native`` (default: ``WUT_NATIVE_DECODE=1``), a JPEG with
+    an ``out_size`` decodes through the native runtime's libjpeg loader
+    (``runtime/jpeg_loader.cc``: DCT-domain downscale, plain bilinear
+    resize without antialiasing; no GIL held), where the runtime has a
+    decode; otherwise, and for every other file, Pillow decodes (bilinear
+    resize).  The decode cache passes True: its fill is the decode-heavy
+    stage and feeds training only."""
     if prefer_native is None:
         prefer_native = os.environ.get("WUT_NATIVE_DECODE") == "1"
-    if prefer_native:
-        raise NotImplementedError(
-            "the native decode runtime is not ported yet (ROADMAP.md queue "
-            "1, the native runtime item); unset WUT_NATIVE_DECODE")
+    if (out_size is not None and prefer_native
+            and path.lower().endswith((".jpg", ".jpeg"))):
+        from weather_unet_tpu_torch import runtime
+
+        if runtime.decode_available():
+            img = runtime.decode_file(path, out_size)
+            if img is not None:
+                return img
+            raise OSError(f"native decode failed for {path}")
     from PIL import Image
 
     with Image.open(path) as im:
@@ -67,8 +78,16 @@ def _decode(path: str, out_size: Optional[int],
 
 
 def _load(path: str, out_size: Optional[int], transform) -> np.ndarray:
-    """Decode + transform one sample, on the transform's keyed per-path RNG
-    stream when it has one (``transforms._KeyedRngMixin``)."""
+    """Decode + transform one sample.  A transform with ``from_path`` takes
+    the file itself (``NativeAugment``'s fused decode + augment) when it is
+    a JPEG, or any file when the transform sets ``from_path_any`` (the
+    decode cache); otherwise decode here, then augment on the transform's
+    keyed per-path RNG stream when it has one
+    (``transforms._KeyedRngMixin``)."""
+    if (transform is not None and hasattr(transform, "from_path")
+            and (path.lower().endswith((".jpg", ".jpeg"))
+                 or getattr(transform, "from_path_any", False))):
+        return transform.from_path(path)
     image = _decode(path, out_size)
     if transform is not None:
         keyed = getattr(transform, "augment_keyed", None)

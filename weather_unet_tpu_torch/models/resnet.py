@@ -11,8 +11,11 @@ loads with ``strict=True``.
 
 Modules run NCHW.  ``module.eval()`` / ``module.train()`` select running or
 batch statistics (``models/common.py::BatchNorm2d``).  ``dtype`` is the
-type of the conv and fc weights and of the activations; the BatchNorm
-parameters and statistics stay float32, as in the JAX package.
+type of the activations, and of the conv and fc weights unless
+``param_dtype`` is given (training passes float32: a bfloat16 model then
+trains on float32 master weights cast as each layer runs, like the JAX
+package's ``param_dtype``); the BatchNorm parameters and statistics stay
+float32, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -77,7 +80,8 @@ class ResNet(nn.Module):
 
     def __init__(self, block_counts: Sequence[int] = (3, 4, 23, 3),
                  num_classes: int = 5, dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.block_counts = tuple(block_counts)
         self.num_classes = num_classes
@@ -104,7 +108,7 @@ class ResNet(nn.Module):
             self.fc.bias.uniform_(-bound, bound, generator=generator)
         for m in self.modules():
             if isinstance(m, (nn.Conv2d, nn.Linear)):
-                m.to(dtype)
+                m.to(dtype if param_dtype is None else param_dtype)
 
     @property
     def layers(self):
@@ -122,15 +126,18 @@ class ResNet(nn.Module):
         x = x.mean(dim=(2, 3))          # adaptive avg pool (1, 1)
         if features_only:
             return x
-        return self.fc(x)
+        return F.linear(x, self.fc.weight.to(x.dtype),
+                        self.fc.bias.to(x.dtype))
 
 
 def ResNet101(num_classes: int = 5, dtype: torch.dtype = torch.float32,
-              generator: Optional[torch.Generator] = None) -> ResNet:
+              generator: Optional[torch.Generator] = None,
+              param_dtype: Optional[torch.dtype] = None) -> ResNet:
     """ResNet-101, the reference's estimator/classifier backbone."""
-    return ResNet((3, 4, 23, 3), num_classes, dtype, generator)
+    return ResNet((3, 4, 23, 3), num_classes, dtype, generator, param_dtype)
 
 
 def ResNet50(num_classes: int = 5, dtype: torch.dtype = torch.float32,
-             generator: Optional[torch.Generator] = None) -> ResNet:
-    return ResNet((3, 4, 6, 3), num_classes, dtype, generator)
+             generator: Optional[torch.Generator] = None,
+             param_dtype: Optional[torch.dtype] = None) -> ResNet:
+    return ResNet((3, 4, 6, 3), num_classes, dtype, generator, param_dtype)

@@ -8,8 +8,10 @@ state is saved too, so a resume is exact.  One file per save,
 ``ckpt_s{step:010d}.pt`` (``torch.save`` of a dict of tensors and numbers,
 loaded with ``weights_only=True``), written under a unique temporary name
 and renamed into place; the newest name wins.  ``export_torch_gan`` writes
-the reference's ``.pt`` GAN bundle.  Reading the JAX package's flax msgpack
-files is not ported yet (``ROADMAP.md`` queue 1, item 5).
+the reference's ``.pt`` GAN bundle; ``supervised_tree`` /
+``restore_supervised`` hold the supervised loop's state.  Reading the JAX
+package's flax msgpack files is not ported yet (``ROADMAP.md`` queue 1,
+item 6).
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from weather_unet_tpu_torch.core.state import GanTrainState
+from weather_unet_tpu_torch.core.state import GanTrainState, TrainState
 
 _CKPT_RE = re.compile(r"ckpt_s\d+\.pt$")
 
@@ -88,6 +90,29 @@ def restore_checkpoint(path: str, state: Optional[GanTrainState] = None):
             ts.step = int(tree[key + "_step"])
         state.epoch = int(tree["epoch"])
         state.global_step = int(tree["global_step"])
+    return tree
+
+
+def supervised_tree(state: TrainState, epoch: int, global_step: int,
+                    epoch_step: int = 0) -> dict:
+    """What a supervised checkpoint holds: the module's state dict
+    (parameters and BatchNorm buffers), the Adam state, the update count,
+    the epoch still to run, the global step and the position within an
+    interrupted epoch.  The tensors are the live ones; saving copies
+    them."""
+    return {"model": state.module.state_dict(),
+            "opt": state.optimizer.state_dict(), "step": state.step,
+            "epoch": epoch, "global_step": global_step,
+            "epoch_step": epoch_step}
+
+
+def restore_supervised(path: str, state: TrainState) -> dict:
+    """Load a ``supervised_tree`` checkpoint into the state's module and
+    optimizer (on their devices) and update count.  Returns the tree."""
+    tree = torch.load(path, map_location="cpu", weights_only=True)
+    state.module.load_state_dict(tree["model"], strict=True)
+    state.optimizer.load_state_dict(tree["opt"])
+    state.step = int(tree["step"])
     return tree
 
 

@@ -1,13 +1,12 @@
-"""The GAN training loop -- the port of
-``weather_unet_tpu/train/loops.py::WeatherTransferTrainer`` (reference
-``WeatherTransfer`` driver, ``t_est_train.py:59-400``): steps, data,
-checkpoints, preemption and summaries on one device.
+"""The training loops -- the port of ``weather_unet_tpu/train/loops.py``:
+``WeatherTransferTrainer`` (the GAN loop, reference ``WeatherTransfer``
+driver, ``t_est_train.py:59-400``) and ``train_supervised`` (the classifier
+and estimator loop, ``classifier.py:132-182``, ``estimator.py:170-227``):
+steps, data, checkpoints, preemption and summaries on one device.
 
 Not ported yet (``ROADMAP.md`` queue 1), and refused with the item's name
-when asked for: the on-device augment (``device_augment``), the mesh,
-tensor parallelism, the AOT step cache and profiling (``plan``,
-``tensor_parallel``, ``aot_cache``, ``profile_dir``).  The supervised loop
-(``train_supervised``) comes with queue item 5.
+when asked for: the mesh, tensor parallelism, the AOT step cache and
+profiling (``plan``, ``tensor_parallel``, ``aot_cache``, ``profile_dir``).
 """
 
 from __future__ import annotations
@@ -22,8 +21,10 @@ import torch
 
 from weather_unet_tpu_torch._device import DeviceLike, resolve_device
 from weather_unet_tpu_torch.core.rng import fold_seed, train_generator
+from weather_unet_tpu_torch.core.state import TrainState
 from weather_unet_tpu_torch.data.pipeline import device_prefetch
-from weather_unet_tpu_torch.data.transforms import normalize_batch
+from weather_unet_tpu_torch.data.transforms import (
+    AugmentConfig, augment_batch, normalize_batch)
 from weather_unet_tpu_torch.train import checkpoint as ckpt
 from weather_unet_tpu_torch.train.gan import (
     GanConfig, build_gan_state, make_eval_step, make_gan_step)
@@ -31,7 +32,6 @@ from weather_unet_tpu_torch.train.metrics import SummaryWriter, run_comment
 from weather_unet_tpu_torch.train.preemption import GracefulShutdown
 
 MESH_ITEM = "ROADMAP.md queue 1, 'Mesh, AOT and multi-process'"
-DEVICE_AUGMENT_ITEM = "ROADMAP.md queue 1, 'Device augment'"
 
 
 def _nhwc(t: torch.Tensor) -> np.ndarray:
@@ -50,6 +50,13 @@ class WeatherTransferTrainer:
     generator updated every ``gd_train_ratio``-th step
     (``t_est_train.py:350-399``).  On CUDA the generator's decoder runs K1
     and K2 (``use_pallas``).  ``device`` is CUDA unless given.
+
+    By default augmentation happens in the loader threads and the step's
+    input is only normalized on the device; ``device_augment`` warps both
+    batches on the device instead (``transforms.augment_batch``: rotation
+    and hflip, with ``augment`` also the resized crop and the jitter
+    0.5 / 0.3 / 0.3), each step's generator seeded from ``(seed + 3,
+    global step)`` so a resumed run replays the warps.
     """
 
     EVAL_PER_STEP = 1000
@@ -57,16 +64,13 @@ class WeatherTransferTrainer:
 
     def __init__(self, cfg: GanConfig, est_apply: Callable, *,
                  save_dir: str = "cp/transfer", name: str = "cUNet",
-                 log_dir: str = "runs", device_augment: bool = False,
+                 log_dir: str = "runs", augment: bool = False,
+                 device_augment: bool = False,
                  plan=None, seed: int = 0,
                  export_torch: bool = False,
                  profile_dir: Optional[str] = None, nan_guard: bool = False,
                  max_rollbacks: int = 3, aot_cache: Optional[str] = None,
                  tensor_parallel: bool = False, device: DeviceLike = None):
-        if device_augment:
-            raise NotImplementedError(
-                f"device_augment is not ported yet ({DEVICE_AUGMENT_ITEM}); "
-                f"augmentation runs in the loader threads (HostAugment)")
         for flag, value in (("plan", plan), ("tensor_parallel",
                                              tensor_parallel),
                             ("aot_cache", aot_cache),
@@ -97,6 +101,14 @@ class WeatherTransferTrainer:
         self._base_seed = seed + 1
         self._step_rng = torch.Generator(device=self.device)
         self._eval_rng = train_generator(seed + 2, self.device)
+        self._aug_cfg = None
+        if device_augment:
+            self._aug_cfg = AugmentConfig(
+                out_size=cfg.input_size, resized_crop=augment,
+                brightness=0.5 if augment else 0.0,
+                contrast=0.3 if augment else 0.0,
+                saturation=0.3 if augment else 0.0)
+            self._aug_rng = torch.Generator(device=self.device)
         self.scalar_dict = {}
         self.image_dict = {}
         self._last_metrics = None    # device tensors, read at the summary
@@ -190,8 +202,14 @@ class WeatherTransferTrainer:
             do_g = gstep % cfg.gd_train_ratio == 0
             if self._window_t0 is None:
                 self._window_t0 = time.perf_counter()
-            images = normalize_batch(data[0], cfg.input_size)
-            rand = normalize_batch(rand_data[0], cfg.input_size)
+            if self._aug_cfg is None:
+                images = normalize_batch(data[0], cfg.input_size)
+                rand = normalize_batch(rand_data[0], cfg.input_size)
+            else:
+                self._aug_rng.manual_seed(fold_seed(self.seed + 3, gstep))
+                images = augment_batch(self._aug_rng, data[0], self._aug_cfg)
+                rand = augment_batch(self._aug_rng, rand_data[0],
+                                     self._aug_cfg)
             self._step_rng.manual_seed(fold_seed(self._base_seed, gstep))
             self.state, metrics = self._step(
                 self.state, images, c_d, rand, c_r, self._step_rng,
@@ -351,3 +369,168 @@ class WeatherTransferTrainer:
         finally:
             # join the write and release the worker thread
             self._ckpt.close()
+
+
+def _padded_eval_batches(loader, counts: list):
+    """Yield ``(images, targets, weights)`` eval batches with a partial
+    batch padded (last row repeated) up to the first batch's size, so the
+    tail of a ``drop_last=False`` test split is evaluated, not dropped (the
+    reference DataLoader keeps it).  Padded rows carry weight 0; each
+    batch's real row count is appended to ``counts`` for the weighted
+    aggregation."""
+    target = None
+    for b in loader:
+        x, t = np.asarray(b[0]), np.asarray(b[1])
+        n = x.shape[0]
+        if target is None:
+            target = n
+        if n < target:
+            x = np.concatenate([x, np.repeat(x[-1:], target - n, axis=0)])
+            t = np.concatenate([t, np.repeat(t[-1:], target - n, axis=0)])
+        w = np.zeros(max(n, target), np.float32)
+        w[:n] = 1.0
+        counts.append(n)
+        yield x, t, w
+
+
+def train_supervised(step_fn: Callable, eval_fn: Callable,
+                     train_loader_fn: Callable[[], Iterable],
+                     test_loader_fn: Callable[[], Iterable], *,
+                     state: TrainState, num_epoch: int, writer=None,
+                     augment_cfg: Optional[AugmentConfig] = None,
+                     input_size: int = 224, save_dir: str = "cp",
+                     name: str = "model", eval_per_iter: int = 100,
+                     save_per_epoch: int = 5,
+                     target_dtype: torch.dtype = torch.float32,
+                     seed: int = 0, plan=None,
+                     aot_cache: Optional[str] = None) -> TrainState:
+    """The classifier/estimator loop (reference ``classifier.py:132-182``,
+    ``estimator.py:170-227``) on the device of ``state.module``: an eval
+    sweep every ``eval_per_iter`` steps, a checkpoint every
+    ``save_per_epoch`` epochs and at the end, auto-resume from the newest
+    checkpoint with a fast-forward past the batches an interrupted epoch
+    already trained on, a checkpoint and a clean stop on SIGTERM/SIGINT.
+
+    ``step_fn(state, images NCHW, targets) -> (state, metrics)`` updates
+    the state in place (``train/supervised.py``); ``eval_fn(model, images,
+    targets, weights)`` returns metric tensors.  Batches are
+    ``(uint8 NHWC images, targets, ...)``.  ``augment_cfg=None`` expects
+    the loader threads to augment and only normalizes (resizing to
+    ``input_size``) on the device; a config warps on the device
+    (``transforms.augment_batch``), each step's generator seeded from
+    ``(seed, global step)``.  ``plan`` and ``aot_cache`` are not
+    ported."""
+    for flag, value in (("plan", plan), ("aot_cache", aot_cache)):
+        if value:
+            raise NotImplementedError(
+                f"{flag} is not ported yet ({MESH_ITEM})")
+    model = state.module
+    device = next(model.parameters()).device
+    out_size = augment_cfg.out_size if augment_cfg else input_size
+    aug_rng = (torch.Generator(device=device) if augment_cfg is not None
+               else None)
+    def to_device(a, dtype):
+        return torch.as_tensor(np.asarray(a)).to(device, dtype)
+
+    global_step, start_epoch, resume_epoch_step = 0, 0, 0
+    path = ckpt.latest_checkpoint(save_dir, name)
+    if path is not None:
+        restored = ckpt.restore_supervised(path, state)
+        global_step = int(restored["global_step"])
+        start_epoch = int(restored["epoch"])
+        resume_epoch_step = int(restored["epoch_step"])
+        print(f"resumed from {path} at step {global_step}"
+              + (f" (epoch {start_epoch} batch {resume_epoch_step})"
+                 if resume_epoch_step else ""), flush=True)
+
+    ckpter = ckpt.AsyncCheckpointer()
+    saved_step = global_step   # last checkpointed step (terminal save guard)
+
+    def save(epoch, global_step, epoch_step=0):
+        nonlocal saved_step
+        saved_step = global_step
+        # the host copy is taken here, the write runs on the checkpointer's
+        # thread; epoch_step lets a resume fast-forward an interrupted epoch
+        ckpter.save(save_dir, name, global_step, ckpt.supervised_tree(
+            state, epoch, global_step, epoch_step))
+
+    train_metrics = []
+    warned_empty_test = False
+    with GracefulShutdown() as stop, ckpter:
+        for epoch in range(start_epoch, num_epoch):
+            tl = train_loader_fn()
+            se = getattr(tl, "set_epoch", None)
+            if se is not None:
+                # a fresh shuffle/sampler draw per epoch, deterministic in
+                # the absolute epoch, so a resume replays the same order
+                se(epoch)
+            epoch_step = 0
+            tl_it = iter(tl)
+            if epoch == start_epoch and resume_epoch_step:
+                print(f"resume: fast-forwarding {resume_epoch_step} batches "
+                      f"of epoch {epoch}", flush=True)
+                tl_it = itertools.islice(tl_it, resume_epoch_step, None)
+                epoch_step = resume_epoch_step
+            for batch in device_prefetch(tl_it, device, device_fields=[0]):
+                if stop.requested:
+                    # persist at the step boundary and stop; the context
+                    # manager joins the write before returning
+                    print(f"preemption: signal {stop.signum} — checkpointing "
+                          f"at step {global_step} and stopping", flush=True)
+                    save(epoch, global_step, epoch_step)
+                    return state
+                if aug_rng is None:
+                    images = normalize_batch(batch[0], out_size)
+                else:
+                    aug_rng.manual_seed(fold_seed(seed, global_step))
+                    images = augment_batch(aug_rng, batch[0], augment_cfg)
+                state, metrics = step_fn(state, images,
+                                         to_device(batch[1], target_dtype))
+                # device tensors, read back at the eval cadence only
+                train_metrics.append(metrics)
+
+                if global_step % eval_per_iter == 0:
+                    train_metrics = [{k: float(v) for k, v in m.items()}
+                                     for m in train_metrics]
+                    test_accum, counts = [], []
+                    for x, t, w in _padded_eval_batches(test_loader_fn(),
+                                                        counts):
+                        m = eval_fn(model, normalize_batch(to_device(
+                            x, torch.uint8), out_size),
+                            to_device(t, target_dtype),
+                            to_device(w, torch.float32))
+                        test_accum.append({k: float(v)
+                                           for k, v in m.items()})
+                    if not test_accum and not warned_empty_test:
+                        warned_empty_test = True
+                        print("warning: test loader yielded no batches "
+                              "(test split smaller than the batch size with "
+                              "drop_last?) — test metrics will be skipped",
+                              flush=True)
+                    if writer is not None:
+                        # train: the plain mean over the cadence window;
+                        # test: weighted by the real rows of each batch
+                        scalars = {}
+                        if train_metrics:
+                            for k in train_metrics[0]:
+                                scalars[f"{k}/train"] = float(
+                                    np.mean([m[k] for m in train_metrics]))
+                        if test_accum:
+                            n_tot = float(sum(counts))
+                            for k in test_accum[0]:
+                                scalars[f"{k}/test"] = float(
+                                    sum(m[k] * n for m, n in
+                                        zip(test_accum, counts)) / n_tot)
+                        writer.add_scalars(scalars, global_step)
+                    train_metrics = []
+                global_step += 1
+                epoch_step += 1
+
+            if epoch % save_per_epoch == 0:
+                # epoch + 1: the first epoch a resume still has to run
+                save(epoch + 1, global_step)
+        # terminal save: the cadence misses the last num_epoch %
+        # save_per_epoch epochs
+        if global_step != saved_step:
+            save(num_epoch, global_step)
+    return state
