@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port's serving, estimator and GAN training
-paths, of its trainer and training CLI, and of its data runtime and
-supervised pretraining, on one NVIDIA GPU.
+paths, of its trainer and training CLI, of its data runtime and supervised
+pretraining, and of its serving entry points (msgpack checkpoints, the HTTP
+server, the inference and eval CLIs), on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the repository root, one GPU
 
@@ -193,8 +194,41 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                step and relaunched here ("resumed from", the fast-forward,
                final step 16); the classifier CLI over a class-path split
                (2 steps).  No K1-K4 launch anywhere in the phase.
-10. kernels -- the summary line of every ported kernel (launches on the main
-               paths of phases 4-9; error, times and bound over one serving
+10. serving_cli -- the serving entry points at full width (the 7.8
+               M-parameter cUNet, phase 6's seeded ResNet-101), float32
+               with TF32 off unless named, on a world of 32 seeded 256x256
+               JPEGs, a Flickr frame over them (16 train, 16 test rows of
+               one station) and an i2w split (5 classes x 4 test photos).
+               Checkpoints: the cUNet as a reference .pt and as the JAX
+               trainer's msgpack GAN layout (the port's flax-free writer),
+               the ResNet-101 as a state-dict .pt and as msgpack; the
+               state dicts that load_transfer / load_estimator read from
+               the two files must be bit-equal; msgpack read ms and MiB.
+               The HTTP server (cli/serve.py, 127.0.0.1, --input_size 224
+               --max_batch 16, warmup on) on the msgpack file, float32 and
+               --bf16: 96 POSTs of the JPEGs from 8 client threads (in a
+               child process, off the server's interpreter lock) mixing
+               class=<name>, class=<index> and cond=<vector>; every answer
+               200, image/jpeg, 224x224; float32 answers within a mean of
+               1 uint8 step of the same JPEG encode (quality 95) of the
+               direct translate_u8; 400 for a bad cond, 404 for a bad
+               route, 403 for /profile without --profile_dir, and with it
+               a Chrome trace holding the traffic's kernels; K1 and K2
+               launch 3 times per device forward, warmup included.
+               Prints requests/s, client p50/p90 ms, the Batcher's
+               batch_ms p50/p90 and mean batch size, and the device busy
+               share (the same traffic again under torch.profiler).  The
+               nine inference and eval CLIs in this process with real argv
+               at --input_size 224: each ends without error, writes what
+               its JAX counterpart writes and launches K1 and K2 3 times
+               per cUNet forward (none in the estimator-only CLIs); prints
+               each one's images/s.  inf_transfer_c and
+               eval_class_transfer again with --device cpu on a 4-image
+               subset: saved pictures within 1 uint8 step of the card's,
+               labels equal where the top two logits are more than 1e-3
+               apart.
+11. kernels -- the summary line of every ported kernel (launches on the main
+               paths of phases 4-10; error, times and bound over one serving
                forward's sites and, under "gan_step_forward", over one GAN
                generator (K1, K2) or estimator (K4) forward's).
 
@@ -678,7 +712,8 @@ def phase_e2e(path, counters, launch_totals):
             model.load_state_dict(sd, strict=True)
             return WeatherTransfer(model, device="cuda")
         return WeatherTransfer.load(path, dtype=dt, device="cuda",
-                                    fuse_upconv=(config == "fuse_upconv"))
+                                    fuse_upconv=(config == "fuse_upconv"),
+                                    use_pallas=False)
 
     expect = {"plain": {}, "use_pallas": {"adain": 3, "upsample": 3},
               "fuse_upconv": {"upconv": 3}}
@@ -1545,15 +1580,15 @@ N_JPEGS = 96              # synthetic 256x256 JPEGs for the CLI runs
 
 
 def host_packages():
-    """What the host offers the data path: Pillow, pandas and TensorBoard
-    (version, or None), and libjpeg's header and library (the native
-    runtime's decode needs them; without them it builds augment-only and
-    Pillow decodes)."""
+    """What the host offers the data path: Pillow, pandas, TensorBoard,
+    scikit-learn and matplotlib (version, or None), and libjpeg's header
+    and library (the native runtime's decode needs them; without them it
+    builds augment-only and Pillow decodes)."""
     import ctypes.util
     import importlib
 
     out = {}
-    for mod in ("PIL", "pandas", "tensorboard"):
+    for mod in ("PIL", "pandas", "tensorboard", "sklearn", "matplotlib"):
         try:
             out[mod.lower()] = importlib.import_module(mod).__version__
         except ImportError:
@@ -2432,6 +2467,598 @@ def phase_supervised(counters, launch_totals, smi):
     emit(rec)
 
 
+SERVE_REQUESTS = 96       # HTTP requests per server run
+SERVE_CLIENTS = 8         # client threads
+N_CLI_JPEGS = 32          # seeded 256x256 JPEGs of the serving world
+
+
+@contextlib.contextmanager
+def recorded_saves():
+    """Record the uint8 picture of every ``PIL.Image.save`` by path (the
+    JPEG encoder is not continuous: a 1-step difference before it can move
+    a decoded pixel further)."""
+    from PIL import Image
+
+    saved = {}
+    save = Image.Image.save
+
+    def record(self, fp, *args, **kw):
+        saved[str(fp)] = np.asarray(self, np.int16)
+        return save(self, fp, *args, **kw)
+
+    Image.Image.save = record
+    try:
+        yield saved
+    finally:
+        Image.Image.save = save
+
+
+def serving_world(root, size_jpeg=256):
+    """32 seeded JPEGs named by photo id, a Flickr frame over them (16
+    train, 16 test rows of one station, hourly, the signals and the class
+    columns), a 16-photo directory for the demo, an i2w tree of 5 classes x
+    6 photos split 2 train / 4 test, and a 1-photo-a-class split for the
+    card-vs-CPU runs."""
+    import pandas as pd
+    import shutil
+
+    from weather_unet_tpu_torch.data.datasets import (
+        SIGNAL_COLUMNS, WEATHER_CLASSES_FLICKR, WEATHER_CLASSES_I2W)
+
+    photos = os.path.join(root, "photos")
+    os.makedirs(photos)
+    paths = write_jpegs(photos, N_CLI_JPEGS, size=size_jpeg)
+    rng = np.random.default_rng(SEED + 20)
+    ids = [os.path.splitext(os.path.basename(p))[0] for p in paths]
+    df = pd.DataFrame({
+        "photo": ids, "mode": ["train"] * 16 + ["test"] * 16,
+        "name": "station", "s_unixtime": 1_600_000_000 + 3600 * np.arange(
+            len(ids)),
+        **{c: rng.standard_normal(len(ids)) * 3 + 10
+           for c in SIGNAL_COLUMNS},
+        "condition2": [WEATHER_CLASSES_FLICKR[i % 5]
+                       for i in range(len(ids))],
+        "w_condition": [WEATHER_CLASSES_FLICKR[i % 5]
+                        for i in range(len(ids))]})
+    frame = os.path.join(root, "frame.pkl")
+    df.to_pickle(frame)
+    demo_dir = os.path.join(root, "demo_photos")
+    os.makedirs(demo_dir)
+    for p in paths[:16]:
+        shutil.copy(p, demo_dir)
+    split = {"train": [], "test": []}
+    for ci, cls in enumerate(WEATHER_CLASSES_I2W):
+        d = os.path.join(root, "i2w", cls)
+        os.makedirs(d)
+        for j in range(6):
+            dst = os.path.join(d, f"{j}.jpg")
+            shutil.copy(paths[(6 * ci + j) % len(paths)], dst)
+            split["train" if j < 2 else "test"].append(dst)
+    split_pkl = os.path.join(root, "split.pkl")
+    pd.to_pickle(split, split_pkl)
+    subset_pkl = os.path.join(root, "split_subset.pkl")
+    pd.to_pickle({"train": split["train"],
+                  "test": [p for p in split["test"]
+                           if p.endswith("2.jpg")][:4]}, subset_pkl)
+    subset_dir = os.path.join(root, "subset")
+    os.makedirs(subset_dir)
+    for p in paths[:4]:
+        shutil.copy(p, subset_dir)
+    return {"photos": photos, "paths": paths, "frame": frame,
+            "demo": demo_dir, "split": split_pkl, "subset_split": subset_pkl,
+            "subset_dir": subset_dir, "ids": ids}
+
+
+def serving_checkpoints(root, est_path, device):
+    """The seeded cUNet as a reference .pt bundle and as the JAX trainer's
+    msgpack GAN layout (written by the port's writer), the seeded ResNet-101
+    as a state-dict .pt and as the JAX supervised loop's msgpack; each
+    loaded through load_transfer / load_estimator from both files, whose
+    state dicts must be bit-equal.  The weights go once through the JAX
+    layout first, so the unused AdaIN embedding and BatchNorm's
+    num_batches_tracked (which flax does not keep) are what the converters
+    write on the way back."""
+    from weather_unet_tpu_torch.cli.common import (
+        load_estimator, load_transfer)
+    from weather_unet_tpu_torch.compat import torch_io
+    from weather_unet_tpu_torch.models import ConditionalUNet, SNDisc
+    from weather_unet_tpu_torch.train import checkpoint as ckpt
+
+    def tensors(sd):
+        return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+
+    gen = torch.Generator().manual_seed(SEED + 21)
+    cunet = torch_io.cunet_state_dict_to_jax(
+        ConditionalUNet(5, generator=gen).state_dict())
+    disc = torch_io.sndisc_state_dict_to_jax(SNDisc(5, generator=gen)
+                                             .state_dict())
+    files = {"cunet_pt": os.path.join(root, "gan.pt"),
+             "cunet_msgpack": os.path.join(root, "ckpt_s0000000100.msgpack"),
+             "est_pt": os.path.join(root, "est.pt"),
+             "est_msgpack": os.path.join(root, "est.msgpack")}
+    torch.save({"inference": tensors(torch_io.cunet_state_dict_from_jax(
+        cunet)), "epoch": 1, "global_step": 100}, files["cunet_pt"])
+    ckpt.save_checkpoint_file(files["cunet_msgpack"], {
+        "gen": {"params": cunet["params"], "step": 100},
+        "disc": {"params": disc["params"], "step": 100},
+        "spectral": disc["spectral"], "epoch": 1, "global_step": 100})
+    est = torch_io.resnet_state_dict_to_jax(
+        torch.load(est_path, map_location="cpu", weights_only=True))
+    torch.save(tensors(torch_io.resnet_state_dict_from_jax(est)),
+               files["est_pt"])
+    ckpt.save_checkpoint_file(files["est_msgpack"], {
+        "params": est["params"], "batch_stats": est["batch_stats"],
+        "epoch": 1, "global_step": 100, "epoch_step": 0})
+    rec = {"phase": "serving_checkpoints"}
+    for name, path in files.items():
+        rec[f"{name}_mib"] = os.path.getsize(path) / 2 ** 20
+        if name.endswith("msgpack"):
+            t0 = time.perf_counter()
+            ckpt.restore_checkpoint(path)
+            rec[f"{name}_read_ms"] = (time.perf_counter() - t0) * 1e3
+    for kind, loader in (("cunet", lambda p: load_transfer(
+            p, device=device).state_dict()), ("est", lambda p: load_estimator(
+                p, device=device).model.state_dict())):
+        t0 = time.perf_counter()
+        from_msgpack = loader(files[f"{kind}_msgpack"])
+        rec[f"{kind}_msgpack_load_ms"] = (time.perf_counter() - t0) * 1e3
+        from_pt = loader(files[f"{kind}_pt"])
+        rec[f"{kind}_bit_equal"] = (
+            from_pt.keys() == from_msgpack.keys()
+            and all(torch.equal(v, from_msgpack[k])
+                    for k, v in from_pt.items()))
+        rec[f"{kind}_tensors"] = len(from_pt)
+    emit(rec)
+    if not (rec["cunet_bit_equal"] and rec["est_bit_equal"]):
+        raise AssertionError(f"msgpack and .pt loads differ: {rec}")
+    return files
+
+
+# the HTTP clients, in a process of their own so that they do not share the
+# server's interpreter lock: argv[1] is a JSON file naming the server, the
+# request bodies (files), queries and an output directory for the answers
+HTTP_CLIENT_CHILD = r"""
+import json, os, sys, threading, time, urllib.request
+spec = json.load(open(sys.argv[1]))
+bodies = [open(p, "rb").read() for p in spec["bodies"]]
+n, k = len(bodies), spec["clients"]
+status, ctype, lat = [None] * n, [None] * n, [None] * n
+errors = {}
+def client(t):
+    for i in range(t, n, k):
+        t0 = time.perf_counter()
+        req = urllib.request.Request(spec["base"] + "/translate?"
+                                     + spec["queries"][i], data=bodies[i],
+                                     method="POST")
+        try:
+            with urllib.request.urlopen(req, timeout=300) as r:
+                body = r.read()
+                status[i], ctype[i] = r.status, r.headers["Content-Type"]
+        except Exception as e:   # reported whole by the parent, which fails
+            errors[i] = f"{type(e).__name__}: {e}"
+            continue
+        lat[i] = (time.perf_counter() - t0) * 1e3
+        with open(os.path.join(spec["out"], f"{i}.jpg"), "wb") as f:
+            f.write(body)
+threads = [threading.Thread(target=client, args=(t,)) for t in range(k)]
+t0 = time.perf_counter()
+for th in threads:
+    th.start()
+for th in threads:
+    th.join()
+json.dump({"status": status, "ctype": ctype, "lat": lat, "errors": errors,
+           "wall": time.perf_counter() - t0},
+          open(os.path.join(spec["out"], "result.json"), "w"))
+"""
+
+
+def http_traffic(base, paths, queries, out, clients=SERVE_CLIENTS):
+    """POST every (file, query) from ``clients`` threads of a child
+    process; returns the answers (status, content type, bytes), the
+    per-request latency ms and the wall seconds, both on the child's
+    clock."""
+    os.makedirs(out, exist_ok=True)
+    spec = os.path.join(out, "spec.json")
+    with open(spec, "w") as f:
+        json.dump({"base": base, "bodies": paths, "queries": queries,
+                   "clients": clients, "out": out}, f)
+    subprocess.run([sys.executable, "-c", HTTP_CLIENT_CHILD, spec],
+                   check=True, timeout=600)
+    with open(os.path.join(out, "result.json")) as f:
+        res = json.load(f)
+    if res["errors"]:
+        raise AssertionError(f"{len(res['errors'])} of {len(paths)} requests "
+                             f"failed: {res['errors']}")
+    answers = []
+    for i, (code, ctype) in enumerate(zip(res["status"], res["ctype"])):
+        with open(os.path.join(out, f"{i}.jpg"), "rb") as f:
+            answers.append((code, ctype, f.read()))
+    return answers, res["lat"], res["wall"]
+
+
+def http_refusals(base, body):
+    """(code of a bad cond, of a bad route, of /profile)."""
+    import urllib.error
+    import urllib.request
+
+    codes = []
+    for url, data in ((f"{base}/translate?cond=1,2", body),
+                      (f"{base}/nope", body),
+                      (f"{base}/profile?seconds=0.2", b"")):
+        try:
+            urllib.request.urlopen(urllib.request.Request(
+                url, data=data, method="POST"), timeout=60).close()
+            codes.append(200)
+        except urllib.error.HTTPError as e:
+            codes.append(e.code)
+    return codes
+
+
+def phase_http(files, world, counters, launch_totals, smi, device, size):
+    """The HTTP server (cli/serve.py) on the msgpack checkpoint, in float32
+    and bfloat16, under 8 client threads of a child process."""
+    import urllib.request
+
+    from PIL import Image
+
+    from weather_unet_tpu_torch.cli import serve
+
+    paths = [world["paths"][i % len(world["paths"])]
+             for i in range(SERVE_REQUESTS)]
+    bodies = [open(p, "rb").read() for p in paths]
+    runs = os.path.join(os.path.dirname(world["frame"]), "http")
+    rng = np.random.default_rng(SEED + 22)
+    names = ["sunny", "cloudy", "rain", "snow", "foggy"]
+    queries, conds = [], []
+    for i in range(SERVE_REQUESTS):
+        k = int(rng.integers(0, 5))
+        if i % 3 == 0:
+            queries.append(f"class={names[k]}")
+            conds.append(np.eye(5, dtype=np.float32)[k])
+        elif i % 3 == 1:
+            queries.append(f"class={k}")
+            conds.append(np.eye(5, dtype=np.float32)[k])
+        else:
+            v = rng.standard_normal(5).astype(np.float32)
+            queries.append("cond=" + ",".join(repr(float(x)) for x in v))
+            conds.append(v)
+    for dt_flag in ([], ["--bf16"]):
+        trace_dir = os.path.join(os.path.dirname(world["frame"]),
+                                 f"traces{len(dt_flag)}")
+        args = ["--cp_path", files["cunet_msgpack"], "--host", "127.0.0.1",
+                "--port", "0", "--input_size", str(size), "--max_batch", "16",
+                "--device", device] + dt_flag
+        if dt_flag:
+            args += ["--profile_dir", trace_dir]
+        for m in counters.values():
+            m.launches = 0
+        t0 = time.perf_counter()
+        server = serve.build_server(serve.build_parser().parse_args(args))
+        warm_s = time.perf_counter() - t0
+        warm = {k: m.launches for k, m in counters.items()}
+        for k in counters:
+            launch_totals[k] += warm[k]
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        dtype = "bfloat16" if dt_flag else "float32"
+        try:
+            with urllib.request.urlopen(f"{base}/healthz", timeout=60) as r:
+                health = json.loads(r.read())
+            for m in counters.values():
+                m.launches = 0
+            answers, lat, wall = http_traffic(
+                base, paths, queries, f"{runs}/{dtype}")
+            synchronize(device)
+            got = {k: m.launches for k, m in counters.items()}
+            stats = server.batcher.stats()
+            for k in counters:
+                launch_totals[k] += got[k]
+            codes = http_refusals(base, bodies[0])
+            for m in counters.values():
+                m.launches = 0
+            # the same traffic again under torch.profiler: the device busy
+            # share of the serving window
+            busy_ms = None
+            if device == "cuda":
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    _, _, wall_prof = http_traffic(
+                        base, paths, queries, f"{runs}/{dtype}_profiled")
+                    torch.cuda.synchronize()
+                busy_ms = union_ms([e for e in prof.events()
+                                    if e.device_type == DeviceType.CUDA])
+            trace = None
+            if dt_flag:   # POST /profile (--profile_dir) during 16 requests
+                box = {}
+
+                def take():
+                    with urllib.request.urlopen(urllib.request.Request(
+                            f"{base}/profile?seconds=1.5", data=b"",
+                            method="POST"), timeout=120) as r:
+                        box["trace"] = json.loads(r.read())["trace"]
+
+                th = threading.Thread(target=take)
+                th.start()
+                time.sleep(0.3)
+                http_traffic(base, paths[:16], queries[:16],
+                             f"{runs}/{dtype}_trace")
+                th.join(timeout=120)
+                trace = box.get("trace")
+            synchronize(device)
+            for k, m in counters.items():
+                launch_totals[k] += m.launches
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+        ok = [a[0] == 200 and a[1] == "image/jpeg" for a in answers]
+        outs = [np.asarray(Image.open(io.BytesIO(a[2])), np.int16)
+                for a in answers]
+        shapes_ok = all(o.shape == (size, size, 3) for o in outs)
+        rec = {"phase": "serving_http", "dtype": dtype, "card": smi,
+               "device": health["device"], "device_name":
+               health["device_name"], "requests": SERVE_REQUESTS,
+               "clients": SERVE_CLIENTS, "size": size,
+               "warmup_s": warm_s, "warmup_launches": warm,
+               "requests_per_s": SERVE_REQUESTS / wall,
+               "client_p50_ms": float(np.percentile(lat, 50)),
+               "client_p90_ms": float(np.percentile(lat, 90)),
+               "batch_ms_p50": stats["batch_ms_p50"],
+               "batch_ms_p90": stats["batch_ms_p90"],
+               "readback_ms_p50": stats["readback_ms_p50"],
+               "mean_batch_size": stats["mean_batch_size"],
+               "batches": stats["batches"], "launches": got,
+               "refusal_codes": codes}
+        if busy_ms is not None:
+            rec["device_busy_ms"] = busy_ms
+            rec["device_busy_share"] = busy_ms / (wall_prof * 1e3)
+            rec["requests_per_s_profiled"] = SERVE_REQUESTS / wall_prof
+        # answers against the direct translate_u8 through the same encode
+        # and what a request's host work costs alone (one thread): the
+        # server's Pillow decode + resize of the body, the answer's encode
+        direct = []
+        t0 = time.perf_counter()
+        x = np.stack([serve._decode_resize(b, size) for b in bodies])
+        rec["host_decode_ms"] = (time.perf_counter() - t0) * 1e3 / len(x)
+        c = np.stack(conds)
+        for i in range(0, len(x), 16):
+            direct.append(server.transfer.translate_u8(
+                x[i:i + 16], c[i:i + 16]).cpu().numpy())
+        direct = np.concatenate(direct)
+        mean_steps, encoded = [], []
+        t0 = time.perf_counter()
+        for d in direct:
+            encoded.append(io.BytesIO())
+            Image.fromarray(d).save(encoded[-1], "JPEG", quality=95)
+        rec["host_encode_ms"] = (time.perf_counter() - t0) * 1e3 / len(direct)
+        for o, buf in zip(outs, encoded):
+            want = np.asarray(Image.open(buf), np.int16)
+            mean_steps.append(float(np.abs(o - want).mean()))
+        rec["max_mean_step_vs_direct"] = max(mean_steps)
+        if trace is not None:
+            with open(trace) as f:
+                events = json.load(f)["traceEvents"]
+            rec["profile_trace_events"] = len(events)
+            rec["profile_trace_kernels"] = sum(
+                e.get("cat") == "kernel" for e in events)
+        emit(rec)
+        want_launch = {k: 0 for k in counters}
+        want_launch.update(adain=3 * stats["batches"],
+                           upsample=3 * stats["batches"])
+        want_warm = {k: 0 for k in counters}
+        n_warm = len(serve.warmup_buckets(16))
+        want_warm.update(adain=3 * n_warm, upsample=3 * n_warm)
+        if not (all(ok) and shapes_ok and codes == [400, 404,
+                                                    403 if not dt_flag
+                                                    else 200]):
+            raise AssertionError(f"HTTP {dtype}: answers or codes wrong: "
+                                 f"{sum(ok)}/{len(ok)} ok, codes {codes}")
+        if device == "cuda" and (got != want_launch or warm != want_warm):
+            raise AssertionError(f"HTTP {dtype}: launches {got} / warmup "
+                                 f"{warm}, expected {want_launch} / "
+                                 f"{want_warm} (3 K1 + 3 K2 a forward)")
+        if dtype == "float32" and not rec["max_mean_step_vs_direct"] <= 1.0:
+            raise AssertionError(f"HTTP float32 answers differ from "
+                                 f"translate_u8: {rec['max_mean_step_vs_direct']}")
+        if dt_flag and not (rec.get("profile_trace_events") and (
+                device != "cuda" or rec["profile_trace_kernels"])):
+            raise AssertionError(f"/profile wrote no trace of the traffic: "
+                                 f"{trace}")
+        if device == "cuda" and not busy_ms > 0:
+            raise AssertionError("the profiled traffic ran no kernel")
+
+
+def union_ms(kernels) -> float:
+    """ms covered by the union of the kernels' intervals."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, end = 0.0, None
+    for s, e in spans:
+        if end is None or s > end:
+            busy += e - s
+            end = e
+        elif e > end:
+            busy += e - end
+            end = e
+    return busy / 1e3
+
+
+def synchronize(device):
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def phase_cli(files, world, counters, launch_totals, smi, device, size):
+    """The nine inference and eval CLIs in this process, with real argv, on
+    the card; each must end without error and write what its JAX
+    counterpart writes.  Returns the pictures each saved, by path, for the
+    card-vs-CPU check."""
+    import importlib
+
+    import pandas as pd
+
+    out = os.path.dirname(world["frame"])
+    cp, est = files["cunet_msgpack"], files["est_msgpack"]
+    n, n_test, n_i2w_test = N_CLI_JPEGS, 16, 20
+    dev = ["--device", device, "--input_size", str(size)]
+    # (name, argv, images, forwards, what must exist afterwards)
+    runs = [
+        ("inf_transfer_c", ["--image_root", world["photos"], "--cp_path", cp,
+                            "--image_only", "--output_dir",
+                            f"{out}/inf_c"], 5 * n, -(-n // 16),
+         lambda: len(os.listdir(f"{out}/inf_c")) == 5 * n),
+        ("demo", ["--input_dir", world["demo"], "--cp_path", cp,
+                  "--estimator_path", est, "--num_classes", "5",
+                  "--batch_size", "8", "--num_frames", "5", "--output_dir",
+                  f"{out}/demo"], 5 * 5 * 16, 2 * 5,
+         lambda: sorted(os.listdir(f"{out}/demo")) == ["output0.gif",
+                                                       "output1.gif"]),
+        ("inf_transfer_e", ["--image_root", world["photos"], "--pkl_path",
+                            world["frame"], "--cp_path", cp,
+                            "--estimator_path", est, "--output_dir",
+                            f"{out}/inf_e"], 8 * n_test, n_test // 8,
+         lambda: len(os.listdir(f"{out}/inf_e")) == 8 * n_test),
+        ("inf_1year_signals", ["--image_root", world["photos"], "--pkl_path",
+                               world["frame"], "--photo_id",
+                               world["ids"][3], "--cp_path", cp,
+                               "--output_dir", f"{out}/year"], n,
+         -(-n // 16), lambda: len(os.listdir(f"{out}/year")) == n),
+        ("inf_classifier_i2w", ["--image_root", world["photos"], "--pkl_path",
+                                world["frame"], "--classifier_path", est,
+                                "--output_pkl", f"{out}/labeled.pkl"], n, 0,
+         lambda: pd.read_pickle(f"{out}/labeled.pkl")["w_condition"]
+         .notna().all()),
+        ("eval_class_transfer", ["--pkl_path", world["split"], "--cp_path",
+                                 cp, "--classifier_path", est,
+                                 "--output_dir", f"{out}/ect"],
+         5 * 16, 1, lambda: os.path.exists(f"{out}/ect/cm.pkl")),
+        ("eval_estimator_transfer", ["--image_root", world["photos"],
+                                     "--pkl_path", world["frame"],
+                                     "--cp_path", cp, "--estimator_path",
+                                     est], n_test * n_test, n_test,
+         lambda: True),
+        ("eval_classifier_i2w", ["--pkl_path", world["split"],
+                                 "--classifier_path", est,
+                                 "--copy_misclassified", "--output_dir",
+                                 f"{out}/eci"], n_i2w_test, 0,
+         lambda: os.path.exists(f"{out}/eci/cm.pkl")),
+        ("eval_estimator", ["--image_root", world["photos"], "--pkl_path",
+                            world["frame"], "--estimator_path", est,
+                            "--plot", "--output_dir", f"{out}/ee"], n_test,
+         0, lambda: os.path.exists(f"{out}/ee/errors.pkl")),
+    ]
+    with recorded_saves() as saved:
+        for name, argv, images, forwards, wrote in runs:
+            main_fn = importlib.import_module(
+                f"weather_unet_tpu_torch.cli.{name}").main
+            for m in counters.values():
+                m.launches = 0
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()) as text:
+                result = main_fn(argv + dev)
+            synchronize(device)
+            seconds = time.perf_counter() - t0
+            got = {k: m.launches for k, m in counters.items()}
+            for k in counters:
+                launch_totals[k] += got[k]
+            rec = {"phase": "serving_cli", "cli": name, "card": smi,
+                   "size": size, "images": images, "seconds": seconds,
+                   "img_per_s": images / seconds, "forwards": forwards,
+                   "launches": got, "stdout_tail":
+                   text.getvalue().strip().splitlines()[-1:]}
+            if isinstance(result, dict) and "text" in result:
+                rec["accuracy"] = result["report"].get("accuracy")
+            elif isinstance(result, dict) and "signed_mean" in result:
+                rec["finite"] = bool(np.isfinite(result["signed_mean"]).all())
+            emit(rec)
+            want = {k: 0 for k in counters}
+            want.update(adain=3 * forwards, upsample=3 * forwards)
+            if device == "cuda" and got != want:
+                raise AssertionError(f"{name}: launches {got} != {want}")
+            if not wrote() or rec.get("finite") is False:
+                raise AssertionError(f"{name}: outputs missing or wrong")
+    return saved
+
+
+def phase_card_vs_cpu(files, world, card_saved, smi, device, size):
+    """inf_transfer_c and eval_class_transfer on the CPU (--device cpu) on a
+    4-image subset against the card: saved pictures within 1 uint8 step;
+    labels equal where the CPU's top-two logits are more than 1e-3
+    apart."""
+    import weather_unet_tpu_torch.cli.common as common
+    from weather_unet_tpu_torch.cli import eval_class_transfer, inf_transfer_c
+
+    out = os.path.dirname(world["frame"])
+    with recorded_saves() as saved, contextlib.redirect_stdout(io.StringIO()):
+        inf_transfer_c.main(["--image_root", world["subset_dir"],
+                             "--cp_path", files["cunet_msgpack"],
+                             "--image_only", "--batch_size", "4",
+                             "--input_size", str(size), "--device", "cpu",
+                             "--output_dir", f"{out}/inf_c_cpu"])
+    worst, n_pics = 0, 0
+    for f in sorted(os.listdir(f"{out}/inf_c_cpu")):
+        cpu = saved[os.path.join(out, "inf_c_cpu", f)]
+        card = card_saved[os.path.join(out, "inf_c", f)]
+        worst = max(worst, int(np.abs(cpu - card).max()))
+        n_pics += 1
+
+    logits = {}
+    load = common.load_estimator
+
+    def recording(path, *a, **kw):
+        apply = load(path, *a, **kw)
+
+        def rec(images):
+            y = apply(images)
+            logits[run].append(y.float().cpu())
+            return y
+        return rec
+
+    common.load_estimator = recording
+    try:
+        for run in (device, "cpu_run"):
+            logits[run] = []
+            with contextlib.redirect_stdout(io.StringIO()):
+                eval_class_transfer.main([
+                    "--pkl_path", world["subset_split"], "--cp_path",
+                    files["cunet_msgpack"], "--classifier_path",
+                    files["est_msgpack"], "--batch_size", "4",
+                    "--input_size", str(size), "--device",
+                    "cpu" if run == "cpu_run" else device,
+                    "--output_dir", f"{out}/ect_{run}"])
+    finally:
+        common.load_estimator = load
+    card_l, cpu_l = torch.cat(logits[device]), torch.cat(logits["cpu_run"])
+    top2 = cpu_l.topk(2, dim=1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 1e-3
+    differ = card_l.argmax(1) != cpu_l.argmax(1)
+    rec = {"phase": "serving_card_vs_cpu", "card": smi, "size": size,
+           "inf_transfer_c_pictures": n_pics, "max_step": worst,
+           "labels": int(len(cpu_l)), "labels_differ": int(differ.sum()),
+           "labels_differ_clear": int((differ & clear).sum()),
+           "logits_max_abs": float((card_l - cpu_l).abs().max())}
+    emit(rec)
+    if n_pics != 20 or worst > 1 or rec["labels_differ_clear"]:
+        raise AssertionError(f"card vs CPU CLIs disagree: {rec}")
+
+
+def phase_serving_cli(est_path, counters, launch_totals, smi,
+                      device="cuda", size=224):
+    """Phase serving_cli: checkpoints, the HTTP server and the nine CLIs at
+    full width (the 7.8 M-parameter cUNet, the seeded 42.5 M-parameter
+    ResNet-101), float32 with TF32 off, through K1 and K2."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        world = serving_world(tmp)
+        files = serving_checkpoints(tmp, est_path, device)
+        phase_http(files, world, counters, launch_totals, smi, device, size)
+        saved = phase_cli(files, world, counters, launch_totals, smi, device,
+                          size)
+        phase_card_vs_cpu(files, world, saved, smi, device, size)
+    emit({"phase": "serving_cli_done",
+          "seconds": time.perf_counter() - t_phase})
+
+
 def kernels_line(summary, launch_totals):
     meta = {
         "adain": ("weather_unet_tpu_torch/csrc/adain.cu",
@@ -2517,6 +3144,7 @@ def main():
         gan_records = phase_gan(est_path, counters, launch_totals)
         phase_train(est_path, counters, launch_totals, gan_records, smi)
         phase_supervised(counters, launch_totals, smi)
+        phase_serving_cli(est_path, counters, launch_totals, smi)
     for name, total in launch_totals.items():
         if total == 0:
             raise AssertionError(f"{name} kernel never ran on the main path")

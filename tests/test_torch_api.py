@@ -122,8 +122,11 @@ def test_translate_to_classes_and_sweep(wt, rng):
 def test_load_errors(cp_path, tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="num_classes=5"):
         WeatherTransfer.load(cp_path, num_classes=6, device="cpu")
+    # any path not ending in .pt/.pth is read as flax msgpack
+    garbage = tmp_path / "ckpt"
+    garbage.write_bytes(b"\xc1 not msgpack")
     with pytest.raises(ValueError, match="msgpack"):
-        WeatherTransfer.load(str(tmp_path / "ckpt"), device="cpu")
+        WeatherTransfer.load(str(garbage), device="cpu")
     # no GPU and no device given: raise, never fall back to the CPU
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -171,8 +174,8 @@ def test_batcher_reports_errors_per_request(rng):
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port leaves jax, flax and the JAX
-    package out of sys.modules, and builds no kernel."""
+    """Importing every module of the port leaves jax, flax, scikit-learn
+    and the JAX package out of sys.modules, and builds no kernel."""
     code = (
         "import importlib, json, pkgutil, sys\n"
         "import weather_unet_tpu_torch as p\n"
@@ -182,7 +185,8 @@ def test_port_imports_no_jax():
         "from weather_unet_tpu_torch.kernels import _build\n"
         "from weather_unet_tpu_torch import runtime\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'triton', 'weather_unet_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'triton', 'weather_unet_tpu', "
+        "'sklearn'))\n"
         "lazy = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('PIL', 'pandas', 'tensorboard'))\n"
         "print(json.dumps({'modules': names, 'bad': bad, 'lazy': lazy, "
@@ -206,7 +210,11 @@ def test_port_imports_no_jax():
                  "train.checkpoint", "train.loops", "cli.train_transfer_est",
                  "cli.train_transfer_cls", "runtime", "data.cache",
                  "train.supervised", "cli.train_classifier",
-                 "cli.train_estimator"):
+                 "cli.train_estimator", "cli.demo", "cli.inf_transfer_c",
+                 "cli.inf_transfer_e", "cli.inf_1year_signals",
+                 "cli.inf_classifier_i2w", "cli.eval_class_transfer",
+                 "cli.eval_estimator_transfer", "cli.eval_classifier_i2w",
+                 "cli.eval_estimator"):
         assert f"weather_unet_tpu_torch.{name}" in out["modules"]
     assert out["bad"] == [] and out["built"] == 0
     # nor the native runtime (built at first use, not on import)

@@ -76,8 +76,11 @@ def test_load_estimator_matches_jax(estimator, rng, softmax):
 
 def test_load_estimator_errors(estimator, tmp_path, monkeypatch):
     path, _, apply = estimator
+    # any path not ending in .pt/.pth is read as flax msgpack
+    garbage = tmp_path / "ckpt"
+    garbage.write_bytes(b"\xc1 not msgpack")
     with pytest.raises(ValueError, match="msgpack"):
-        load_estimator(str(tmp_path / "ckpt"), device="cpu")
+        load_estimator(str(garbage), device="cpu")
     with pytest.raises(ValueError, match="num_classes=5"):
         load_estimator(path, num_classes=6, device="cpu")
     # a whole-model pickle (the reference's estimator format) is refused

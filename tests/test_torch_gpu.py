@@ -597,3 +597,52 @@ def test_device_augment_matches_native_and_cpu(cuda):
     card = tf.augment_from_uniforms(x, u, fs, cfg).cpu()
     cpu = tf.augment_from_uniforms(x.cpu(), u.cpu(), fs.cpu(), cfg)
     assert float((card - cpu).abs().max()) <= 1e-5
+
+
+def test_http_server_answers_through_k1_k2(cuda, tmp_path):
+    """The HTTP server on the card (use_pallas by default) answers one
+    request; the device forward launches K1 and K2 three times each, and
+    the answer is within 1 uint8 step of the same model on the CPU."""
+    import io
+    import threading
+    import urllib.request
+
+    from PIL import Image
+
+    from weather_unet_tpu_torch.cli import serve
+
+    torch.manual_seed(0)
+    path = str(tmp_path / "g.pt")
+    torch.save({"inference": ConditionalUNet(5).state_dict()}, path)
+    server = serve.build_server(serve.build_parser().parse_args([
+        "--cp_path", path, "--host", "127.0.0.1", "--port", "0",
+        "--input_size", "64", "--max_batch", "2", "--no-warmup"]))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    rng = np.random.default_rng(0)
+    buf = io.BytesIO()
+    Image.fromarray(rng.integers(0, 256, (64, 64, 3), dtype=np.uint8)).save(
+        buf, "PNG")
+    try:
+        assert server.transfer.device.type == "cuda"
+        before = (k1.launches, k2.launches)
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{server.server_address[1]}/translate?class=2",
+            data=buf.getvalue(), method="POST")
+        with urllib.request.urlopen(req, timeout=120) as r:
+            assert r.status == 200
+            got = np.asarray(Image.open(io.BytesIO(r.read())), np.int16)
+        assert (k1.launches - before[0], k2.launches - before[1]) == (3, 3)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+    x = serve._decode_resize(buf.getvalue(), 64)[None]
+    c = np.eye(5, dtype=np.float32)[[2]]
+    cpu = WeatherTransfer.load(path, device="cpu").translate_u8(x, c)
+    enc = io.BytesIO()
+    Image.fromarray(cpu.numpy()[0]).save(enc, "JPEG", quality=95)
+    want = np.asarray(Image.open(enc), np.int16)
+    assert got.shape == (64, 64, 3)
+    # the JPEG encode can move a pixel that a 1-step difference flipped
+    assert float(np.abs(got - want).mean()) <= 1.0

@@ -12,19 +12,22 @@ its module names so each counterpart is easy to find:
                     (``ResNet101``) with the reference state_dict names;
 * ``compat``     -- reference ``.pt`` loading and JAX-variable conversion;
 * ``api``        -- ``WeatherTransfer`` (translate / translate_u8 / ...);
-* ``cli.common`` -- ``load_transfer``, ``load_estimator``,
-                    ``load_step_estimator`` and the CLIs' data helpers;
-* ``cli.serve``  -- the request ``Batcher``;
-* ``cli.train_transfer_est`` / ``cli.train_transfer_cls`` -- the GAN
-                    training CLIs;
+* ``cli.common`` -- ``load_transfer``, ``load_estimator`` (reference
+                    ``.pt`` or JAX-package msgpack), ``load_step_estimator``
+                    and the CLIs' data and image helpers;
+* ``cli.serve``  -- the HTTP server and its request ``Batcher``;
+* ``cli.*``      -- the GAN and supervised training CLIs, the inference
+                    CLIs (``demo``, ``inf_*``) and the eval CLIs
+                    (``eval_*``);
 * ``evaluation`` -- transfer-consistency evaluation over a ``WeatherTransfer``
                     and an estimator or classifier;
 * ``core``       -- train-time generators, torch Adam, train states;
 * ``data``       -- datasets, the imbalance sampler, loader-thread
                     augmentation, ``BatchLoader``, the GPU prefetch;
 * ``train``      -- the GAN combined train step and its evaluation step
-                    (``gan``), the trainer loop (``loops``), checkpoints,
-                    summaries and preemption handling.
+                    (``gan``), the trainer loop (``loops``), checkpoints
+                    (``.pt``, and flax msgpack without flax), summaries and
+                    preemption handling.
 
 The package imports ``torch`` and never ``jax`` or ``weather_unet_tpu``.
 Entry points run on CUDA unless the caller passes ``device="cpu"``; without

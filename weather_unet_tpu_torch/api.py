@@ -1,6 +1,7 @@
 """High-level library API: load once, translate many.
 
-    wt = WeatherTransfer.load("ckpt.pt")            # CUDA unless device= given
+    wt = WeatherTransfer.load("ckpt.pt")            # or msgpack; CUDA unless
+                                                    # device= given
     out = wt.translate(images, conditions)          # NHWC [-1,1] -> [-1,1]
     u8o = wt.translate_u8(u8_images, conditions)    # uint8 wire fast path
     outs = wt.translate_to_classes(images)          # all one-hot classes
@@ -38,14 +39,17 @@ class WeatherTransfer:
     @classmethod
     def load(cls, cp_path: str, num_classes: int = 5,
              dtype: torch.dtype = torch.float32, fuse_upconv="auto",
-             device: DeviceLike = None):
-        """Load from a reference ``.pt`` GAN bundle.  ``fuse_upconv``: the
-        fused upsample+conv decoder kernel; ``"auto"`` resolves to off."""
+             use_pallas="auto", device: DeviceLike = None):
+        """Load from a reference ``.pt`` GAN bundle or a JAX-package msgpack
+        checkpoint (``cli.common.load_transfer``).  ``use_pallas``: K1 + K2
+        in the decoder, ``"auto"`` resolves to on; ``fuse_upconv``: the
+        fused upsample+conv decoder kernel, ``"auto"`` resolves to off."""
         from weather_unet_tpu_torch.cli.common import load_transfer
 
         device = resolve_device(device)
         model = load_transfer(cp_path, num_classes=num_classes, dtype=dtype,
-                              fuse_upconv=fuse_upconv, device=device)
+                              fuse_upconv=fuse_upconv, use_pallas=use_pallas,
+                              device=device)
         return cls(model, device)
 
     def _fwd(self, x, c):

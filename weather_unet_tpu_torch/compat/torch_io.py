@@ -30,7 +30,10 @@ import torch
 
 def _np(t) -> np.ndarray:
     if isinstance(t, torch.Tensor):
-        return t.detach().cpu().numpy()
+        t = t.detach().cpu()
+        # numpy has no bfloat16 (a bfloat16 msgpack leaf is read as a
+        # tensor); float32 holds every bfloat16 value exactly
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
     return np.asarray(t)
 
 

@@ -219,3 +219,34 @@ class ClassImageDataset:
         if self.inf:
             return image, target, self.paths[idx]
         return image, target
+
+
+class OneYearWeatherSignals:
+    """One fixed photo x a year of hourly signals for one station
+    (reference ``dataset.py:155-203``): the station's rows deduplicated on
+    ``s_unixtime`` and sorted newest first, missing signals read as 0;
+    items are ``(image, signal_vector, unixtime)``.  The station is
+    ``name``, or the photo's own row's ``name``."""
+
+    def __init__(self, image_root: str, df, columns: Sequence[str],
+                 photo_id: str, out_size: Optional[int] = None,
+                 name: Optional[str] = None):
+        self.columns = list(columns)
+        self.num_classes = len(self.columns)
+        self.photo_id = photo_id
+        if name is None:
+            name = df[df["photo"] == photo_id]["name"].to_list()[0]
+        self.name = name
+        sdf = df[df["name"] == name].drop_duplicates(subset=["s_unixtime"])
+        sdf = sdf.sort_values("s_unixtime", ascending=False).reset_index()
+        self.s_times = sdf["s_unixtime"].to_numpy()
+        self.conditions = sdf.loc[:, self.columns].fillna(0).to_numpy(
+            np.float32)
+        self.image = _decode(flickr_image_path(image_root, photo_id),
+                             out_size)
+
+    def __len__(self):
+        return len(self.conditions)
+
+    def __getitem__(self, idx: int):
+        return self.image, self.conditions[idx], self.s_times[idx]

@@ -7,7 +7,9 @@ Each takes a ``WeatherTransfer`` and a ``classify`` / ``estimate`` callable
 (``cli.common.load_estimator`` returns one) over NHWC images in [-1, 1].
 The translate + re-classify / re-estimate compute runs on the transfer's
 device, without autograd (the callables may be differentiable); the results
-come back as numpy arrays.
+come back as numpy arrays.  The classification report and confusion matrix
+that the JAX package takes from scikit-learn are computed here in numpy
+(the GPU host has no scikit-learn), with its formulas and its text layout.
 """
 
 from __future__ import annotations
@@ -43,6 +45,108 @@ def class_transfer_consistency(transfer, classify: Callable,
             y_true.extend([ci] * b)
             y_pred.extend(preds[ci].tolist())
     return np.asarray(y_true), np.asarray(y_pred)
+
+
+def _safe_div(num: np.ndarray, den: np.ndarray) -> np.ndarray:
+    """num / den, 0 where den is 0 (scikit-learn's ``zero_division=0``)."""
+    num = np.asarray(num, dtype=np.float64)
+    den = np.asarray(den, dtype=np.float64)
+    out = np.zeros(np.broadcast(num, den).shape)
+    np.divide(num, den, out=out, where=den != 0)
+    return out
+
+
+def _prf(tp, pred_sum, true_sum):
+    """precision, recall, F1 (``2 tp / (true + pred)``) with zero_division
+    0, as scikit-learn's ``precision_recall_fscore_support`` forms them."""
+    return (_safe_div(tp, pred_sum), _safe_div(tp, true_sum),
+            _safe_div(2 * tp, true_sum + pred_sum))
+
+
+def classification_report_dict(y_true, y_pred, class_names) -> Dict:
+    """scikit-learn's ``classification_report`` over labels
+    ``0..len(class_names)-1`` with ``zero_division=0`` (the dict and the
+    printable ``text``, two digits) and its ``confusion_matrix``
+    (``eval_class_transfer.py:126-143``).  Rows are the true label,
+    columns the prediction."""
+    y_true = np.asarray(y_true).astype(np.int64).ravel()
+    y_pred = np.asarray(y_pred).astype(np.int64).ravel()
+    names = list(class_names)
+    k = len(names)
+    inside = ((y_true >= 0) & (y_true < k) & (y_pred >= 0) & (y_pred < k))
+    cm = np.zeros((k, k), dtype=np.int64)
+    np.add.at(cm, (y_true[inside], y_pred[inside]), 1)
+    tp = np.diag(cm)
+    true_sum = np.array([(y_true == i).sum() for i in range(k)])
+    pred_sum = np.array([(y_pred == i).sum() for i in range(k)])
+    p, r, f1 = _prf(tp, pred_sum, true_sum)
+    headers = ["precision", "recall", "f1-score", "support"]
+    report = {n: dict(zip(headers, map(float, (p[i], r[i], f1[i],
+                                               true_sum[i]))))
+              for i, n in enumerate(names)}
+    # the micro average is the accuracy when every label seen is listed
+    micro_is_accuracy = bool(inside.all())
+    micro = _prf(tp.sum(), pred_sum.sum(), true_sum.sum())
+    weights = true_sum if true_sum.sum() else None
+    averages = [
+        ("accuracy" if micro_is_accuracy else "micro avg", micro),
+        ("macro avg", (p.mean(), r.mean(), f1.mean())),
+        ("weighted avg", tuple(
+            float(np.average(v, weights=weights)) if weights is not None
+            else 0.0 for v in (p, r, f1)))]
+    support = int(true_sum.sum())
+
+    width = max(max(len(n) for n in names), len("weighted avg"), 2)
+    text = ("{:>{width}s} " + " {:>9}" * 4).format("", *headers,
+                                                   width=width) + "\n\n"
+    row_fmt = "{:>{width}s} " + " {:>9.2f}" * 3 + " {:>9}\n"
+    for i, n in enumerate(names):
+        text += row_fmt.format(n, p[i], r[i], f1[i], int(true_sum[i]),
+                               width=width)
+    text += "\n"
+    for heading, (ap, ar, af) in averages:
+        report[heading] = dict(zip(headers, map(float, (ap, ar, af,
+                                                        support))))
+        if heading == "accuracy":
+            text += ("{:>{width}s} " + " {:>9}" * 2 + " {:>9.2f} {:>9}\n"
+                     ).format(heading, "", "", float(af), support,
+                              width=width)
+        else:
+            text += row_fmt.format(heading, ap, ar, af, support, width=width)
+    if micro_is_accuracy:
+        report["accuracy"] = report["accuracy"]["precision"]
+    return {"report": report, "text": text, "confusion_matrix": cm}
+
+
+def write_confusion_artifacts(output_dir: str, cm, class_names) -> None:
+    """The reference evals' on-disk artifacts: ``cm.pkl`` (a pandas
+    DataFrame with class-named axes) and the ``pr_table.png`` heatmap
+    (``eval_classifier_i2w.py:106-114``, ``eval_class_transfer.py:126-143``).
+    Plotting is best-effort: without matplotlib and seaborn it prints why it
+    was skipped."""
+    import os
+
+    import pandas as pd
+
+    names = list(class_names)
+    df = pd.DataFrame(np.asarray(cm), index=names, columns=names)
+    df.to_pickle(os.path.join(output_dir, "cm.pkl"))
+    try:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+        import seaborn as sns
+
+        fig, ax = plt.subplots(figsize=(6, 5))
+        sns.heatmap(df, square=True, annot=True, fmt="d", ax=ax)
+        ax.set_xlabel("predicted")
+        ax.set_ylabel("true/requested")
+        fig.savefig(os.path.join(output_dir, "pr_table.png"),
+                    bbox_inches="tight")
+        plt.close(fig)
+    except Exception as e:  # plotting is best-effort
+        print(f"pr_table.png skipped: {type(e).__name__}: {e}")
 
 
 @torch.no_grad()

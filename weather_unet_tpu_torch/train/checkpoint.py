@@ -9,9 +9,14 @@ state is saved too, so a resume is exact.  One file per save,
 loaded with ``weights_only=True``), written under a unique temporary name
 and renamed into place; the newest name wins.  ``export_torch_gan`` writes
 the reference's ``.pt`` GAN bundle; ``supervised_tree`` /
-``restore_supervised`` hold the supervised loop's state.  Reading the JAX
-package's flax msgpack files is not ported yet (``ROADMAP.md`` queue 1,
-item 6).
+``restore_supervised`` hold the supervised loop's state.
+
+The JAX package's checkpoints are flax msgpack files; ``msgpack_restore`` /
+``restore_checkpoint`` read them and ``to_bytes`` / ``save_checkpoint_file``
+write the same bytes as flax, with ``msgpack`` alone (no flax, no JAX).
+Resuming a JAX *training* run from one (optax's Adam state into
+``torch.optim.Adam``) is not ported yet (``ROADMAP.md`` queue 1, "JAX
+training state"); serving and evaluation read its weights.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import uuid
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Optional
 
+import msgpack
 import numpy as np
 import torch
 
@@ -81,7 +87,19 @@ def gan_tree(state: GanTrainState, seed: int) -> dict:
 
 def restore_checkpoint(path: str, state: Optional[GanTrainState] = None):
     """Read a checkpoint; with ``state``, load it into the state's modules
-    and optimizers (on their devices) and counters.  Returns the tree."""
+    and optimizers (on their devices) and counters.  Returns the tree.
+
+    A path that does not end in ``.pt``/``.pth`` is a JAX-package flax
+    msgpack file, as in ``weather_unet_tpu/cli/common.py``: its raw nested
+    dict comes back (``read_msgpack``); loading one into ``state`` is not
+    ported yet."""
+    if not path.endswith((".pt", ".pth")):
+        if state is not None:
+            raise NotImplementedError(
+                f"{path}: resuming a JAX training run from its msgpack "
+                f"checkpoint is not ported yet ({JAX_STATE_ITEM}); the "
+                f"weights load for serving and evaluation")
+        return read_msgpack(path)
     tree = torch.load(path, map_location="cpu", weights_only=True)
     if state is not None:
         for ts, key in ((state.gen, "gen"), (state.disc, "disc")):
@@ -193,3 +211,186 @@ def export_torch_gan(path: str, gen, disc, epoch: int,
     torch.save({"inference": _to_host(gen.state_dict()),
                 "discriminator": _reference_disc_sd(disc.state_dict()),
                 "epoch": epoch, "global_step": global_step}, path)
+
+
+# ---------------------------------------------------------------- msgpack
+#
+# flax's on-disk format (``flax/serialization.py``): the tree is a msgpack map
+# of string keys (sequences become maps keyed "0", "1", ...); an array leaf
+# is ext type 1 and a numpy scalar ext type 3, both holding the msgpack
+# triple (shape, dtype name, C-order bytes); a complex number is ext type 2,
+# (real, imag).  Leaves over MAX_CHUNK_SIZE bytes are split into
+# ``{CHUNKED: True, "shape": {...}, "chunks": {...}}`` maps of flat pieces.
+
+JAX_STATE_ITEM = "ROADMAP.md queue 1, 'JAX training state'"
+MAX_CHUNK_SIZE = 2 ** 30
+CHUNKED = "__msgpack_chunked_array__"
+_EXT_NDARRAY, _EXT_COMPLEX, _EXT_NPSCALAR = 1, 2, 3
+
+
+def _array_from_bytes(data: bytes):
+    """Ext payload -> numpy array, or a bfloat16 tensor (numpy has no
+    bfloat16: its bytes are read as int16 and viewed as torch.bfloat16)."""
+    shape, dtype_name, buf = msgpack.unpackb(data, raw=True)
+    if dtype_name == b"bfloat16":
+        bits = np.frombuffer(buf, dtype=np.int16).reshape(shape)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16)
+    return np.frombuffer(buf, dtype=np.dtype(dtype_name.decode())).reshape(
+        shape, order="C")
+
+
+def _ext_unpack(code: int, data: bytes):
+    if code == _EXT_NDARRAY:
+        return _array_from_bytes(data)
+    if code == _EXT_NPSCALAR:
+        return _array_from_bytes(data)[()]
+    if code == _EXT_COMPLEX:
+        real, imag = msgpack.unpackb(data)
+        return complex(real, imag)
+    return msgpack.ExtType(code, data)
+
+
+def _unchunk(tree):
+    if isinstance(tree, dict):
+        if CHUNKED in tree:
+            shape = tuple(tree["shape"][str(i)]
+                          for i in range(len(tree["shape"])))
+            chunks = [tree["chunks"][str(i)]
+                      for i in range(len(tree["chunks"]))]
+            cat = (torch.cat if isinstance(chunks[0], torch.Tensor)
+                   else np.concatenate)
+            return cat(chunks).reshape(shape)
+        return {k: _unchunk(v) for k, v in tree.items()}
+    return tree
+
+
+def msgpack_restore(data: bytes):
+    """flax ``serialization.msgpack_restore``: bytes -> nested dict with
+    numpy array and scalar leaves (bfloat16 ones as torch.bfloat16
+    tensors), chunked leaves rejoined."""
+    return _unchunk(msgpack.unpackb(data, ext_hook=_ext_unpack, raw=False))
+
+
+def read_msgpack(path: str) -> dict:
+    """``restore_checkpoint(path, None)`` of the JAX package: the raw nested
+    dict of a flax msgpack file.  Raises ValueError for a file that is not
+    one."""
+    with open(path, "rb") as f:
+        data = f.read()
+    try:
+        tree = msgpack_restore(data)
+    except (ValueError, msgpack.UnpackException) as e:
+        raise ValueError(f"{path} is not a flax msgpack checkpoint: "
+                         f"{type(e).__name__}: {e}") from e
+    if not isinstance(tree, dict):
+        raise ValueError(f"{path} is not a flax msgpack checkpoint: its top "
+                         f"level is a {type(tree).__name__}, not a map")
+    return tree
+
+
+def _state_dict(tree):
+    """flax ``to_state_dict`` of plain containers: dicts keep their order
+    with string keys, a namedtuple becomes a map of its fields, any other
+    sequence a map keyed by position."""
+    if isinstance(tree, dict):
+        out = {str(k): _state_dict(v) for k, v in tree.items()}
+        if len(out) != len(tree):
+            raise ValueError(f"dict keys have no unique string form: "
+                             f"{list(tree)}")
+        return out
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return {k: _state_dict(getattr(tree, k)) for k in tree._fields}
+    if isinstance(tree, (list, tuple)):
+        return {str(i): _state_dict(v) for i, v in enumerate(tree)}
+    return tree
+
+
+def _nbytes(x) -> int:
+    return (x.numel() * x.element_size() if isinstance(x, torch.Tensor)
+            else x.size * x.dtype.itemsize)
+
+
+def _chunk(x) -> dict:
+    item = x.element_size() if isinstance(x, torch.Tensor) else x.itemsize
+    step = max(1, MAX_CHUNK_SIZE // item)
+    flat = x.reshape(-1)
+    return {CHUNKED: True,
+            "shape": {str(i): n for i, n in enumerate(x.shape)},
+            "chunks": {str(i): flat[j:j + step] for i, j in
+                       enumerate(range(0, flat.shape[0], step))}}
+
+
+def _chunk_leaves(tree):
+    """Split array leaves over MAX_CHUNK_SIZE bytes (flax descends into maps
+    only, and chunks a bare top-level array)."""
+    if isinstance(tree, dict):
+        return {k: _chunk_leaves(v) if isinstance(v, dict)
+                else _chunk(v) if (isinstance(v, (np.ndarray, torch.Tensor))
+                                   and _nbytes(v) > MAX_CHUNK_SIZE) else v
+                for k, v in tree.items()}
+    if (isinstance(tree, (np.ndarray, torch.Tensor))
+            and _nbytes(tree) > MAX_CHUNK_SIZE):
+        return _chunk(tree)
+    return tree
+
+
+def _array_to_bytes(x) -> bytes:
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().contiguous()
+        if x.dtype == torch.bfloat16:
+            return msgpack.packb((tuple(x.shape), "bfloat16",
+                                  x.view(torch.int16).numpy().tobytes()),
+                                 use_bin_type=True)
+        x = x.numpy()
+    if x.dtype.hasobject or x.dtype.isalignedstruct:
+        raise ValueError("object and structured dtypes cannot be written")
+    return msgpack.packb((x.shape, x.dtype.name, x.tobytes("C")),
+                         use_bin_type=True)
+
+
+def _ext_pack(x):
+    if isinstance(x, (np.ndarray, torch.Tensor)):
+        return msgpack.ExtType(_EXT_NDARRAY, _array_to_bytes(x))
+    if isinstance(x, np.generic):
+        return msgpack.ExtType(_EXT_NPSCALAR, _array_to_bytes(np.asarray(x)))
+    if isinstance(x, complex):
+        return msgpack.ExtType(_EXT_COMPLEX, msgpack.packb((x.real, x.imag)))
+    raise TypeError(f"cannot serialize {type(x).__name__}")
+
+
+def to_bytes(tree) -> bytes:
+    """flax ``serialization.to_bytes`` of a tree of dicts, lists, tuples,
+    numpy arrays and scalars, torch tensors (bfloat16 too) and Python
+    primitives: the same bytes."""
+    return msgpack.packb(_chunk_leaves(_state_dict(tree)), default=_ext_pack,
+                         strict_types=True)
+
+
+def _host_tree(tree):
+    """The JAX package's ``_to_host`` (``jax.tree.map(np.asarray, tree)``):
+    dict keys sorted as JAX flattens them, every leaf an array (a Python
+    number becomes a 0-d one; a bfloat16 tensor stays a tensor), None kept."""
+    if isinstance(tree, dict):
+        return {k: _host_tree(tree[k]) for k in sorted(tree)}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_host_tree(v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_host_tree(v) for v in tree)
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        tree = tree.detach().cpu()
+        return tree if tree.dtype == torch.bfloat16 else tree.numpy()
+    return np.asarray(tree)
+
+
+def save_checkpoint_file(path: str, tree: Any) -> str:
+    """The JAX package's ``save_checkpoint_file``: ``tree`` as flax msgpack
+    at exactly ``path`` (the bytes flax writes for it), through a unique
+    temporary file renamed into place."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = f"{path}.tmp.{os.getpid()}.{uuid.uuid4().hex[:8]}"
+    with open(tmp, "wb") as f:
+        f.write(to_bytes(_host_tree(tree)))
+    os.replace(tmp, path)
+    return path
