@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port's serving, estimator and GAN training
 paths, of its trainer and training CLI, of its data runtime and supervised
-pretraining, and of its serving entry points (msgpack checkpoints, the HTTP
-server, the inference and eval CLIs), on one NVIDIA GPU.
+pretraining, of its serving entry points (msgpack checkpoints, the HTTP
+server, the inference and eval CLIs), and of FID / IS and the exported
+serving artifact, on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the repository root, one GPU
 
@@ -227,8 +228,37 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                subset: saved pictures within 1 uint8 step of the card's,
                labels equal where the top two logits are more than 1e-3
                apart.
-11. kernels -- the summary line of every ported kernel (launches on the main
-               paths of phases 4-10; error, times and bound over one serving
+11. eval_export -- FID and IS through Inception-v3 at full width (seeded
+               random weights, BatchNorm calibrated on one batch), on two
+               directories of 64 seeded 256x256 JPEGs: pool3 features at
+               299x299 (resized in the model), batch 50, float32 (TF32 off)
+               and bfloat16; the card's float32 features within a relative
+               L2 error of 1e-4 of the CPU's (8 images), bfloat16 within
+               0.25 of float32; FID finite in both.  Prints img/s (feature
+               function and the network alone), peak memory, the device
+               busy share of a forward, the host's sqrtm seconds and
+               scipy's warnings.  The fid_score CLI over the two
+               directories, --save-stats of one and that .npz against the
+               other (the same FID to 1e-6), the inception_score CLI (input
+               224, batch 32, 10 splits) on a torchvision-layout head; each
+               one's images/s; no K1-K4 launch.  Then the use_pallas cUNet
+               at full width, 256x256: export_serving --check in float32 and
+               bfloat16 (export seconds, artifact MiB, load ms, every tensor
+               of the programs on the card), ExportedTransfer at batches 1,
+               3 and 16 against the live WeatherTransfer: MAE <= 1e-5
+               against the live model in its dtype (the export must not
+               change the function), a bfloat16 program no further from
+               the live float32 model than the live bfloat16 model is
+               (+1e-5; that distance itself is recorded), translate_u8
+               within 1 step of the live model in its dtype;
+               3 K1 + 3 K2 a program forward (counters, and kernel names
+               under torch.profiler), img/s at batch 16 of the artifact and
+               the live forward in turns; serve --artifact (float32) answers
+               16 POSTs from 4 client threads of a child process (200,
+               image/jpeg, within a mean of 1 step of the direct
+               translate_u8 through the same encode, 3 K1 + 3 K2 a batch).
+12. kernels -- the summary line of every ported kernel (launches on the main
+               paths of phases 4-11; error, times and bound over one serving
                forward's sites and, under "gan_step_forward", over one GAN
                generator (K1, K2) or estimator (K4) forward's).
 
@@ -251,6 +281,7 @@ import sys
 import tempfile
 import threading
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -853,6 +884,7 @@ def phase_serve(wt, counters, launch_totals):
     if any(th.is_alive() for th in threads):
         raise AssertionError("Batcher clients did not finish in 300 s")
     stats = batcher.stats()
+    batcher.close()
     for k, m in counters.items():
         launch_totals[k] += m.launches
     answered = sum(r is not None and r.shape == (size, size, 3)
@@ -1599,12 +1631,12 @@ def host_packages():
     return out
 
 
-def write_jpegs(root, n, size=256):
+def write_jpegs(root, n, size=256, seed=SEED + 9):
     """``n`` seeded smooth-plus-noise RGB JPEGs of size x size; their
     paths."""
     from PIL import Image
 
-    rng = np.random.default_rng(SEED + 9)
+    rng = np.random.default_rng(seed)
     yy, xx = np.mgrid[:size, :size]
     paths = []
     for i in range(n):
@@ -3059,6 +3091,413 @@ def phase_serving_cli(est_path, counters, launch_totals, smi,
           "seconds": time.perf_counter() - t_phase})
 
 
+# ---------------------------------------------------------------- eval_export
+
+FID_BATCH = 50            # fid_score's default --batch-size
+N_FID_JPEGS = 64          # seeded 256x256 JPEGs in each FID directory
+FEATURE_TOL = 1e-4        # card vs CPU pool3 features (float32), rel. L2
+# bfloat16 pool3 features against float32, relative L2: the calibrated
+# random network amplifies a rounding ~60x (tests/test_torch_inception.py),
+# so bfloat16's 2^-9 arrives as O(0.05)
+FEATURE_TOL_BF16 = 0.25
+ART_SIZE = 256            # export_serving's default --input_size
+ART_BATCHES = (1, 3, 16)
+ART_REQUESTS, ART_CLIENTS = 16, 4
+
+
+def inception_weights(path, seed, x, **kw):
+    """A seeded Inception-v3 (``kw``: head and variant) with BatchNorm
+    calibrated on the card on ``x`` (NCHW in [0, 1]), saved as a state-dict
+    .pth at ``path``."""
+    from weather_unet_tpu_torch.models.inception_fid import (
+        InceptionV3FID, calibrate_batchnorm)
+
+    model = InceptionV3FID(generator=torch.Generator().manual_seed(seed),
+                           **kw).cuda()
+    calibrate_batchnorm(model, x)
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()}, path)
+    return path
+
+
+def rel_l2(a, b) -> float:
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def launches_of(counters):
+    return {k: m.launches for k, m in counters.items()}
+
+
+def reset(counters):
+    for m in counters.values():
+        m.launches = 0
+
+
+def phase_fid_is(root, counters, smi):
+    """Inception-v3 at full width on seeded random weights: the FID
+    features at 299x299 (batch 50, float32 with TF32 off and bfloat16),
+    card against CPU; the fid_score CLI over two directories, its
+    --save-stats .npz against the other directory; the inception_score CLI
+    over one directory.  No K1-K4 launch."""
+    from weather_unet_tpu_torch.cli import fid_score, inception_score
+    from weather_unet_tpu_torch.cli.common import list_images
+    from weather_unet_tpu_torch.compat.torch_io import inception_state_dict
+    from weather_unet_tpu_torch.evaluation import fid
+    from weather_unet_tpu_torch.models.inception_fid import InceptionV3FID
+
+    dirs = {}
+    for i, name in enumerate(("a", "b")):
+        dirs[name] = os.path.join(root, name)
+        os.makedirs(dirs[name])
+        write_jpegs(dirs[name], N_FID_JPEGS, seed=SEED + 30 + i)
+    batches = {k: list(fid._image_batches(list_images(d), FID_BATCH))
+               for k, d in dirs.items()}
+    calib = torch.from_numpy(batches["a"][0]).cuda().permute(0, 3, 1, 2)
+    w_fid = inception_weights(os.path.join(root, "pt_inception.pth"),
+                              SEED + 32, calib.contiguous(),
+                              with_logits=True)                 # 1008-way
+    w_tv = inception_weights(os.path.join(root, "inception_v3.pth"),
+                             SEED + 33, calib.contiguous(), with_logits=True,
+                             num_logits=1000, tf_variant=False)
+    reset(counters)
+    rec = {"phase": "eval_inception", "card": smi, "batch": FID_BATCH,
+           "images": 2 * N_FID_JPEGS, "input": "256x256 JPEG -> 299x299"}
+    acts, fids = {}, {}
+    x_dev = torch.from_numpy(batches["a"][0]).cuda().permute(
+        0, 3, 1, 2).contiguous()
+    for dt in DTYPES:
+        name = DT_NAME[dt]
+        fn = fid.make_feature_fn(w_fid, dt, device="cuda")
+        fn(batches["a"][0])     # cuDNN picks its algorithms: not timed
+        t0 = time.perf_counter()
+        acts[dt] = {k: fid.get_activations(iter(b), fn)
+                    for k, b in batches.items()}
+        rec[f"{name}_features_img_per_s"] = (
+            2 * N_FID_JPEGS / (time.perf_counter() - t0))
+        stats = [fid.compute_statistics(acts[dt][k]) for k in ("a", "b")]
+        # the host's sqrtm (its seconds are the Frechet distance's); scipy
+        # warns where 64 images leave the covariances singular
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            fids[dt] = fid.frechet_distance(*stats[0], *stats[1])
+            rec[f"{name}_sqrtm_s"] = time.perf_counter() - t0
+        rec[f"{name}_fid"] = fids[dt]
+        rec[f"{name}_sqrtm_warnings"] = sorted({
+            f"{w.category.__name__}: {str(w.message)[:60]}" for w in caught})
+        # the network alone on a batch already on the card
+        model = InceptionV3FID(dtype=dt)
+        model.load_state_dict(inception_state_dict(
+            torch.load(w_fid, weights_only=True), with_logits=False))
+        model = model.cuda().eval()
+        with torch.inference_mode():
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            ips = ips_of(lambda: model(x_dev), FID_BATCH)
+            rec[f"{name}_img_per_s"] = ips
+            rec[f"{name}_peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                model(x_dev)
+                torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+        rec[f"{name}_device_ms"] = union_ms(kernels)
+        rec[f"{name}_kernels"] = len(kernels)
+        rec[f"{name}_busy_share"] = union_ms(kernels) / (
+            1e3 * FID_BATCH / ips)
+        del model
+    cpu_fn = fid.make_feature_fn(w_fid, device="cpu")
+    cpu = cpu_fn(batches["a"][0][:8])
+    card = acts[torch.float32]["a"][:8]
+    rec["card_vs_cpu_rel_l2"] = rel_l2(card, cpu)
+    rec["bf16_vs_f32_rel_l2"] = rel_l2(acts[torch.bfloat16]["a"],
+                                       acts[torch.float32]["a"])
+    rec["feature_scale"] = float(np.abs(card).mean())
+    rec["launches"] = launches_of(counters)
+    emit(rec)
+    if not (rec["card_vs_cpu_rel_l2"] <= FEATURE_TOL
+            and rec["bf16_vs_f32_rel_l2"] <= FEATURE_TOL_BF16
+            and all(np.isfinite(v) for v in fids.values())
+            and all(np.isfinite(a[k]).all() and a[k].shape == (
+                N_FID_JPEGS, 2048) for a in acts.values() for k in a)):
+        raise AssertionError(f"Inception features or FID wrong: {rec}")
+    if any(rec["launches"].values()):
+        raise AssertionError(f"the Inception path launched K1-K4: {rec}")
+
+    # the CLIs as a user runs them (float32, batch 50, the card)
+    cli = {"phase": "eval_clis", "card": smi}
+    argv = [dirs["a"], dirs["b"], "--weights", w_fid, "--device", "cuda"]
+    stats_npz = os.path.join(root, "a.npz")
+    with contextlib.redirect_stdout(io.StringIO()) as text:
+        t0 = time.perf_counter()
+        cli["fid"] = fid_score.main(argv)
+        cli["fid_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fid_score.main(argv + ["--save-stats", stats_npz])
+        cli["save_stats_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cli["fid_npz"] = fid_score.main([stats_npz, dirs["b"], "--weights",
+                                         w_fid, "--device", "cuda"])
+        cli["fid_npz_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cli["is_mean"], cli["is_std"] = inception_score.main([
+            "--image_dir", dirs["a"], "--weights", w_tv, "--device", "cuda"])
+        cli["is_s"] = time.perf_counter() - t0
+    cli["stdout"] = [ln for ln in text.getvalue().splitlines()
+                     if ln.startswith(("FID", "IS", "saved", "FID inc",
+                                       "torchvision"))]
+    cli["fid_img_per_s"] = 2 * N_FID_JPEGS / cli["fid_s"]
+    cli["save_stats_img_per_s"] = N_FID_JPEGS / cli["save_stats_s"]
+    cli["is_img_per_s"] = N_FID_JPEGS / cli["is_s"]
+    cli["launches"] = launches_of(counters)
+    emit(cli)
+    close = lambda a, b: abs(a - b) <= 1e-6 * max(1.0, abs(b))  # noqa: E731
+    if not (close(cli["fid_npz"], cli["fid"])
+            and close(cli["fid"], fids[torch.float32])
+            and np.isfinite(cli["is_mean"]) and cli["is_mean"] >= 1.0):
+        raise AssertionError(f"FID / IS CLIs disagree: {cli}")
+    if any(cli["launches"].values()):
+        raise AssertionError(f"the FID / IS CLIs launched K1-K4: {cli}")
+    return dirs
+
+
+def artifact_tensors_on(program) -> set:
+    """Device types of an exported program's parameters and buffers (the
+    weights and translate_u8's table)."""
+    return {t.device.type for t in itertools.chain(program.parameters(),
+                                                   program.buffers())}
+
+
+def phase_export(root, dirs, counters, launch_totals, smi):
+    """The use_pallas cUNet at full width exported through export_serving
+    --check in float32 (TF32 off) and bfloat16; ExportedTransfer against
+    the live WeatherTransfer at batches 1, 3 and 16; K1 and K2 3 times a
+    forward of the program (counters and torch.profiler); img/s at batch
+    16 against the live forward; then serve --artifact under 4 client
+    threads of a child process."""
+    from weather_unet_tpu_torch.api import WeatherTransfer
+    from weather_unet_tpu_torch.cli import export_serving
+    from weather_unet_tpu_torch.core.export import ExportedTransfer
+    from weather_unet_tpu_torch.models import ConditionalUNet
+
+    pt = os.path.join(root, "cunet.pt")
+    torch.save({"inference": ConditionalUNet(
+        5, generator=torch.Generator().manual_seed(SEED + 34)).state_dict(),
+        "epoch": 0, "global_step": 0}, pt)
+    arts, live, art_dirs = {}, {}, {}
+    for dt in DTYPES:
+        flag = "bf16" if dt == torch.bfloat16 else "f32"
+        art_dirs[dt] = out = os.path.join(root, f"art_{flag}")
+        rec = {"phase": "eval_export", "dtype": DT_NAME[dt], "card": smi,
+               "size": ART_SIZE}
+        reset(counters)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as text:
+            export_serving.main(["--cp_path", pt, "--out", out,
+                                 "--input_size", str(ART_SIZE), "--dtype",
+                                 flag, "--device", "cuda", "--check"])
+        rec["export_check_s"] = time.perf_counter() - t0
+        rec["cli"] = json.loads(text.getvalue().strip().splitlines()[-1])
+        rec["check_launches"] = launches_of(counters)     # 2 forwards, B=2
+        for k in counters:
+            launch_totals[k] += rec["check_launches"][k]
+        rec["artifact_mib"] = sum(
+            os.path.getsize(os.path.join(out, f)) for f in os.listdir(out)
+        ) / 2 ** 20
+        t0 = time.perf_counter()
+        arts[dt] = ExportedTransfer(out)
+        rec["load_ms"] = (time.perf_counter() - t0) * 1e3
+        rec["tensors_on"] = sorted(
+            artifact_tensors_on(arts[dt]._translate)
+            | artifact_tensors_on(arts[dt]._translate_u8))
+        live[dt] = WeatherTransfer.load(pt, dtype=dt)
+        emit(rec)
+        want_check = {k: 0 for k in counters}
+        want_check.update(adain=6, upsample=6)
+        if not (rec["cli"]["checked"] and rec["tensors_on"] == ["cuda"]
+                and rec["check_launches"] == want_check
+                and live[dt].model.use_pallas):
+            raise AssertionError(f"export {flag}: {rec}")
+
+    rng = np.random.default_rng(SEED + 35)
+    parity = {"phase": "eval_export_parity", "card": smi, "size": ART_SIZE}
+    for b in ART_BATCHES:
+        x = rng.uniform(-1, 1, (b, ART_SIZE, ART_SIZE, 3)).astype(np.float32)
+        c = np.eye(5, dtype=np.float32)[rng.integers(0, 5, b)]
+        u8 = rng.integers(0, 256, (b, ART_SIZE, ART_SIZE, 3), dtype=np.uint8)
+        f32 = live[torch.float32].translate(x, c).float()
+        for dt in DTYPES:
+            name = DT_NAME[dt]
+            reset(counters)
+            got = arts[dt].translate(x, c).float()
+            got_u8 = arts[dt].translate_u8(u8, c)
+            torch.cuda.synchronize()
+            n = launches_of(counters)
+            for k in counters:
+                launch_totals[k] += n[k]
+            same = live[dt].translate(x, c).float()
+            # the export must not change the function: the program against
+            # the live model in its dtype; and a bfloat16 program no
+            # further from float32 than the live bfloat16 model is
+            key = f"{name}_b{b}"
+            parity[f"{key}_mae_vs_live"] = float((got - same).abs().mean())
+            parity[f"{key}_mae_vs_live_f32"] = float((got - f32).abs().mean())
+            parity[f"{key}_live_mae_vs_live_f32"] = float(
+                (same - f32).abs().mean())
+            parity[f"{key}_u8_max_step"] = int(
+                (got_u8.int() - live[dt].translate_u8(u8, c).int()).abs()
+                .max())
+            parity[f"{key}_launches"] = n
+            want = {k: 0 for k in counters}
+            want.update(adain=6, upsample=6)     # translate + translate_u8
+            if not (parity[f"{key}_mae_vs_live"] <= 1e-5
+                    and parity[f"{key}_mae_vs_live_f32"]
+                    <= parity[f"{key}_live_mae_vs_live_f32"] + 1e-5
+                    and parity[f"{key}_u8_max_step"] <= 1
+                    and n == want):
+                raise AssertionError(f"artifact {name} at batch {b}: "
+                                     f"{parity}")
+    # kernel names of one forward of each program, and img/s at batch 16
+    for dt in DTYPES:
+        name = DT_NAME[dt]
+        x16 = torch.from_numpy(rng.uniform(-1, 1, (16, ART_SIZE, ART_SIZE, 3))
+                               .astype(np.float32)).cuda().to(dt)
+        c16 = torch.eye(5, device="cuda")[torch.arange(16) % 5].to(dt)
+        for _ in range(5):    # a profile can lose a short kernel's record
+            names = device_kernels(lambda: arts[dt].translate(x16, c16))[0]
+            seen = (sum("adain" in n for n in names),
+                    sum("upsample2x" in n for n in names))
+            if seen == (3, 3):
+                break
+        parity[f"{name}_profiled_k1_k2"] = seen
+        if seen != (3, 3):
+            raise AssertionError(f"artifact {name}: profiler saw K1, K2 "
+                                 f"{seen} times, expected 3 each: {names}")
+        for b in (4, 16):      # a server's typical group, and a full one
+            runs = []
+            for what in ("live", "artifact", "artifact", "live"):
+                wt = live[dt] if what == "live" else arts[dt]
+                runs.append((what, ips_of(
+                    lambda: wt.translate(x16[:b], c16[:b]), b)))
+            for what in ("live", "artifact"):
+                parity[f"{name}_{what}_img_per_s_b{b}"] = [
+                    v for w, v in runs if w == what]
+    reset(counters)
+    emit(parity)
+    phase_serve_artifact(art_dirs[torch.float32], arts[torch.float32], pt,
+                         dirs, counters, launch_totals, smi)
+
+
+def phase_serve_artifact(art_dir, art, pt, dirs, counters, launch_totals,
+                         smi):
+    """serve --artifact (float32) answers 16 POSTs of 256x256 JPEGs from 4
+    client threads of a child process; then the same traffic to a server
+    of the live model (--cp_path) for comparison."""
+    from PIL import Image
+
+    from weather_unet_tpu_torch.cli import serve
+
+    paths = sorted(os.path.join(dirs["a"], f)
+                   for f in os.listdir(dirs["a"]))[:ART_REQUESTS]
+    ks = [i % 5 for i in range(ART_REQUESTS)]
+    queries = [f"class={k}" for k in ks]
+    live_rps = {}
+    for source in (["--cp_path", pt, "--input_size", str(ART_SIZE)],
+                   ["--artifact", art_dir]):
+        reset(counters)
+        server = serve.build_server(serve.build_parser().parse_args(
+            source + ["--host", "127.0.0.1", "--port", "0", "--max_batch",
+                      "16", "--device", "cuda"]))
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            base = f"http://127.0.0.1:{server.server_address[1]}"
+            for run in range(2):
+                _, _, wall = http_traffic(
+                    base, paths, queries, os.path.join(os.path.dirname(
+                        art_dir), f"http_{source[0][2:]}_{run}"),
+                    clients=ART_CLIENTS)
+                live_rps.setdefault(source[0][2:], []).append(
+                    ART_REQUESTS / wall)
+            torch.cuda.synchronize()
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+        for k, n in launches_of(counters).items():
+            launch_totals[k] += n
+    reset(counters)
+    t0 = time.perf_counter()
+    args = serve.build_parser().parse_args([
+        "--artifact", art_dir, "--host", "127.0.0.1", "--port", "0",
+        "--max_batch", "16", "--device", "cuda"])
+    server = serve.build_server(args)
+    warm_s = time.perf_counter() - t0
+    warm = launches_of(counters)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        reset(counters)
+        answers, lat, wall = http_traffic(
+            base, paths, queries, os.path.join(os.path.dirname(art_dir),
+                                               "http_artifact"),
+            clients=ART_CLIENTS)
+        torch.cuda.synchronize()
+        got = launches_of(counters)
+        stats = server.batcher.stats()
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    for k in counters:
+        launch_totals[k] += warm[k] + got[k]
+    x = np.stack([serve._decode_resize(open(p, "rb").read(), args.input_size)
+                  for p in paths])
+    direct = art.translate_u8(x, np.eye(5, dtype=np.float32)[ks]).cpu()
+    steps = []
+    for (code, ctype, body), d in zip(answers, direct.numpy()):
+        buf = io.BytesIO()
+        Image.fromarray(d).save(buf, "JPEG", quality=95)
+        o = np.asarray(Image.open(io.BytesIO(body)), np.int16)
+        w = np.asarray(Image.open(buf), np.int16)
+        steps.append(float(np.abs(o - w).mean()) if o.shape == w.shape
+                     else float("inf"))
+    rec = {"phase": "eval_serve_artifact", "card": smi, "dtype": "float32",
+           "size": args.input_size, "requests": ART_REQUESTS,
+           "clients": ART_CLIENTS, "warmup_s": warm_s,
+           "warmup_launches": warm, "requests_per_s": ART_REQUESTS / wall,
+           "client_p50_ms": float(np.percentile(lat, 50)),
+           "client_p90_ms": float(np.percentile(lat, 90)),
+           "batches": stats["batches"],
+           "mean_batch_size": stats["mean_batch_size"],
+           "batch_ms_p50": stats["batch_ms_p50"], "launches": got,
+           "max_mean_step_vs_direct": max(steps),
+           "requests_per_s_runs_live_vs_artifact": live_rps}
+    emit(rec)
+    want = {k: 0 for k in counters}
+    want.update(adain=3 * stats["batches"], upsample=3 * stats["batches"])
+    n_warm = len(serve.warmup_buckets(16))
+    want_warm = {k: 0 for k in counters}
+    want_warm.update(adain=3 * n_warm, upsample=3 * n_warm)
+    if not (all(a[0] == 200 and a[1] == "image/jpeg" for a in answers)
+            and rec["max_mean_step_vs_direct"] <= 1.0
+            and got == want and warm == want_warm
+            and args.input_size == ART_SIZE):
+        raise AssertionError(f"serve --artifact: {rec}")
+
+
+def phase_eval_export(counters, launch_totals, smi):
+    """Phase eval_export: FID and IS through Inception-v3 at full width,
+    then the exported serving artifact and serve --artifact."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        dirs = phase_fid_is(tmp, counters, smi)
+        phase_export(tmp, dirs, counters, launch_totals, smi)
+    emit({"phase": "eval_export_done",
+          "seconds": time.perf_counter() - t_phase})
+
+
 def kernels_line(summary, launch_totals):
     meta = {
         "adain": ("weather_unet_tpu_torch/csrc/adain.cu",
@@ -3145,6 +3584,7 @@ def main():
         phase_train(est_path, counters, launch_totals, gan_records, smi)
         phase_supervised(counters, launch_totals, smi)
         phase_serving_cli(est_path, counters, launch_totals, smi)
+    phase_eval_export(counters, launch_totals, smi)
     for name, total in launch_totals.items():
         if total == 0:
             raise AssertionError(f"{name} kernel never ran on the main path")

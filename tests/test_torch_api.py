@@ -13,7 +13,8 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from tests.torch_port_util import one_torch_thread  # noqa: F401
+from tests.torch_port_util import (  # noqa: F401
+    no_thread_left, one_torch_thread)
 from weather_unet_tpu.api import WeatherTransfer as JaxWeatherTransfer
 from weather_unet_tpu.data.transforms import normalize_batch
 from weather_unet_tpu_torch.api import WeatherTransfer
@@ -147,10 +148,13 @@ def test_batcher_answers_concurrent_requests(cp_path, rng):
         results[i] = batcher.submit(imgs[i], conds[i])
 
     threads = [threading.Thread(target=client, args=(i,)) for i in range(n)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(timeout=120)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        batcher.close()
     assert not any(t.is_alive() for t in threads)
     direct = wt.translate_u8(imgs, conds).numpy()
     for r, d in zip(results, direct):
@@ -169,8 +173,12 @@ def test_batcher_reports_errors_per_request(rng):
             raise ValueError("bad batch")
 
     batcher = Batcher(Broken(), max_batch=4, batch_wait_ms=1.0)
-    with pytest.raises(RuntimeError, match="bad batch"):
-        batcher.submit(np.zeros((4, 4, 3), np.uint8), np.zeros(5, np.float32))
+    try:
+        with pytest.raises(RuntimeError, match="bad batch"):
+            batcher.submit(np.zeros((4, 4, 3), np.uint8),
+                           np.zeros(5, np.float32))
+    finally:
+        batcher.close()
 
 
 def test_port_imports_no_jax():
@@ -178,6 +186,7 @@ def test_port_imports_no_jax():
     and the JAX package out of sys.modules, and builds no kernel."""
     code = (
         "import importlib, json, pkgutil, sys\n"
+        "import torch\n"
         "import weather_unet_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "'weather_unet_tpu_torch.')]\n"
@@ -191,7 +200,9 @@ def test_port_imports_no_jax():
         "('PIL', 'pandas', 'tensorboard'))\n"
         "print(json.dumps({'modules': names, 'bad': bad, 'lazy': lazy, "
         "'built': len(_build._libs), 'runtime_built': len(runtime._builds)"
-        " + (runtime._jpeg_found is not None)}))\n")
+        " + (runtime._jpeg_found is not None), 'ops': sorted("
+        "n for n in ('adain', 'upsample2x', 'upsample2x_backward') "
+        "if hasattr(torch.ops.wut, n))}))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
@@ -214,10 +225,16 @@ def test_port_imports_no_jax():
                  "cli.inf_transfer_e", "cli.inf_1year_signals",
                  "cli.inf_classifier_i2w", "cli.eval_class_transfer",
                  "cli.eval_estimator_transfer", "cli.eval_classifier_i2w",
-                 "cli.eval_estimator"):
+                 "cli.eval_estimator", "models.inception_fid",
+                 "evaluation.fid", "evaluation.inception_score",
+                 "evaluation.goldens", "cli.fid_score", "cli.inception_score",
+                 "core.export", "cli.export_serving",
+                 "cli.convert_checkpoint"):
         assert f"weather_unet_tpu_torch.{name}" in out["modules"]
     assert out["bad"] == [] and out["built"] == 0
     # nor the native runtime (built at first use, not on import)
     assert out["runtime_built"] == 0
     # Pillow, pandas and TensorBoard load only where a function needs them
     assert out["lazy"] == []
+    # K1 and K2 are registered ops once their modules are imported
+    assert out["ops"] == ["adain", "upsample2x", "upsample2x_backward"]

@@ -27,7 +27,8 @@ import torch
 from tests.test_torch_trainer import (
     BATCH, SIZE, Images, cfg_of, est_apply, loaders, assert_states_equal,
     trainer)
-from tests.torch_port_util import nhwc, one_torch_thread  # noqa: F401
+from tests.torch_port_util import (  # noqa: F401
+    close_summary_writers, nhwc, no_thread_left, one_torch_thread)
 from weather_unet_tpu.data import transforms as jax_tf
 from weather_unet_tpu_torch.core.rng import fold_seed
 from weather_unet_tpu_torch.data import transforms as tf

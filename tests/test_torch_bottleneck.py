@@ -12,7 +12,8 @@ import torch
 
 from tests.test_torch_resnet import (
     COUNTS, jax_resnet_variables, port_resnet)
-from tests.torch_port_util import nchw, nhwc, one_torch_thread  # noqa: F401
+from tests.torch_port_util import (  # noqa: F401
+    nchw, nhwc, no_thread_left, one_torch_thread)
 from weather_unet_tpu.kernels import bottleneck_pallas as jax_k4
 from weather_unet_tpu_torch.kernels import bottleneck as k4
 

@@ -16,7 +16,8 @@ import time
 import numpy as np
 import pytest
 
-from tests.torch_port_util import one_torch_thread  # noqa: F401
+from tests.torch_port_util import (  # noqa: F401
+    no_thread_left, one_torch_thread)
 from weather_unet_tpu.data import cache as jax_cache
 from weather_unet_tpu_torch.cli.common import wrap_decode_cache
 from weather_unet_tpu_torch.data.cache import CachedAugment, DecodedCache

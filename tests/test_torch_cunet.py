@@ -9,7 +9,8 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from tests.torch_port_util import one_torch_thread  # noqa: F401
+from tests.torch_port_util import (  # noqa: F401
+    no_thread_left, one_torch_thread)
 from weather_unet_tpu.compat import torch_io as jax_torch_io
 from weather_unet_tpu.models import ConditionalUNet as JaxUNet
 from weather_unet_tpu_torch.compat import torch_io

@@ -21,7 +21,8 @@ import weather_unet_tpu.data.datasets as jax_ds
 import weather_unet_tpu.data.pipeline as jax_pipe
 import weather_unet_tpu.data.sampler as jax_sampler
 import weather_unet_tpu.data.transforms as jax_tf
-from tests.torch_port_util import nchw, nhwc, one_torch_thread  # noqa: F401
+from tests.torch_port_util import (  # noqa: F401
+    nchw, nhwc, no_thread_left, one_torch_thread)
 from weather_unet_tpu.ops.resize import resize_bilinear_torch as jax_resize
 from weather_unet_tpu_torch.cli.common import (
     list_images, load_flickr_frame, wrap_decode_cache)

@@ -16,7 +16,8 @@ from sklearn.metrics import classification_report, confusion_matrix
 
 from tests.test_torch_inference_cli import (  # noqa: F401
     build_world, small_jax_resnet)
-from tests.torch_port_util import one_torch_thread  # noqa: F401
+from tests.torch_port_util import (  # noqa: F401
+    no_thread_left, one_torch_thread)
 from weather_unet_tpu.cli import eval_class_transfer as jax_ect
 from weather_unet_tpu.cli import eval_classifier_i2w as jax_eci
 from weather_unet_tpu.cli import eval_estimator as jax_ee

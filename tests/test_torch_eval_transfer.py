@@ -11,7 +11,8 @@ import pytest
 import torch
 
 from tests.test_torch_resnet import jax_resnet_variables
-from tests.torch_port_util import one_torch_thread  # noqa: F401
+from tests.torch_port_util import (  # noqa: F401
+    no_thread_left, one_torch_thread)
 from weather_unet_tpu.evaluation import transfer as jax_transfer
 from weather_unet_tpu.models import ConditionalUNet as JaxUNet
 from weather_unet_tpu_torch.api import WeatherTransfer

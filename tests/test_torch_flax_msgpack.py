@@ -17,7 +17,8 @@ import torch
 from flax import serialization
 
 from tests.test_torch_resnet import jax_resnet_variables
-from tests.torch_port_util import one_torch_thread  # noqa: F401
+from tests.torch_port_util import (  # noqa: F401
+    no_thread_left, one_torch_thread)
 from weather_unet_tpu.models import ConditionalUNet as JaxUNet
 from weather_unet_tpu.train import checkpoint as jax_ckpt
 from weather_unet_tpu.train.gan import GanConfig, build_gan_state

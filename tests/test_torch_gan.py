@@ -27,7 +27,8 @@ import weather_unet_tpu.kernels.adain_pallas as jax_adain_pallas
 import weather_unet_tpu_torch.models.common as port_common
 import weather_unet_tpu_torch.models.cunet as port_cunet
 from tests.test_torch_resnet import jax_resnet_variables
-from tests.torch_port_util import nchw, nhwc, one_torch_thread  # noqa: F401
+from tests.torch_port_util import (  # noqa: F401
+    nchw, nhwc, no_thread_left, one_torch_thread)
 from weather_unet_tpu.models import ConditionalUNet as JaxUNet
 from weather_unet_tpu.models import ResNet as JaxResNet
 from weather_unet_tpu.train import gan as jax_gan

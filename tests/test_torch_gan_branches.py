@@ -22,7 +22,8 @@ import torch
 from tests.test_torch_gan import (
     BATCH, LR, MOMENT_TOL, SIZE, adam_moments, assert_adam_close, jax_sds,
     load_jax_state, port_moments, port_sds)
-from tests.torch_port_util import nchw, one_torch_thread  # noqa: F401
+from tests.torch_port_util import (  # noqa: F401
+    nchw, no_thread_left, one_torch_thread)
 from weather_unet_tpu.train import gan as jax_gan
 from weather_unet_tpu_torch.core.rng import train_generator
 from weather_unet_tpu_torch.train.gan import (

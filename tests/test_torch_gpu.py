@@ -19,6 +19,9 @@ or K2 plan by passing one of ``adain_plans(...)`` / ``upsample_plans(...)``
 to ``adain_kernel(x, y_proj, eps, plan)`` / ``upsample_kernel(x, plan)``.
 """
 
+import threading
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -34,6 +37,23 @@ from weather_unet_tpu_torch.train.gan import (
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -6}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def no_thread_left():
+    """``tests/torch_port_util.py::no_thread_left``, here because this file
+    runs on the GPU host without the repository's conftest (a ``tests``
+    package installed there shadows the repository's directory)."""
+    before = set(threading.enumerate())
+    yield
+    deadline = time.monotonic() + 10.0
+    while True:
+        left = [t for t in threading.enumerate()
+                if t not in before and t.is_alive()]
+        if not left or time.monotonic() > deadline:
+            break
+        time.sleep(0.05)
+    assert not left, f"threads left running: {sorted(t.name for t in left)}"
 
 
 @pytest.fixture
@@ -551,8 +571,11 @@ def test_trainer_steps_launch_k1_k2_k4(cuda, tmp_path):
     data = [(rng.integers(0, 256, (32, 32, 3), np.uint8), True)
             for _ in range(4)]
     counts = {m: m.launches for m in (k1, k2, k4)}
-    assert tr.train_epoch(BatchLoader(data, 2), BatchLoader(data, 2))
-    torch.cuda.synchronize()
+    try:
+        assert tr.train_epoch(BatchLoader(data, 2), BatchLoader(data, 2))
+        torch.cuda.synchronize()
+    finally:
+        tr.writer.close()      # and TensorBoard's writer thread
     got = {m: m.launches - n for m, n in counts.items()}
     assert got == {k1: 9, k2: 9, k4: 16}
     assert (tr.state.global_step, tr.state.gen.step) == (2, 1)
@@ -646,3 +669,79 @@ def test_http_server_answers_through_k1_k2(cuda, tmp_path):
     assert got.shape == (64, 64, 3)
     # the JPEG encode can move a pixel that a 1-step difference flipped
     assert float(np.abs(got - want).mean()) <= 1.0
+
+
+def test_inception_on_gpu_matches_cpu(cuda):
+    """The FID Inception-v3 (seeded random weights, BatchNorm calibrated on
+    the CPU) on the card against the CPU: pool3 features of 4 images at
+    128x128 (resized to 299 inside) within a relative L2 error of 1e-4 with
+    TF32 off (float32 order, amplified by the calibrated network), the
+    1008-way logits likewise."""
+    from weather_unet_tpu_torch.models.inception_fid import (
+        InceptionV3FID, calibrate_batchnorm)
+
+    gen = torch.Generator().manual_seed(0)
+    model = calibrate_batchnorm(
+        InceptionV3FID(with_logits=True, generator=gen),
+        torch.rand(4, 3, 128, 128, generator=gen))
+    pool3 = InceptionV3FID().eval()
+    pool3.load_state_dict({k: v for k, v in model.state_dict().items()
+                           if not k.startswith("fc.")})
+    x = torch.rand(4, 3, 128, 128, generator=gen)
+    for net in (pool3, model):
+        with torch.no_grad():
+            want = net(x)
+            got = net.to(cuda)(x.to(cuda)).cpu()
+        rel = float((got - want).norm() / want.norm())
+        assert rel <= 1e-4, rel
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_exported_artifact_on_gpu(cuda, dtype, tmp_path):
+    """The use_pallas cUNet exported on the card (symbolic batch), saved and
+    loaded as ``ExportedTransfer``, at batches 1, 3 and 16 against the live
+    model through ``WeatherTransfer``: within 1e-5 MAE of the live model in
+    its dtype (the export must not change the function), and in bfloat16
+    no further from the live float32 model than the live bfloat16 model is
+    (+1e-5); translate_u8 within 1 step; every forward of the program
+    launches K1 and K2 3 times each, seen by their counters and by their
+    kernels' names under torch.profiler."""
+    from weather_unet_tpu_torch.core.export import (
+        ExportedTransfer, export_transfer, save_artifact)
+
+    sd = ConditionalUNet(5, generator=torch.Generator().manual_seed(1)
+                         ).state_dict()
+    live = {}
+    for dt in {torch.float32, dtype}:
+        model = ConditionalUNet(5, dtype=dt, use_pallas=True)
+        model.load_state_dict(sd)
+        live[dt] = WeatherTransfer(model)
+    save_artifact(str(tmp_path), export_transfer(live[dtype].model, size=64))
+    art = ExportedTransfer(str(tmp_path))
+    rng = np.random.default_rng(2)
+    for b in (1, 3, 16):
+        x = rng.uniform(-1, 1, (b, 64, 64, 3)).astype(np.float32)
+        c = np.eye(5, dtype=np.float32)[rng.integers(0, 5, b)]
+        n1, n2 = k1.launches, k2.launches
+        got = art.translate(x, c).float()
+        assert (k1.launches - n1, k2.launches - n2) == (3, 3)
+        same = live[dtype].translate(x, c).float()
+        f32 = live[torch.float32].translate(x, c).float()
+        assert float((got - same).abs().mean()) <= 1e-5, b
+        assert float((got - f32).abs().mean()) <= float(
+            (same - f32).abs().mean()) + 1e-5, b
+        u8 = rng.integers(0, 256, (b, 64, 64, 3), dtype=np.uint8)
+        diff = (art.translate_u8(u8, c).int()
+                - live[dtype].translate_u8(u8, c).int()).abs()
+        assert int(diff.max()) <= 1, b
+    for _ in range(5):      # a profile can lose a short kernel's record
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            art.translate(x, c)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        seen = (sum("adain" in n for n in names),
+                sum("upsample2x" in n for n in names))
+        if seen == (3, 3):
+            break
+    assert seen == (3, 3), names

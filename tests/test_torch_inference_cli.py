@@ -18,7 +18,8 @@ import pandas as pd
 import pytest
 from PIL import Image
 
-from tests.torch_port_util import one_torch_thread  # noqa: F401
+from tests.torch_port_util import (  # noqa: F401
+    no_thread_left, one_torch_thread)
 from weather_unet_tpu.data import datasets as jax_datasets
 from weather_unet_tpu.models import ResNet as JaxResNet
 from weather_unet_tpu.train import checkpoint as jax_ckpt

@@ -12,7 +12,8 @@ import pytest
 import torch
 
 from tests.test_torch_resnet import jax_resnet_variables, port_resnet
-from tests.torch_port_util import nchw, nhwc, oihw, one_torch_thread  # noqa: F401
+from tests.torch_port_util import (  # noqa: F401
+    nchw, nhwc, no_thread_left, oihw, one_torch_thread)
 from weather_unet_tpu.kernels import bottleneck_pallas as jax_k4
 from weather_unet_tpu.kernels import upconv_pallas
 from weather_unet_tpu_torch.kernels import bottleneck as k4

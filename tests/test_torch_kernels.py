@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from tests.torch_port_util import (  # noqa: F401
-    block_inputs, nchw, nhwc, oihw, one_torch_thread)
+    block_inputs, nchw, nhwc, no_thread_left, oihw, one_torch_thread)
 from weather_unet_tpu.kernels import adain_pallas
 from weather_unet_tpu_torch.kernels import _build, adain as k1, upconv as k3
 

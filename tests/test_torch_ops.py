@@ -7,7 +7,8 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from tests.torch_port_util import nchw, nhwc, oihw, one_torch_thread  # noqa: F401
+from tests.torch_port_util import (  # noqa: F401
+    nchw, nhwc, no_thread_left, oihw, one_torch_thread)
 from weather_unet_tpu.ops import convs as jconvs
 from weather_unet_tpu.ops import norm as jnorm
 from weather_unet_tpu_torch.ops import convs, norm

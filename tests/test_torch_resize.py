@@ -6,7 +6,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from tests.torch_port_util import nchw, nhwc, one_torch_thread  # noqa: F401
+from tests.torch_port_util import (  # noqa: F401
+    nchw, nhwc, no_thread_left, one_torch_thread)
 from weather_unet_tpu.ops import convs as jconvs
 from weather_unet_tpu.ops import resize as jresize
 from weather_unet_tpu_torch.ops import convs, resize

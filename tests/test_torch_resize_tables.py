@@ -5,6 +5,7 @@ K3 kernel reads, the dense matrix, the even/odd phase weights)."""
 import numpy as np
 import pytest
 
+from tests.torch_port_util import no_thread_left  # noqa: F401
 from weather_unet_tpu.ops import resize as jresize
 from weather_unet_tpu_torch.ops import resize
 

@@ -10,7 +10,8 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from tests.torch_port_util import nchw, nhwc, one_torch_thread  # noqa: F401
+from tests.torch_port_util import (  # noqa: F401
+    nchw, nhwc, no_thread_left, one_torch_thread)
 from weather_unet_tpu.compat import torch_io as jax_torch_io
 from weather_unet_tpu.models import ResNet as JaxResNet
 from weather_unet_tpu.models.common import BatchNorm2d as JaxBatchNorm2d

@@ -15,7 +15,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from tests.torch_port_util import one_torch_thread  # noqa: F401
+from tests.torch_port_util import (  # noqa: F401
+    no_thread_left, one_torch_thread)
 from weather_unet_tpu import runtime as jax_runtime
 from weather_unet_tpu.data import datasets as jax_datasets
 from weather_unet_tpu.data import transforms as jax_tf

@@ -21,7 +21,8 @@ import pytest
 import torch
 from PIL import Image
 
-from tests.torch_port_util import one_torch_thread  # noqa: F401
+from tests.torch_port_util import (  # noqa: F401
+    no_thread_left, one_torch_thread)
 from weather_unet_tpu import runtime as jax_runtime
 from weather_unet_tpu.cli import serve as jax_serve
 from weather_unet_tpu_torch import runtime
@@ -236,6 +237,37 @@ def test_burst_before_the_accept_loop_is_answered(rng):
     assert results == {i: (200, b"ok") for i in range(16)}
 
 
+def test_close_stops_the_batcher_threads(cp_path, rng):
+    """``Batcher.close()`` answers what was queued, then joins both of its
+    threads; ``Server.server_close()`` closes the server's Batcher."""
+    wt = WeatherTransfer.load(cp_path, device="cpu")
+    batcher = serve.Batcher(wt, max_batch=4, batch_wait_ms=300.0)
+    img = rng.integers(0, 256, (SIZE, SIZE, 3), dtype=np.uint8)
+    cond = np.eye(5, dtype=np.float32)[1]
+    results = []
+    client = threading.Thread(
+        target=lambda: results.append(batcher.submit(img, cond)))
+    client.start()
+    time.sleep(0.05)       # the request waits in the dispatcher's window
+    batcher.close()
+    client.join(timeout=60)
+    assert not client.is_alive() and len(results) == 1
+    assert results[0].shape == (SIZE, SIZE, 3)
+    assert not batcher._dispatcher.is_alive()
+    assert not batcher._completer.is_alive()
+    with pytest.raises(RuntimeError, match="closed"):
+        batcher.submit(img, cond)
+    batcher.close()                       # a second close does nothing
+
+    server = serve.build_server(serve.build_parser().parse_args([
+        "--cp_path", cp_path, "--host", "127.0.0.1", "--port", "0",
+        "--input_size", str(SIZE), "--device", "cpu", "--no-warmup"]))
+    threads = (server.batcher._dispatcher, server.batcher._completer)
+    assert all(t.is_alive() for t in threads)
+    server.server_close()
+    assert not any(t.is_alive() for t in threads)
+
+
 def test_warmup_covers_the_rounded_up_bucket(cp_path, monkeypatch):
     assert serve.warmup_buckets(1) == [1]
     assert serve.warmup_buckets(16) == [1, 2, 4, 8, 16]
@@ -260,7 +292,8 @@ def test_warmup_covers_the_rounded_up_bucket(cp_path, monkeypatch):
     assert seen == ["runtime", (1, 1), (2, 2), (4, 4)]
 
 
-REFUSED = {"artifact": (["--artifact", "art"], "Serving infra"),
+REFUSED = {"artifact": (["--artifact", "art"],
+                        "exactly one of --cp_path or --artifact"),
            "data_parallel": (["--data_parallel"], "Mesh, AOT"),
            "tensor_parallel": (["--tensor_parallel", "2"], "Mesh, AOT"),
            "aot_cache": (["--aot_cache", "aot"], "Mesh, AOT"),

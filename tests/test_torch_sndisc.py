@@ -11,7 +11,8 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from tests.torch_port_util import nchw, nhwc, one_torch_thread  # noqa: F401
+from tests.torch_port_util import (  # noqa: F401
+    nchw, nhwc, no_thread_left, one_torch_thread)
 from weather_unet_tpu.compat import torch_io as jax_torch_io
 from weather_unet_tpu.models import SNDisc as JaxSNDisc
 from weather_unet_tpu.ops import spectral as jax_spectral

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_port_util import no_thread_left  # noqa: F401
 from weather_unet_tpu_torch.kernels import adain as k1, upsample as k2
 from weather_unet_tpu_torch.ops.resize import _x2_taps
 

@@ -25,7 +25,8 @@ import torch
 
 from tests.test_torch_gan import assert_adam_close
 from tests.test_torch_resnet import jax_resnet_variables, port_resnet
-from tests.torch_port_util import nchw, one_torch_thread  # noqa: F401
+from tests.torch_port_util import (  # noqa: F401
+    nchw, no_thread_left, one_torch_thread)
 from weather_unet_tpu.core.optim import torch_adam as jax_adam
 from weather_unet_tpu.core.state import TrainState as JaxState
 from weather_unet_tpu.train import supervised as jax_sup

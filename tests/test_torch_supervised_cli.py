@@ -10,7 +10,8 @@ import pytest
 import torch
 
 from tests.test_torch_train_cli import data  # noqa: F401  (the fixture)
-from tests.torch_port_util import one_torch_thread  # noqa: F401
+from tests.torch_port_util import (  # noqa: F401
+    no_thread_left, one_torch_thread)
 from weather_unet_tpu_torch.cli import train_classifier as cls_cli
 from weather_unet_tpu_torch.cli import train_estimator as est_cli
 from weather_unet_tpu_torch.models import ResNet101

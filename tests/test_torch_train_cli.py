@@ -16,7 +16,8 @@ import pytest
 import torch
 
 from tests.test_torch_data import write_jpegs
-from tests.torch_port_util import one_torch_thread  # noqa: F401
+from tests.torch_port_util import (  # noqa: F401
+    close_summary_writers, no_thread_left, one_torch_thread)
 from weather_unet_tpu_torch.cli import train_transfer_cls as cls_cli
 from weather_unet_tpu_torch.cli import train_transfer_est as est_cli
 from weather_unet_tpu_torch.data.datasets import (

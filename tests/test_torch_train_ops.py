@@ -14,7 +14,8 @@ import optax
 import pytest
 import torch
 
-from tests.torch_port_util import nchw, one_torch_thread  # noqa: F401
+from tests.torch_port_util import (  # noqa: F401
+    nchw, no_thread_left, one_torch_thread)
 from weather_unet_tpu.core.optim import gan_adam as jax_gan_adam
 from weather_unet_tpu.ops import convs as jax_convs
 from weather_unet_tpu.ops import losses as jax_losses

@@ -20,7 +20,8 @@ import pytest
 import torch
 
 from tests.test_torch_gan import load_jax_state
-from tests.torch_port_util import one_torch_thread  # noqa: F401
+from tests.torch_port_util import (  # noqa: F401
+    close_summary_writers, no_thread_left, one_torch_thread)
 from weather_unet_tpu.train import checkpoint as jax_ckpt
 from weather_unet_tpu.train import gan as jax_gan
 from weather_unet_tpu.train import metrics as jax_metrics

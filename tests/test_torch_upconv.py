@@ -12,7 +12,7 @@ import torch
 import torch.nn.functional as F
 
 from tests.torch_port_util import (  # noqa: F401
-    block_inputs, nchw, nhwc, oihw, one_torch_thread)
+    block_inputs, nchw, nhwc, no_thread_left, oihw, one_torch_thread)
 from weather_unet_tpu.kernels import upconv_pallas
 from weather_unet_tpu_torch.kernels import upconv as k3
 from weather_unet_tpu_torch.ops.resize import upsample_bilinear_align_corners

@@ -15,7 +15,8 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from tests.torch_port_util import nchw, nhwc, one_torch_thread  # noqa: F401
+from tests.torch_port_util import (  # noqa: F401
+    nchw, nhwc, no_thread_left, one_torch_thread)
 from weather_unet_tpu.kernels.upsample_pallas import (
     upsample2x_fused as jax_upsample2x_fused)
 from weather_unet_tpu_torch.kernels import upconv as k3, upsample as k2

@@ -1,11 +1,17 @@
 """Helpers shared by the tests of the PyTorch port (tests/test_torch_*.py):
 layout converters between the JAX package's NHWC/HWIO and the port's
-NCHW/OIHW, and a fixture that keeps PyTorch to one intra-op thread.
+NCHW/OIHW, a fixture that keeps PyTorch to one intra-op thread, one that
+fails a module whose tests leave a thread running, and one that closes the
+summary writers a test's trainers open.
 
-A test module imports ``one_torch_thread`` to put it in force for itself:
+A test module imports the fixtures to put them in force for itself:
 
-    from tests.torch_port_util import nchw, nhwc, one_torch_thread  # noqa: F401
+    from tests.torch_port_util import (  # noqa: F401
+        nchw, nhwc, no_thread_left, one_torch_thread)
 """
+
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -21,6 +27,52 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def no_thread_left():
+    """Fail the importing module if its tests leave a thread running: a
+    server, ``Batcher``, loader, checkpointer or summary writer that a test
+    starts is stopped before the module ends (threads left behind outlive
+    the module in its pytest worker).  Threads that are ending get 10 s."""
+    before = set(threading.enumerate())
+    yield
+    deadline = time.monotonic() + 10.0
+    while True:
+        left = [t for t in threading.enumerate()
+                if t not in before and t.is_alive()]
+        if not left or time.monotonic() > deadline:
+            break
+        time.sleep(0.05)
+    assert not left, ("threads left running by this module's tests: "
+                      f"{sorted(_describe(t) for t in left)}")
+
+
+@pytest.fixture(autouse=True)
+def close_summary_writers(monkeypatch):
+    """Close every summary writer the test opens (``train/metrics.py``):
+    a GAN trainer, and so each GAN training CLI, keeps its writer and
+    TensorBoard's writer thread for the life of the process, as the JAX
+    package's does."""
+    from weather_unet_tpu_torch.train import metrics
+
+    opened = []
+    init = metrics.SummaryWriter.__init__
+
+    def record(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        opened.append(self)
+
+    monkeypatch.setattr(metrics.SummaryWriter, "__init__", record)
+    yield
+    for writer in opened:
+        writer.close()
+
+
+def _describe(t: threading.Thread) -> str:
+    target = getattr(t, "_target", None)
+    where = getattr(target, "__qualname__", None) or type(t).__qualname__
+    return f"{t.name} ({getattr(target, '__module__', '')}.{where})"
 
 
 def nchw(a: np.ndarray) -> torch.Tensor:

@@ -36,4 +36,5 @@ a GPU and without an explicit device they raise.
 
 from weather_unet_tpu_torch._device import resolve_device
 
+__version__ = "0.1.0"
 __all__ = ["resolve_device"]

@@ -18,9 +18,12 @@ Requests are micro-batched: a dispatcher thread drains the queue for up to
 batch sizes reaching the device few.  Decode and resize run on the host
 (the native runtime's libjpeg decode where it is built, Pillow otherwise);
 the model runs on CUDA unless ``--device cpu``, with K1 + K2 in its decoder
-(``load_transfer``'s ``use_pallas="auto"``).
+(``load_transfer``'s ``use_pallas="auto"``).  ``--artifact DIR`` serves an
+exported program instead (``core/export.py``, written by
+``cli/export_serving.py``), through the same ``Batcher`` and handler.
 
     python -m weather_unet_tpu_torch.cli.serve --cp_path cp.pt --port 8000
+    python -m weather_unet_tpu_torch.cli.serve --artifact art/ --port 8000
 """
 
 from __future__ import annotations
@@ -43,8 +46,6 @@ import numpy as np
 from weather_unet_tpu_torch.cli.train_transfer_est import MESH_ITEM
 from weather_unet_tpu_torch.data.datasets import WEATHER_CLASSES_I2W
 
-SERVING_INFRA_ITEM = "ROADMAP.md queue 1, 'Serving infra'"
-
 
 @dataclass
 class _Request:
@@ -65,7 +66,8 @@ class Batcher:
     launches return before the device finishes, and the completer's
     ``.cpu()`` readback is the wait.  One group in flight beyond the one
     completing (``pipeline_depth=2``); the blocked dispatch thread doubles as
-    backpressure that grows the next group under load.
+    backpressure that grows the next group under load.  ``close()`` stops
+    both threads after the requests already queued are answered.
     """
 
     def __init__(self, transfer, max_batch: int = 16,
@@ -86,6 +88,7 @@ class Batcher:
         self.batch_sizes: list = []
         self.batch_ms: list = []
         self.readback_ms: list = []
+        self._closed = False
         self._dispatcher = threading.Thread(target=self._dispatch_loop,
                                             daemon=True)
         self._completer = threading.Thread(target=self._complete_loop,
@@ -93,7 +96,25 @@ class Batcher:
         self._dispatcher.start()
         self._completer.start()
 
+    def close(self, timeout_s: float = 60.0) -> None:
+        """Stop the dispatcher and the completer: a sentinel after the
+        queued requests ends the dispatcher, which passes it to the
+        completer after its last group; both threads are joined.  Later
+        ``submit`` calls raise."""
+        with self.lock:
+            if self._closed:
+                return
+            self._closed = True
+        self.queue.put(None)
+        for t in (self._dispatcher, self._completer):
+            t.join(timeout_s)
+            if t.is_alive():
+                raise RuntimeError(f"Batcher thread {t.name} did not stop "
+                                   f"within {timeout_s} s")
+
     def submit(self, image: np.ndarray, cond: np.ndarray) -> np.ndarray:
+        if self._closed:
+            raise RuntimeError("Batcher is closed")
         req = _Request(image=image, cond=cond)
         self.queue.put(req)
         if not req.event.wait(self.timeout_s):
@@ -105,8 +126,11 @@ class Batcher:
         return req.result
 
     def _dispatch_loop(self):
-        while True:
+        stop = False
+        while not stop:
             first = self.queue.get()
+            if first is None:        # close(): nothing queued before it
+                break
             group = [first]
             deadline = time.monotonic() + self.batch_wait_s
             while len(group) < self.max_batch:
@@ -114,9 +138,13 @@ class Batcher:
                 if remaining <= 0:
                     break
                 try:
-                    group.append(self.queue.get(timeout=remaining))
+                    req = self.queue.get(timeout=remaining)
                 except queue.Empty:
                     break
+                if req is None:      # close(): dispatch this group, stop
+                    stop = True
+                    break
+                group.append(req)
             group = [r for r in group if not r.cancelled]
             if not group:
                 continue
@@ -130,10 +158,14 @@ class Batcher:
             except Exception as e:  # surface per-request, keep serving
                 err = f"{type(e).__name__}: {e}"
             self._inflight.put((group, out, err, t0))
+        self._inflight.put(None)
 
     def _complete_loop(self):
         while True:
-            group, out, err, t0 = self._inflight.get()
+            item = self._inflight.get()
+            if item is None:
+                return
+            group, out, err, t0 = item
             t1 = time.perf_counter()
             if err is None:
                 try:
@@ -326,9 +358,6 @@ def make_handler(batcher: Batcher, classes, num_classes: int, size: int,
 def refuse_unported(args) -> None:
     """Exit non-zero, naming the roadmap item, for a flag whose module is
     not ported yet."""
-    if args.artifact:
-        raise SystemExit(f"--artifact: serving a frozen export is not ported "
-                         f"yet ({SERVING_INFRA_ITEM})")
     for flag, name in ((args.data_parallel, "--data_parallel"),
                        (args.tensor_parallel > 1,
                         f"--tensor_parallel {args.tensor_parallel}"),
@@ -345,6 +374,14 @@ class Server(ThreadingHTTPServer):
 
     request_queue_size = 128
 
+    def server_close(self):
+        """Close the socket and stop the ``Batcher`` (``build_server`` sets
+        ``batcher``)."""
+        super().server_close()
+        batcher = getattr(self, "batcher", None)
+        if batcher is not None:
+            batcher.close()
+
 
 def warmup_buckets(max_batch: int) -> list:
     """Every power-of-two batch a request group can reach: groups go up to
@@ -354,18 +391,40 @@ def warmup_buckets(max_batch: int) -> list:
     return [1 << i for i in range(top.bit_length())]
 
 
-def build_server(args) -> Server:
+def load_transfer_for(args):
+    """The transfer ``--cp_path`` (a ``WeatherTransfer``) or ``--artifact``
+    (an ``ExportedTransfer``: the serving host imports no model code)
+    names.  An artifact's geometry overrides ``--num_classes`` and
+    ``--input_size``; flags that the export fixed are refused."""
     import torch
 
+    if bool(args.cp_path) == bool(args.artifact):
+        raise SystemExit("pass exactly one of --cp_path or --artifact")
+    if args.artifact:
+        # dtype and device layout were chosen at export time and live in
+        # the program: a flag that would contradict it is refused
+        for flag, name in ((args.bf16, "--bf16"),
+                           (args.data_parallel, "--data_parallel"),
+                           (args.tensor_parallel > 1, "--tensor_parallel"),
+                           (args.aot_cache, "--aot_cache")):
+            if flag:
+                raise SystemExit(f"{name} does not apply to --artifact "
+                                 "serving (baked in at export time)")
+        from weather_unet_tpu_torch.core.export import ExportedTransfer
+
+        wt = ExportedTransfer(args.artifact, device=args.device)
+        args.num_classes, args.input_size = wt.num_classes, wt.input_size
+        return wt
     from weather_unet_tpu_torch.api import WeatherTransfer
 
     refuse_unported(args)
-    if not args.cp_path:
-        raise SystemExit("pass --cp_path (a reference .pt bundle or a "
-                         "msgpack checkpoint)")
     dtype = torch.bfloat16 if args.bf16 else torch.float32
-    wt = WeatherTransfer.load(args.cp_path, num_classes=args.num_classes,
-                              dtype=dtype, device=args.device)
+    return WeatherTransfer.load(args.cp_path, num_classes=args.num_classes,
+                                dtype=dtype, device=args.device)
+
+
+def build_server(args) -> Server:
+    wt = load_transfer_for(args)
     batcher = Batcher(wt, max_batch=args.max_batch,
                       batch_wait_ms=args.batch_wait_ms)
     if args.warmup:
@@ -395,8 +454,9 @@ def build_parser():
     p.add_argument("--cp_path", type=str, default=None,
                    help="checkpoint to serve (msgpack or reference .pt)")
     p.add_argument("--artifact", type=str, default=None,
-                   help=f"a frozen export artifact: not ported yet "
-                        f"({SERVING_INFRA_ITEM})")
+                   help="serve a frozen export artifact directory "
+                        "(export_serving) instead of a checkpoint: no model "
+                        "code or weights file on the serving host")
     p.add_argument("--host", type=str, default="0.0.0.0")
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--num_classes", type=int, default=5)

@@ -17,7 +17,9 @@ with ``strict=True``; the converters here only carry JAX parameters across
 * ResNet BatchNorm ``scale/bias/mean/var`` <-> ``weight/bias/running_mean/
   running_var`` (+ ``num_batches_tracked``, which JAX does not keep), flat
   ``layer3_22`` <-> dotted ``layer3.22`` block names, ``downsample_conv/_bn``
-  <-> ``downsample.0/.1``.
+  <-> ``downsample.0/.1``,
+* the FID Inception-v3: the same BatchNorm mapping per ``BasicConv2d``, the
+  fc head kept, torchvision's ``AuxLogits`` tower dropped.
 """
 
 from __future__ import annotations
@@ -242,3 +244,80 @@ def resnet_state_dict_to_jax(sd, block_counts=None) -> Dict[str, Any]:
                     f"{t}.downsample.1")
     p["fc"] = {"kernel": _lin(sd["fc.weight"]), "bias": _np(sd["fc.bias"])}
     return {"params": p, "batch_stats": bs}
+
+
+# ---------------------------------------------------------------- Inception
+
+def inception_state_dict_from_jax(variables) -> Dict[str, np.ndarray]:
+    """Flax ``InceptionV3FID`` variables (params + batch_stats) ->
+    pytorch-fid / torchvision-layout state dict (numpy): per
+    ``BasicConv2d`` ``<block>.conv.weight`` and ``<block>.bn.{weight,
+    bias, running_mean, running_var, num_batches_tracked}``, and ``fc.*``
+    where the head is present."""
+    sd: Dict[str, np.ndarray] = {}
+
+    def walk(ptree, btree, prefix):
+        if "kernel" in ptree.get("conv", {}):
+            sd[f"{prefix}.conv.weight"] = _conv_out(ptree["conv"]["kernel"])
+            bn_p, bn_b = ptree["bn"], btree["bn"]
+            sd[f"{prefix}.bn.weight"] = _np(bn_p["scale"])
+            sd[f"{prefix}.bn.bias"] = _np(bn_p["bias"])
+            sd[f"{prefix}.bn.running_mean"] = _np(bn_b["mean"])
+            sd[f"{prefix}.bn.running_var"] = _np(bn_b["var"])
+            sd[f"{prefix}.bn.num_batches_tracked"] = np.array(0, np.int64)
+            return
+        if "kernel" in ptree:                       # the fc head
+            sd[f"{prefix}.weight"] = _lin(ptree["kernel"])
+            sd[f"{prefix}.bias"] = _np(ptree["bias"])
+            return
+        for k in ptree:
+            walk(ptree[k], btree.get(k, {}), f"{prefix}.{k}" if prefix else k)
+
+    walk(variables["params"], variables["batch_stats"], "")
+    return sd
+
+
+def inception_state_dict_to_jax(sd) -> Dict[str, Any]:
+    """pytorch-fid (1008-way fc) or torchvision (1000-way fc) Inception-v3
+    state dict -> Flax ``InceptionV3FID`` variables (numpy).  torchvision's
+    training-only ``AuxLogits`` tower and ``num_batches_tracked`` are
+    dropped; the fc head is kept (the Inception Score reads it)."""
+    p: Dict[str, Any] = {}
+    bs: Dict[str, Any] = {}
+
+    def set_in(tree, path, leaf):
+        for k in path[:-1]:
+            tree = tree.setdefault(k, {})
+        tree[path[-1]] = leaf
+
+    bn_fields = {"weight": (p, "scale"), "bias": (p, "bias"),
+                 "running_mean": (bs, "mean"), "running_var": (bs, "var")}
+    for key, val in sd.items():
+        parts = key.split(".")
+        if parts[0] == "AuxLogits":
+            continue
+        if parts[0] == "fc":
+            set_in(p, ["fc", "kernel" if parts[1] == "weight" else "bias"],
+                   _lin(val) if parts[1] == "weight" else _np(val))
+        elif parts[-2:] == ["conv", "weight"]:
+            set_in(p, parts[:-1] + ["kernel"], _conv_in(val))
+        elif parts[-2] == "bn" and parts[-1] in bn_fields:
+            tree, field = bn_fields[parts[-1]]
+            set_in(tree, parts[:-1] + [field], _np(val))
+    return {"params": p, "batch_stats": bs}
+
+
+def inception_state_dict(sd, with_logits: bool) -> Dict[str, Any]:
+    """A pytorch-fid or torchvision Inception-v3 state dict as
+    ``models/inception_fid.py::InceptionV3FID`` loads it with
+    ``strict=True``: ``AuxLogits.*`` dropped (a training-only tower that
+    eval-mode torchvision ignores too), the ``fc`` head dropped when the
+    model has none (the FID graph reads pool3), and a missing
+    ``num_batches_tracked`` (older checkpoints) set to 0."""
+    out = {k: v for k, v in sd.items()
+           if not k.startswith("AuxLogits.")
+           and (with_logits or not k.startswith("fc."))}
+    for key in [k for k in out if k.endswith(".bn.running_mean")]:
+        out.setdefault(key[:-len("running_mean")] + "num_batches_tracked",
+                       torch.tensor(0, dtype=torch.long))
+    return out

@@ -10,6 +10,13 @@ no PyTorch arithmetic on a CUDA tensor.  ``plan_adain`` gives the kernel's
 shape: warps per plane, planes per block, and whether a plane is held on
 chip or re-read.  Gradients recompute through the plain ``adain`` -- the JAX
 package's own VJP.
+
+The op is registered with ``torch.library`` as ``wut::adain``: its CUDA
+implementation launches the kernel, its CPU implementation is the plain
+version, its fake implementation gives the shape and dtype only (the plan,
+which reads pointer alignment, is chosen inside the CUDA implementation),
+so ``torch.export`` can trace a model that calls it and a program that
+holds it runs wherever this module is imported.
 """
 
 from __future__ import annotations
@@ -125,27 +132,44 @@ def adain_kernel(x: torch.Tensor, y_proj: torch.Tensor, eps: float,
     return out
 
 
-class _AdaIN(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, y_proj, eps):
-        ctx.save_for_backward(x, y_proj)
-        ctx.eps = eps
-        if not _build.is_cuda(x):
-            return adain(x, y_proj, eps)
-        # a strided input is copied into the dense NCHW layout the kernel reads
-        return adain_kernel(x.contiguous(), y_proj.contiguous(), eps)
+@torch.library.custom_op("wut::adain", mutates_args=(), device_types="cuda")
+def adain_op(x: torch.Tensor, y_proj: torch.Tensor,
+             eps: float) -> torch.Tensor:
+    """K1 on CUDA tensors; a strided input is copied into the dense NCHW
+    layout the kernel reads."""
+    return adain_kernel(x.contiguous(), y_proj.contiguous(), eps)
 
-    @staticmethod
-    def backward(ctx, g):
-        x, y_proj = ctx.saved_tensors
-        with torch.enable_grad():
-            xx = x.detach().requires_grad_()
-            yy = y_proj.detach().requires_grad_()
-            gx, gy = torch.autograd.grad(adain(xx, yy, ctx.eps), (xx, yy), g)
-        return gx, gy, None
+
+@adain_op.register_kernel("cpu")
+def _adain_cpu(x, y_proj, eps):
+    return adain(x, y_proj, eps)
+
+
+@adain_op.register_fake
+def _adain_fake(x, y_proj, eps):
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
+def _adain_setup(ctx, inputs, output):
+    x, y_proj, eps = inputs
+    ctx.save_for_backward(x, y_proj)
+    ctx.eps = eps
+
+
+def _adain_backward(ctx, g):
+    x, y_proj = ctx.saved_tensors
+    with torch.enable_grad():
+        xx = x.detach().requires_grad_()
+        yy = y_proj.detach().requires_grad_()
+        gx, gy = torch.autograd.grad(adain(xx, yy, ctx.eps), (xx, yy), g)
+    return gx, gy, None
+
+
+adain_op.register_autograd(_adain_backward, setup_context=_adain_setup)
 
 
 def adain_fused(x: torch.Tensor, y_proj: torch.Tensor, eps: float = 1e-5):
     """Drop-in for ``ops.norm.adain``: the K1 kernel on CUDA tensors, the
     plain version on CPU tensors; differentiable either way."""
-    return _AdaIN.apply(x, y_proj, eps)
+    _build.is_cuda(x)          # refuses a device that is neither
+    return adain_op(x, y_proj, eps)

@@ -8,7 +8,11 @@ result once, blending in float32 with the 2-tap tables of
 kernel's block shape (rows and planes a block owns, vector width, shared
 memory layout); ``staged_rows`` mirrors which input rows a block stages.
 The op is linear; its backward applies the transposed interpolation
-matrices in plain PyTorch, as the JAX package's VJP does in plain XLA.
+matrices in plain PyTorch, as the JAX package's VJP does in plain XLA.  It
+is registered with ``torch.library`` as ``wut::upsample2x`` (CUDA: the
+kernel; CPU: the plain version; a fake implementation for tracing, so
+``torch.export`` keeps it as one op; the plan is chosen inside the CUDA
+implementation), its backward as ``wut::upsample2x_backward``.
 
 ``variant`` names one of the JAX package's five kernel bodies.  They are TPU
 layout variants of this one function, so the port checks the name and
@@ -157,22 +161,47 @@ def _interp_matrix(n_in: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(_interp_matrix_np(2 * n_in, n_in, True)).to(device)
 
 
-class _Upsample2x(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x):
-        ctx.hw = x.shape[2:]
-        if not _build.is_cuda(x):
-            return upsample_bilinear_align_corners(x)
-        # the kernel reads one dense NCHW plane after another: a strided or
-        # channels-last input is copied into that layout first
-        return upsample_kernel(x.contiguous())
+@torch.library.custom_op("wut::upsample2x", mutates_args=(),
+                         device_types="cuda")
+def upsample2x_op(x: torch.Tensor) -> torch.Tensor:
+    """K2 on a CUDA tensor; the kernel reads one dense NCHW plane after
+    another, so a strided or channels-last input is copied into that layout
+    first."""
+    return upsample_kernel(x.contiguous())
 
-    @staticmethod
-    def backward(ctx, g):
-        h, w = ctx.hw
-        mh = _interp_matrix(h, g.device).to(g.dtype)      # (2H, H)
-        mw = _interp_matrix(w, g.device).to(g.dtype)      # (2W, W)
-        return torch.einsum("oh,bcop,pw->bchw", mh, g, mw)
+
+@upsample2x_op.register_kernel("cpu")
+def _upsample2x_cpu(x):
+    return upsample_bilinear_align_corners(x)
+
+
+@upsample2x_op.register_fake
+def _upsample2x_fake(x):
+    b, c, h, w = x.shape
+    return x.new_empty((b, c, 2 * h, 2 * w))
+
+
+@torch.library.custom_op("wut::upsample2x_backward", mutates_args=())
+def upsample2x_backward_op(g: torch.Tensor) -> torch.Tensor:
+    """K2's VJP on any device, g (B, C, 2H, 2W) -> (B, C, H, W): the
+    transposed interpolation matrices, built on the host for the concrete
+    sizes, applied in plain PyTorch.  An op of its own, so that a traced
+    backward holds it as one node (its fake implementation gives the
+    shape) instead of tracing into the host-built tables."""
+    h, w = g.shape[2] // 2, g.shape[3] // 2
+    mh = _interp_matrix(h, g.device).to(g.dtype)      # (2H, H)
+    mw = _interp_matrix(w, g.device).to(g.dtype)      # (2W, W)
+    return torch.einsum("oh,bcop,pw->bchw", mh, g, mw)
+
+
+@upsample2x_backward_op.register_fake
+def _upsample2x_backward_fake(g):
+    b, c, h2, w2 = g.shape
+    return g.new_empty((b, c, h2 // 2, w2 // 2))
+
+
+upsample2x_op.register_autograd(
+    lambda ctx, g: upsample2x_backward_op(g))
 
 
 def upsample2x_fused(x: torch.Tensor, variant: str = "shift"):
@@ -183,4 +212,5 @@ def upsample2x_fused(x: torch.Tensor, variant: str = "shift"):
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}; expected one of "
                          f"{VARIANTS}")
-    return _Upsample2x.apply(x)
+    _build.is_cuda(x)          # refuses a device that is neither
+    return upsample2x_op(x)

@@ -183,7 +183,7 @@ class AsyncCheckpointer:
         return False
 
 
-def _reference_disc_sd(sd) -> dict:
+def reference_disc_state_dict(sd) -> dict:
     """SNDisc's state dict as the JAX package exports it: per spectral-norm
     layer ``weight_v`` recomputed from ``weight_orig`` and ``weight_u``
     (``normalize(W^T u)``) and ``weight`` = ``weight_orig / (u W v)``, the
@@ -207,9 +207,9 @@ def export_torch_gan(path: str, gen, disc, epoch: int,
     (``t_est_train.py:367-373``): ``{'inference', 'discriminator', 'epoch',
     'global_step'}``.  The port's modules carry the reference key names, so
     the entries are their state dicts, the discriminator's with the JAX
-    package's spectral-norm entries (``_reference_disc_sd``)."""
+    package's spectral-norm entries (``reference_disc_state_dict``)."""
     torch.save({"inference": _to_host(gen.state_dict()),
-                "discriminator": _reference_disc_sd(disc.state_dict()),
+                "discriminator": reference_disc_state_dict(disc.state_dict()),
                 "epoch": epoch, "global_step": global_step}, path)
 
 
