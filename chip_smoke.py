@@ -2,8 +2,8 @@
 """Smoke run of the PyTorch/CUDA port's serving, estimator and GAN training
 paths, of its trainer and training CLI, of its data runtime and supervised
 pretraining, of its serving entry points (msgpack checkpoints, the HTTP
-server, the inference and eval CLIs), and of FID / IS and the exported
-serving artifact, on one NVIDIA GPU.
+server, the inference and eval CLIs), of FID / IS and the exported serving
+artifact, and of the AOT tier's CUDA graphs, on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the repository root, one GPU
 
@@ -257,10 +257,46 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                16 POSTs from 4 client threads of a child process (200,
                image/jpeg, within a mean of 1 step of the direct
                translate_u8 through the same encode, 3 K1 + 3 K2 a batch).
-12. kernels -- the summary line of every ported kernel (launches on the main
-               paths of phases 4-11; error, times and bound over one serving
-               forward's sites and, under "gan_step_forward", over one GAN
-               generator (K1, K2) or estimator (K4) forward's).
+12. aot      -- the AOT tier (core/aot.py) at full width, each program a
+               CUDA graph held to its eager counterpart: the use_pallas
+               cUNet at 256x256 through WeatherTransfer(aot_cache=) at
+               B=1, 4 and 16 in float32 (TF32 off) and bfloat16 (MAE <=
+               1e-5 from eager; img/s graph against eager in turns; the
+               device ms, kernel count and top kernels of a forward each
+               way; first-call seconds; a second WeatherTransfer on the
+               same directory: 0 misses, 3 hits), one graphed fuse_upconv
+               (K3) forward at B=16 bf16; serve --aot_cache (bf16,
+               224x224, max_batch 16) against a server without the tier,
+               96 POSTs from 8 clients in turns (plain, tier, tier,
+               plain), start-up seconds cold and warm; the GAN trainer
+               with aot_cache at 224x224, B=8, est mode, use_pallas G,
+               K4-routed bf16 estimator: bf16 step ms (median of 10 in
+               turns with the eager trainer), img/s, device busy share,
+               kernels; float32 (TF32 off, dropout 0) graphed steps 1 and
+               2 against eager ones from the same state (copied into the
+               graph's tensors in place) at phase 7's bars, the sign-flip
+               bound of step k 2.2 * lr * sqrt(k), the float32 floor of
+               each step measured here; a graphed dropout forward's masks
+               from the registered generator (seeds 1, 2, 1: two masks,
+               seed 1 twice equal and equal to eager); fit under
+               profile_dir (the trace names K1, K2, K4); the supervised
+               ResNet-101 estimator step at B=64, 224x224: bf16 step ms
+               and busy share against eager in turns, one float32 graphed
+               step against eager (losses rel 1e-4, BN statistics 1e-5,
+               the sign-flip bound), train_supervised(aot_cache=) over 3
+               batches; `python -m weather_unet_tpu_torch.cli.doctor
+               --json --probe` exits 0 naming the card.  Every replay's
+               K1-K4 launches are counted by kernel name under
+               torch.profiler (a replay runs no Python wrapper, so the
+               launch counters count eager launches only); no capture may
+               build a cached plan, table or scale anew (lru-cache misses
+               during capture).
+13. kernels -- the summary line of every ported kernel (launches on the main
+               paths of phases 4-11, and "graph_replay_launches" counted
+               by name in phase 12's replays; error, times and bound over
+               one serving forward's sites and, under "gan_step_forward",
+               over one GAN generator (K1, K2) or estimator (K4)
+               forward's).
 
 Every phase line carries "t_s", the seconds since the script started.
 The last line is {"ok": true, "device": {...}}.  Float32 comparisons run
@@ -271,6 +307,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import glob
 import io
 import itertools
 import json
@@ -3498,7 +3535,728 @@ def phase_eval_export(counters, launch_totals, smi):
           "seconds": time.perf_counter() - t_phase})
 
 
-def kernels_line(summary, launch_totals):
+# ----------------------------------------------------------------------- aot
+AOT_BUCKETS = (1, 4, 16)   # serving buckets graphed in phase aot
+AOT_SIZE = 256             # bench.py's serving resolution
+AOT_TIMED = 10             # timed GAN and supervised steps after capture
+# substrings of the kernels' names as torch.profiler (CUPTI) records them:
+# a CUDA-graph replay runs no Python wrapper, so the launch counters (which
+# count eager launches only) cannot see it
+KERNEL_NAMES = {"adain": "adain_kernel", "upsample": "upsample2x_kernel",
+                "upconv": "upconv", "bottleneck": "bottleneck"}
+
+
+def require(what, rec, failed):
+    """Raise if ``failed`` (descriptions of the checks of ``rec`` that
+    failed) is not empty: the record first, what failed last, where the
+    end of the error output shows it."""
+    if failed:
+        raise AssertionError(f"{what}: {rec}\n{what} failed: "
+                             + "; ".join(failed))
+
+
+class KeptGraph(torch.cuda.CUDAGraph):
+    """The CUDA graph phase aot captures (``capture_watch`` puts it in
+    ``torch.cuda.CUDAGraph``'s place): it keeps its cudaGraph_t after
+    instantiation, so that its kernel nodes can be listed, and it notes its
+    replays while ``replayed`` is a list.  Instantiated at capture, as a
+    graph that keeps nothing is."""
+
+    replayed = None
+
+    def __new__(cls, keep_graph=False):
+        return super().__new__(cls, True)
+
+    def __init__(self, keep_graph=False):
+        super().__init__(keep_graph=True)
+
+    def capture_end(self):
+        super().capture_end()
+        self.instantiate()
+
+    def replay(self):
+        if KeptGraph.replayed is not None:
+            KeptGraph.replayed.append(self)
+        super().replay()
+
+
+def graph_kernel_names(graph):
+    """The (mangled) names of a kept graph's kernel nodes, from its DOT
+    dump (``cudaGraphDebugDotPrint``)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "graph.dot")
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            graph.debug_dump(path)
+        with open(path) as f:
+            dot = f.read()
+    return re.findall(r'label="\{KERNEL\s*\n\| \{ID \| [^|]*\| ([^\n]*)',
+                      dot)
+
+
+def replay_launches(fn, want, graph_totals, tries=10):
+    """K1-K4 launches of one call of ``fn``, a call that replays CUDA
+    graphs captured under ``capture_watch``, and the number of kernels it
+    launches.  A replay launches every kernel node of its graph, so the
+    replayed graphs' nodes, counted by kernel name, are the exact count.
+    A profile of a call (torch.profiler, CUPTI) must also show each kernel
+    of ``want``: a profile can lose records, or all of them, so it is taken
+    again, up to ``tries`` times.  The launches join ``graph_totals``."""
+    KeptGraph.replayed = []
+    try:
+        fn()
+        torch.cuda.synchronize()
+        graphs = KeptGraph.replayed
+    finally:
+        KeptGraph.replayed = None
+    if not graphs:
+        raise AssertionError("the call replayed no CUDA graph")
+    names = [n for g in graphs for n in graph_kernel_names(g)]
+    got = {k: sum(pat in n for n in names) for k, pat in KERNEL_NAMES.items()}
+    for _ in range(tries):
+        seen = device_kernels(fn)[0]
+        if all(any(KERNEL_NAMES[k] in n for n in seen)
+               for k, v in want.items() if v):
+            break
+    else:
+        raise AssertionError(f"no profile of {tries} showed the kernels of "
+                             f"{want} in a replay; the graph holds {got}")
+    for k, n in got.items():
+        graph_totals[k] += n
+    return got, len(names)
+
+
+@contextlib.contextmanager
+def capture_watch():
+    """Every CUDA-graph capture in the block, and which of the port's
+    lru-cached functions (kernel plans, tap tables, interpolation matrices,
+    the dropout scale) missed during one: a capture must build nothing
+    anew, its warm-up runs did.  The graphs are ``KeptGraph``s.  Yields
+    {"captures": [n], "built": [...]}."""
+    watch = {"captures": [0], "built": []}
+    enter, leave = torch.cuda.graph.__enter__, torch.cuda.graph.__exit__
+
+    def caches():
+        found = {}
+        for name, mod in list(sys.modules.items()):
+            if name.startswith("weather_unet_tpu_torch") and mod is not None:
+                for obj in vars(mod).values():
+                    if callable(getattr(obj, "cache_info", None)):
+                        found[id(obj)] = obj
+        return list(found.values())
+
+    def on_enter(self):
+        self._wut_misses = [(f, f.cache_info().misses) for f in caches()]
+        return enter(self)
+
+    def on_exit(self, *exc):
+        out = leave(self, *exc)
+        watch["captures"][0] += 1
+        watch["built"] += [f.__qualname__ for f, n in self._wut_misses
+                           if f.cache_info().misses != n]
+        return out
+
+    torch.cuda.graph.__enter__, torch.cuda.graph.__exit__ = on_enter, on_exit
+    plain_graph, torch.cuda.CUDAGraph = torch.cuda.CUDAGraph, KeptGraph
+    try:
+        yield watch
+    finally:
+        torch.cuda.graph.__enter__, torch.cuda.graph.__exit__ = enter, leave
+        torch.cuda.CUDAGraph = plain_graph
+
+
+def free_cuda():
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def aot_serving(tmp, smi, graph_totals):
+    """The use_pallas cUNet (and once the fuse_upconv one) through
+    WeatherTransfer(aot_cache=): each bucket a CUDA graph, against the
+    eager WeatherTransfer; a second instance on the same directory loads
+    every bucket from disk."""
+    from weather_unet_tpu_torch.api import WeatherTransfer
+    from weather_unet_tpu_torch.models import ConditionalUNet
+
+    torch.manual_seed(SEED)
+    sd = ConditionalUNet(5).state_dict()
+    rng = np.random.default_rng(SEED + 30)
+    x = torch.from_numpy(rng.uniform(-1, 1, (16, AOT_SIZE, AOT_SIZE, 3))
+                         .astype(np.float32)).cuda()
+    c = torch.eye(5, device="cuda")[torch.from_numpy(rng.integers(0, 5, 16))
+                                    .cuda()]
+    k12 = {"adain": 3, "upsample": 3}
+    for dt in DTYPES:
+        model = ConditionalUNet(5, use_pallas=True, dtype=dt)
+        model.load_state_dict(sd)
+        eager = WeatherTransfer(model, "cuda")
+        cache_dir = os.path.join(tmp, f"serving_{DT_NAME[dt]}")
+        graphed = WeatherTransfer(model, "cuda", aot_cache=cache_dir)
+        rec = {"phase": "aot_serving", "dtype": DT_NAME[dt], "card": smi,
+               "size": AOT_SIZE, "use_pallas": True}
+        for b in AOT_BUCKETS:
+            xb, cb = x[:b].to(dt), c[:b]
+            t0 = time.perf_counter()
+            got = graphed.translate(xb, cb)
+            torch.cuda.synchronize()
+            rec[f"b{b}_first_call_s"] = time.perf_counter() - t0
+            want = eager.translate(xb, cb)
+            rec[f"b{b}_mae_vs_eager"] = float((got.float() - want.float())
+                                              .abs().mean())
+            rec[f"b{b}_max_abs_diff"] = max_err(got, want)
+            runs = [(w, ips_of(lambda: (graphed if w == "graph" else eager)
+                               .translate(xb, cb), b))
+                    for w in ("eager", "graph", "graph", "eager")]
+            rec[f"b{b}_img_per_s"] = {w: [v for ww, v in runs if ww == w]
+                                      for w in ("eager", "graph")}
+            rec[f"b{b}_replay_launches"], rec[f"b{b}_replay_kernels"] = (
+                replay_launches(lambda: graphed.translate(xb, cb), k12,
+                                graph_totals))
+            for what, wt in (("eager", eager), ("graph", graphed)):
+                dev, n_kernels, top = step_profile(
+                    lambda: wt.translate(xb, cb), top=3)
+                rec[f"b{b}_{what}_device_ms"] = dev
+                rec[f"b{b}_{what}_kernels"] = n_kernels
+                rec[f"b{b}_{what}_top_kernels"] = top
+        rec["stats"] = dict(graphed.aot.stats)
+        rec["programs"] = graphed._translate._cache_size()
+        again = WeatherTransfer(model, "cuda", aot_cache=cache_dir)
+        t0 = time.perf_counter()
+        for b in AOT_BUCKETS:
+            out = again.translate(x[:b].to(dt), c[:b])
+            rec[f"b{b}_restart_mae_vs_eager"] = float(
+                (out.float() - eager.translate(x[:b].to(dt), c[:b]).float())
+                .abs().mean())
+        torch.cuda.synchronize()
+        rec["restart_s"] = time.perf_counter() - t0
+        rec["restart_stats"] = dict(again.aot.stats)
+        emit(rec)
+        failed = [f"b{b}_{key} {rec[f'b{b}_{key}']}" for b in AOT_BUCKETS
+                  for key in ("mae_vs_eager", "restart_mae_vs_eager")
+                  if not rec[f"b{b}_{key}"] <= 1e-5]
+        failed += [f"b{b}_replay_launches {rec[f'b{b}_replay_launches']}"
+                   for b in AOT_BUCKETS if rec[f"b{b}_replay_launches"] != {
+                       "adain": 3, "upsample": 3, "upconv": 0,
+                       "bottleneck": 0}]
+        if rec["stats"]["captures"] != 3 or rec["programs"] != 3:
+            failed.append(f"captures {rec['stats']['captures']}, programs "
+                          f"{rec['programs']}")
+        if (rec["restart_stats"]["misses"],
+                rec["restart_stats"]["hits"]) != (0, 3):
+            failed.append(f"restart_stats {rec['restart_stats']}")
+        require(f"aot serving {DT_NAME[dt]}", rec, failed)
+        del eager, graphed, again, model
+        free_cuda()
+    # the fused decoder (K3) once, bf16, B=16
+    model = ConditionalUNet(5, fuse_upconv=True, dtype=torch.bfloat16)
+    model.load_state_dict(sd)
+    eager = WeatherTransfer(model, "cuda")
+    graphed = WeatherTransfer(model, "cuda",
+                              aot_cache=os.path.join(tmp, "serving_k3"))
+    xb = x.to(torch.bfloat16)
+    got = graphed.translate(xb, c)
+    want = eager.translate(xb, c)
+    rec = {"phase": "aot_serving_fuse_upconv", "dtype": "bfloat16",
+           "card": smi, "batch": 16, "size": AOT_SIZE,
+           "mae_vs_eager": float((got.float() - want.float()).abs().mean()),
+           "max_abs_diff": max_err(got, want),
+           "img_per_s": {"eager": ips_of(lambda: eager.translate(xb, c), 16),
+                         "graph": ips_of(lambda: graphed.translate(xb, c),
+                                         16)}}
+    rec["replay_launches"], rec["replay_kernels"] = replay_launches(
+        lambda: graphed.translate(xb, c), {"upconv": 3}, graph_totals)
+    emit(rec)
+    if not (rec["mae_vs_eager"] <= 1e-5 and rec["replay_launches"] == {
+            "adain": 0, "upsample": 0, "upconv": 3, "bottleneck": 0}):
+        raise AssertionError(f"aot fuse_upconv: {rec}")
+    del eager, graphed, model
+    free_cuda()
+
+
+def aot_server(tmp, smi):
+    """serve --aot_cache (bf16, 224x224, max_batch 16) on a warm directory
+    against a server without the tier, the same 96 POSTs of the i2w
+    world's photos from 8 clients, in turns (plain, tier, tier, plain)."""
+    import urllib.request
+
+    from weather_unet_tpu_torch.cli import serve
+    from weather_unet_tpu_torch.models import ConditionalUNet
+
+    from weather_unet_tpu_torch.testing import build_i2w_world
+
+    torch.manual_seed(SEED + 31)
+    pt = os.path.join(tmp, "server_cunet.pt")
+    torch.save({"inference": ConditionalUNet(5).state_dict()}, pt)
+    # the request bodies: the i2w world the port's tests build (testing.py),
+    # 5 classes x 4 seeded 256x256 photos
+    world = build_i2w_world(os.path.join(tmp, "server_world"), per_class=4,
+                            size=256, rng=np.random.default_rng(SEED + 34))
+    jpegs = world["paths"]["train"] + world["paths"]["test"]
+    paths = [jpegs[i % len(jpegs)] for i in range(SERVE_REQUESTS)]
+    queries = [f"class={i % 5}" for i in range(SERVE_REQUESTS)]
+    cache_dir = os.path.join(tmp, "server_aot")
+    base_args = ["--cp_path", pt, "--host", "127.0.0.1", "--port", "0",
+                 "--input_size", "224", "--max_batch", "16", "--bf16"]
+    rec = {"phase": "aot_server", "card": smi, "dtype": "bfloat16",
+           "requests": SERVE_REQUESTS, "clients": SERVE_CLIENTS,
+           "size": 224, "max_batch": 16}
+    servers = {}
+    try:
+        for what, extra in (("tier_cold", ["--aot_cache", cache_dir]),
+                            ("tier", ["--aot_cache", cache_dir]),
+                            ("plain", [])):
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                server = serve.build_server(serve.build_parser().parse_args(
+                    base_args + extra))
+            rec[f"{what}_startup_s"] = time.perf_counter() - t0
+            if what == "tier_cold":
+                rec["tier_cold_stats"] = dict(server.transfer.aot.stats)
+                server.server_close()
+                continue
+            thread = threading.Thread(target=server.serve_forever,
+                                      daemon=True)
+            thread.start()
+            servers[what] = (server, thread)
+        rec["tier_stats"] = dict(servers["tier"][0].transfer.aot.stats)
+        answers = {}
+        for i, what in enumerate(("plain", "tier", "tier", "plain")):
+            server = servers[what][0]
+            base = f"http://127.0.0.1:{server.server_address[1]}"
+            urllib.request.urlopen(f"{base}/healthz", timeout=60).close()
+            ans, lat, wall = http_traffic(base, paths, queries,
+                                          os.path.join(tmp, f"srv{i}"))
+            answers[what] = ans
+            rec.setdefault(f"{what}_requests_per_s", []).append(
+                SERVE_REQUESTS / wall)
+            rec.setdefault(f"{what}_client_p50_ms", []).append(
+                float(np.percentile(lat, 50)))
+            rec.setdefault(f"{what}_client_p90_ms", []).append(
+                float(np.percentile(lat, 90)))
+    finally:
+        for server, thread in servers.values():
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+    from PIL import Image
+
+    steps = [float(np.abs(np.asarray(Image.open(io.BytesIO(a[2])), np.int16)
+                          - np.asarray(Image.open(io.BytesIO(p[2])),
+                                       np.int16)).mean())
+             for a, p in zip(answers["tier"], answers["plain"])]
+    rec["max_mean_step_tier_vs_plain"] = max(steps)
+    ok = all(a[0] == 200 for w in answers for a in answers[w])
+    emit(rec)
+    n_buckets = len(serve.warmup_buckets(16))
+    if not (ok and rec["max_mean_step_tier_vs_plain"] <= 1.0
+            and (rec["tier_cold_stats"]["misses"],
+                 rec["tier_stats"]["hits"], rec["tier_stats"]["misses"],
+                 rec["tier_stats"]["captures"]) == (n_buckets, n_buckets, 0,
+                                                    n_buckets)):
+        raise AssertionError(f"aot server: {rec}")
+    free_cuda()
+
+
+def state_tensors(state):
+    """Every tensor of a GAN state in a fixed order: both networks'
+    parameters and buffers and both optimizers' state, per parameter
+    index (a parameter without optimizer state has none)."""
+    out = {}
+    for net in ("gen", "disc"):
+        ts = getattr(state, net)
+        out.update({f"{net}.{k}": v for k, v in
+                    ts.module.state_dict(keep_vars=True).items()})
+        params = ts.optimizer.param_groups[0]["params"]
+        for i, p in enumerate(params):
+            for k, v in ts.optimizer.state.get(p, {}).items():
+                out[f"{net}.opt.{i}.{k}"] = v
+    return out
+
+
+def put_state(state, src):
+    """Make ``state`` hold ``src`` (a clone of another state's
+    state_tensors): every tensor both have is copied in place -- what a
+    restore into a graph's static tensors must do; optimizer state that
+    only ``src`` has is created, and state that ``src`` lacks (an
+    optimizer that had not stepped) is dropped, which only an eager
+    trainer's optimizer may see."""
+    with torch.no_grad():
+        dst = state_tensors(state)
+        for k, v in src.items():
+            if k in dst:
+                dst[k].copy_(v)
+                continue
+            net, _, i, key = k.split(".", 3)
+            ts = getattr(state, net)
+            p = ts.optimizer.param_groups[0]["params"][int(i)]
+            ts.optimizer.state[p][key] = v.clone()
+        for k in dst:
+            if ".opt." in k and k not in src:
+                net, _, i, _ = k.split(".", 3)
+                ts = getattr(state, net)
+                ts.optimizer.state.pop(
+                    ts.optimizer.param_groups[0]["params"][int(i)], None)
+
+
+def aot_gan(tmp, est_path, smi, graph_totals):
+    """The GAN trainer with aot_cache at 224x224, batch 8, est mode, the
+    use_pallas generator and load_step_estimator's estimator (K4-routed in
+    bf16): bf16 step time and device busy share against the eager trainer
+    in turns; float32 (TF32 off, dropout 0) graphed steps against eager ones
+    at the GAN bars; dropout masks from the registered generator; fit under
+    profile_dir."""
+    from weather_unet_tpu_torch.cli.common import load_step_estimator
+    from weather_unet_tpu_torch.core.aot import AotCache, AotJit
+    from weather_unet_tpu_torch.core.rng import fold_seed
+    from weather_unet_tpu_torch.data.pipeline import BatchLoader
+    from weather_unet_tpu_torch.models import ConditionalUNet
+    from weather_unet_tpu_torch.train.gan import GanConfig
+    from weather_unet_tpu_torch.train.loops import WeatherTransferTrainer
+
+    f32, bf = torch.float32, torch.bfloat16
+    b, size = 8, 224
+    rng = np.random.default_rng(SEED + 32)
+    imgs = [torch.from_numpy(rng.uniform(-1, 1, (b, 3, size, size))
+                             .astype(np.float32)).cuda() for _ in range(4)]
+    zeros = torch.zeros(b, dtype=torch.long, device="cuda")
+    ests = {dt: load_step_estimator(est_path, dtype=dt, device="cuda")
+            for dt in DTYPES}
+
+    def trainer(dt, name, tier, **kw):
+        return WeatherTransferTrainer(
+            GanConfig(input_size=size, batch_size=b, dtype=dt,
+                      **{k: v for k, v in kw.items()
+                         if k != "profile_dir"}),
+            ests[dt], save_dir=os.path.join(tmp, "gan_cp"), name=name,
+            log_dir=os.path.join(tmp, "gan_runs"), device="cuda",
+            aot_cache=os.path.join(tmp, "gan_aot") if tier else None,
+            profile_dir=kw.get("profile_dir"))
+
+    def step(tr, k, do_g=True, scale=1.0):
+        tr._step_rng.manual_seed(fold_seed(tr._base_seed, k))
+        x, r = imgs[2 * (k % 2)], imgs[2 * (k % 2) + 1]
+        tr.state, m = tr._step(tr.state, x * scale, zeros, r, zeros,
+                               tr._step_rng, do_g=do_g)
+        return m
+
+    def timed(tr, k, do_g=True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(tr, k, do_g)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, m
+
+    # 1. bf16: eager and graphed trainers in turns, one step each a turn
+    torch.cuda.reset_peak_memory_stats()
+    trs = {"eager": trainer(bf, "bf_eager", False),
+           "graph": trainer(bf, "bf_graph", True)}
+    rec = {"phase": "aot_gan", "dtype": "bfloat16", "card": smi, "batch": b,
+           "size": size, "dropout": 0.3, "estimator_route": "k4"}
+    # a D-only step first, as a fresh run with GD_train_ratio 2 takes it:
+    # its graph is captured before G's Adam has state, and replays below
+    # after the D+G capture has made that state
+    for what, tr in trs.items():
+        rec[f"{what}_first_d_step_ms"] = timed(tr, 1, do_g=False)[0]
+        rec[f"{what}_first_step_ms"] = timed(tr, 2)[0]
+    times = {w: [] for w in trs}
+    for k in range(AOT_TIMED):
+        for what in (("eager", "graph") if k % 2 else ("graph", "eager")):
+            ms, m = timed(trs[what], 3 + k)
+            times[what].append(ms)
+            if not all(np.isfinite(float(v)) for v in m.values()):
+                raise AssertionError(f"aot gan {what}: metrics {m}")
+    for what in trs:
+        ms = float(np.median(times[what]))
+        rec[f"{what}_step_ms"] = ms
+        rec[f"{what}_step_ms_all"] = times[what]
+        rec[f"{what}_img_per_s"] = b / ms * 1e3
+        dev, n_kernels, top = step_profile(lambda: step(trs[what], 99))
+        rec[f"{what}_device_ms"] = dev
+        rec[f"{what}_kernels"] = n_kernels
+        rec[f"{what}_busy_share"] = dev / ms
+        rec[f"{what}_top_kernels"] = top
+    rec["replay_launches"], rec["replay_kernels"] = replay_launches(
+        lambda: step(trs["graph"], 100),
+        {"adain": 6, "upsample": 6, "bottleneck": 58}, graph_totals)
+    rec["replay_launches_d_only"], _ = replay_launches(
+        lambda: step(trs["graph"], 101, do_g=False),
+        {"adain": 3, "upsample": 3, "bottleneck": 58}, graph_totals)
+    rec["stats"] = dict(trs["graph"].aot.stats)
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    emit(rec)
+    if not (rec["replay_launches"] == {"adain": 6, "upsample": 6,
+                                       "upconv": 0, "bottleneck": 58}
+            and rec["replay_launches_d_only"] == {
+                "adain": 3, "upsample": 3, "upconv": 0, "bottleneck": 58}
+            and rec["stats"]["captures"] == 2):
+        raise AssertionError(f"aot gan bf16: {rec}")
+    del trs
+    free_cuda()
+
+    # 2. float32 (TF32 off), dropout 0: the graphed step against the eager
+    #    step, twice, each from the eager trainer's state copied into the
+    #    graph's tensors in place; the float32 floor from a third trainer
+    trs = {w: trainer(f32, f"f32_{w}", w == "graph", dropout_rate=0.0)
+           for w in ("eager", "graph", "floor")}
+    lr = trs["eager"].cfg.lr
+    for k in (1, 2):
+        pre = {n: v.detach().clone()
+               for n, v in state_tensors(trs["eager"].state).items()}
+        put_state(trs["graph"].state, pre)
+        want = gan_snapshot(trs["eager"].state, step(trs["eager"], k))
+        got = gan_snapshot(trs["graph"].state, step(trs["graph"], k))
+
+        def floor_run(scale):
+            put_state(trs["floor"].state, pre)
+            return gan_snapshot(trs["floor"].state,
+                                step(trs["floor"], k, scale=scale))
+
+        errs = [snapshot_errs(floor_run(1 + s * ONE_ROUNDING), want)
+                for s in (1, -1)]
+        floor = {key: max(e[key] for e in errs) for key in MOMENT_KEYS}
+        # Adam's k-th update reaches sqrt(k) * lr where the earlier
+        # gradients were ~0 (bias correction), so the sign-flip bound of
+        # step k is 2.2 * lr * sqrt(k) (tests/test_torch_gan.py's
+        # assert_adam_close)
+        rec = gan_states_agree(got, want, lr * np.sqrt(k), GAN_TOL,
+                               f"aot gan float32 step {k}", floor)
+        emit({"phase": "aot_gan_parity", "dtype": "float32", "step": k,
+              "card": smi, "batch": b, "size": size,
+              "losses": got["losses"], **rec})
+    del trs, pre
+    free_cuda()
+
+    # 3. dropout: a graphed train-mode generator forward (float32, rate
+    #    0.3) draws its masks from the registered generator
+    gen_model = ConditionalUNet(5, 0.3, use_pallas=True,
+                                generator=torch.Generator().manual_seed(
+                                    SEED)).cuda()
+    forward = AotJit(
+        lambda m, x, cc, g: m(x, cc, train=True, generator=g),
+        AotCache(os.path.join(tmp, "dropout_aot")), inplace_argnums=(0,),
+        disk=False)
+    g = torch.Generator(device="cuda")
+    cond = torch.eye(5, device="cuda")[torch.arange(b, device="cuda") % 5]
+    outs = {}
+    with torch.no_grad():
+        for seed in (1, 2, 1):
+            g.manual_seed(seed)
+            outs.setdefault(seed, []).append(forward(gen_model, imgs[0],
+                                                     cond, g))
+        g.manual_seed(1)
+        eager1 = gen_model(imgs[0], cond, train=True, generator=g)
+    rec = {"phase": "aot_dropout", "card": smi, "dtype": "float32",
+           "rate": 0.3, "batch": b, "size": size,
+           "mae_seed1_vs_seed2": float((outs[1][0] - outs[2][0]).abs()
+                                       .mean()),
+           "seed1_replays_equal": bool(torch.equal(outs[1][0], outs[1][1])),
+           "mae_graph_vs_eager_seed1": float((outs[1][0] - eager1).abs()
+                                             .mean())}
+    emit(rec)
+    if not (rec["seed1_replays_equal"]
+            and rec["mae_graph_vs_eager_seed1"] <= 1e-5
+            and rec["mae_seed1_vs_seed2"] > 100 * max(
+                rec["mae_graph_vs_eager_seed1"], 1e-6)):
+        raise AssertionError(f"aot dropout: {rec}")
+    del gen_model, forward, outs, eager1
+    free_cuda()
+
+    # 4. fit under profile_dir with GD_train_ratio 2: D-only, D+G, D-only
+    #    steps through the tier; the trace names K1, K2 and K4.  A profile
+    #    can lose every device record (device_kernels), so a fit whose trace
+    #    holds no kernel at all is run again, up to 3 times
+    mem = [(rng.integers(0, 256, (size, size, 3), np.uint8),
+            np.zeros(5, np.float32), str(i)) for i in range(6 * b)]
+    for attempt in range(3):
+        prof_dir = os.path.join(tmp, f"gan_profile{attempt}")
+        tr = trainer(bf, f"profiled{attempt}", True, num_epoch=1,
+                     gd_train_ratio=2, profile_dir=prof_dir)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            tr.fit(lambda: BatchLoader(mem[:3 * b], b),
+                   lambda: BatchLoader(mem[3 * b:], b, seed=1))
+        rec = {"phase": "aot_profile_dir", "card": smi, "attempt": attempt,
+               "fit_s": time.perf_counter() - t0,
+               "steps": tr.state.global_step, "g_steps": tr.state.gen.step,
+               "captures": tr.aot.stats["captures"], "trace_kernels": 0,
+               "trace_launches": {k: 0 for k in KERNEL_NAMES}}
+        del tr
+        free_cuda()
+        traces = glob.glob(os.path.join(prof_dir, "*.pt.trace.json"))
+        rec["trace_files"] = len(traces)
+        if traces:
+            rec["trace_mib"] = os.path.getsize(traces[0]) / 2 ** 20
+            with open(traces[0]) as f:
+                events = json.load(f)["traceEvents"]
+            kernels = [e.get("name", "") for e in events
+                       if e.get("cat") == "kernel"]
+            rec["trace_kernels"] = len(kernels)
+            rec["trace_launches"] = {k: sum(pat in n for n in kernels)
+                                     for k, pat in KERNEL_NAMES.items()}
+        emit(rec)
+        if rec["trace_files"] != 1 or rec["trace_kernels"]:
+            break
+    failed = [f"{k} {rec[k]}" for k, v in (("trace_files", 1), ("steps", 3),
+                                           ("g_steps", 1), ("captures", 2))
+              if rec[k] != v]
+    failed += [f"trace_launches {rec['trace_launches']}"] if not all(
+        rec["trace_launches"][k] > 0
+        for k in ("adain", "upsample", "bottleneck")) else []
+    require("aot profile_dir", rec, failed)
+
+
+def aot_supervised(tmp, smi):
+    """The supervised estimator step (ResNet-101, 224x224, B=64) as a CUDA
+    graph: bf16 step time and busy share against the eager step in turns;
+    one float32 (TF32 off) graphed step against the eager one; and
+    train_supervised(aot_cache=) over 3 batches."""
+    from weather_unet_tpu_torch.core.aot import AotCache, AotJit
+    from weather_unet_tpu_torch.core.optim import set_capturable
+    from weather_unet_tpu_torch.models import ResNet101
+    from weather_unet_tpu_torch.train import supervised as sup
+    from weather_unet_tpu_torch.train.loops import train_supervised
+
+    rng = np.random.default_rng(SEED + 33)
+    x = torch.from_numpy(rng.uniform(-1, 1, (SUP_BATCH, 3, SUP_SIZE,
+                                             SUP_SIZE)).astype(np.float32)
+                         ).cuda()
+    t = torch.from_numpy(rng.standard_normal((SUP_BATCH, 5)).astype(
+        np.float32)).cuda()
+
+    def state(dt):
+        model = ResNet101(5, dtype=dt, param_dtype=torch.float32,
+                          generator=torch.Generator().manual_seed(SEED))
+        return sup.build_supervised_state(model.cuda(), 1e-4, 1e-5)
+
+    def graphed(st, name):
+        set_capturable(st.optimizer, True)
+        cache = AotCache(os.path.join(tmp, name))
+        return sup.stepped(AotJit(sup.make_estimator_step().program, cache,
+                                  inplace_argnums=(0,), disk=False)), cache
+
+    def timed(step, st):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, m = step(st, x, t)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, m
+
+    rec = {"phase": "aot_supervised", "card": smi, "dtype": "bfloat16",
+           "batch": SUP_BATCH, "size": SUP_SIZE, "model": "ResNet-101"}
+    torch.cuda.reset_peak_memory_stats()
+    sts = {"eager": state(torch.bfloat16), "graph": state(torch.bfloat16)}
+    steps = {"eager": sup.make_estimator_step()}
+    steps["graph"], cache = graphed(sts["graph"], "sup_aot")
+    for what in sts:
+        rec[f"{what}_first_step_ms"] = timed(steps[what], sts[what])[0]
+    times = {w: [] for w in sts}
+    for k in range(AOT_TIMED):
+        for what in (("eager", "graph") if k % 2 else ("graph", "eager")):
+            ms, m = timed(steps[what], sts[what])
+            times[what].append(ms)
+    for what in sts:
+        ms = float(np.median(times[what]))
+        rec[f"{what}_step_ms"] = ms
+        rec[f"{what}_img_per_s"] = SUP_BATCH / ms * 1e3
+        dev, n_kernels, _ = step_profile(
+            lambda: steps[what](sts[what], x, t))
+        rec[f"{what}_device_ms"] = dev
+        rec[f"{what}_kernels"] = n_kernels
+        rec[f"{what}_busy_share"] = dev / ms
+    rec["metrics"] = {k: float(v) for k, v in m.items()}
+    rec["stats"] = dict(cache.stats)
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del sts, steps
+    free_cuda()
+    # float32 (TF32 off): one graphed step against one eager step
+    a, bb = state(torch.float32), state(torch.float32)
+    step_g, _ = graphed(a, "sup_aot_f32")
+    a, ma = step_g(a, x, t)
+    bb, mb = sup.make_estimator_step()(bb, x, t)
+    rec["float32_loss_rel_err"] = {
+        k: abs(float(ma[k]) - float(mb[k])) / abs(float(mb[k])) for k in mb}
+    sa, sb = a.module.state_dict(), bb.module.state_dict()
+    rec["float32_bn_max_abs_err"] = max(
+        float((sa[k].float() - sb[k].float()).abs().max()) for k in sb
+        if k.endswith(("running_mean", "running_var")))
+    rec["float32_params"] = sup_params_agree(a, bb, 1e-4)
+    del a, bb, step_g
+    free_cuda()
+    # train_supervised(aot_cache=) over 3 in-memory batches
+    st = state(torch.bfloat16)
+    batches = [(rng.integers(0, 256, (SUP_BATCH, SUP_SIZE, SUP_SIZE, 3),
+                             np.uint8),
+                rng.standard_normal((SUP_BATCH, 5)).astype(np.float32))
+               for _ in range(3)]
+    loop_cache = AotCache(os.path.join(tmp, "sup_loop_aot"))
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        train_supervised(
+            sup.make_estimator_step(), sup.make_eval_metrics("estimator"),
+            lambda: batches, lambda: batches[:1], state=st, num_epoch=1,
+            input_size=SUP_SIZE, save_dir=os.path.join(tmp, "sup_cp"),
+            name="aot", save_per_epoch=1 << 30, aot_cache=loop_cache)
+    rec["train_supervised_s"] = time.perf_counter() - t0
+    rec["train_supervised_steps"] = st.step
+    rec["train_supervised_stats"] = dict(loop_cache.stats)
+    emit(rec)
+    del st
+    free_cuda()
+    if not (all(v <= 1e-4 for v in rec["float32_loss_rel_err"].values())
+            and rec["float32_bn_max_abs_err"] <= 1e-5
+            and rec["float32_params"]["ok"]
+            and rec["stats"]["captures"] == 1
+            and rec["train_supervised_steps"] == 3
+            and rec["train_supervised_stats"]["captures"] == 1
+            and all(np.isfinite(v) for v in rec["metrics"].values())):
+        raise AssertionError(f"aot supervised: {rec}")
+
+
+def aot_doctor(smi):
+    """python -m weather_unet_tpu_torch.cli.doctor --json --probe exits 0
+    and names the card."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "weather_unet_tpu_torch.cli.doctor",
+         "--json", "--probe"], capture_output=True, text=True, timeout=300)
+    info = json.loads(proc.stdout) if proc.returncode == 0 else {}
+    rec = {"phase": "aot_doctor", "card": smi, "rc": proc.returncode,
+           "seconds": time.perf_counter() - t0,
+           "devices": info.get("devices"), "nvcc": info.get("nvcc"),
+           "kernels_built": info.get("kernels", {}).get("built"),
+           "native_runtime": info.get("native_runtime"),
+           "aot_cache": info.get("aot_cache"),
+           "probe_first_call_s": info.get("probe_first_call_s"),
+           "probe_roundtrip_ms": info.get("probe_roundtrip_ms")}
+    emit(rec)
+    if not (proc.returncode == 0 and info["devices"][0]["name"]
+            == torch.cuda.get_device_name(0)):
+        raise AssertionError(f"doctor: rc {proc.returncode}: {proc.stderr}")
+
+
+def phase_aot(est_path, smi, graph_totals):
+    """Phase aot: the AOT tier (core/aot.py) on the card at full width --
+    serving buckets, serve --aot_cache, the GAN trainer and the supervised
+    step as CUDA graphs, held to their eager counterparts; every capture
+    builds nothing anew; the doctor."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, capture_watch() as watch:
+        aot_serving(tmp, smi, graph_totals)
+        aot_server(tmp, smi)
+        aot_gan(tmp, est_path, smi, graph_totals)
+        aot_supervised(tmp, smi)
+    aot_doctor(smi)
+    emit({"phase": "aot_done", "seconds": time.perf_counter() - t_phase,
+          "captures": watch["captures"][0],
+          "built_during_capture": watch["built"]})
+    if watch["built"]:
+        raise AssertionError(f"a capture built {watch['built']} anew")
+
+
+def kernels_line(summary, launch_totals, graph_totals):
     meta = {
         "adain": ("weather_unet_tpu_torch/csrc/adain.cu",
                   "weather_unet_tpu/kernels/adain_pallas.py:74"),
@@ -3543,6 +4301,7 @@ def kernels_line(summary, launch_totals):
                     name, dt, GAN_SITES[name])
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces, "launches": launch_totals[name],
+                 "graph_replay_launches": graph_totals[name],
                  **per_dt["bfloat16"], "dtype": "bfloat16",
                  "sites": MAIN_SITES[name],
                  "gan_sites": GAN_SITES.get(name),
@@ -3584,11 +4343,16 @@ def main():
         phase_train(est_path, counters, launch_totals, gan_records, smi)
         phase_supervised(counters, launch_totals, smi)
         phase_serving_cli(est_path, counters, launch_totals, smi)
-    phase_eval_export(counters, launch_totals, smi)
+        phase_eval_export(counters, launch_totals, smi)
+        graph_totals = {k: 0 for k in counters}
+        phase_aot(est_path, smi, graph_totals)
     for name, total in launch_totals.items():
         if total == 0:
             raise AssertionError(f"{name} kernel never ran on the main path")
-    kernels_line(summary, launch_totals)
+        if graph_totals[name] == 0:
+            raise AssertionError(f"{name} kernel never ran in a CUDA-graph "
+                                 "replay of phase aot")
+    kernels_line(summary, launch_totals, graph_totals)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

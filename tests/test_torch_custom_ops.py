@@ -1,8 +1,9 @@
-"""K1 and K2 as ``torch.library`` custom ops (``wut::adain``,
-``wut::upsample2x``) on the CPU: ``torch.library.opcheck`` (schema, fake
-implementation, autograd registration, tracing with dynamic shapes), and
-``adain_fused`` / ``upsample2x_fused`` bit-equal, forward and gradients, to
-the ``torch.autograd.Function``s they replaced (copied below as they were).
+"""K1, K2 and K3 as ``torch.library`` custom ops (``wut::adain``,
+``wut::upsample2x``, ``wut::upconv``) on the CPU: ``torch.library.opcheck``
+(schema, fake implementation, autograd registration, tracing with dynamic
+shapes), and ``adain_fused`` / ``upsample2x_fused`` /
+``upsample2x_conv3x3`` bit-equal, forward and gradients, to the
+``torch.autograd.Function``s they replaced (copied below as they were).
 The CUDA implementations, which launch the kernels, are held to the plain
 versions in ``tests/test_torch_gpu.py``."""
 
@@ -12,7 +13,8 @@ import torch
 
 from tests.torch_port_util import (  # noqa: F401
     no_thread_left, one_torch_thread)
-from weather_unet_tpu_torch.kernels import adain as k1, upsample as k2
+from weather_unet_tpu_torch.kernels import (
+    adain as k1, upconv as k3, upsample as k2)
 from weather_unet_tpu_torch.ops.norm import adain
 from weather_unet_tpu_torch.ops.resize import upsample_bilinear_align_corners
 
@@ -52,6 +54,39 @@ class Upsample2xFunction(torch.autograd.Function):
         return torch.einsum("oh,bcop,pw->bchw", mh, g, mw)
 
 
+class UpConvFunction(torch.autograd.Function):
+    """K3's wrapper before it became a registered op (CPU path)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, cb, scale, shift, relu):
+        ctx.save_for_backward(x, weight, cb, scale, shift)
+        ctx.relu = relu
+        return k3.upsample2x_conv3x3_ref(x, weight, cb=cb, scale=scale,
+                                         shift=shift, relu=relu)
+
+    @staticmethod
+    def backward(ctx, g):
+        needs = ctx.needs_input_grad[:5]
+        with torch.enable_grad():
+            args = [None if t is None else t.detach().requires_grad_(n)
+                    for t, n in zip(ctx.saved_tensors, needs)]
+            out = k3.upsample2x_conv3x3_ref(args[0], args[1], cb=args[2],
+                                            scale=args[3], shift=args[4],
+                                            relu=ctx.relu)
+            wrt = [a for a, n in zip(args, needs) if n]
+            grads = iter(torch.autograd.grad(out, wrt, g))
+        return tuple(next(grads) if n else None for n in needs) + (None,)
+
+
+def upconv_inputs(dtype, seed=4):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn(2, 6, 5, 7, generator=g).to(dtype),
+            (0.2 * torch.randn(4, 6, 3, 3, generator=g)).to(dtype),
+            torch.randn(2, 4, 10, 14, generator=g).to(dtype),
+            torch.rand(2, 6, generator=g) + 0.5,
+            torch.randn(2, 6, generator=g))
+
+
 def inputs(dtype, seed=0):
     g = torch.Generator().manual_seed(seed)
     x = torch.randn(2, 6, 5, 7, generator=g).to(dtype)
@@ -59,10 +94,16 @@ def inputs(dtype, seed=0):
     return x, y
 
 
-@pytest.mark.parametrize("op", ["adain", "upsample2x"])
+@pytest.mark.parametrize("op", ["adain", "upsample2x", "upconv"])
 def test_opcheck(op):
     x, y = inputs(torch.float32)
-    if op == "adain":
+    if op == "upconv":
+        ux, w, cb, sc, sh = upconv_inputs(torch.float32)
+        for args in ((ux.requires_grad_(), w.requires_grad_(),
+                      cb.requires_grad_(), sc, sh, True),
+                     (ux[:, :, :, :6], w, None, None, None, False)):
+            torch.library.opcheck(k3.upconv_op, args)
+    elif op == "adain":
         cases = [(x.requires_grad_(), y.requires_grad_(), 1e-5),
                  (x[:, :, :, :6], y, 1e-3)]          # a strided input
         for args in cases:
@@ -98,6 +139,27 @@ def test_bit_equal_to_the_autograd_functions(dtype):
         assert got.dtype == want.dtype and torch.equal(got, want)
     # no kernel runs on the CPU, so nothing is counted
     assert (k1.launches, k2.launches) == launched
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_upconv_op_bit_equal_to_the_autograd_function(dtype):
+    """K3 became ``wut::upconv`` so that a ``fuse_upconv`` forward exports
+    (the AOT tier's disk entries): forward and every gradient unchanged."""
+    launched = k3.launches
+    x, w, cb, sc, sh = upconv_inputs(dtype)
+    g_out = torch.randn(2, 4, 10, 14,
+                        generator=torch.Generator().manual_seed(5)).to(dtype)
+    results = []
+    for fn in (lambda *a: k3.upsample2x_conv3x3(
+            a[0], a[1], cb=a[2], scale=a[3], shift=a[4], relu=True),
+               lambda *a: UpConvFunction.apply(*a, True)):
+        args = [t.clone().requires_grad_() for t in (x, w, cb, sc, sh)]
+        out = fn(*args)
+        out.backward(g_out)
+        results.append((out, *(a.grad for a in args)))
+    for got, want in zip(*results):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+    assert k3.launches == launched
 
 
 def test_tracing_keeps_one_op_and_other_devices_are_refused():

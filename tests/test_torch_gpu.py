@@ -438,10 +438,11 @@ def test_serving_configurations_on_gpu_match_cpu(cuda):
         assert float(np.abs(got - want).mean()) <= 1e-5, kw
 
 
-def gan_step_once(device, use_pallas, scale=1.0):
+def gan_step_once(device, use_pallas, scale=1.0, aot_cache=None):
     """One combined GAN step (est mode, 32x32, batch 2, dropout 0) from a
     seeded state on ``device``, with a linear estimator head on mean-pooled
-    pixels, its images multiplied by ``scale``.  Returns (state, metrics,
+    pixels, its images multiplied by ``scale``; with ``aot_cache`` through
+    the AOT tier (a CUDA graph, Adam capturable).  Returns (state, metrics,
     K1 launches, K2 launches)."""
     cfg = GanConfig(input_size=32, batch_size=2, dropout_rate=0.0)
     _, _, state = build_gan_state(cfg, 0, device, use_pallas=use_pallas)
@@ -454,6 +455,15 @@ def gan_step_once(device, use_pallas, scale=1.0):
     z = torch.zeros(2, dtype=torch.long, device=device)
     step = make_gan_step(state.gen.module, state.disc.module,
                          lambda x: x.mean(dim=(2, 3)) @ w, cfg)
+    if aot_cache is not None:
+        from weather_unet_tpu_torch.core.optim import set_capturable
+        from weather_unet_tpu_torch.train.loops import _tiered_steps
+
+        for ts in (state.gen, state.disc):
+            set_capturable(ts.optimizer, True)
+        programs = step.programs
+        (programs[True], programs[False]), _ = _tiered_steps(
+            [programs[True], programs[False]], aot_cache)
     n1, n2 = k1.launches, k2.launches
     state, m = step(state, images * scale, z, rand, z,
                     torch.Generator(device=device).manual_seed(0), do_g=True)
@@ -745,3 +755,121 @@ def test_exported_artifact_on_gpu(cuda, dtype, tmp_path):
         if seen == (3, 3):
             break
     assert seen == (3, 3), names
+
+
+def test_aot_serving_bucket_graphed_matches_eager(cuda, tmp_path):
+    """A bucket of the tiered ``WeatherTransfer`` (batch 3 -> 4, 64x64,
+    float32 with TF32 off) runs as a CUDA graph: within 1 uint8 step and
+    MAE 1e-5 of the eager forward; a replay runs no Python wrapper, so the
+    launch counters stay still (they count eager launches only)."""
+    torch.manual_seed(0)
+    model = ConditionalUNet(5, use_pallas=True)
+    eager = WeatherTransfer(model)
+    tier = WeatherTransfer(model, aot_cache=str(tmp_path))
+    rng = np.random.default_rng(0)
+    u8 = rng.integers(0, 256, (3, 64, 64, 3), np.uint8)
+    c = np.eye(5, dtype=np.float32)[[0, 2, 4]]
+    got = tier.translate_u8(u8, c)
+    assert int((got.int() - eager.translate_u8(u8, c).int()).abs().max()
+               ) <= 1
+    x = WeatherTransfer.preprocess(u8)
+    mae = (tier.translate(x, c) - eager.translate(x, c)).abs().mean()
+    assert float(mae) <= 1e-5
+    assert tier.aot.stats["captures"] == 2 and tier.aot.stats["misses"] == 2
+    before = (k1.launches, k2.launches)
+    again = tier.translate_u8(u8, c)
+    torch.cuda.synchronize()
+    assert (k1.launches, k2.launches) == before and torch.equal(again, got)
+
+
+def test_aot_gan_step_graphed_matches_eager(cuda, tmp_path):
+    """The combined step captured as a CUDA graph (float32, TF32 off,
+    dropout 0, use_pallas) against the eager step from the same seed, at
+    the float32 GAN bars (Adam's capturable update sums in another order)."""
+    a, ma, _, _ = gan_step_once(cuda, use_pallas=True,
+                                aot_cache=str(tmp_path))
+    b, mb, _, _ = gan_step_once(cuda, use_pallas=True)
+    assert a.global_step == b.global_step == 1
+    assert_gan_steps_agree(a, b, ma, mb, float32_floor(cuda, True, b))
+
+
+def test_aot_trainer_d_only_then_combined_then_d_only(cuda, tmp_path):
+    """GD_train_ratio 2 through the tiered trainer on a fresh run: step 1
+    captures the D-only program while G's Adam has no state yet, step 2's
+    D+G capture creates that state, and step 3 replays the D-only graph,
+    which reads none of it.  The same three steps of an eager trainer agree
+    at the bf16 bars."""
+    from weather_unet_tpu_torch.cli.common import load_step_estimator
+    from weather_unet_tpu_torch.data.pipeline import BatchLoader
+    from weather_unet_tpu_torch.train.loops import WeatherTransferTrainer
+
+    est = str(tmp_path / "est.pt")
+    torch.save(ResNet((2, 2, 2, 2), 5, generator=torch.Generator()
+                      .manual_seed(3)).state_dict(), est)
+    rng = np.random.default_rng(2)
+    data = [(rng.integers(0, 256, (32, 32, 3), np.uint8), True)
+            for _ in range(6)]
+
+    def run(name, aot):
+        cfg = GanConfig(input_size=32, batch_size=2, gd_train_ratio=2,
+                        dtype=torch.bfloat16, num_epoch=1)
+        tr = WeatherTransferTrainer(
+            cfg, load_step_estimator(est, dtype=torch.bfloat16,
+                                     device=cuda),
+            save_dir=str(tmp_path / name), log_dir=str(tmp_path / "runs"),
+            device=cuda, aot_cache=aot)
+        try:
+            assert tr.train_epoch(BatchLoader(data, 2), BatchLoader(data, 2))
+            torch.cuda.synchronize()
+        finally:
+            tr.writer.close()
+        return tr
+
+    tiered = run("tier", str(tmp_path / "aot"))
+    eager = run("eager", None)
+    assert (tiered.state.global_step, tiered.state.gen.step,
+            tiered.state.disc.step) == (3, 1, 3)
+    assert tiered.aot.stats["captures"] == 2
+    for a, b in ((tiered.gen, eager.gen), (tiered.disc, eager.disc)):
+        for p, q in zip(a.state_dict().values(), b.state_dict().values()):
+            if p.is_floating_point():
+                assert_close(p, q, torch.bfloat16)
+
+
+def test_aot_dropout_replays_draw_from_the_generator(cuda, tmp_path):
+    """A graphed dropout registers its generator: replays from two seeds
+    draw two masks, each the eager draw from that seed, and replays without
+    a reseed go on along the generator's stream."""
+    from weather_unet_tpu_torch.core.aot import AotCache, AotJit
+    from weather_unet_tpu_torch.ops.dropout import bits_dropout
+
+    def program(state, x, generator):
+        return bits_dropout(x * state["w"], 0.3, generator)
+
+    cache = AotCache(str(tmp_path))
+    graphed = AotJit(program, cache, inplace_argnums=(0,), disk=False)
+    state = {"w": torch.ones((), device=cuda)}
+    x = torch.randn(64, 1024, device=cuda) + 3.0
+    gen = torch.Generator(device=cuda)
+    outs = {}
+    for seed in (1, 2):
+        gen.manual_seed(seed)
+        outs[seed] = graphed(state, x, gen)
+    assert not torch.equal(outs[1] != 0, outs[2] != 0)
+    for seed, out in outs.items():
+        gen.manual_seed(seed)
+        assert torch.equal(out, program(state, x, gen))
+    assert not torch.equal(graphed(state, x, gen), graphed(state, x, gen))
+    assert cache.stats["captures"] == 1
+
+
+def test_doctor_names_the_card(cuda, capsys):
+    import json
+
+    from weather_unet_tpu_torch.cli import doctor
+
+    assert doctor.main(["--json", "--probe"]) == 0
+    info = json.loads(capsys.readouterr().out)
+    assert info["backend_ok"] and info["platform"] == "gpu"
+    assert info["devices"][0]["name"] == torch.cuda.get_device_name(0)
+    assert info["probe_roundtrip_ms"] > 0 and "cuda" in info["aot_cache"]

@@ -318,8 +318,8 @@ def test_preempted_run_resumes_bit_equal(setup, tmp_path, capsys):
     again = run(variables, tmp_path, "p")
     assert "resumed from" in capsys.readouterr().out
     assert state_equal(again, whole)
-    with pytest.raises(NotImplementedError, match="Mesh, AOT"):
-        run(variables, tmp_path, "x", aot_cache=str(tmp_path))
+    with pytest.raises(NotImplementedError, match="Mesh, tensor parallel"):
+        run(variables, tmp_path, "x", plan=object())
 
 
 def test_bf16_step_trains_float32_master_weights(setup):

@@ -77,12 +77,11 @@ def test_unported_flags_and_missing_gpu(data, tmp_path,  # noqa: F811
     est = ["--image_root", data["flickr"], "--pkl_path",
            str(data["root"] / "frame.pkl")]
     cls = ["--pkl_path", str(data["root"] / "i2w.pkl")]
-    for cli, base, flags in ((est_cli, est, [["--aot_cache", "x"],
-                                             ["--multi"]]),
-                             (cls_cli, cls, [["--aot_cache", "x"]])):
+    for cli, base, flags in ((est_cli, est, [["--multi"]]),
+                             (cls_cli, cls, [])):
         for flag in flags:
-            with pytest.raises(SystemExit, match="Mesh, AOT and multi-"
-                                                 "process") as e:
+            with pytest.raises(SystemExit, match="Mesh, tensor parallelism "
+                                                 "and multi-process") as e:
                 cli.main(base + flag + common(tmp_path, 1))
             assert e.value.code not in (0, None)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

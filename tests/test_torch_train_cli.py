@@ -112,9 +112,8 @@ def test_cls_cli(data, tmp_path, mode, capsys):
 def test_unported_flags_and_missing_gpu(data, tmp_path, monkeypatch):
     base = ["--image_root", data["flickr"], "--image_only"]
     for cli in (est_cli, cls_cli):
-        for flag, item in ((["--aot_cache", str(tmp_path)],
-                            "Mesh, AOT and multi-process"),
-                           (["--tensor_parallel", "2"], "Mesh, AOT")):
+        for flag, item in ((["--tensor_parallel", "2"],
+                            "Mesh, tensor parallelism and multi-process"),):
             with pytest.raises(SystemExit, match=item) as e:
                 cli.main(base + flag + common(data, tmp_path))
             assert e.value.code not in (0, None)

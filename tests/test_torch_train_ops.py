@@ -177,3 +177,33 @@ def test_gan_adam_matches_jax(rng):
                                atol=1e-7)
     assert opt.param_groups[0]["betas"] == (0.0, 0.999)
     assert opt.param_groups[0]["weight_decay"] == lr / 20
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dropout_cached_scale_is_bit_equal(dtype):
+    """The keep scale is made once per (thresh, dtype, device), so a step
+    captured as a CUDA graph copies nothing from the host: the results are
+    bit-equal to scaling by a tensor made in each call (the former code),
+    rounded to x's dtype; a scale first made under inference mode still
+    serves a differentiated call."""
+    from weather_unet_tpu_torch.ops import dropout
+
+    dropout._keep_scale.cache_clear()
+    x = torch.randn(4, 8, 16, 16, generator=torch.Generator().manual_seed(3)
+                    ).to(dtype)
+    with torch.inference_mode():
+        dropout.bits_dropout(x, 0.3, torch.Generator().manual_seed(0))
+    out = dropout.bits_dropout(x, 0.3, torch.Generator().manual_seed(4))
+    words = torch.randint(-32768, 32768, x.shape, dtype=torch.int16,
+                          generator=torch.Generator().manual_seed(4))
+    scale = torch.tensor(65536.0 / KEEP, dtype=dtype)
+    want = torch.where(words < KEEP - 32768, x * scale,
+                       torch.zeros((), dtype=dtype))
+    assert torch.equal(out, want)
+    assert dropout._keep_scale(KEEP, dtype, x.device) is dropout._keep_scale(
+        KEEP, dtype, x.device)
+    assert dropout._keep_scale.cache_info().currsize == 1
+    xg = x.float().clone().requires_grad_()
+    dropout.bits_dropout(xg, 0.3, torch.Generator().manual_seed(4)).sum(
+    ).backward()
+    assert torch.equal(xg.grad != 0, words < KEEP - 32768)

@@ -304,10 +304,9 @@ def test_export_torch_gan_matches_jax(tmp_path):
 
 def test_unported_options_and_missing_gpu_raise(tmp_path, monkeypatch):
     cfg = cfg_of()
-    for kw, item in ((dict(plan=object()), "Mesh, AOT and multi-process"),
-                     (dict(tensor_parallel=True), "Mesh, AOT"),
-                     (dict(aot_cache=str(tmp_path)), "Mesh, AOT"),
-                     (dict(profile_dir=str(tmp_path)), "Mesh, AOT")):
+    for kw, item in ((dict(plan=object()),
+                      "Mesh, tensor parallelism and multi-process"),
+                     (dict(tensor_parallel=True), "Mesh, tensor parallel")):
         with pytest.raises(NotImplementedError, match=item):
             trainer(tmp_path, cfg, **kw)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

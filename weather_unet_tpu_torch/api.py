@@ -11,6 +11,13 @@
 The public layout is the JAX package's: images NHWC (float in [-1, 1] or
 uint8), conditions ``(B, num_classes)``; results are tensors on the model's
 device.  The model itself runs NCHW.
+
+With ``aot_cache`` (a directory or ``core.aot.AotCache``), ``translate``,
+``translate_u8`` and ``translate_to_classes`` go through the AOT tier: one
+program per input shape (bucketing keeps them to the power-of-two
+batches), exported with the weights as inputs and kept on disk, so a
+restarted process loads it instead of exporting; on a CUDA device each
+runs as a captured CUDA graph (``core/aot.py``).
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ from typing import Callable
 
 import numpy as np
 import torch
+from torch.func import functional_call
 
 from weather_unet_tpu_torch._device import DeviceLike, resolve_device
 
@@ -26,7 +34,7 @@ from weather_unet_tpu_torch._device import DeviceLike, resolve_device
 class WeatherTransfer:
     """A conditional U-Net on one device with translation entry points."""
 
-    def __init__(self, model, device: DeviceLike = None):
+    def __init__(self, model, device: DeviceLike = None, aot_cache=None):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         # preprocess() of every uint8 value, computed on the host: the device
@@ -35,32 +43,79 @@ class WeatherTransfer:
         # from the host's division by 1 ulp on some values)
         self._u8_norm = self.preprocess(
             np.arange(256, dtype=np.uint8)).to(self.device)
+        self.aot = None
+        self._translate = self._fwd
+        self._translate_u8 = self._fwd_u8
+        self._translate_all = self._fwd_all
+        if aot_cache is not None:
+            self._tier(aot_cache)
+
+    def _tier(self, aot_cache) -> None:
+        """Route the three entry points through ``AotJit``: the weights are
+        ARGUMENTS of the exported programs (bound by ``BoundFn``), never
+        constants, so one disk entry serves every checkpoint."""
+        from weather_unet_tpu_torch.core.aot import (
+            AotCache, AotJit, BoundFn, module_signature)
+
+        self.aot = (aot_cache if isinstance(aot_cache, AotCache)
+                    else AotCache(aot_cache))
+        model = self.model
+        weights = {**dict(model.named_parameters()),
+                   **dict(model.named_buffers())}
+
+        def fwd(w, x, c):
+            return self._fwd(x, c, w)
+
+        def fwd_u8(w, table, x_u8, c):
+            return self._fwd_u8(x_u8, c, w, table)
+
+        def fwd_all(w, x):
+            return self._fwd_all(x, w)
+
+        sig = module_signature(model)
+
+        def tiered(fn, name, n_bound):
+            return AotJit(fn, self.aot, program=f"{name}\n{sig}",
+                          inplace_argnums=range(n_bound))
+
+        self._translate = BoundFn(tiered(fwd, "translate", 1), weights)
+        self._translate_u8 = BoundFn(tiered(fwd_u8, "translate_u8", 2),
+                                     weights, self._u8_norm)
+        self._translate_all = BoundFn(tiered(fwd_all, "translate_to_classes",
+                                             1), weights)
 
     @classmethod
     def load(cls, cp_path: str, num_classes: int = 5,
              dtype: torch.dtype = torch.float32, fuse_upconv="auto",
-             use_pallas="auto", device: DeviceLike = None):
+             use_pallas="auto", device: DeviceLike = None, aot_cache=None):
         """Load from a reference ``.pt`` GAN bundle or a JAX-package msgpack
         checkpoint (``cli.common.load_transfer``).  ``use_pallas``: K1 + K2
         in the decoder, ``"auto"`` resolves to on; ``fuse_upconv``: the
-        fused upsample+conv decoder kernel, ``"auto"`` resolves to off."""
+        fused upsample+conv decoder kernel, ``"auto"`` resolves to off.
+        ``aot_cache``: a directory (or ``AotCache``) for the AOT tier; a
+        restarted process loads each bucket's program from disk."""
         from weather_unet_tpu_torch.cli.common import load_transfer
 
         device = resolve_device(device)
         model = load_transfer(cp_path, num_classes=num_classes, dtype=dtype,
                               fuse_upconv=fuse_upconv, use_pallas=use_pallas,
                               device=device)
-        return cls(model, device)
+        return cls(model, device, aot_cache=aot_cache)
 
-    def _fwd(self, x, c):
-        """NHWC in, NHWC out, on the device."""
-        y = self.model(x.permute(0, 3, 1, 2).contiguous(), c)
+    def _fwd(self, x, c, weights=None):
+        """NHWC in, NHWC out, on the device; with ``weights`` (the model's
+        parameters and buffers by name) the model runs on those, as the
+        AOT tier's exported programs take them."""
+        x = x.permute(0, 3, 1, 2).contiguous()
+        y = (self.model(x, c) if weights is None
+             else functional_call(self.model, weights, (x, c)))
         return y.permute(0, 2, 3, 1)
 
-    def _fwd_u8(self, x_u8, c):
+    def _fwd_u8(self, x_u8, c, weights=None, table=None):
         # normalize like preprocess() and denormalize like to_uint8(), but on
         # the device: the host<->device wire carries uint8 both ways
-        y = self._fwd(self._u8_norm[x_u8.long()], c)
+        table = self._u8_norm if table is None else table
+        y = self._fwd(table[x_u8.long()], c, weights)
         return ((y.float() + 1.0) * 127.5).clamp(0, 255).to(torch.uint8)
 
     def translate(self, images, conditions, *, bucket: bool = True):
@@ -69,12 +124,13 @@ class WeatherTransfer:
         zero rows up to the next power of two (rows are independent in eval;
         the JAX package does this to bound its compiled shapes, the port to
         keep the same batch sizes reaching the kernels)."""
-        return self._bucketed(self._fwd, images, conditions, bucket)
+        return self._bucketed(self._translate, images, conditions, bucket)
 
     def translate_u8(self, images_u8, conditions, *, bucket: bool = True):
         """uint8 NHWC in, uint8 NHWC out, with normalize/denormalize on the
         device: same formulas as ``to_uint8(translate(preprocess(u8)))``."""
-        return self._bucketed(self._fwd_u8, images_u8, conditions, bucket)
+        return self._bucketed(self._translate_u8, images_u8, conditions,
+                              bucket)
 
     @torch.inference_mode()
     def _bucketed(self, fn, images, conditions, bucket):
@@ -88,14 +144,16 @@ class WeatherTransfer:
             c = torch.cat([c, c.new_zeros((nb - b,) + c.shape[1:])])
         return fn(x.to(self.device), c.to(self.device))[:b]
 
+    def _fwd_all(self, x, weights=None):
+        b, k = x.shape[0], self.model.num_classes
+        c = torch.eye(k, device=self.device).repeat_interleave(b, dim=0)
+        out = self._fwd(x.repeat(k, 1, 1, 1), c, weights)
+        return out.reshape(k, b, *out.shape[1:])
+
     @torch.inference_mode()
     def translate_to_classes(self, images):
         """All one-hot class translations: -> (num_classes, B, H, W, 3)."""
-        x = torch.as_tensor(images).to(self.device)
-        b, k = x.shape[0], self.model.num_classes
-        c = torch.eye(k, device=self.device).repeat_interleave(b, dim=0)
-        out = self._fwd(x.repeat(k, 1, 1, 1), c)
-        return out.reshape(k, b, *out.shape[1:])
+        return self._translate_all(torch.as_tensor(images).to(self.device))
 
     @torch.inference_mode()
     def sweep(self, images, estimate: Callable, num_frames: int = 10,

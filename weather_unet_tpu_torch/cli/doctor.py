@@ -1,0 +1,196 @@
+"""Environment diagnostics -- the port of ``weather_unet_tpu/cli/doctor.py``:
+one command answering "is this host set up to train and serve on the GPU,
+and what will the kernels and the AOT tier use?".
+
+    python -m weather_unet_tpu_torch.cli.doctor [--probe] [--json]
+    python -m weather_unet_tpu_torch.cli.doctor --goldens [--json]
+
+Reports Python, torch and CUDA versions; the GPUs (name, compute
+capability, memory); whether ``nvcc`` is found; the kernel build directory
+(``kernels/_build.py``) and which kernel libraries are built; the native
+runtime's build mode; the ``WUT_*`` environment; the AOT tier's root
+(``core/aot.py``), its fingerprint subdirectories and their entries.
+``--probe`` also times a small tensor's first call and round trip on the
+card.  Without a GPU it says so and exits non-zero: the port's entry points
+run on the GPU, and the CPU is never reported as the device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+
+def _init_backend(timeout_s: float) -> dict:
+    """Initialize CUDA under a watchdog: a CUDA init that hangs is the kind
+    of failure this tool is run to explain.  Init runs on a daemon thread;
+    on timeout the host-side report still prints and the tool exits
+    non-zero instead of hanging."""
+    import threading
+
+    out: dict = {}
+
+    def target():
+        try:
+            import torch
+
+            if not torch.cuda.is_available():
+                out["error"] = ("no CUDA device is available (torch "
+                                f"{torch.__version__}, built for CUDA "
+                                f"{torch.version.cuda})")
+                return
+            devices = []
+            for i in range(torch.cuda.device_count()):
+                props = torch.cuda.get_device_properties(i)
+                devices.append({
+                    "index": i, "name": props.name,
+                    "capability": f"{props.major}.{props.minor}",
+                    "memory_gib": round(props.total_memory / 2 ** 30, 2),
+                    "sms": props.multi_processor_count})
+            out["devices"] = devices
+        except Exception as e:     # the report says what failed
+            out["error"] = repr(e)
+
+    t = threading.Thread(target=target, daemon=True, name="wut-doctor-init")
+    t.start()
+    t.join(timeout_s)
+    if t.is_alive():
+        out["timeout"] = timeout_s
+    return out
+
+
+def collect(probe: bool = False, init_timeout: float = 60.0) -> dict:
+    import torch
+
+    info: dict = {"python": sys.version.split()[0], "torch": torch.__version__,
+                  "cuda": torch.version.cuda}
+    backend = _init_backend(init_timeout)
+    _collect_host_side(info)
+    if "devices" not in backend:
+        info["backend_ok"] = False
+        info["backend_error"] = (
+            f"CUDA init timed out after {init_timeout:.0f}s"
+            if backend.get("timeout") else backend.get("error"))
+        return info
+    info["backend_ok"] = True
+    info["platform"] = "gpu"
+    info["devices"] = backend["devices"]
+    info["device_count"] = len(backend["devices"])
+    _collect_aot(info, torch.device("cuda"))
+    if probe:
+        x = torch.ones((256, 256), dtype=torch.bfloat16, device="cuda")
+        t0 = time.perf_counter()
+        float((x @ x).sum())           # first launch + host read-back
+        info["probe_first_call_s"] = round(time.perf_counter() - t0, 3)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            float((x @ x).sum())       # launch + host read-back
+        info["probe_roundtrip_ms"] = round(
+            (time.perf_counter() - t0) / 5 * 1e3, 3)
+    return info
+
+
+def _collect_host_side(info: dict) -> None:
+    """Facts that need no GPU: the compiler, the kernel libraries, the
+    native runtime, the environment, the AOT tier's CPU entries -- still
+    reported when there is no card."""
+    import torch
+
+    from weather_unet_tpu_torch import runtime
+    from weather_unet_tpu_torch.core.aot import default_cache_dir
+    from weather_unet_tpu_torch.kernels import _build
+
+    try:
+        nvcc = _build._nvcc()
+    except RuntimeError:
+        nvcc = None
+    info["nvcc"] = {"found": nvcc is not None, "path": nvcc}
+    info["kernels"] = {
+        "build_dir": str(_build.BUILD_DIR),
+        "built": {src.stem: _build._target(src).exists()
+                  for src in sorted(_build.CSRC.glob("*.cu"))}}
+    decode = runtime.decode_available()
+    info["native_runtime"] = {
+        "mode": ("jpeg" if decode else "augment-only"
+                 if runtime.augment_available() else "not built"),
+        "decode_available": decode,
+        "build_error": runtime.build_error()}
+    info["wut_env"] = {k: v for k, v in os.environ.items()
+                       if k.startswith("WUT_")}
+    info["aot_cache"] = {"dir": default_cache_dir()}
+    _collect_aot(info, torch.device("cpu"))
+
+
+def _collect_aot(info: dict, device) -> None:
+    """The fingerprint subdirectory of ``device``'s entries under the
+    default root, and how many entries it holds (nothing is created)."""
+    from weather_unet_tpu_torch.core.aot import (
+        ENTRY_SUFFIX, default_cache_dir, fingerprint_dir_name)
+
+    sub = os.path.join(default_cache_dir(), fingerprint_dir_name(device))
+    entries = (len([f for f in os.listdir(sub) if f.endswith(ENTRY_SUFFIX)
+                    and not f.startswith(".")])
+               if os.path.isdir(sub) else 0)
+    info["aot_cache"][device.type] = {"fingerprint_dir": sub,
+                                      "entries": entries}
+
+
+def report_goldens(as_json: bool = False) -> int:
+    """The goldens that wait for real weights (``evaluation/goldens.py``):
+    where to put each file, its expected sha256, which tests it activates.
+    Exit 0 when every golden is present and certified, 1 otherwise."""
+    from weather_unet_tpu_torch.evaluation.goldens import golden_status
+
+    status = golden_status()
+    if as_json:
+        print(json.dumps(status, indent=2))
+    else:
+        for s in status:
+            state = ("CERTIFIED" if s["certified"]
+                     else "present, sha MISMATCH" if s["present"]
+                     else "MISSING")
+            print(f"[{state}] {s['name']}")
+            print(f"    file:      {s['path']}  (override: ${s['env_var']})")
+            print(f"    sha256:    expect prefix {s['expected_sha256_prefix']}"
+                  + (f", got {s['sha256']}" if s["sha256"] else ""))
+            print(f"    source:    {s['source_url']}")
+            print(f"    activates: {s['activates']}")
+            print(f"    {s['note']}")
+    return 0 if all(s["certified"] for s in status) else 1
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(
+        description="weather_unet_tpu_torch environment diagnostics")
+    p.add_argument("--probe", action="store_true",
+                   help="time a small tensor's first call and round trip "
+                        "on the card")
+    p.add_argument("--json", action="store_true", help="machine-readable")
+    p.add_argument("--goldens", action="store_true",
+                   help="report the goldens that wait for real Inception "
+                        "weights (status, expected sha256, where the files "
+                        "go, which tests they activate); exits non-zero "
+                        "until all are certified")
+    p.add_argument("--init_timeout", type=float, default=60.0,
+                   help="seconds to wait for CUDA init before reporting "
+                        "the device unreachable")
+    args = p.parse_args(argv)
+    if args.goldens:
+        return report_goldens(as_json=args.json)
+    info = collect(probe=args.probe, init_timeout=args.init_timeout)
+    if args.json:
+        print(json.dumps(info, indent=2, default=str))
+    else:
+        for k, v in info.items():
+            print(f"{k:24s} {v}")
+    if not info["backend_ok"]:
+        print(f"doctor: no usable GPU: {info['backend_error']}",
+              file=sys.stderr)
+    return 0 if info["backend_ok"] else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

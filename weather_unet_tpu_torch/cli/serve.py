@@ -360,8 +360,7 @@ def refuse_unported(args) -> None:
     not ported yet."""
     for flag, name in ((args.data_parallel, "--data_parallel"),
                        (args.tensor_parallel > 1,
-                        f"--tensor_parallel {args.tensor_parallel}"),
-                       (args.aot_cache, "--aot_cache")):
+                        f"--tensor_parallel {args.tensor_parallel}")):
         if flag:
             raise SystemExit(f"{name}: not yet ported ({MESH_ITEM})")
 
@@ -420,7 +419,8 @@ def load_transfer_for(args):
     refuse_unported(args)
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     return WeatherTransfer.load(args.cp_path, num_classes=args.num_classes,
-                                dtype=dtype, device=args.device)
+                                dtype=dtype, device=args.device,
+                                aot_cache=args.aot_cache)
 
 
 def build_server(args) -> Server:
@@ -440,6 +440,13 @@ def build_server(args) -> Server:
         for bs in warmup_buckets(args.max_batch):
             wt.translate_u8(np.tile(z, (bs, 1, 1, 1)),
                             np.tile(e0, (bs, 1))).cpu()
+    aot = getattr(wt, "aot", None)
+    if aot is not None:
+        s = aot.stats
+        print(f"aot cache: {s['hits']} loaded from disk "
+              f"({s['load_s']:.1f}s), {s['misses']} exported "
+              f"({s['compile_s']:.1f}s with {s['captures']} CUDA graph "
+              f"captures)", flush=True)
     handler = make_handler(batcher, args.classes, args.num_classes,
                            args.input_size, profile_dir=args.profile_dir)
     server = Server((args.host, args.port), handler)
@@ -472,7 +479,10 @@ def build_parser():
                    help=f"1 only; more is not ported yet ({MESH_ITEM})")
     p.add_argument("--no-warmup", dest="warmup", action="store_false")
     p.add_argument("--aot_cache", type=str, default=None,
-                   help=f"not ported yet ({MESH_ITEM})")
+                   help="AOT tier directory (core/aot.py): each warmed "
+                        "bucket's exported program is kept there, so a "
+                        "restart loads it instead of exporting; on CUDA "
+                        "each bucket runs as a CUDA graph")
     p.add_argument("--profile_dir", type=str, default=None,
                    help="enable POST /profile and write torch.profiler "
                         "traces under this directory (client-supplied paths "

@@ -15,7 +15,8 @@ from __future__ import annotations
 
 import argparse
 
-MESH_ITEM = "ROADMAP.md queue 1, 'Mesh, AOT and multi-process'"
+MESH_ITEM = ("ROADMAP.md queue 1 item 4, 'Mesh, tensor parallelism and "
+             "multi-process'")
 
 
 def add_common_flags(p: argparse.ArgumentParser) -> None:
@@ -38,7 +39,9 @@ def add_common_flags(p: argparse.ArgumentParser) -> None:
                         "(first epoch), later epochs only augment "
                         "(data/cache.py)")
     p.add_argument("--aot_cache", type=str, default=None,
-                   help=f"not ported yet ({MESH_ITEM})")
+                   help="AOT tier directory (core/aot.py): on CUDA each "
+                        "step program runs as a CUDA graph captured at its "
+                        "first step")
     p.add_argument("--dtype", choices=["f32", "bf16"], default="f32",
                    help="compute dtype (parameters stay float32)")
 
@@ -63,8 +66,6 @@ def setup(args, num_classes: int, wd: float):
     the device (seeded, float32 master weights, the backbone frozen with
     ``--pre_trained``).  Returns (the decode size the augmentation works
     from: 1.15x with ``--augmentation``, as the reference crops; state)."""
-    if args.aot_cache is not None:
-        raise SystemExit(f"--aot_cache: not yet ported ({MESH_ITEM})")
     if getattr(args, "multi", False):
         raise SystemExit(f"--multi: not yet ported ({MESH_ITEM})")
     import torch
@@ -128,7 +129,8 @@ def run(args, train_set, test_set, state, step_fn, eval_fn, **kw):
         train_supervised(step_fn, eval_fn, train_loader, test_loader,
                          state=state, num_epoch=args.num_epoch,
                          writer=writer, input_size=args.input_size,
-                         save_dir=args.save_path, name=args.name, **kw)
+                         save_dir=args.save_path, name=args.name,
+                         aot_cache=args.aot_cache, **kw)
     finally:
         writer.close()
     print("Done: training", flush=True)

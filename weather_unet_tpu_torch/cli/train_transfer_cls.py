@@ -63,7 +63,9 @@ def build_parser():
                         "checkpoint and retry with re-seeded dropout "
                         "(bounded; see WeatherTransferTrainer)")
     p.add_argument("--aot_cache", type=str, default=None,
-                   help=f"not ported yet ({MESH_ITEM})")
+                   help="AOT tier directory (core/aot.py): on CUDA each "
+                        "step program runs as a CUDA graph captured at its "
+                        "first step")
     p.add_argument("--tensor_parallel", type=int, default=1,
                    help=f"1 only; more is not ported yet ({MESH_ITEM})")
     p.add_argument("--dtype", choices=["f32", "bf16"], default="f32",
@@ -164,7 +166,7 @@ def main(argv=None):
     trainer = WeatherTransferTrainer(
         cfg, est_apply, save_dir=args.save_dir, name=args.name,
         log_dir=args.log_dir, export_torch=args.export_torch,
-        nan_guard=args.nan_guard,
+        nan_guard=args.nan_guard, aot_cache=args.aot_cache,
         device=device)
     # image_only batches are (img, True) with no class ids: the step runs
     # fully semi-supervised

@@ -14,7 +14,8 @@ from __future__ import annotations
 
 import argparse
 
-MESH_ITEM = "ROADMAP.md queue 1, 'Mesh, AOT and multi-process'"
+MESH_ITEM = ("ROADMAP.md queue 1 item 4, 'Mesh, tensor parallelism and "
+             "multi-process'")
 
 
 def build_parser():
@@ -51,7 +52,9 @@ def build_parser():
                         "checkpoint and retry with re-seeded dropout "
                         "(bounded; see WeatherTransferTrainer)")
     p.add_argument("--aot_cache", type=str, default=None,
-                   help=f"not ported yet ({MESH_ITEM})")
+                   help="AOT tier directory (core/aot.py): on CUDA each "
+                        "step program runs as a CUDA graph captured at its "
+                        "first step")
     p.add_argument("--decode_cache", type=str, default=None,
                    help="decoded-image memmap cache dir: images decode once "
                         "(first epoch), later epochs only augment "
@@ -65,9 +68,7 @@ def build_parser():
 
 
 def refuse_unported(args) -> None:
-    """Exit non-zero, naming the roadmap item, for a mesh or AOT flag."""
-    if args.aot_cache is not None:
-        raise SystemExit(f"--aot_cache: not yet ported ({MESH_ITEM})")
+    """Exit non-zero, naming the roadmap item, for a mesh flag."""
     if args.tensor_parallel > 1:
         raise SystemExit(f"--tensor_parallel {args.tensor_parallel}: not yet "
                          f"ported ({MESH_ITEM})")
@@ -187,7 +188,7 @@ def main(argv=None):
     trainer = WeatherTransferTrainer(
         cfg, est_apply, save_dir=args.save_dir, name=args.name,
         log_dir=args.log_dir, export_torch=args.export_torch,
-        nan_guard=args.nan_guard,
+        nan_guard=args.nan_guard, aot_cache=args.aot_cache,
         device=device)
     trainer.fit(train_loader, random_loader, test_batches=test_batches)
 

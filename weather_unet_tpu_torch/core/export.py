@@ -193,8 +193,10 @@ def load_artifact(path: str, names: Optional[Sequence[str]] = None,
     exported on: that is checked first, and a mismatch is refused with both
     names before any program is read.  A missing or malformed artifact
     raises FileNotFoundError / ValueError."""
-    # the programs call wut::adain / wut::upsample2x: register them
-    from weather_unet_tpu_torch.kernels import adain, upsample  # noqa: F401
+    # the programs call wut::adain / wut::upsample2x (and wut::upconv for a
+    # fuse_upconv model): register them
+    from weather_unet_tpu_torch.kernels import (  # noqa: F401
+        adain, upconv, upsample)
 
     manifest = load_manifest(path)
     if not str(manifest.get("format", "")).startswith(

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -187,28 +188,54 @@ def upconv_kernel(x, weight, cb=None, scale=None, shift=None,
     return out
 
 
-class _UpConv(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, weight, cb, scale, shift, relu):
-        ctx.save_for_backward(x, weight, cb, scale, shift)
-        ctx.relu = relu
-        if not _build.is_cuda(x):
-            return upsample2x_conv3x3_ref(x, weight, cb=cb, scale=scale,
-                                          shift=shift, relu=relu)
-        return upconv_kernel(x, weight, cb, scale, shift, relu)
+@torch.library.custom_op("wut::upconv", mutates_args=(), device_types="cuda")
+def upconv_op(x: torch.Tensor, weight: torch.Tensor,
+              cb: Optional[torch.Tensor], scale: Optional[torch.Tensor],
+              shift: Optional[torch.Tensor], relu: bool) -> torch.Tensor:
+    """K3 on CUDA tensors, a registered op so that ``torch.export`` keeps
+    it as one node (``core/aot.py`` exports the ``fuse_upconv`` forward);
+    strided x, cb, scale and shift are copied into the dense layout the
+    kernel reads."""
+    def dense(t):
+        return None if t is None else t.contiguous()
 
-    @staticmethod
-    def backward(ctx, g):
-        needs = ctx.needs_input_grad[:5]
-        with torch.enable_grad():
-            args = [None if t is None else t.detach().requires_grad_(n)
-                    for t, n in zip(ctx.saved_tensors, needs)]
-            out = upsample2x_conv3x3_ref(args[0], args[1], cb=args[2],
-                                         scale=args[3], shift=args[4],
-                                         relu=ctx.relu)
-            wrt = [a for a, n in zip(args, needs) if n]
-            grads = iter(torch.autograd.grad(out, wrt, g))
-        return tuple(next(grads) if n else None for n in needs) + (None,)
+    return upconv_kernel(x.contiguous(), weight, dense(cb), dense(scale),
+                         dense(shift), relu)
+
+
+@upconv_op.register_kernel("cpu")
+def _upconv_cpu(x, weight, cb, scale, shift, relu):
+    return upsample2x_conv3x3_ref(x, weight, cb=cb, scale=scale, shift=shift,
+                                  relu=relu)
+
+
+@upconv_op.register_fake
+def _upconv_fake(x, weight, cb, scale, shift, relu):
+    b, _, h, w = x.shape
+    return x.new_empty((b, weight.shape[0], 2 * h, 2 * w))
+
+
+def _upconv_setup(ctx, inputs, output):
+    x, weight, cb, scale, shift, relu = inputs
+    ctx.save_for_backward(x, weight, cb, scale, shift)
+    ctx.relu = relu
+
+
+def _upconv_backward(ctx, g):
+    """Gradients recompute through the plain version."""
+    needs = ctx.needs_input_grad[:5]
+    with torch.enable_grad():
+        args = [None if t is None else t.detach().requires_grad_(n)
+                for t, n in zip(ctx.saved_tensors, needs)]
+        out = upsample2x_conv3x3_ref(args[0], args[1], cb=args[2],
+                                     scale=args[3], shift=args[4],
+                                     relu=ctx.relu)
+        wrt = [a for a, n in zip(args, needs) if n]
+        grads = iter(torch.autograd.grad(out, wrt, g))
+    return tuple(next(grads) if n else None for n in needs) + (None,)
+
+
+upconv_op.register_autograd(_upconv_backward, setup_context=_upconv_setup)
 
 
 def upsample2x_conv3x3(x, weight, *, cb=None, scale=None, shift=None,
@@ -216,8 +243,9 @@ def upsample2x_conv3x3(x, weight, *, cb=None, scale=None, shift=None,
     """``conv3x3_pad1(upsample_2x_align_corners(x))`` without the upsample;
     optional modulation ``scale/shift`` (B, C), skip-path term ``cb`` and
     ReLU.  K3 on CUDA tensors, the plain version on CPU tensors;
-    differentiable either way."""
-    return _UpConv.apply(x, weight, cb, scale, shift, relu)
+    differentiable either way (the registered op ``wut::upconv``)."""
+    _build.is_cuda(x)          # refuses a device that is neither
+    return upconv_op(x, weight, cb, scale, shift, relu)
 
 
 def upconv_block_fused(x, weight, cb, scale, shift, relu: bool = True):

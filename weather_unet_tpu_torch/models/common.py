@@ -32,8 +32,9 @@ class TorchConv(nn.Conv2d):
     JAX package.
 
     ``fused_upsample`` (3x3, stride 1, pad 1, needs ``skip``): ``x`` is the
-    LOW-RES map before the 2x upsample, ``mod`` the ``(scale, shift)`` float32
-    (B, Cx) AdaIN modulation, and the block entry runs through the fused
+    LOW-RES map before the 2x upsample, ``scale_shift`` the ``(scale,
+    shift)`` float32 (B, Cx) AdaIN modulation, and the block entry runs
+    through the fused
     kernel (``kernels/upconv.py``) -- ``conv(concat(upsample(x*scale+shift),
     skip))`` followed by the block's ReLU, all in the kernel, so the result
     is post-activation.  There the bias rides on the skip conv ``cb`` the
@@ -44,7 +45,8 @@ class TorchConv(nn.Conv2d):
     package's ``param_dtype`` does.
     """
 
-    def forward(self, x, skip=None, fused_upsample: bool = False, mod=None):
+    def forward(self, x, skip=None, fused_upsample: bool = False,
+                scale_shift=None):
         w = self.weight.to(x.dtype)
         bias = None if self.bias is None else self.bias.to(x.dtype)
         if skip is None:
@@ -57,7 +59,7 @@ class TorchConv(nn.Conv2d):
                 raise ValueError("fused_upsample requires a 3x3/stride-1/"
                                  "pad-1 conv")
             cb = conv2d(skip, w[:, cx:], bias, padding=1)
-            scale, shift = mod
+            scale, shift = scale_shift
             return upconv_block_fused(x, w[:, :cx], cb, scale, shift,
                                       relu=True)
         out = conv2d(x, w[:, :cx], bias, stride=self.stride,

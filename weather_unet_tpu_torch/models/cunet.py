@@ -42,10 +42,11 @@ class RDoubleConv(nn.Sequential):
                          TorchConv(features, features, 3, padding=1),
                          nn.ReLU())
 
-    def forward(self, x, skip=None, fused_upsample: bool = False, mod=None):
+    def forward(self, x, skip=None, fused_upsample: bool = False,
+                scale_shift=None):
         conv1, _, conv2, _ = self
         if fused_upsample:
-            x = conv1(x, skip, fused_upsample=True, mod=mod)
+            x = conv1(x, skip, fused_upsample=True, scale_shift=scale_shift)
         else:
             x = F.relu(conv1(x, skip))
         return F.relu(conv2(x))
@@ -163,8 +164,11 @@ class ConditionalUNet(nn.Module):
             blk = getattr(self, f"adain{idx}")
             up = getattr(self, f"dconv_up{idx}")
             if idx in fuse_levels:
-                mod = blk(h, c, return_scale_shift=True)
-                h = up(h, skip=skip, fused_upsample=True, mod=mod)
+                # (not "mod": torch.export's module-call wrapper takes
+                # that name for itself)
+                scale_shift = blk(h, c, return_scale_shift=True)
+                h = up(h, skip=skip, fused_upsample=True,
+                       scale_shift=scale_shift)
             else:
                 upsample = (upsample2x_fused if self.use_pallas
                             else upsample_bilinear_align_corners)

@@ -16,6 +16,7 @@ default in the JAX package) is not ported yet.
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import Callable, Optional
 
@@ -34,6 +35,18 @@ def _bernoulli_dropout(x: torch.Tensor, rate: float,
                                                    device=x.device))
 
 
+@functools.lru_cache(maxsize=64)
+def _keep_scale(thresh: int, dtype: torch.dtype,
+                device: torch.device) -> torch.Tensor:
+    """``65536 / thresh`` rounded to ``dtype``, on ``device``: made once, at
+    first use, so a step captured as a CUDA graph copies nothing from the
+    host (a CUDA graph cannot capture a host-to-device copy).  Rounding to
+    x's dtype matters: a Python-float scale would multiply in float32 and
+    move bf16 results."""
+    with torch.inference_mode(False):
+        return torch.tensor(65536.0 / thresh, dtype=dtype, device=device)
+
+
 def bits_dropout(x: torch.Tensor, rate: float,
                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Inverted dropout from 16-bit random words (module docstring).  Falls
@@ -47,7 +60,7 @@ def bits_dropout(x: torch.Tensor, rate: float,
     words = torch.randint(-32768, 32768, x.shape, generator=generator,
                           device=x.device, dtype=torch.int16)
     mask = words < thresh - 32768
-    scale = torch.tensor(65536.0 / thresh, dtype=x.dtype, device=x.device)
+    scale = _keep_scale(thresh, x.dtype, x.device)
     return torch.where(mask, x * scale, torch.zeros((), dtype=x.dtype,
                                                     device=x.device))
 

@@ -32,6 +32,7 @@ the state with its metrics (0-d tensors on the device, not synchronized).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Optional
 
 import torch
@@ -91,7 +92,9 @@ def build_gan_state(cfg: GanConfig, seed: int, device: DeviceLike = None,
 
 def _apply_gradients(ts: TrainState, loss: torch.Tensor) -> None:
     """One optimizer step on the gradient of ``loss`` with respect to the
-    state's own parameters only (the other network's are not touched).  A
+    state's own parameters only (the other network's are not touched); the
+    update count is the caller's (host counters stay out of a step's device
+    work, which a CUDA graph replays without running this code).  A
     parameter the loss does not use (the cUNet's ``adain{i}.emb``, absent
     from the JAX model) gets no gradient, so Adam leaves it as it is."""
     params = [p for p in ts.module.parameters() if p.requires_grad]
@@ -100,7 +103,6 @@ def _apply_gradients(ts: TrainState, loss: torch.Tensor) -> None:
         p.grad = g
     ts.optimizer.step()
     ts.optimizer.zero_grad(set_to_none=True)
-    ts.step += 1
 
 
 def _check_state(state: GanTrainState, gen, disc) -> None:
@@ -117,7 +119,13 @@ def make_gan_step(gen: ConditionalUNet, disc: SNDisc, est_apply: Callable,
     do_g) -> (state, metrics)``: ``c_d`` / ``c_r`` are int class labels
     (cls mode; ignored in est mode), ``generator`` a ``torch.Generator`` on
     the images' device for the dropout masks, ``do_g`` the
-    ``gd_train_ratio`` gate."""
+    ``gd_train_ratio`` gate.
+
+    ``step.programs`` maps ``do_g`` to the step's device work,
+    ``program(state, images, c_d, rand_images, c_r, generator) ->
+    metrics``; ``step`` runs one and then advances the host counters.  The
+    trainer's AOT tier replaces the two programs with their CUDA graphs
+    (``train/loops.py::_tiered_steps``)."""
     n_cls = cfg.num_classes
     cls_ce = cfg.mode == "cls" and cfg.cross_ent
 
@@ -127,9 +135,8 @@ def make_gan_step(gen: ConditionalUNet, disc: SNDisc, est_apply: Callable,
             out = torch.softmax(out, dim=1)
         return out
 
-    def step(state: GanTrainState, images, c_d, rand_images, c_r,
-             generator: Optional[torch.Generator], *, do_g: bool):
-        _check_state(state, gen, disc)
+    def device_step(state: GanTrainState, images, c_d, rand_images, c_r,
+                    generator: Optional[torch.Generator], *, do_g: bool):
         if cfg.mode == "cls" and cfg.supervised:
             rand_labels = F.one_hot(c_r.long(), n_cls).to(images.dtype)
             pred_labels = F.one_hot(c_d.long(), n_cls).to(images.dtype)
@@ -172,10 +179,23 @@ def make_gan_step(gen: ConditionalUNet, disc: SNDisc, est_apply: Callable,
             metrics.update({k: v.detach() for k, v in (
                 ("g_loss", g_loss), ("g_loss_adv", g_adv), ("g_loss_w", g_w),
                 ("loss_con", loss_con), ("g_loss_l1", g_l1))})
+        return metrics
 
+    programs = {do_g: functools.partial(device_step, do_g=do_g)
+                for do_g in (True, False)}
+
+    def step(state: GanTrainState, images, c_d, rand_images, c_r,
+             generator: Optional[torch.Generator], *, do_g: bool):
+        _check_state(state, gen, disc)
+        metrics = programs[bool(do_g)](state, images, c_d, rand_images, c_r,
+                                       generator)
+        state.disc.step += 1
+        if do_g:
+            state.gen.step += 1
         state.global_step += 1
         return state, metrics
 
+    step.programs = programs
     return step
 
 

@@ -4,9 +4,16 @@ driver, ``t_est_train.py:59-400``) and ``train_supervised`` (the classifier
 and estimator loop, ``classifier.py:132-182``, ``estimator.py:170-227``):
 steps, data, checkpoints, preemption and summaries on one device.
 
-Not ported yet (``ROADMAP.md`` queue 1), and refused with the item's name
-when asked for: the mesh, tensor parallelism, the AOT step cache and
-profiling (``plan``, ``tensor_parallel``, ``aot_cache``, ``profile_dir``).
+``aot_cache`` puts the steps through the AOT tier (``core/aot.py``): on a
+CUDA device each step program (the trainer's D-only and D+G steps, the
+supervised step) is captured once as a CUDA graph of its whole forward,
+backward and Adam update (Adam made ``capturable``) and replayed each step;
+steps have no disk tier.  ``profile_dir`` traces ``fit`` with
+``torch.profiler`` (``core/profiling.py::trace``).
+
+Not ported yet (``ROADMAP.md`` queue 1 item 4), and refused with the item's
+name when asked for: the mesh and tensor parallelism (``plan``,
+``tensor_parallel``).
 """
 
 from __future__ import annotations
@@ -20,6 +27,9 @@ import numpy as np
 import torch
 
 from weather_unet_tpu_torch._device import DeviceLike, resolve_device
+from weather_unet_tpu_torch.core.aot import AotCache, AotJit
+from weather_unet_tpu_torch.core.optim import set_capturable
+from weather_unet_tpu_torch.core.profiling import trace
 from weather_unet_tpu_torch.core.rng import fold_seed, train_generator
 from weather_unet_tpu_torch.core.state import TrainState
 from weather_unet_tpu_torch.data.pipeline import device_prefetch
@@ -30,8 +40,25 @@ from weather_unet_tpu_torch.train.gan import (
     GanConfig, build_gan_state, make_eval_step, make_gan_step)
 from weather_unet_tpu_torch.train.metrics import SummaryWriter, run_comment
 from weather_unet_tpu_torch.train.preemption import GracefulShutdown
+from weather_unet_tpu_torch.train.supervised import stepped
 
-MESH_ITEM = "ROADMAP.md queue 1, 'Mesh, AOT and multi-process'"
+MESH_ITEM = ("ROADMAP.md queue 1 item 4, 'Mesh, tensor parallelism and "
+             "multi-process'")
+
+
+def _tiered_steps(fns, aot_cache):
+    """The AOT tier shared by both training loops: ``fns`` are step
+    programs ``program(state, *inputs) -> metrics``; returns ``(callables,
+    cache)``, the programs through ``AotJit`` with the state updated in
+    place and the shared ``AotCache``, or the programs themselves and None
+    without ``aot_cache``.  No disk tier: a CUDA graph cannot outlive its
+    process (``core/aot.py``)."""
+    if aot_cache is None:
+        return list(fns), None
+    cache = (aot_cache if isinstance(aot_cache, AotCache)
+             else AotCache(aot_cache))
+    return [AotJit(fn, cache, inplace_argnums=(0,), disk=False)
+            for fn in fns], cache
 
 
 def _nhwc(t: torch.Tensor) -> np.ndarray:
@@ -57,6 +84,14 @@ class WeatherTransferTrainer:
     and hflip, with ``augment`` also the resized crop and the jitter
     0.5 / 0.3 / 0.3), each step's generator seeded from ``(seed + 3,
     global step)`` so a resumed run replays the warps.
+
+    ``aot_cache`` (a directory or ``AotCache``, exposed as ``self.aot``):
+    both step programs, D-only and D+G, run through the AOT tier, on CUDA as
+    CUDA graphs captured at their first step (module docstring).
+    ``profile_dir``: ``fit`` runs under ``torch.profiler`` and writes a
+    Chrome trace there, also when it raises.  The profiler keeps every
+    event of the whole ``fit`` in host memory until then, so profile a run
+    of a few steps.
     """
 
     EVAL_PER_STEP = 1000
@@ -72,9 +107,7 @@ class WeatherTransferTrainer:
                  max_rollbacks: int = 3, aot_cache: Optional[str] = None,
                  tensor_parallel: bool = False, device: DeviceLike = None):
         for flag, value in (("plan", plan), ("tensor_parallel",
-                                             tensor_parallel),
-                            ("aot_cache", aot_cache),
-                            ("profile_dir", profile_dir)):
+                                             tensor_parallel)):
             if value:
                 raise NotImplementedError(
                     f"{flag} is not ported yet ({MESH_ITEM})")
@@ -93,9 +126,19 @@ class WeatherTransferTrainer:
         # host-side step mirror; the last checkpointed step guards the
         # terminal save
         self._gstep = self._saved_step = 0
-        self._resume()
+        # the tier graphs the whole step, Adam's update included, which
+        # needs Adam's step count on the card
+        self._capturable = aot_cache is not None and (
+            self.device.type == "cuda")
         self._step = make_gan_step(self.gen, self.disc, est_apply, cfg)
+        programs = self._step.programs
+        tiered, self.aot = _tiered_steps(
+            [programs[True], programs[False]], aot_cache)
+        programs[True], programs[False] = tiered
+        self._set_capturable()
+        self._resume()
         self._eval = make_eval_step(self.gen, self.disc, est_apply, cfg)
+        self.profile_dir = profile_dir
 
         # each step's dropout generator is seeded from (base, global step)
         self._base_seed = seed + 1
@@ -123,10 +166,25 @@ class WeatherTransferTrainer:
     def _resume(self):
         path = ckpt.latest_checkpoint(self.save_dir, self.name)
         if path:
-            ckpt.restore_checkpoint(path, self.state)
+            self._restore(path)
             print(f"resumed from {path} at step {self.state.global_step}",
                   flush=True)
             self._gstep = self._saved_step = self.state.global_step
+
+    def _set_capturable(self):
+        for ts in (self.state.gen, self.state.disc):
+            set_capturable(ts.optimizer, self._capturable)
+
+    def _restore(self, path: str):
+        """Restore ``path`` into the state.  The modules load in place, but
+        the optimizers' load replaces their state tensors, so the step
+        programs' graphs (captured on the old ones) are dropped and
+        captured again at the next step."""
+        ckpt.restore_checkpoint(path, self.state)
+        self._set_capturable()
+        for program in self._step.programs.values():
+            if isinstance(program, AotJit):
+                program.reset()
 
     def _save(self):
         """Checkpoint on the checkpointer's thread (the host copy is taken
@@ -261,7 +319,7 @@ class WeatherTransferTrainer:
                   flush=True)
             return False
         self._rollbacks += 1
-        ckpt.restore_checkpoint(path, self.state)
+        self._restore(path)
         self._gstep = self.state.global_step
         self._base_seed = fold_seed(self._base_seed, self._rollbacks)
         self._last_metrics = None    # do not log the diverged values
@@ -345,9 +403,10 @@ class WeatherTransferTrainer:
             labeled: bool = False):
         """Train from the current (resumed) epoch to ``cfg.num_epoch``, each
         epoch on fresh loaders set to the absolute epoch, then save the
-        final state if the cadence did not."""
+        final state if the cadence did not; under ``torch.profiler`` with
+        ``profile_dir``."""
         try:
-            with GracefulShutdown() as stop:
+            with trace(self.profile_dir), GracefulShutdown() as stop:
                 while self.state.epoch < self.cfg.num_epoch:
                     tl, rl = train_loader_fn(), random_loader_fn()
                     abs_ep = self.state.epoch
@@ -418,12 +477,15 @@ def train_supervised(step_fn: Callable, eval_fn: Callable,
     the loader threads to augment and only normalizes (resizing to
     ``input_size``) on the device; a config warps on the device
     (``transforms.augment_batch``), each step's generator seeded from
-    ``(seed, global step)``.  ``plan`` and ``aot_cache`` are not
-    ported."""
-    for flag, value in (("plan", plan), ("aot_cache", aot_cache)):
-        if value:
-            raise NotImplementedError(
-                f"{flag} is not ported yet ({MESH_ITEM})")
+    ``(seed, global step)``.  ``aot_cache``: ``step_fn.program`` (the
+    steps of ``train/supervised.py`` have one) runs through the AOT tier,
+    on CUDA as a CUDA graph with Adam made ``capturable`` (the caller's
+    optimizer stays so).  ``plan`` is not ported."""
+    if plan:
+        raise NotImplementedError(f"plan is not ported yet ({MESH_ITEM})")
+    if aot_cache is not None and not hasattr(step_fn, "program"):
+        raise ValueError("aot_cache needs a step with a device program "
+                         "(train/supervised.py::stepped)")
     model = state.module
     device = next(model.parameters()).device
     out_size = augment_cfg.out_size if augment_cfg else input_size
@@ -442,6 +504,14 @@ def train_supervised(step_fn: Callable, eval_fn: Callable,
         print(f"resumed from {path} at step {global_step}"
               + (f" (epoch {start_epoch} batch {resume_epoch_step})"
                  if resume_epoch_step else ""), flush=True)
+
+    # after the restore: its load replaces the optimizer's tensors and takes
+    # the capturable flag from the file, whichever side of the tier wrote it
+    set_capturable(state.optimizer,
+                   aot_cache is not None and device.type == "cuda")
+    if aot_cache is not None:
+        (program,), _ = _tiered_steps([step_fn.program], aot_cache)
+        step_fn = stepped(program)
 
     ckpter = ckpt.AsyncCheckpointer()
     saved_step = global_step   # last checkpointed step (terminal save guard)

@@ -15,7 +15,8 @@ ResNet-101.
 A step ``step(state, images NCHW, targets) -> (state, metrics)`` runs the
 module in train mode, updates its parameters in place with the state's
 optimizer and returns device-tensor metrics; losses are computed in
-float32 whatever the compute dtype.
+float32 whatever the compute dtype.  Its device work is ``step.program``
+(no host counter), which the AOT tier captures as a CUDA graph.
 
 ``--pre_trained`` freezes conv1, bn1 and layer1-3 (``estimator.py:145-153``:
 children 1..7 of the torchvision ResNet): their parameters get
@@ -28,7 +29,7 @@ the port does not copy that.
 
 from __future__ import annotations
 
-from typing import FrozenSet
+from typing import Callable, FrozenSet
 
 import torch
 import torch.nn as nn
@@ -66,39 +67,56 @@ def _update(state: TrainState, loss: torch.Tensor) -> None:
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
     state.optimizer.step()
-    state.step += 1
+
+
+def stepped(program: Callable) -> Callable:
+    """The step around its device work: ``step(state, images, targets) ->
+    (state, metrics)`` runs ``program(state, images, targets) -> metrics``
+    and then advances ``state.step`` on the host, which a CUDA graph of the
+    program would not (``train/loops.py``'s AOT tier graphs
+    ``step.program``)."""
+
+    def step(state: TrainState, images: torch.Tensor, targets: torch.Tensor):
+        metrics = program(state, images, targets)
+        state.step += 1
+        return state, metrics
+
+    step.program = program
+    return step
 
 
 def make_classifier_step():
     """One classifier train step.  ``accuracy`` is the reference's
     ``precision`` (``classifier.py:41-43``: mean(argmax == labels))."""
 
-    def step(state: TrainState, images: torch.Tensor, labels: torch.Tensor):
+    def program(state: TrainState, images: torch.Tensor,
+                labels: torch.Tensor):
         state.module.train()
         logits = state.module(images).float()
         loss = losses.cross_entropy_loss(logits, labels)
         _update(state, loss)
         acc = (logits.detach().argmax(1) == labels).float().mean()
-        return state, {"loss": loss.detach(), "accuracy": acc}
+        return {"loss": loss.detach(), "accuracy": acc}
 
-    return step
+    return stepped(program)
 
 
 def make_estimator_step():
     """One estimator (signal regressor) train step: the loss is the sum over
     signal columns of the per-column batch-mean squared error."""
 
-    def step(state: TrainState, images: torch.Tensor, signals: torch.Tensor):
+    def program(state: TrainState, images: torch.Tensor,
+                signals: torch.Tensor):
         state.module.train()
         preds = state.module(images).float()
         loss = (preds - signals).square().mean(dim=0).sum()
         _update(state, loss)
         preds = preds.detach()
-        return state, {"loss": loss.detach(),
-                       "mse": losses.mse_loss(preds, signals),
-                       "l1": losses.l1_loss(preds, signals)}
+        return {"loss": loss.detach(),
+                "mse": losses.mse_loss(preds, signals),
+                "l1": losses.l1_loss(preds, signals)}
 
-    return step
+    return stepped(program)
 
 
 def make_eval_metrics(kind: str):
