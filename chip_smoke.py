@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port's serving, estimator and GAN training
-paths, of its trainer and training CLI, of its data runtime and supervised
+paths, of its learning over many steps and its resume of a JAX training
+run, of its trainer and training CLI, of its data runtime and supervised
 pretraining, of its serving entry points (msgpack checkpoints, the HTTP
 server, the inference and eval CLIs), of FID / IS and the exported serving
 artifact, and of the AOT tier's CUDA graphs, on one NVIDIA GPU.
@@ -59,7 +60,12 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                same model on the CPU at a small input.  Prints img/s at B=16
                and batch-1 p50 latency of each configuration, and of the
                float32 ones again with cuDNN's TF32 on (PyTorch's default,
-               what float32 serving gets).
+               what float32 serving gets).  Then B=1 (the first input,
+               whose condition is standard normal): the bfloat16-vs-own-
+               float32 MAE of the plain and use_pallas configurations,
+               printed (ROADMAP.md section 3 records it), and B=3 (the
+               first three inputs, padded to a bucket of 4) the same;
+               use_pallas against plain in float32 within MAE 1e-5.
 5. serve    -- a Batcher(max_batch=16) over the fuse_upconv transfer answers
                24 uint8 224x224 requests from 8 threads, each within 1 uint8
                step of a direct translate_u8.
@@ -132,6 +138,38 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                forwards and the forward + input backward on G's output,
                timed apart).  Then the evaluation step once at batch 8:
                finite metrics, fakes (8, 8, 3, 224, 224), u not moved.
+7a. dynamics -- examples/synthetic_weather_demo_torch.py (the port's GAN
+               step on a synthetic task whose frozen estimator is a linear
+               readout of mean colour; use_pallas G: K1 and K2) at 64x64,
+               batch 32, bfloat16, 120 steps, eager and with aot_cache (the
+               step a CUDA graph): both runs pass the G-learns bars of
+               tests/test_training_dynamics.py (readback below 0.60 of the
+               untrained G's and 0.45 of the no-transfer baseline,
+               reconstruction L1 below 0.5); prints each report's readback
+               and img/s and the first step where the runs' d_loss or
+               g_loss part by more than 1e-3 relative; K1 and K2 counted
+               in the eager run, and in the graphed run from the replayed
+               graphs' nodes (6 + 6 a step).
+7b. jax_resume -- the GAN trainer at full width (use_pallas G, SNDisc, the
+               K4-routed ResNet-101 of phase 6; 224x224, batch 8, est mode,
+               dropout 0), float32 (TF32 off) and bfloat16: two steps, the
+               state written in the JAX package's GanTrainState layout
+               (gan_tree_to_jax, save_checkpoint_file) as
+               ckpt_s0000000002.msgpack in a fresh save_dir, fresh trainers
+               resumed from it eagerly and with aot_cache, and step 3 of
+               each against the uninterrupted trainer's on the same batch.
+               The load equals the saved state bit for bit except weight_v
+               (JAX keeps no v: recomputed from u, and no forward reads
+               it); the float32 eager step 3 equals the uninterrupted one
+               bit for bit (cuDNN's deterministic algorithms; the
+               uninterrupted step 3 is run twice from one state, and a
+               tensor may differ only where those two differ, then held
+               to the float32 bar); the graphed float32 step within phase 7's
+               float32 bars (the floor measured here, the sign-flip bound
+               of step 3, 2.2 * lr * sqrt(3)); bfloat16 eager and graphed
+               within phase 7's bfloat16 bars against the uninterrupted
+               bfloat16 step.  K1 6, K2 6, K4 58 on each resumed step (the
+               counters, and the replayed graph's nodes).
 8. train    -- the trainer (train/loops.py) and the est training CLI at
                full width, 224x224, batch 8, the seeded ResNet-101 through
                cli/common.py::load_step_estimator (K4 route in bfloat16, the
@@ -225,7 +263,8 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                per cUNet forward (none in the estimator-only CLIs); prints
                each one's images/s.  inf_transfer_c and
                eval_class_transfer again with --device cpu on a 4-image
-               subset: saved pictures within 1 uint8 step of the card's,
+               subset (1 image, a depth cut: CUTS): saved pictures
+               within 1 uint8 step of the card's,
                labels equal where the top two logits are more than 1e-3
                apart.
 11. eval_export -- FID and IS through Inception-v3 at full width (seeded
@@ -237,15 +276,18 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                0.25 of float32; FID finite in both.  Prints img/s (feature
                function and the network alone), peak memory, the device
                busy share of a forward, the host's sqrtm seconds and
-               scipy's warnings.  The fid_score CLI over the two
-               directories, --save-stats of one and that .npz against the
-               other (the same FID to 1e-6), the inception_score CLI (input
+               scipy's warnings (the Frechet distance in float32 only: one
+               host sqrtm).  The fid_score CLI's --save-stats of one
+               directory (the statistics within 1e-5 of the in-process
+               ones) and that .npz against the other (the FID within 1e-6
+               of the in-process one; a second host sqrtm), the
+               inception_score CLI (input
                224, batch 32, 10 splits) on a torchvision-layout head; each
                one's images/s; no K1-K4 launch.  Then the use_pallas cUNet
                at full width, 256x256: export_serving --check in float32 and
                bfloat16 (export seconds, artifact MiB, load ms, every tensor
-               of the programs on the card), ExportedTransfer at batches 1,
-               3 and 16 against the live WeatherTransfer: MAE <= 1e-5
+               of the programs on the card), ExportedTransfer at batches 1
+               and 16 against the live WeatherTransfer: MAE <= 1e-5
                against the live model in its dtype (the export must not
                change the function), a bfloat16 program no further from
                the live float32 model than the live bfloat16 model is
@@ -264,11 +306,16 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                1e-5 from eager; img/s graph against eager in turns; the
                device ms, kernel count and top kernels of a forward each
                way; first-call seconds; a second WeatherTransfer on the
-               same directory: 0 misses, 3 hits), one graphed fuse_upconv
+               same directory captures its 3 buckets again, and nothing is
+               written there), one graphed fuse_upconv
                (K3) forward at B=16 bf16; serve --aot_cache (bf16,
                224x224, max_batch 16) against a server without the tier,
                96 POSTs from 8 clients in turns (plain, tier, tier,
-               plain), start-up seconds cold and warm; the GAN trainer
+               plain), start-up seconds of a tiered and a plain server
+               in a young process as a restarted server is: the tier's
+               first start, then three warm starts of each in turns (the
+               warm tier's median within 0.3 s of the plain one's; no file
+               written), and in this process; the GAN trainer
                with aot_cache at 224x224, B=8, est mode, use_pallas G,
                K4-routed bf16 estimator: bf16 step ms (median of 10 in
                turns with the eager trainer), img/s, device busy share,
@@ -284,8 +331,8 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                and busy share against eager in turns, one float32 graphed
                step against eager (losses rel 1e-4, BN statistics 1e-5,
                the sign-flip bound), train_supervised(aot_cache=) over 3
-               batches; `python -m weather_unet_tpu_torch.cli.doctor
-               --json --probe` exits 0 naming the card.  Every replay's
+               batches; the doctor's main with --json --probe returns 0
+               naming the card (in this process).  Every replay's
                K1-K4 launches are counted by kernel name under
                torch.profiler (a replay runs no Python wrapper, so the
                launch counters count eager launches only); no capture may
@@ -298,7 +345,9 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                over one GAN generator (K1, K2) or estimator (K4)
                forward's).
 
-Every phase line carries "t_s", the seconds since the script started.
+Every phase line carries "t_s", the seconds since the script started; the
+line before the kernels line ("phase": "total") gives the script's seconds
+and the depth cuts that paid for phases 7a and 7b.
 The last line is {"ok": true, "device": {...}}.  Float32 comparisons run
 with TF32 off for cuDNN convs and matmuls (set at the start of the run).
 """
@@ -374,6 +423,18 @@ LOGIT_TOL = 2e-4      # float32 logits, relative to max(1, max|logits|)
 # 6e-8 arrives as 2e-5), so bfloat16's 2^-9 arrives as O(0.1)
 LOGIT_TOL_BF16 = 0.25
 START = time.perf_counter()
+# depth cut from earlier phases to pay for phases dynamics and jax_resume
+CUTS = ["eval_inception: the Frechet distance (a 2048x2048 host sqrtm) in "
+        "float32 only, not bfloat16",
+        "eval_clis: no directory-against-directory fid_score run; the .npz "
+        "run's FID is held to the in-process one, the saved stats to the "
+        "in-process statistics",
+        "serving_card_vs_cpu: 1 image on the CPU, not 4",
+        "eval_export_parity: the artifact at batches 1 and 16, not 1, 3 "
+        "and 16",
+        "dynamics: 120 steps of the demo (its default is 2000)",
+        "aot_doctor: the doctor's main in this process, not a child "
+        "process"]
 
 
 def emit(obj) -> None:
@@ -834,6 +895,28 @@ def phase_e2e(path, counters, launch_totals):
             if dt == torch.bfloat16 and not rec["mae_vs_own_float32"] <= 1e-3:
                 raise AssertionError(f"{config} bfloat16 MAE vs float32 "
                                      f"{rec['mae_vs_own_float32']} > 1e-3")
+    # B=1 (the first input, whose condition is standard normal, as every
+    # fourth row's) and B=3 (a bucket of 4, rows 0-2): printed, and held to
+    # the float32 bar against plain only:
+    # the 1e-3 bfloat16 bar is held at B=16 above (ROADMAP.md section 3,
+    # the bfloat16 distance at B=1)
+    rec = {"phase": "e2e_b1", "batch": 1, "size": size}
+    b1 = {}
+    for dt in DTYPES:
+        for config in ("plain", "use_pallas"):
+            b1[config, dt] = wts[config, dt].translate(
+                xf[:3], conds[:3]).float().cpu().numpy()
+    for config in ("plain", "use_pallas"):
+        for n in (1, 3):
+            rec[f"{config}_b{n}_bf16_vs_own_float32_mae"] = float(np.abs(
+                b1[config, torch.bfloat16][:n]
+                - b1[config, torch.float32][:n]).mean())
+    for dt in DTYPES:
+        rec[f"use_pallas_vs_plain_{DT_NAME[dt]}_mae"] = float(np.abs(
+            b1["use_pallas", dt][:1] - b1["plain", dt][:1]).mean())
+    emit(rec)
+    if not rec["use_pallas_vs_plain_float32_mae"] <= 1e-5:
+        raise AssertionError(f"e2e B=1: {rec}")
     # float32 serving as a user gets it: PyTorch's default lets cuDNN run
     # float32 convs in TF32 (the kernels never use TF32)
     torch.backends.cudnn.allow_tf32 = True
@@ -2539,6 +2622,7 @@ def phase_supervised(counters, launch_totals, smi):
 SERVE_REQUESTS = 96       # HTTP requests per server run
 SERVE_CLIENTS = 8         # client threads
 N_CLI_JPEGS = 32          # seeded 256x256 JPEGs of the serving world
+CPU_SUBSET = 1            # images of the card-vs-CPU CLI runs (CUTS)
 
 
 @contextlib.contextmanager
@@ -2608,10 +2692,10 @@ def serving_world(root, size_jpeg=256):
     subset_pkl = os.path.join(root, "split_subset.pkl")
     pd.to_pickle({"train": split["train"],
                   "test": [p for p in split["test"]
-                           if p.endswith("2.jpg")][:4]}, subset_pkl)
+                           if p.endswith("2.jpg")][:CPU_SUBSET]}, subset_pkl)
     subset_dir = os.path.join(root, "subset")
     os.makedirs(subset_dir)
-    for p in paths[:4]:
+    for p in paths[:CPU_SUBSET]:
         shutil.copy(p, subset_dir)
     return {"photos": photos, "paths": paths, "frame": frame,
             "demo": demo_dir, "split": split_pkl, "subset_split": subset_pkl,
@@ -3051,7 +3135,8 @@ def phase_cli(files, world, counters, launch_totals, smi, device, size):
 
 def phase_card_vs_cpu(files, world, card_saved, smi, device, size):
     """inf_transfer_c and eval_class_transfer on the CPU (--device cpu) on a
-    4-image subset against the card: saved pictures within 1 uint8 step;
+    CPU_SUBSET-image subset against the card: saved pictures within 1 uint8
+    step;
     labels equal where the CPU's top-two logits are more than 1e-3
     apart."""
     import weather_unet_tpu_torch.cli.common as common
@@ -3061,7 +3146,8 @@ def phase_card_vs_cpu(files, world, card_saved, smi, device, size):
     with recorded_saves() as saved, contextlib.redirect_stdout(io.StringIO()):
         inf_transfer_c.main(["--image_root", world["subset_dir"],
                              "--cp_path", files["cunet_msgpack"],
-                             "--image_only", "--batch_size", "4",
+                             "--image_only", "--batch_size",
+                             str(CPU_SUBSET),
                              "--input_size", str(size), "--device", "cpu",
                              "--output_dir", f"{out}/inf_c_cpu"])
     worst, n_pics = 0, 0
@@ -3091,7 +3177,7 @@ def phase_card_vs_cpu(files, world, card_saved, smi, device, size):
                 eval_class_transfer.main([
                     "--pkl_path", world["subset_split"], "--cp_path",
                     files["cunet_msgpack"], "--classifier_path",
-                    files["est_msgpack"], "--batch_size", "4",
+                    files["est_msgpack"], "--batch_size", str(CPU_SUBSET),
                     "--input_size", str(size), "--device",
                     "cpu" if run == "cpu_run" else device,
                     "--output_dir", f"{out}/ect_{run}"])
@@ -3107,7 +3193,7 @@ def phase_card_vs_cpu(files, world, card_saved, smi, device, size):
            "labels_differ_clear": int((differ & clear).sum()),
            "logits_max_abs": float((card_l - cpu_l).abs().max())}
     emit(rec)
-    if n_pics != 20 or worst > 1 or rec["labels_differ_clear"]:
+    if n_pics != 5 * CPU_SUBSET or worst > 1 or rec["labels_differ_clear"]:
         raise AssertionError(f"card vs CPU CLIs disagree: {rec}")
 
 
@@ -3138,7 +3224,7 @@ FEATURE_TOL = 1e-4        # card vs CPU pool3 features (float32), rel. L2
 # so bfloat16's 2^-9 arrives as O(0.05)
 FEATURE_TOL_BF16 = 0.25
 ART_SIZE = 256            # export_serving's default --input_size
-ART_BATCHES = (1, 3, 16)
+ART_BATCHES = (1, 16)     # cut to two batches (CUTS)
 ART_REQUESTS, ART_CLIENTS = 16, 4
 
 
@@ -3211,16 +3297,20 @@ def phase_fid_is(root, counters, smi):
         rec[f"{name}_features_img_per_s"] = (
             2 * N_FID_JPEGS / (time.perf_counter() - t0))
         stats = [fid.compute_statistics(acts[dt][k]) for k in ("a", "b")]
-        # the host's sqrtm (its seconds are the Frechet distance's); scipy
+        # the host's sqrtm (its seconds are the Frechet distance's), in
+        # float32 only: each 2048x2048 sqrtm takes 11-23 s of the host, and
+        # the bfloat16 features are held to the float32 ones below; scipy
         # warns where 64 images leave the covariances singular
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            t0 = time.perf_counter()
-            fids[dt] = fid.frechet_distance(*stats[0], *stats[1])
-            rec[f"{name}_sqrtm_s"] = time.perf_counter() - t0
-        rec[f"{name}_fid"] = fids[dt]
-        rec[f"{name}_sqrtm_warnings"] = sorted({
-            f"{w.category.__name__}: {str(w.message)[:60]}" for w in caught})
+        if dt == torch.float32:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                t0 = time.perf_counter()
+                fids[dt] = fid.frechet_distance(*stats[0], *stats[1])
+                rec[f"{name}_sqrtm_s"] = time.perf_counter() - t0
+            rec[f"{name}_fid"] = fids[dt]
+            rec[f"{name}_sqrtm_warnings"] = sorted({
+                f"{w.category.__name__}: {str(w.message)[:60]}"
+                for w in caught})
         # the network alone on a batch already on the card
         model = InceptionV3FID(dtype=dt)
         model.load_state_dict(inception_state_dict(
@@ -3261,14 +3351,14 @@ def phase_fid_is(root, counters, smi):
     if any(rec["launches"].values()):
         raise AssertionError(f"the Inception path launched K1-K4: {rec}")
 
-    # the CLIs as a user runs them (float32, batch 50, the card)
+    # the CLIs as a user runs them (float32, batch 50, the card): the stats
+    # of one directory saved, then the FID of that .npz against the other
+    # directory (one sqrtm; the directory-against-directory FID reads the
+    # same features and is not run again)
     cli = {"phase": "eval_clis", "card": smi}
     argv = [dirs["a"], dirs["b"], "--weights", w_fid, "--device", "cuda"]
     stats_npz = os.path.join(root, "a.npz")
     with contextlib.redirect_stdout(io.StringIO()) as text:
-        t0 = time.perf_counter()
-        cli["fid"] = fid_score.main(argv)
-        cli["fid_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         fid_score.main(argv + ["--save-stats", stats_npz])
         cli["save_stats_s"] = time.perf_counter() - t0
@@ -3283,14 +3373,21 @@ def phase_fid_is(root, counters, smi):
     cli["stdout"] = [ln for ln in text.getvalue().splitlines()
                      if ln.startswith(("FID", "IS", "saved", "FID inc",
                                        "torchvision"))]
-    cli["fid_img_per_s"] = 2 * N_FID_JPEGS / cli["fid_s"]
+    cli["fid_npz_img_per_s"] = N_FID_JPEGS / cli["fid_npz_s"]
+    saved = np.load(stats_npz)
+    mu_a, sigma_a = fid.compute_statistics(acts[torch.float32]["a"])
+    # the CLI's own network against the in-process one: relative to each
+    # statistic's largest element
+    cli["saved_stats_rel_err"] = float(max(
+        np.abs(saved[k] - v).max() / max(1.0, np.abs(v).max())
+        for k, v in (("mu", mu_a), ("sigma", sigma_a))))
     cli["save_stats_img_per_s"] = N_FID_JPEGS / cli["save_stats_s"]
     cli["is_img_per_s"] = N_FID_JPEGS / cli["is_s"]
     cli["launches"] = launches_of(counters)
     emit(cli)
     close = lambda a, b: abs(a - b) <= 1e-6 * max(1.0, abs(b))  # noqa: E731
-    if not (close(cli["fid_npz"], cli["fid"])
-            and close(cli["fid"], fids[torch.float32])
+    if not (close(cli["fid_npz"], fids[torch.float32])
+            and cli["saved_stats_rel_err"] <= 1e-5
             and np.isfinite(cli["is_mean"]) and cli["is_mean"] >= 1.0):
         raise AssertionError(f"FID / IS CLIs disagree: {cli}")
     if any(cli["launches"].values()):
@@ -3308,7 +3405,7 @@ def artifact_tensors_on(program) -> set:
 def phase_export(root, dirs, counters, launch_totals, smi):
     """The use_pallas cUNet at full width exported through export_serving
     --check in float32 (TF32 off) and bfloat16; ExportedTransfer against
-    the live WeatherTransfer at batches 1, 3 and 16; K1 and K2 3 times a
+    the live WeatherTransfer at batches 1 and 16; K1 and K2 3 times a
     forward of the program (counters and torch.profiler); img/s at batch
     16 against the live forward; then serve --artifact under 4 client
     threads of a child process."""
@@ -3560,9 +3657,11 @@ class KeptGraph(torch.cuda.CUDAGraph):
     ``torch.cuda.CUDAGraph``'s place): it keeps its cudaGraph_t after
     instantiation, so that its kernel nodes can be listed, and it notes its
     replays while ``replayed`` is a list.  Instantiated at capture, as a
-    graph that keeps nothing is."""
+    graph that keeps nothing is.  ``watch`` (set by ``capture_watch``) is
+    called at the begin and at the end of each capture."""
 
     replayed = None
+    watch = None
 
     def __new__(cls, keep_graph=False):
         return super().__new__(cls, True)
@@ -3570,9 +3669,16 @@ class KeptGraph(torch.cuda.CUDAGraph):
     def __init__(self, keep_graph=False):
         super().__init__(keep_graph=True)
 
+    def capture_begin(self, *args, **kwargs):
+        if KeptGraph.watch is not None:
+            KeptGraph.watch[0](self)
+        super().capture_begin(*args, **kwargs)
+
     def capture_end(self):
         super().capture_end()
         self.instantiate()
+        if KeptGraph.watch is not None:
+            KeptGraph.watch[1](self)
 
     def replay(self):
         if KeptGraph.replayed is not None:
@@ -3634,7 +3740,6 @@ def capture_watch():
     anew, its warm-up runs did.  The graphs are ``KeptGraph``s.  Yields
     {"captures": [n], "built": [...]}."""
     watch = {"captures": [0], "built": []}
-    enter, leave = torch.cuda.graph.__enter__, torch.cuda.graph.__exit__
 
     def caches():
         found = {}
@@ -3645,23 +3750,20 @@ def capture_watch():
                         found[id(obj)] = obj
         return list(found.values())
 
-    def on_enter(self):
-        self._wut_misses = [(f, f.cache_info().misses) for f in caches()]
-        return enter(self)
+    def on_begin(graph):
+        graph._wut_misses = [(f, f.cache_info().misses) for f in caches()]
 
-    def on_exit(self, *exc):
-        out = leave(self, *exc)
+    def on_end(graph):
         watch["captures"][0] += 1
-        watch["built"] += [f.__qualname__ for f, n in self._wut_misses
+        watch["built"] += [f.__qualname__ for f, n in graph._wut_misses
                            if f.cache_info().misses != n]
-        return out
 
-    torch.cuda.graph.__enter__, torch.cuda.graph.__exit__ = on_enter, on_exit
+    KeptGraph.watch = (on_begin, on_end)
     plain_graph, torch.cuda.CUDAGraph = torch.cuda.CUDAGraph, KeptGraph
     try:
         yield watch
     finally:
-        torch.cuda.graph.__enter__, torch.cuda.graph.__exit__ = enter, leave
+        KeptGraph.watch = None
         torch.cuda.CUDAGraph = plain_graph
 
 
@@ -3676,8 +3778,8 @@ def free_cuda():
 def aot_serving(tmp, smi, graph_totals):
     """The use_pallas cUNet (and once the fuse_upconv one) through
     WeatherTransfer(aot_cache=): each bucket a CUDA graph, against the
-    eager WeatherTransfer; a second instance on the same directory loads
-    every bucket from disk."""
+    eager WeatherTransfer; a second instance on the same directory (a
+    restart) captures every bucket again and writes nothing there."""
     from weather_unet_tpu_torch.api import WeatherTransfer
     from weather_unet_tpu_torch.models import ConditionalUNet
 
@@ -3733,6 +3835,8 @@ def aot_serving(tmp, smi, graph_totals):
         torch.cuda.synchronize()
         rec["restart_s"] = time.perf_counter() - t0
         rec["restart_stats"] = dict(again.aot.stats)
+        rec["files_written"] = (sorted(os.listdir(cache_dir))
+                                if os.path.exists(cache_dir) else [])
         emit(rec)
         failed = [f"b{b}_{key} {rec[f'b{b}_{key}']}" for b in AOT_BUCKETS
                   for key in ("mae_vs_eager", "restart_mae_vs_eager")
@@ -3744,9 +3848,11 @@ def aot_serving(tmp, smi, graph_totals):
         if rec["stats"]["captures"] != 3 or rec["programs"] != 3:
             failed.append(f"captures {rec['stats']['captures']}, programs "
                           f"{rec['programs']}")
-        if (rec["restart_stats"]["misses"],
-                rec["restart_stats"]["hits"]) != (0, 3):
+        if (rec["restart_stats"]["programs"],
+                rec["restart_stats"]["captures"]) != (3, 3):
             failed.append(f"restart_stats {rec['restart_stats']}")
+        if rec["files_written"]:
+            failed.append(f"files written {rec['files_written']}")
         require(f"aot serving {DT_NAME[dt]}", rec, failed)
         del eager, graphed, again, model
         free_cuda()
@@ -3776,10 +3882,54 @@ def aot_serving(tmp, smi, graph_totals):
     free_cuda()
 
 
+SERVER_START_CHILD = r"""
+import contextlib, io, json, sys, time
+from weather_unet_tpu_torch.cli import serve
+cache_dir, argv = sys.argv[1], sys.argv[2:]
+def start(extra):
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        server = serve.build_server(serve.build_parser().parse_args(
+            argv + extra))
+    seconds = time.perf_counter() - t0
+    aot = server.transfer.aot
+    server.server_close()
+    return seconds, None if aot is None else dict(aot.stats)
+tier = ["--aot_cache", cache_dir]
+start([])     # the process's first CUDA, cuDNN and cuBLAS uses, untimed
+# the process's first captures (a cold start of the tier)
+out = {"tier_first": start(tier)[0], "plain": [], "tier": []}
+for what in ("plain", "tier") * 3:       # warm starts, in turns
+    seconds, stats = start(tier if what == "tier" else [])
+    out[what].append(seconds)
+    out[what + "_stats"] = stats
+print(json.dumps(out))
+"""
+
+
+def server_starts_in_child(cache_dir, argv):
+    """Server start-ups (``build_server``: load, a warm-up of every bucket,
+    with the tier its captures) in a young process, as a restarted server
+    is one: after one untimed plain start that pays the process's first
+    uses of the CUDA libraries, the tier's first start (the process's first
+    captures), then three warm starts of each in turns."""
+    proc = subprocess.run(
+        [sys.executable, "-c", SERVER_START_CHILD, cache_dir, *argv],
+        capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"server start child: rc {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
 def aot_server(tmp, smi):
-    """serve --aot_cache (bf16, 224x224, max_batch 16) on a warm directory
-    against a server without the tier, the same 96 POSTs of the i2w
-    world's photos from 8 clients, in turns (plain, tier, tier, plain)."""
+    """serve --aot_cache (bf16, 224x224, max_batch 16) against a server
+    without the tier: start-up seconds of each in a young process, the
+    tier's first start and three warm starts of each in turns (the warm
+    tier's median within 0.3 s of the plain one's: a CUDA graph per bucket
+    and no disk tier), and, for the record, in this process; then the same
+    96 POSTs of the i2w world's photos from 8 clients, in turns (plain,
+    tier, tier, plain)."""
     import urllib.request
 
     from weather_unet_tpu_torch.cli import serve
@@ -3803,11 +3953,17 @@ def aot_server(tmp, smi):
     rec = {"phase": "aot_server", "card": smi, "dtype": "bfloat16",
            "requests": SERVE_REQUESTS, "clients": SERVE_CLIENTS,
            "size": 224, "max_batch": 16}
+    child = server_starts_in_child(os.path.join(tmp, "child_aot"),
+                                   base_args)
+    for what in ("plain", "tier"):
+        rec[f"{what}_young_process_startup_s"] = child[what]
+    rec["tier_young_process_first_startup_s"] = child["tier_first"]
+    rec["tier_young_process_stats"] = child["tier_stats"]
     servers = {}
     try:
         for what, extra in (("tier_cold", ["--aot_cache", cache_dir]),
-                            ("tier", ["--aot_cache", cache_dir]),
-                            ("plain", [])):
+                            ("plain", []),
+                            ("tier", ["--aot_cache", cache_dir])):
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(io.StringIO()):
                 server = serve.build_server(serve.build_parser().parse_args(
@@ -3851,12 +4007,21 @@ def aot_server(tmp, smi):
     ok = all(a[0] == 200 for w in answers for a in answers[w])
     emit(rec)
     n_buckets = len(serve.warmup_buckets(16))
-    if not (ok and rec["max_mean_step_tier_vs_plain"] <= 1.0
-            and (rec["tier_cold_stats"]["misses"],
-                 rec["tier_stats"]["hits"], rec["tier_stats"]["misses"],
-                 rec["tier_stats"]["captures"]) == (n_buckets, n_buckets, 0,
-                                                    n_buckets)):
-        raise AssertionError(f"aot server: {rec}")
+    failed = []
+    if not (ok and rec["max_mean_step_tier_vs_plain"] <= 1.0):
+        failed.append("answers")
+    for what in ("tier_cold", "tier", "tier_young_process"):
+        st = rec[f"{what}_stats"]
+        if (st["programs"], st["captures"]) != (n_buckets, n_buckets):
+            failed.append(f"{what} stats {st}")
+    if not (np.median(rec["tier_young_process_startup_s"])
+            <= np.median(rec["plain_young_process_startup_s"]) + 0.3):
+        failed.append("tier restarts "
+                      f"{rec['tier_young_process_startup_s']} s against "
+                      f"plain ones' {rec['plain_young_process_startup_s']} s")
+    if os.path.exists(cache_dir):
+        failed.append(f"the tier wrote {os.listdir(cache_dir)}")
+    require("aot server", rec, failed)
     free_cuda()
 
 
@@ -4036,8 +4201,7 @@ def aot_gan(tmp, est_path, smi, graph_totals):
                                     SEED)).cuda()
     forward = AotJit(
         lambda m, x, cc, g: m(x, cc, train=True, generator=g),
-        AotCache(os.path.join(tmp, "dropout_aot")), inplace_argnums=(0,),
-        disk=False)
+        AotCache(os.path.join(tmp, "dropout_aot")), inplace_argnums=(0,))
     g = torch.Generator(device="cuda")
     cond = torch.eye(5, device="cuda")[torch.arange(b, device="cuda") % 5]
     outs = {}
@@ -4135,7 +4299,7 @@ def aot_supervised(tmp, smi):
         set_capturable(st.optimizer, True)
         cache = AotCache(os.path.join(tmp, name))
         return sup.stepped(AotJit(sup.make_estimator_step().program, cache,
-                                  inplace_argnums=(0,), disk=False)), cache
+                                  inplace_argnums=(0,))), cache
 
     def timed(step, st):
         torch.cuda.synchronize()
@@ -4216,25 +4380,26 @@ def aot_supervised(tmp, smi):
 
 
 def aot_doctor(smi):
-    """python -m weather_unet_tpu_torch.cli.doctor --json --probe exits 0
-    and names the card."""
+    """The doctor's ``main(["--json", "--probe"])`` returns 0 and names
+    the card (in this process: a depth cut, CUTS)."""
+    from weather_unet_tpu_torch.cli import doctor
+
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "weather_unet_tpu_torch.cli.doctor",
-         "--json", "--probe"], capture_output=True, text=True, timeout=300)
-    info = json.loads(proc.stdout) if proc.returncode == 0 else {}
-    rec = {"phase": "aot_doctor", "card": smi, "rc": proc.returncode,
+    with contextlib.redirect_stdout(io.StringIO()) as out, \
+            contextlib.redirect_stderr(io.StringIO()) as err:
+        rc = doctor.main(["--json", "--probe"])
+    info = json.loads(out.getvalue()) if rc == 0 else {}
+    rec = {"phase": "aot_doctor", "card": smi, "rc": rc,
            "seconds": time.perf_counter() - t0,
            "devices": info.get("devices"), "nvcc": info.get("nvcc"),
            "kernels_built": info.get("kernels", {}).get("built"),
            "native_runtime": info.get("native_runtime"),
-           "aot_cache": info.get("aot_cache"),
            "probe_first_call_s": info.get("probe_first_call_s"),
            "probe_roundtrip_ms": info.get("probe_roundtrip_ms")}
     emit(rec)
-    if not (proc.returncode == 0 and info["devices"][0]["name"]
+    if not (rc == 0 and info["devices"][0]["name"]
             == torch.cuda.get_device_name(0)):
-        raise AssertionError(f"doctor: rc {proc.returncode}: {proc.stderr}")
+        raise AssertionError(f"doctor: rc {rc}: {err.getvalue()}")
 
 
 def phase_aot(est_path, smi, graph_totals):
@@ -4254,6 +4419,296 @@ def phase_aot(est_path, smi, graph_totals):
           "built_during_capture": watch["built"]})
     if watch["built"]:
         raise AssertionError(f"a capture built {watch['built']} anew")
+
+
+# ------------------------------------------------------------ dynamics
+
+DYN_ARGS = ["--size", "64", "--batch", "32", "--steps", "120",
+            "--report_every", "40", "--dtype", "bfloat16"]
+PART_REL = 1e-3           # the step where two runs' losses part
+
+
+def load_demo():
+    """examples/synthetic_weather_demo_torch.py as a module."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples", "synthetic_weather_demo_torch.py")
+    spec = importlib.util.spec_from_file_location("wut_demo_torch", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def replayed_kernels(graphs):
+    """K1-K4 launches of a list of replayed KeptGraphs (a graph once for
+    each replay), counted by kernel name in each graph's nodes."""
+    per_graph = {}
+    for g in graphs:
+        if id(g) not in per_graph:
+            names = graph_kernel_names(g)
+            per_graph[id(g)] = {k: sum(pat in n for n in names)
+                                for k, pat in KERNEL_NAMES.items()}
+    got = {k: 0 for k in KERNEL_NAMES}
+    for g in graphs:
+        for k, n in per_graph[id(g)].items():
+            got[k] += n
+    return got
+
+
+def learned(run):
+    """The G-learns bars of tests/test_training_dynamics.py on a demo run:
+    readback below 0.60 of the untrained G's and below 0.45 of the
+    no-transfer baseline, reconstruction L1 below 0.5, all finite."""
+    err, recon = run["final"]["readback"], run["final"]["recon_l1"]
+    return (np.isfinite(err) and np.isfinite(recon)
+            and err < 0.60 * run["start_err"] and err < 0.45 * run["base_err"]
+            and recon < 0.5 and np.isfinite(run["losses"]).all())
+
+
+def phase_dynamics(counters, launch_totals, smi):
+    """Sub-phase dynamics: the synthetic weather demo (the port's GAN step,
+    the use_pallas generator: K1 and K2) at 64x64, batch 32, bfloat16, 120
+    steps, eager and with aot_cache (the step a CUDA graph): both must
+    pass the G-learns bars; per run the readback at each report, img/s,
+    and the first step at which the two runs' d_loss or g_loss part by
+    more than 1e-3 relative."""
+    demo = load_demo()
+    runs, rec = {}, {"phase": "dynamics", "card": smi, "args": DYN_ARGS}
+    for what in ("eager", "graph"):
+        for m in counters.values():
+            m.launches = 0
+        with tempfile.TemporaryDirectory() as tmp, \
+                capture_watch() as watch:
+            argv = DYN_ARGS + ["--device", "cuda"] + (
+                ["--aot_cache", os.path.join(tmp, "aot")]
+                if what == "graph" else [])
+            KeptGraph.replayed = []
+            try:
+                t0 = time.perf_counter()
+                runs[what] = demo.run(argv, log=lambda _: None)
+                torch.cuda.synchronize()
+                rec[f"{what}_s"] = time.perf_counter() - t0
+                replayed = KeptGraph.replayed
+            finally:
+                KeptGraph.replayed = None
+            rec[f"{what}_replay_launches"] = (
+                replayed_kernels(replayed) if replayed else None)
+            rec[f"{what}_captures"] = watch["captures"][0]
+            rec[f"{what}_built_during_capture"] = watch["built"]
+        got = {k: m.launches for k, m in counters.items()}
+        for k in counters:
+            launch_totals[k] += got[k]
+        run = runs[what]
+        rec[f"{what}_launches"] = got
+        rec[f"{what}_baseline"] = run["base_err"]
+        rec[f"{what}_untrained_readback"] = run["start_err"]
+        rec[f"{what}_reports"] = [
+            {k: r[k] for k in ("step", "readback", "recon_l1", "d_loss",
+                               "img_per_s")} for r in run["reports"]]
+        rec[f"{what}_final"] = run["final"]
+        rec[f"{what}_img_per_s"] = run["reports"][-1]["img_per_s"]
+        rec[f"{what}_learned"] = bool(learned(run))
+    a, b = runs["eager"]["losses"], runs["graph"]["losses"]
+    rel = np.abs(a - b) / np.maximum(np.maximum(np.abs(a), np.abs(b)),
+                                     1e-30)
+    parted = np.nonzero((rel > PART_REL).any(axis=1))[0]
+    rec["first_parting_step"] = int(parted[0]) + 1 if len(parted) else None
+    rec["losses_rel_diff_max"] = float(rel.max())
+    emit(rec)
+    steps = int(DYN_ARGS[DYN_ARGS.index("--steps") + 1])
+    failed = [f"{w} did not learn" for w in runs if not rec[f"{w}_learned"]]
+    failed += [f"{w} launches {rec[f'{w}_launches']}" for w in runs
+               if not (rec[f"{w}_launches"]["adain"] >= 3
+                       and rec[f"{w}_launches"]["upsample"] >= 3)]
+    if rec["eager_launches"]["adain"] < 6 * steps:
+        failed.append("the eager run launched K1 fewer than 6 times a step")
+    if rec["graph_replay_launches"] != {"adain": 6 * steps,
+                                        "upsample": 6 * steps, "upconv": 0,
+                                        "bottleneck": 0}:
+        failed.append(f"graph replays {rec['graph_replay_launches']}")
+    if rec["graph_built_during_capture"]:
+        failed.append(f"built during capture {rec['graph_built_during_capture']}")
+    require("dynamics", rec, failed)
+    free_cuda()
+
+
+# ---------------------------------------------------------- jax_resume
+
+def phase_jax_resume(est_path, counters, launch_totals, smi):
+    """Sub-phase jax_resume: a GAN run at full width (the cUNet with
+    use_pallas, the SNDisc, the K4-routed ResNet-101 estimator; 224x224,
+    batch 8, est mode, dropout 0), float32 (TF32 off) and bfloat16: two
+    trainer steps, the state written in the JAX package's GanTrainState
+    layout (train/checkpoint.py::gan_tree_to_jax, save_checkpoint_file)
+    as ckpt_s0000000002.msgpack in a fresh save_dir, fresh trainers
+    resumed from that directory eagerly and with aot_cache, and step 3 on
+    each against the uninterrupted trainer's step 3 on the same batch."""
+    from weather_unet_tpu_torch.cli.common import load_step_estimator
+    from weather_unet_tpu_torch.train import checkpoint as ckpt
+    from weather_unet_tpu_torch.train.gan import GanConfig
+    from weather_unet_tpu_torch.train.loops import WeatherTransferTrainer
+
+    b, size = 8, 224
+    rng = np.random.default_rng(SEED + 40)
+    batches = [[(rng.integers(0, 256, (b, 256, 256, 3), dtype=np.uint8),
+                 rng.standard_normal((b, 5)).astype(np.float32))]
+               for _ in range(6)]
+    t_phase = time.perf_counter()
+    want = {}
+    # cuDNN's deterministic algorithms: its default backward ones may sum
+    # in another order each run, which no checkpoint can carry
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    with tempfile.TemporaryDirectory() as tmp:
+        for dt in DTYPES:
+            name = DT_NAME[dt]
+            est = load_step_estimator(est_path, dtype=dt, device="cuda",
+                                      route="k4")
+
+            def trainer(save_dir, tier=False):
+                with contextlib.redirect_stdout(io.StringIO()) as out:
+                    tr = WeatherTransferTrainer(
+                        GanConfig(input_size=size, batch_size=b, dtype=dt,
+                                  dropout_rate=0.0),
+                        est, save_dir=os.path.join(tmp, save_dir),
+                        name="run", log_dir=os.path.join(tmp, "runs"),
+                        device="cuda",
+                        aot_cache=os.path.join(tmp, f"aot_{name}")
+                        if tier else None)
+                return tr, out.getvalue()
+
+            def step(tr, k):
+                with contextlib.redirect_stdout(io.StringIO()):
+                    tr.train_epoch(batches[2 * k - 2], batches[2 * k - 1])
+                return tr._last_metrics
+
+            whole, _ = trainer(f"whole_{name}")
+            for k in (1, 2):
+                step(whole, k)
+            pre = {n: v.detach().clone()
+                   for n, v in state_tensors(whole.state).items()}
+            path = os.path.join(tmp, f"jax_{name}", "run",
+                                "ckpt_s0000000002.msgpack")
+            t0 = time.perf_counter()
+            ckpt.save_checkpoint_file(path, ckpt.gan_tree_to_jax(
+                whole.state))
+            rec = {"phase": "jax_resume", "dtype": name, "card": smi,
+                   "batch": b, "size": size, "estimator_route": "k4",
+                   "save_s": time.perf_counter() - t0,
+                   "file_mib": os.path.getsize(path) / 2 ** 20}
+            trs = {}
+            for what in ("eager", "graph"):
+                t0 = time.perf_counter()
+                trs[what], out = trainer(f"jax_{name}", what == "graph")
+                rec[f"{what}_resume_s"] = time.perf_counter() - t0
+                rec[f"{what}_resumed"] = "resumed from" in out and (
+                    trs[what].state.global_step, trs[what].state.gen.step,
+                    trs[what].state.disc.step,
+                    trs[what].state.epoch) == (2, 2, 2, 2)
+            loaded = state_tensors(trs["eager"].state)
+            rec["load_differs"] = sorted(
+                k for k, v in pre.items()
+                if k not in loaded or not torch.equal(loaded[k], v))
+            want[dt] = gan_snapshot(whole.state, step(whole, 3))
+            after = {n: v.detach().clone()
+                     for n, v in state_tensors(whole.state).items()}
+            # the uninterrupted step 3 once more from the same state: what
+            # the step itself reproduces bit for bit on this card
+            put_state(whole.state, pre)
+            step(whole, 3)
+            again = state_tensors(whole.state)
+            rec["step_repeat_differs"] = sorted(
+                k for k, v in after.items() if not torch.equal(again[k], v))
+            del again
+            (m, got_launches) = counted_run(lambda: step(trs["eager"], 3),
+                                            counters, launch_totals)
+            eager = gan_snapshot(trs["eager"].state, m)
+            rec["eager_launches"] = got_launches
+            mine = state_tensors(trs["eager"].state)
+            rec["eager_step_differs"] = sorted(
+                k for k, v in after.items()
+                if k not in mine or not torch.equal(mine[k], v))
+            rec["eager_losses_equal"] = eager["losses"] == want[dt]["losses"]
+            with capture_watch() as watch:
+                KeptGraph.replayed = []
+                try:
+                    m = step(trs["graph"], 3)
+                    torch.cuda.synchronize()
+                    replayed = KeptGraph.replayed
+                finally:
+                    KeptGraph.replayed = None
+            graph = gan_snapshot(trs["graph"].state, m)
+            rec["graph_replay_launches"] = replayed_kernels(replayed)
+            rec["graph_captures"] = watch["captures"][0]
+            rec["graph_built_during_capture"] = watch["built"]
+            lr = whole.cfg.lr
+            if dt == torch.float32:
+                def floor_run(scale):
+                    put_state(trs["eager"].state, pre)
+                    tr = trs["eager"]
+                    tr._step_rng.manual_seed(0)
+                    u8, _ = batches[4][0]
+                    r8, _ = batches[5][0]
+                    from weather_unet_tpu_torch.data.transforms import (
+                        normalize_batch)
+                    x = normalize_batch(torch.from_numpy(u8).cuda(), size)
+                    r = normalize_batch(torch.from_numpy(r8).cuda(), size)
+                    z = torch.zeros(b, dtype=torch.long, device="cuda")
+                    tr.state, mm = tr._step(tr.state, x * scale, z, r, z,
+                                            tr._step_rng, do_g=True)
+                    return gan_snapshot(tr.state, mm)
+
+                errs = [snapshot_errs(floor_run(1 + s_ * ONE_ROUNDING),
+                                      want[dt]) for s_ in (1, -1)]
+                floor = {key: max(e[key] for e in errs)
+                         for key in MOMENT_KEYS}
+                # Adam's third update reaches sqrt(3) * lr where earlier
+                # gradients were ~0: the sign-flip bound of step 3
+                bar = lambda a, what: gan_states_agree(  # noqa: E731
+                    a, want[dt], lr * np.sqrt(3), GAN_TOL,
+                    f"jax_resume float32 {what}", floor)
+            else:
+                bar = lambda a, what: bf16_states_agree(  # noqa: E731
+                    a, want[dt], want[dt], want[torch.float32],
+                    f"jax_resume bfloat16 {what}")
+            rec["eager_vs_whole"] = bar(eager, "eager")
+            rec["graph_vs_whole"] = bar(graph, "graph")
+            # bit for bit where the step reproduces itself; a tensor that
+            # differs elsewhere is a fault of the resume (where the step
+            # does not reproduce itself, the float32 bar above holds it)
+            rec["eager_differs_beyond_repeat"] = sorted(
+                set(rec["eager_step_differs"])
+                - set(rec["step_repeat_differs"]))
+            emit(rec)
+            failed = [f"{w} did not resume" for w in trs
+                      if not rec[f"{w}_resumed"]]
+            # JAX keeps no v: the load recomputes weight_v from u, and the
+            # step's forward overwrites it (no forward reads it)
+            failed += [f"load differs at {k}" for k in rec["load_differs"]
+                       if not k.endswith(".weight_v")]
+            if dt == torch.float32 and (
+                    rec["eager_differs_beyond_repeat"]
+                    or (not rec["step_repeat_differs"]
+                        and not rec["eager_losses_equal"])):
+                failed.append(f"float32 eager resume not bit-equal: "
+                              f"{rec['eager_differs_beyond_repeat'][:5]}")
+            if got_launches != {"adain": 6, "upsample": 6, "upconv": 0,
+                                "bottleneck": 58}:
+                failed.append(f"eager launches {got_launches}")
+            if rec["graph_replay_launches"] != {"adain": 6, "upsample": 6,
+                                                "upconv": 0,
+                                                "bottleneck": 58}:
+                failed.append(f"graph {rec['graph_replay_launches']}")
+            if rec["graph_built_during_capture"]:
+                failed.append("built during capture "
+                              f"{rec['graph_built_during_capture']}")
+            require(f"jax_resume {name}", rec, failed)
+            del whole, trs, est, pre, after, loaded, mine
+            free_cuda()
+    torch.backends.cudnn.deterministic = deterministic
+    emit({"phase": "jax_resume_done",
+          "seconds": time.perf_counter() - t_phase})
 
 
 def kernels_line(summary, launch_totals, graph_totals):
@@ -4340,6 +4795,8 @@ def main():
         phase_estimator(est_path, wts["use_pallas", torch.float32], counters,
                         launch_totals)
         gan_records = phase_gan(est_path, counters, launch_totals)
+        phase_dynamics(counters, launch_totals, smi)
+        phase_jax_resume(est_path, counters, launch_totals, smi)
         phase_train(est_path, counters, launch_totals, gan_records, smi)
         phase_supervised(counters, launch_totals, smi)
         phase_serving_cli(est_path, counters, launch_totals, smi)
@@ -4352,6 +4809,8 @@ def main():
         if graph_totals[name] == 0:
             raise AssertionError(f"{name} kernel never ran in a CUDA-graph "
                                  "replay of phase aot")
+    emit({"phase": "total", "seconds": time.perf_counter() - START,
+          "cuts": CUTS})
     kernels_line(summary, launch_totals, graph_totals)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

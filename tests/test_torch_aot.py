@@ -1,14 +1,12 @@
 """The port's AOT tier (``weather_unet_tpu_torch/core/aot.py``) on the CPU,
 against the JAX package's (``weather_unet_tpu/core/aot.py``) where a
-counterpart exists, mirroring ``tests/test_aot.py``: the disk round trip
-and its key, the corrupt-entry fallback, one program per shape, the bounded
-dict memo; ``WeatherTransfer(aot_cache=)`` and ``serve --aot_cache``; the
-GAN trainer and ``train_supervised`` with the tier; restores into the
-state a graph would hold.
+counterpart exists, mirroring ``tests/test_aot.py``: one program per shape;
+``WeatherTransfer(aot_cache=)`` and ``serve --aot_cache``; the GAN trainer
+and ``train_supervised`` with the tier; restores into the state a graph
+would hold; no use of the tier writes or reads a program file.
 
-On the CPU there is no CUDA graph: the disk tier and the per-shape programs
-run as on the card, and the port with the tier equals the port without it
-bit for bit.  Against the JAX package (on one CPU device): serving
+On the CPU there is no CUDA graph: the per-shape programs run as on the
+card, and the port with the tier equals the port without it bit for bit.  Against the JAX package (on one CPU device): serving
 ``translate`` MAE < 1e-5 and ``translate_u8`` within 1 uint8 step; the
 trainers at the bars of ``tests/test_torch_gan.py`` and
 ``tests/test_torch_supervised.py`` (losses rtol 2e-4, the Adam sign-flip
@@ -38,10 +36,9 @@ from weather_unet_tpu.parallel.mesh import make_mesh
 from weather_unet_tpu_torch.api import WeatherTransfer
 from weather_unet_tpu_torch.cli import serve
 from weather_unet_tpu_torch.core import aot
-from weather_unet_tpu_torch.core.aot import AotCache, AotJit, BoundFn
+from weather_unet_tpu_torch.core.aot import AotCache, AotJit
 from weather_unet_tpu_torch.data.pipeline import BatchLoader
 from weather_unet_tpu_torch.data.transforms import normalize_batch
-from weather_unet_tpu_torch.models import ConditionalUNet
 from weather_unet_tpu_torch.train import checkpoint as ckpt
 from weather_unet_tpu_torch.train import supervised as sup
 from weather_unet_tpu_torch.train.gan import GanConfig
@@ -68,87 +65,27 @@ def _jfn(w, x):
     return jnp.tanh(x @ w) * 2.0
 
 
-def entries(root):
-    return sorted(p for p in root.glob("*/*" + aot.ENTRY_SUFFIX)
-                  if not p.name.startswith("."))
-
-
-def test_roundtrip_and_disk_hit(tmp_path):
-    """A miss exports and saves under the fingerprint directory; a fresh
-    cache (a restarted process) loads it; both agree with the JAX tier's
-    executable on the same inputs."""
-    w = np.ones((16, 16), np.float32)
-    x = np.arange(64, dtype=np.float32).reshape(4, 16) / 64.0
-    cache = AotCache(str(tmp_path))
-    exe = cache.load_or_compile(_fn, torch.from_numpy(w), torch.from_numpy(x))
-    out = exe(torch.from_numpy(w), torch.from_numpy(x))
-    jexe = jax_aot.AotCache(str(tmp_path / "jax")).load_or_compile(_jfn, w, x)
-    np.testing.assert_allclose(out.numpy(), np.asarray(jexe(w, x)),
-                               rtol=1e-6)
-    assert cache.stats["misses"] == 1 and cache.stats["hits"] == 0
-    assert cache.stats["captures"] == 0           # no CUDA graph on a CPU
-    (entry,) = entries(tmp_path)
-    assert entry.parent.name == aot.fingerprint_dir_name("cpu")
-    assert (entry.parent / "HOST.json").exists()
-
-    cache2 = AotCache(str(tmp_path))
-    exe2 = cache2.load_or_compile(_fn, torch.from_numpy(w),
-                                  torch.from_numpy(x))
-    assert torch.equal(exe2(torch.from_numpy(w), torch.from_numpy(x)), out)
-    assert cache2.stats["hits"] == 1 and cache2.stats["misses"] == 0
-    assert cache2.stats["compile_s"] == 0.0 and cache2.stats["load_s"] > 0
-
-
-def test_key_covers_shape_dtype_and_program_not_weights(tmp_path):
-    cache = AotCache(str(tmp_path))
-    w = torch.ones(16, 16)
-    cache.load_or_compile(_fn, w, torch.ones(4, 16))
-    cache.load_or_compile(_fn, w, torch.ones(8, 16))              # shape
-    cache.load_or_compile(_fn, w.double(), torch.ones(4, 16,
-                                                      dtype=torch.float64))
-    cache.load_or_compile(lambda w, x: x @ w, w, torch.ones(4, 16),
-                          program="matmul")                       # program
-    assert cache.stats["misses"] == 4 and len(entries(tmp_path)) == 4
-    # other weight values are the same program: one entry serves both
-    cache.load_or_compile(_fn, 3.0 * w, torch.zeros(4, 16))
-    assert cache.stats["hits"] == 1 and len(entries(tmp_path)) == 4
-
-
-def test_corrupt_entry_is_deleted_and_reexported(tmp_path):
-    w, x = torch.ones(8, 8), torch.ones(2, 8)
-    AotCache(str(tmp_path)).load_or_compile(_fn, w, x)
-    (path,) = entries(tmp_path)
-    path.write_bytes(b"garbage")                  # partial write, old format
-    cache = AotCache(str(tmp_path))
-    exe = cache.load_or_compile(_fn, w, x)
-    assert torch.equal(exe(w, x), _fn(w, x))
-    assert cache.stats["fallbacks"] == 1 and cache.stats["misses"] == 1
-    again = AotCache(str(tmp_path))              # the entry was replaced
-    again.load_or_compile(_fn, w, x)
-    assert again.stats["hits"] == 1 and again.stats["fallbacks"] == 0
-
-
 def test_aotjit_one_program_per_shape_and_bounded_memo(tmp_path):
+    """One program per shape and dtype, as ``jax.jit``'s cache keeps
+    one executable each; ``reset`` drops them.  No memo of argument
+    identities is kept: the key is the arguments' shapes, read per call."""
     cache = AotCache(str(tmp_path))
     aj = AotJit(_fn, cache)
     w = torch.ones(8, 8)
     aj(w, torch.ones(1, 8))
     aj(w, torch.ones(2, 8))
-    aj(w, torch.ones(2, 8))       # same shape: in memory, no lookup
-    assert aj._cache_size() == 2 and cache.stats["misses"] == 2
-    bound = BoundFn(aj, w)
-    assert torch.equal(bound(torch.ones(2, 8)), _fn(w, torch.ones(2, 8)))
-    assert bound._cache_size() == 2
-    # the identity memo of dict arguments stays bounded
-    x = torch.ones(1, 8)
-    for _ in range(3 * aj._frag_max):
-        aj._shape_key(({"w": w}, x))
-    assert len(aj._frag) <= aj._frag_max == 64
-    d = {"w": w}
-    k1 = aj._shape_key((d, x))
-    assert aj._shape_key((d, x)) == k1 and id(d) in aj._frag
+    aj(w, torch.ones(2, 8))       # same shape: the same program
+    aj(w.double(), torch.ones(2, 8, dtype=torch.float64))
+    assert aj._cache_size() == 3 and cache.stats == {
+        "programs": 3, "captures": 0, "capture_s": 0.0}
+    assert torch.equal(aj(w, torch.ones(2, 8)), _fn(w, torch.ones(2, 8)))
+    jexe = jax.jit(_jfn)
+    x = np.arange(16, dtype=np.float32).reshape(2, 8) / 16.0
+    np.testing.assert_allclose(aj(w, torch.from_numpy(x)).numpy(),
+                               np.asarray(jexe(np.ones((8, 8), np.float32),
+                                               x)), rtol=1e-6)
     aj.reset()
-    assert aj._cache_size() == 0 and not aj._frag
+    assert aj._cache_size() == 0 and not os.path.exists(tmp_path / "x")
 
 
 @pytest.fixture(scope="module")
@@ -170,17 +107,17 @@ def gan_cp(tmp_path_factory):
 def test_api_aot_equals_plain_and_jax(gan_cp, tmp_path):
     """``WeatherTransfer(aot_cache=)`` on the CPU: every entry point bit-equal
     to the port without the tier; against the JAX tier on the same weights,
-    translate MAE < 1e-5 and translate_u8 within 1 step; a restart loads
-    from disk."""
+    translate MAE < 1e-5 and translate_u8 within 1 step; a restart on the
+    same directory computes the same and writes and reads no file."""
     from weather_unet_tpu.api import WeatherTransfer as JaxTransfer
 
     rng = np.random.default_rng(3)
     u8 = rng.integers(0, 256, (3, 32, 32, 3), np.uint8)
     conds = np.eye(5, dtype=np.float32)[[0, 2, 4]]
     x = WeatherTransfer.preprocess(u8).numpy()
+    cdir = tmp_path / "port"
     plain = WeatherTransfer.load(gan_cp, device="cpu")
-    tier = WeatherTransfer.load(gan_cp, device="cpu",
-                                aot_cache=str(tmp_path / "port"))
+    tier = WeatherTransfer.load(gan_cp, device="cpu", aot_cache=str(cdir))
     got_u8 = tier.translate_u8(u8, conds)
     got = tier.translate(x, conds)
     assert torch.equal(got_u8, plain.translate_u8(u8, conds))
@@ -188,7 +125,7 @@ def test_api_aot_equals_plain_and_jax(gan_cp, tmp_path):
     assert torch.equal(tier.translate_to_classes(x[:2]),
                        plain.translate_to_classes(x[:2]))
     assert tier._translate_u8._cache_size() == 1       # the bucket of 4
-    assert tier.aot.stats["misses"] == 3
+    assert tier.aot.stats["programs"] == 3
 
     jt = JaxTransfer.load(gan_cp, aot_cache=str(tmp_path / "jax"))
     want = np.asarray(jt.translate(x, conds))
@@ -196,50 +133,100 @@ def test_api_aot_equals_plain_and_jax(gan_cp, tmp_path):
     want_u8 = np.asarray(jt.translate_u8(u8, conds)).astype(int)
     assert np.abs(got_u8.numpy().astype(int) - want_u8).max() <= 1
 
-    again = WeatherTransfer.load(gan_cp, device="cpu",
-                                 aot_cache=str(tmp_path / "port"))
+    again = WeatherTransfer.load(gan_cp, device="cpu", aot_cache=str(cdir))
     assert torch.equal(again.translate_u8(u8, conds), got_u8)
-    assert again.aot.stats["misses"] == 0 and again.aot.stats["hits"] >= 1
-
-
-def test_api_aot_reused_across_checkpoints(gan_cp, tmp_path):
-    """The weights are inputs of the exported program: a second checkpoint
-    of the same architecture loads the first one's entry and computes with
-    its own weights."""
-    cdir = str(tmp_path / "aot")
-    u8 = np.random.default_rng(4).integers(0, 256, (2, 32, 32, 3), np.uint8)
-    conds = np.eye(5, dtype=np.float32)[[1, 3]]
-    a = WeatherTransfer.load(gan_cp, device="cpu", aot_cache=cdir)
-    out_a = a.translate_u8(u8, conds)
-    torch.manual_seed(7)
-    other = ConditionalUNet(5, use_pallas=True)
-    b = WeatherTransfer(other, device="cpu", aot_cache=cdir)
-    out_b = b.translate_u8(u8, conds)
-    assert b.aot.stats["misses"] == 0 and b.aot.stats["hits"] == 1
-    assert torch.equal(out_b, WeatherTransfer(other, device="cpu")
-                       .translate_u8(u8, conds))
-    assert not torch.equal(out_a, out_b)
+    assert again.aot.stats["programs"] == 1 and not cdir.exists()
 
 
 def test_serve_aot_flag(gan_cp, tmp_path):
-    """``serve --aot_cache``: warm-up fills the buckets 1, 2 and 4; a restart
-    loads all three from disk; ``--artifact`` still refuses the flag."""
-    cdir = str(tmp_path / "srv")
+    """``serve --aot_cache``: warm-up makes one program for each of the
+    buckets 1, 2 and 4; a restart makes them again and neither start
+    writes a file; ``--artifact`` still refuses the flag."""
+    cdir = tmp_path / "srv"
     argv = ["--cp_path", gan_cp, "--host", "127.0.0.1", "--port", "0",
-            "--input_size", "32", "--max_batch", "4", "--aot_cache", cdir,
-            "--device", "cpu"]
-    for want in ({"misses": 3, "hits": 0}, {"misses": 0, "hits": 3}):
+            "--input_size", "32", "--max_batch", "4", "--aot_cache",
+            str(cdir), "--device", "cpu"]
+    for _ in range(2):
         server = serve.build_server(serve.build_parser().parse_args(argv))
         try:
             assert server.transfer._translate_u8._cache_size() == 3
-            stats = server.transfer.aot.stats
-            assert {k: stats[k] for k in want} == want
+            assert server.transfer.aot.stats == {
+                "programs": 3, "captures": 0, "capture_s": 0.0}
         finally:
             server.server_close()
+        assert not cdir.exists()
     with pytest.raises(SystemExit, match="--aot_cache does not apply"):
         serve.build_server(serve.build_parser().parse_args(
-            ["--artifact", str(tmp_path), "--aot_cache", cdir,
+            ["--artifact", str(tmp_path), "--aot_cache", str(cdir),
              "--no-warmup", "--device", "cpu"]))
+
+
+@pytest.fixture
+def no_program_files(monkeypatch):
+    """Fail a test that exports, saves or loads a program: the tier keeps
+    nothing on disk."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("the AOT tier touched a program file")
+
+    for name in ("export", "save", "load"):
+        monkeypatch.setattr(torch.export, name, refuse)
+
+
+def test_graphed_serving_reads_the_weights_where_they_lie(gan_cp, tmp_path,
+                                                          no_program_files):
+    """The tier's program reads the model's weights by closure: after a
+    ``load_state_dict`` into the same model the same bucket's program
+    computes with the new weights, equal to a plain transfer of them."""
+    u8 = np.random.default_rng(4).integers(0, 256, (2, 32, 32, 3), np.uint8)
+    conds = np.eye(5, dtype=np.float32)[[1, 3]]
+    tier = WeatherTransfer.load(gan_cp, device="cpu",
+                                aot_cache=str(tmp_path / "aot"))
+    before = tier.translate_u8(u8, conds)
+    sd = {k: v * 0.5 if k.endswith("weight") else v
+          for k, v in tier.model.state_dict().items()}
+    tier.model.load_state_dict(sd)
+    after = tier.translate_u8(u8, conds)
+    assert tier._translate_u8._cache_size() == 1 and not torch.equal(
+        before, after)
+    plain = WeatherTransfer.load(gan_cp, device="cpu")
+    plain.model.load_state_dict(sd)
+    assert torch.equal(after, plain.translate_u8(u8, conds))
+
+
+@pytest.mark.parametrize("use", ["serving", "gan_trainer", "supervised",
+                                 "restored_trainer"])
+def test_the_tier_writes_and_reads_no_program(tmp_path, gan_cp, use,
+                                              no_program_files):
+    """Every use of the tier -- serving, the GAN trainer, the supervised
+    loop, a trainer resumed from a checkpoint -- runs without exporting,
+    saving or loading a program, and leaves its directory unmade."""
+    cdir = tmp_path / "aot"
+    if use == "serving":
+        wt = WeatherTransfer.load(gan_cp, device="cpu", aot_cache=str(cdir))
+        wt.translate_u8(np.zeros((3, 32, 32, 3), np.uint8),
+                        np.eye(5, dtype=np.float32)[:3])
+        assert wt.aot.stats["programs"] == 1
+    elif use == "supervised":
+        from tests.test_torch_resnet import jax_resnet_variables
+
+        _, variables = jax_resnet_variables((1, 1, 1, 1), 5, 32)
+        state = train_supervised(
+            sup.make_classifier_step(), sup.make_eval_metrics("classifier"),
+            lambda: Batches(1), lambda: [], state=port_state(
+                variables, "classifier"), num_epoch=1, input_size=32,
+            save_dir=str(tmp_path / "cp"), name="s", eval_per_iter=100,
+            target_dtype=torch.long, aot_cache=str(cdir))
+        assert state.step == 1
+    else:
+        cfg = cfg_of(num_epoch=1, batch_size=2)
+        data = Images(4)
+        if use == "restored_trainer":
+            trainer(tmp_path, cfg, "run").fit(*loaders(data))
+        tr = trainer(tmp_path, cfg_of(num_epoch=2, batch_size=2), "run",
+                     aot_cache=str(cdir))
+        tr.fit(*loaders(data))
+        assert tr.state.global_step == 4 and tr.aot.stats["programs"] == 1
+    assert not cdir.exists()
 
 
 def test_trainer_aot_cache_equals_eager(tmp_path):
@@ -264,7 +251,8 @@ def test_trainer_aot_cache_equals_eager(tmp_path):
     assert_states_equal(tier.state, eager.state)
     programs = tier._step.programs
     assert programs[True]._cache_size() == programs[False]._cache_size() == 1
-    assert tier.aot.stats["captures"] == 0 and tier.aot.stats["misses"] == 0
+    assert tier.aot.stats == {"programs": 2, "captures": 0,
+                              "capture_s": 0.0}
 
 
 def test_trainer_aot_cache_agrees_with_jax(tmp_path):
@@ -472,4 +460,4 @@ def test_training_clis_take_aot_cache(data, tmp_path, cli,  # noqa: F811
     tree = torch.load(ckpt.latest_checkpoint(str(tmp_path / "cp"), "run"),
                       weights_only=True)
     assert tree["global_step"] == 4
-    assert aot_dir.is_dir() and not entries(aot_dir)
+    assert not aot_dir.exists()

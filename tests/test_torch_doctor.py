@@ -21,7 +21,7 @@ from weather_unet_tpu import testing as jax_testing
 from weather_unet_tpu.cli import doctor as jax_doctor
 from weather_unet_tpu_torch import testing
 from weather_unet_tpu_torch.cli import doctor
-from weather_unet_tpu_torch.core.aot import AotCache, fingerprint_dir_name
+from weather_unet_tpu_torch.core.aot import AotCache
 
 
 @pytest.fixture(autouse=True)
@@ -35,8 +35,7 @@ def drop_tmp(tmp_path):
 
 @pytest.fixture
 def no_gpu(monkeypatch, tmp_path):
-    """No GPU, a HOME of the test's own (the default AOT root lives
-    there) and one ``WUT_`` variable."""
+    """No GPU, a HOME of the test's own and one ``WUT_`` variable."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setenv("HOME", str(tmp_path))
     monkeypatch.setenv("WUT_DROPOUT", "bits16")
@@ -44,7 +43,7 @@ def no_gpu(monkeypatch, tmp_path):
 
 
 def test_collect_reports_the_host_without_a_gpu(no_gpu):
-    root = no_gpu / ".cache" / "weather_unet_tpu_torch_aot"
+    root = no_gpu / "aot"
     x = torch.ones(2, 3)
     AotCache(str(root)).load_or_compile(lambda a: a * 2, x)
     info = doctor.collect()
@@ -65,10 +64,8 @@ def test_collect_reports_the_host_without_a_gpu(no_gpu):
     assert info["wut_env"] == {k: v for k, v in os.environ.items()
                                if k.startswith("WUT_")}
     assert info["wut_env"]["WUT_DROPOUT"] == "bits16"
-    assert info["aot_cache"]["dir"] == str(root)
-    assert info["aot_cache"]["cpu"] == {
-        "fingerprint_dir": str(root / fingerprint_dir_name("cpu")),
-        "entries": 1}
+    # the tier keeps nothing on disk: no AOT cache to report, none made
+    assert "aot_cache" not in info and not root.exists()
 
 
 def test_json_output_and_exit_code(no_gpu, capsys):
@@ -79,7 +76,7 @@ def test_json_output_and_exit_code(no_gpu, capsys):
     assert "no usable GPU" in out.err
     assert doctor.main([]) == 1
     text = capsys.readouterr().out
-    assert "backend_error" in text and "aot_cache" in text
+    assert "backend_error" in text and "wut_env" in text
 
 
 def test_init_watchdog_times_out(monkeypatch):

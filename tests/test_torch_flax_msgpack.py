@@ -211,9 +211,12 @@ def test_msgpack_errors(unet, tmp_path):
     garbage.write_bytes(b"\xc1 not msgpack")
     with pytest.raises(ValueError, match="not a flax msgpack checkpoint"):
         load_transfer(str(garbage), device="cpu")
-    # resuming a JAX training run is not ported: it says where it stands
-    from weather_unet_tpu_torch.core.state import GanTrainState
+    # a weights-only tree is no training state: a resume names the first
+    # key it lacks and loads nothing
+    from weather_unet_tpu_torch.train.gan import GanConfig, build_gan_state
 
-    with pytest.raises(NotImplementedError, match="JAX training state"):
-        ckpt.restore_checkpoint(path, GanTrainState.__new__(GanTrainState))
+    _, _, gan_state = build_gan_state(GanConfig(input_size=16), 0, "cpu")
+    with pytest.raises(ValueError, match="/disc \\(missing from the file"):
+        ckpt.restore_checkpoint(path, gan_state)
+    assert gan_state.global_step == 0
     assert list(ckpt.restore_checkpoint(path)) == ["gen"]

@@ -15,9 +15,9 @@ device.  The model itself runs NCHW.
 With ``aot_cache`` (a directory or ``core.aot.AotCache``), ``translate``,
 ``translate_u8`` and ``translate_to_classes`` go through the AOT tier: one
 program per input shape (bucketing keeps them to the power-of-two
-batches), exported with the weights as inputs and kept on disk, so a
-restarted process loads it instead of exporting; on a CUDA device each
-runs as a captured CUDA graph (``core/aot.py``).
+batches), on a CUDA device the eager forward captured as a CUDA graph that
+reads the model's weights where they lie (``core/aot.py``).  Nothing is
+kept on disk: a restart captures again.
 """
 
 from __future__ import annotations
@@ -26,7 +26,6 @@ from typing import Callable
 
 import numpy as np
 import torch
-from torch.func import functional_call
 
 from weather_unet_tpu_torch._device import DeviceLike, resolve_device
 
@@ -51,38 +50,15 @@ class WeatherTransfer:
             self._tier(aot_cache)
 
     def _tier(self, aot_cache) -> None:
-        """Route the three entry points through ``AotJit``: the weights are
-        ARGUMENTS of the exported programs (bound by ``BoundFn``), never
-        constants, so one disk entry serves every checkpoint."""
-        from weather_unet_tpu_torch.core.aot import (
-            AotCache, AotJit, BoundFn, module_signature)
+        """Route the three entry points through ``AotJit``: one program per
+        input shape, a CUDA graph of the eager forward on the card."""
+        from weather_unet_tpu_torch.core.aot import AotCache, AotJit
 
         self.aot = (aot_cache if isinstance(aot_cache, AotCache)
                     else AotCache(aot_cache))
-        model = self.model
-        weights = {**dict(model.named_parameters()),
-                   **dict(model.named_buffers())}
-
-        def fwd(w, x, c):
-            return self._fwd(x, c, w)
-
-        def fwd_u8(w, table, x_u8, c):
-            return self._fwd_u8(x_u8, c, w, table)
-
-        def fwd_all(w, x):
-            return self._fwd_all(x, w)
-
-        sig = module_signature(model)
-
-        def tiered(fn, name, n_bound):
-            return AotJit(fn, self.aot, program=f"{name}\n{sig}",
-                          inplace_argnums=range(n_bound))
-
-        self._translate = BoundFn(tiered(fwd, "translate", 1), weights)
-        self._translate_u8 = BoundFn(tiered(fwd_u8, "translate_u8", 2),
-                                     weights, self._u8_norm)
-        self._translate_all = BoundFn(tiered(fwd_all, "translate_to_classes",
-                                             1), weights)
+        self._translate = AotJit(self._fwd, self.aot)
+        self._translate_u8 = AotJit(self._fwd_u8, self.aot)
+        self._translate_all = AotJit(self._fwd_all, self.aot)
 
     @classmethod
     def load(cls, cp_path: str, num_classes: int = 5,
@@ -92,8 +68,8 @@ class WeatherTransfer:
         checkpoint (``cli.common.load_transfer``).  ``use_pallas``: K1 + K2
         in the decoder, ``"auto"`` resolves to on; ``fuse_upconv``: the
         fused upsample+conv decoder kernel, ``"auto"`` resolves to off.
-        ``aot_cache``: a directory (or ``AotCache``) for the AOT tier; a
-        restarted process loads each bucket's program from disk."""
+        ``aot_cache``: a directory (or ``AotCache``) for the AOT tier, each
+        bucket a CUDA graph on the card."""
         from weather_unet_tpu_torch.cli.common import load_transfer
 
         device = resolve_device(device)
@@ -102,20 +78,15 @@ class WeatherTransfer:
                               device=device)
         return cls(model, device, aot_cache=aot_cache)
 
-    def _fwd(self, x, c, weights=None):
-        """NHWC in, NHWC out, on the device; with ``weights`` (the model's
-        parameters and buffers by name) the model runs on those, as the
-        AOT tier's exported programs take them."""
+    def _fwd(self, x, c):
+        """NHWC in, NHWC out, on the device."""
         x = x.permute(0, 3, 1, 2).contiguous()
-        y = (self.model(x, c) if weights is None
-             else functional_call(self.model, weights, (x, c)))
-        return y.permute(0, 2, 3, 1)
+        return self.model(x, c).permute(0, 2, 3, 1)
 
-    def _fwd_u8(self, x_u8, c, weights=None, table=None):
+    def _fwd_u8(self, x_u8, c):
         # normalize like preprocess() and denormalize like to_uint8(), but on
         # the device: the host<->device wire carries uint8 both ways
-        table = self._u8_norm if table is None else table
-        y = self._fwd(table[x_u8.long()], c, weights)
+        y = self._fwd(self._u8_norm[x_u8.long()], c)
         return ((y.float() + 1.0) * 127.5).clamp(0, 255).to(torch.uint8)
 
     def translate(self, images, conditions, *, bucket: bool = True):
@@ -144,10 +115,10 @@ class WeatherTransfer:
             c = torch.cat([c, c.new_zeros((nb - b,) + c.shape[1:])])
         return fn(x.to(self.device), c.to(self.device))[:b]
 
-    def _fwd_all(self, x, weights=None):
+    def _fwd_all(self, x):
         b, k = x.shape[0], self.model.num_classes
         c = torch.eye(k, device=self.device).repeat_interleave(b, dim=0)
-        out = self._fwd(x.repeat(k, 1, 1, 1), c, weights)
+        out = self._fwd(x.repeat(k, 1, 1, 1), c)
         return out.reshape(k, b, *out.shape[1:])
 
     @torch.inference_mode()

@@ -1,6 +1,6 @@
 """Environment diagnostics -- the port of ``weather_unet_tpu/cli/doctor.py``:
 one command answering "is this host set up to train and serve on the GPU,
-and what will the kernels and the AOT tier use?".
+and what will the kernels use?".
 
     python -m weather_unet_tpu_torch.cli.doctor [--probe] [--json]
     python -m weather_unet_tpu_torch.cli.doctor --goldens [--json]
@@ -8,11 +8,12 @@ and what will the kernels and the AOT tier use?".
 Reports Python, torch and CUDA versions; the GPUs (name, compute
 capability, memory); whether ``nvcc`` is found; the kernel build directory
 (``kernels/_build.py``) and which kernel libraries are built; the native
-runtime's build mode; the ``WUT_*`` environment; the AOT tier's root
-(``core/aot.py``), its fingerprint subdirectories and their entries.
-``--probe`` also times a small tensor's first call and round trip on the
-card.  Without a GPU it says so and exits non-zero: the port's entry points
-run on the GPU, and the CPU is never reported as the device.
+runtime's build mode; the ``WUT_*`` environment.  The JAX doctor's AOT
+cache report has no counterpart: the port's AOT tier (``core/aot.py``)
+keeps nothing on disk.  ``--probe`` also times a small tensor's first call
+and round trip on the card.  Without a GPU it says so and exits non-zero:
+the port's entry points run on the GPU, and the CPU is never reported as
+the device.
 """
 
 from __future__ import annotations
@@ -79,7 +80,6 @@ def collect(probe: bool = False, init_timeout: float = 60.0) -> dict:
     info["platform"] = "gpu"
     info["devices"] = backend["devices"]
     info["device_count"] = len(backend["devices"])
-    _collect_aot(info, torch.device("cuda"))
     if probe:
         x = torch.ones((256, 256), dtype=torch.bfloat16, device="cuda")
         t0 = time.perf_counter()
@@ -95,12 +95,9 @@ def collect(probe: bool = False, init_timeout: float = 60.0) -> dict:
 
 def _collect_host_side(info: dict) -> None:
     """Facts that need no GPU: the compiler, the kernel libraries, the
-    native runtime, the environment, the AOT tier's CPU entries -- still
-    reported when there is no card."""
-    import torch
-
+    native runtime, the environment -- still reported when there is no
+    card."""
     from weather_unet_tpu_torch import runtime
-    from weather_unet_tpu_torch.core.aot import default_cache_dir
     from weather_unet_tpu_torch.kernels import _build
 
     try:
@@ -120,22 +117,6 @@ def _collect_host_side(info: dict) -> None:
         "build_error": runtime.build_error()}
     info["wut_env"] = {k: v for k, v in os.environ.items()
                        if k.startswith("WUT_")}
-    info["aot_cache"] = {"dir": default_cache_dir()}
-    _collect_aot(info, torch.device("cpu"))
-
-
-def _collect_aot(info: dict, device) -> None:
-    """The fingerprint subdirectory of ``device``'s entries under the
-    default root, and how many entries it holds (nothing is created)."""
-    from weather_unet_tpu_torch.core.aot import (
-        ENTRY_SUFFIX, default_cache_dir, fingerprint_dir_name)
-
-    sub = os.path.join(default_cache_dir(), fingerprint_dir_name(device))
-    entries = (len([f for f in os.listdir(sub) if f.endswith(ENTRY_SUFFIX)
-                    and not f.startswith(".")])
-               if os.path.isdir(sub) else 0)
-    info["aot_cache"][device.type] = {"fingerprint_dir": sub,
-                                      "entries": entries}
 
 
 def report_goldens(as_json: bool = False) -> int:

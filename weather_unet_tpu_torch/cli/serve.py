@@ -443,10 +443,9 @@ def build_server(args) -> Server:
     aot = getattr(wt, "aot", None)
     if aot is not None:
         s = aot.stats
-        print(f"aot cache: {s['hits']} loaded from disk "
-              f"({s['load_s']:.1f}s), {s['misses']} exported "
-              f"({s['compile_s']:.1f}s with {s['captures']} CUDA graph "
-              f"captures)", flush=True)
+        print(f"aot tier: {s['programs']} bucket programs, "
+              f"{s['captures']} CUDA graph captures ({s['capture_s']:.2f}s)",
+              flush=True)
     handler = make_handler(batcher, args.classes, args.num_classes,
                            args.input_size, profile_dir=args.profile_dir)
     server = Server((args.host, args.port), handler)
@@ -479,10 +478,9 @@ def build_parser():
                    help=f"1 only; more is not ported yet ({MESH_ITEM})")
     p.add_argument("--no-warmup", dest="warmup", action="store_false")
     p.add_argument("--aot_cache", type=str, default=None,
-                   help="AOT tier directory (core/aot.py): each warmed "
-                        "bucket's exported program is kept there, so a "
-                        "restart loads it instead of exporting; on CUDA "
-                        "each bucket runs as a CUDA graph")
+                   help="AOT tier (core/aot.py): on CUDA each warmed "
+                        "bucket runs as a CUDA graph; nothing is written to "
+                        "the directory")
     p.add_argument("--profile_dir", type=str, default=None,
                    help="enable POST /profile and write torch.profiler "
                         "traces under this directory (client-supplied paths "

@@ -321,3 +321,93 @@ def inception_state_dict(sd, with_logits: bool) -> Dict[str, Any]:
         out.setdefault(key[:-len("running_mean")] + "num_batches_tracked",
                        torch.tensor(0, dtype=torch.long))
     return out
+
+
+# ---------------------------------------------------------------- Adam state
+#
+# optax's ``torch_adam`` / ``gan_adam`` chains (``core/optim.py`` of the JAX
+# package) keep one ``ScaleByAdamState(count, mu, nu)`` among stateless
+# entries: ``(add_decayed_weights, scale_by_adam, scale)`` with weight decay,
+# ``(scale_by_adam, scale)`` without.  Flax stores a chain as a map keyed
+# "0", "1", ... and each state as a map of its fields.  Both sides add the
+# coupled decay before the moments and keep eps outside the square root, so
+# ``mu`` and ``nu`` are ``torch.optim.Adam``'s ``exp_avg`` and
+# ``exp_avg_sq`` as they are, in the weights' layouts; ``count`` is its
+# ``step``.
+
+ADAM_FIELDS = frozenset(("count", "mu", "nu"))
+
+
+def _as_tree(tree):
+    """A live optax/flax state (tuples, namedtuples) as the maps flax writes
+    for it; maps are left as they are."""
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return {k: _as_tree(getattr(tree, k)) for k in tree._fields}
+    if isinstance(tree, (list, tuple)):
+        return {str(i): _as_tree(v) for i, v in enumerate(tree)}
+    if isinstance(tree, dict):
+        return {str(k): _as_tree(v) for k, v in tree.items()}
+    return tree
+
+
+def find_adam_state(opt_state) -> dict:
+    """The ``ScaleByAdamState`` of an optax chain's state, found by its
+    fields (``count``, ``mu``, ``nu``) wherever the chain puts it."""
+    tree = _as_tree(opt_state)
+    if isinstance(tree, dict) and set(tree) == ADAM_FIELDS:
+        return tree
+    found = ([v for v in tree.values()
+              if isinstance(v, dict) and set(v) == ADAM_FIELDS]
+             if isinstance(tree, dict) else [])
+    if len(found) != 1:
+        raise ValueError(f"expected one Adam state (count, mu, nu) in the "
+                         f"optimizer state, found {len(found)} among "
+                         f"{sorted(tree) if isinstance(tree, dict) else tree}")
+    return found[0]
+
+
+def adam_state_from_jax(opt_state, module: torch.nn.Module, from_jax,
+                        collections=None) -> Dict[str, dict]:
+    """optax's Adam state -> ``torch.optim.Adam`` per-parameter states by
+    parameter name: ``{name: {step, exp_avg, exp_avg_sq}}`` (CPU float32
+    tensors, ``step`` a 0-d float tensor).  ``from_jax(variables)`` is the
+    module's converter (``cunet_state_dict_from_jax``, ...): ``mu`` and
+    ``nu`` go through it as ``params``, beside ``collections`` (the
+    ``spectral`` or ``batch_stats`` trees it also reads).  Every trainable
+    parameter the converter emits gets a state; names it only synthesizes
+    (the cUNet's unused ``adain{i}.emb``) are left out."""
+    adam = find_adam_state(opt_state)
+    step = torch.tensor(float(np.asarray(adam["count"])), dtype=torch.float32)
+    extra = dict(collections or {})
+    mu = from_jax({"params": adam["mu"], **extra})
+    nu = from_jax({"params": adam["nu"], **extra})
+    out = {}
+    for name, _ in module.named_parameters():
+        if name not in mu or ".emb." in name:
+            continue
+        out[name] = {"step": step.clone(),
+                     "exp_avg": torch.from_numpy(np.array(_np(mu[name]))),
+                     "exp_avg_sq": torch.from_numpy(np.array(_np(nu[name])))}
+    return out
+
+
+def adam_state_to_jax(optimizer: torch.optim.Adam, module: torch.nn.Module,
+                      to_jax) -> Dict[str, Any]:
+    """``torch.optim.Adam``'s state over ``module`` -> the optax chain state
+    the JAX package's ``torch_adam`` with the same weight decay keeps (the
+    inverse of ``adam_state_from_jax``).  A parameter without an Adam
+    state (frozen, or not stepped yet) gets zero moments, as optax keeps
+    for it; ``count`` is the largest ``step``."""
+    decay = any(g.get("weight_decay") for g in optimizer.param_groups)
+    sd = {k: v.detach() for k, v in module.state_dict().items()}
+    mu, nu, count = dict(sd), dict(sd), 0
+    for name, p in module.named_parameters():
+        st = optimizer.state.get(p) or {}
+        mu[name] = st.get("exp_avg", torch.zeros_like(p))
+        nu[name] = st.get("exp_avg_sq", torch.zeros_like(p))
+        if "step" in st:
+            count = max(count, int(st["step"]))
+    adam = {"count": np.asarray(count, np.int32),
+            "mu": to_jax(mu)["params"], "nu": to_jax(nu)["params"]}
+    chain = [{}, adam, {}] if decay else [adam, {}]
+    return {str(i): s for i, s in enumerate(chain)}

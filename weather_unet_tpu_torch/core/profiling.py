@@ -4,10 +4,11 @@
 ``trace(dir)`` wraps ``torch.profiler`` (host and, where there is a GPU,
 CUDA activity) and writes a Chrome trace under ``dir`` (viewable in
 Perfetto or ``chrome://tracing``); ``StepTimer`` records wall-clock per
-step and reports p50/p90/mean.  ``_host_fingerprint`` keys what the AOT
-tier (``core/aot.py``) stores per host on the CPU, and ``_prune_stale_cache``
-clears that tier's root of fingerprint directories whose manifest
-disagrees with their name.
+step and reports p50/p90/mean.  ``_host_fingerprint`` and
+``_prune_stale_cache`` are the JAX module's helpers of its AOT cache's disk
+layout, held to it by the tests; the port's AOT tier (``core/aot.py``)
+keeps nothing on disk, so no path of the port calls them (``ROADMAP.md``
+queue 1 item 11).
 
 The JAX module's persistent-compile-cache and XLA:CPU AOT-loader helpers
 (``enable_compilation_cache``, ``install_aot_loader_guard``,

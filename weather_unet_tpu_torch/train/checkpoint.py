@@ -7,16 +7,20 @@ As in the JAX package (SURVEY.md §5): GAN runs save every 1000 steps under
 state is saved too, so a resume is exact.  One file per save,
 ``ckpt_s{step:010d}.pt`` (``torch.save`` of a dict of tensors and numbers,
 loaded with ``weights_only=True``), written under a unique temporary name
-and renamed into place; the newest name wins.  ``export_torch_gan`` writes
+and renamed into place; the newest step wins.  ``export_torch_gan`` writes
 the reference's ``.pt`` GAN bundle; ``supervised_tree`` /
 ``restore_supervised`` hold the supervised loop's state.
 
-The JAX package's checkpoints are flax msgpack files; ``msgpack_restore`` /
-``restore_checkpoint`` read them and ``to_bytes`` / ``save_checkpoint_file``
-write the same bytes as flax, with ``msgpack`` alone (no flax, no JAX).
-Resuming a JAX *training* run from one (optax's Adam state into
-``torch.optim.Adam``) is not ported yet (``ROADMAP.md`` queue 1, "JAX
-training state"); serving and evaluation read its weights.
+The JAX package's checkpoints are flax msgpack files,
+``ckpt_s{step:010d}.msgpack``; ``msgpack_restore`` / ``read_msgpack`` read
+them and ``to_bytes`` / ``save_checkpoint_file`` write the same bytes as
+flax, with ``msgpack`` alone (no flax, no JAX).  ``latest_checkpoint``
+finds both kinds, so a port trainer pointed at a JAX run's ``save_dir``
+resumes it: ``restore_checkpoint`` / ``restore_supervised`` load the JAX
+package's ``GanTrainState`` and supervised layouts (weights, optax's Adam
+state, the ``spectral`` collection, the counters) through
+``compat/torch_io.py``.  ``gan_tree_to_jax`` / ``supervised_tree_to_jax``
+are the inverses; the port's trainers keep writing ``.pt``.
 """
 
 from __future__ import annotations
@@ -31,9 +35,14 @@ import msgpack
 import numpy as np
 import torch
 
+from weather_unet_tpu_torch.compat.torch_io import (
+    adam_state_from_jax, adam_state_to_jax, cunet_state_dict_from_jax,
+    cunet_state_dict_to_jax, resnet_state_dict_from_jax,
+    resnet_state_dict_to_jax, sndisc_state_dict_from_jax,
+    sndisc_state_dict_to_jax)
 from weather_unet_tpu_torch.core.state import GanTrainState, TrainState
 
-_CKPT_RE = re.compile(r"ckpt_s\d+\.pt$")
+_CKPT_RE = re.compile(r"ckpt_s(\d+)\.(pt|msgpack)$")
 
 
 def _to_host(tree):
@@ -63,12 +72,15 @@ def _write(path: str, host_tree: Any) -> str:
 
 
 def latest_checkpoint(directory: str, name: str) -> Optional[str]:
-    """Path of the newest checkpoint under ``directory/name``, or None."""
+    """Path of the newest checkpoint under ``directory/name`` -- the port's
+    ``.pt`` or the JAX package's ``.msgpack`` -- by the step in its name;
+    at one step the ``.pt`` wins.  None when there is none."""
     out_dir = os.path.join(directory, name)
     if not os.path.isdir(out_dir):
         return None
-    cands = sorted(f for f in os.listdir(out_dir) if _CKPT_RE.match(f))
-    return os.path.join(out_dir, cands[-1]) if cands else None
+    cands = [(int(m.group(1)), m.group(2) == "pt", f)
+             for f in os.listdir(out_dir) if (m := _CKPT_RE.match(f))]
+    return os.path.join(out_dir, max(cands)[2]) if cands else None
 
 
 def gan_tree(state: GanTrainState, seed: int) -> dict:
@@ -91,15 +103,13 @@ def restore_checkpoint(path: str, state: Optional[GanTrainState] = None):
 
     A path that does not end in ``.pt``/``.pth`` is a JAX-package flax
     msgpack file, as in ``weather_unet_tpu/cli/common.py``: its raw nested
-    dict comes back (``read_msgpack``); loading one into ``state`` is not
-    ported yet."""
+    dict comes back (``read_msgpack``), and with ``state`` it is loaded as
+    the JAX package's ``GanTrainState`` (``_load_jax_gan``)."""
     if not path.endswith((".pt", ".pth")):
+        tree = read_msgpack(path)
         if state is not None:
-            raise NotImplementedError(
-                f"{path}: resuming a JAX training run from its msgpack "
-                f"checkpoint is not ported yet ({JAX_STATE_ITEM}); the "
-                f"weights load for serving and evaluation")
-        return read_msgpack(path)
+            _load_jax_gan(path, tree, state)
+        return tree
     tree = torch.load(path, map_location="cpu", weights_only=True)
     if state is not None:
         for ts, key in ((state.gen, "gen"), (state.disc, "disc")):
@@ -126,7 +136,12 @@ def supervised_tree(state: TrainState, epoch: int, global_step: int,
 
 def restore_supervised(path: str, state: TrainState) -> dict:
     """Load a ``supervised_tree`` checkpoint into the state's module and
-    optimizer (on their devices) and update count.  Returns the tree."""
+    optimizer (on their devices) and update count.  Returns the tree.  A
+    msgpack file is the JAX package's supervised layout
+    (``_load_jax_supervised``); its tree comes back with ``epoch``,
+    ``global_step`` and ``epoch_step`` as the resume reads them."""
+    if not path.endswith((".pt", ".pth")):
+        return _load_jax_supervised(path, read_msgpack(path), state)
     tree = torch.load(path, map_location="cpu", weights_only=True)
     state.module.load_state_dict(tree["model"], strict=True)
     state.optimizer.load_state_dict(tree["opt"])
@@ -222,7 +237,6 @@ def export_torch_gan(path: str, gen, disc, epoch: int,
 # (real, imag).  Leaves over MAX_CHUNK_SIZE bytes are split into
 # ``{CHUNKED: True, "shape": {...}, "chunks": {...}}`` maps of flat pieces.
 
-JAX_STATE_ITEM = "ROADMAP.md queue 1, 'JAX training state'"
 MAX_CHUNK_SIZE = 2 ** 30
 CHUNKED = "__msgpack_chunked_array__"
 _EXT_NDARRAY, _EXT_COMPLEX, _EXT_NPSCALAR = 1, 2, 3
@@ -394,3 +408,169 @@ def save_checkpoint_file(path: str, tree: Any) -> str:
         f.write(to_bytes(_host_tree(tree)))
     os.replace(tmp, path)
     return path
+
+
+# ------------------------------------------------- the JAX package's layouts
+#
+# ``weather_unet_tpu/core/state.py``: a ``GanTrainState`` is ``gen`` and
+# ``disc`` (each a ``TrainState``: ``params``, ``opt_state``, ``extra``,
+# ``step``), ``spectral`` (SNDisc's ``u`` vectors), ``epoch`` and
+# ``global_step``.  The supervised loop saves ``params``, ``batch_stats``,
+# ``opt_state``, ``epoch``, ``global_step`` and ``epoch_step``
+# (``weather_unet_tpu/train/loops.py:593-620``).  A file is loaded only once
+# its whole tree fits the state (the same keys, leaves of the same shapes);
+# otherwise the first key that differs is named and nothing is loaded.
+
+def _leaf_shape(x):
+    if x is None:
+        return None
+    if isinstance(x, torch.Tensor):
+        return tuple(x.shape)
+    return tuple(np.shape(x))
+
+
+def _first_difference(got, want, path: str = "") -> Optional[str]:
+    """The first path, in sorted key order, where ``got`` and ``want``
+    differ in their keys or in a leaf's shape; None where they agree."""
+    if isinstance(want, dict) or isinstance(got, dict):
+        if not (isinstance(want, dict) and isinstance(got, dict)):
+            return f"{path or '/'} (a map on one side only)"
+        for k in sorted(set(got) | set(want)):
+            if k not in got:
+                return f"{path}/{k} (missing from the file)"
+            if k not in want:
+                return f"{path}/{k} (not in the state)"
+            diff = _first_difference(got[k], want[k], f"{path}/{k}")
+            if diff is not None:
+                return diff
+        return None
+    a, b = _leaf_shape(got), _leaf_shape(want)
+    if a != b:
+        return f"{path} (shape {a} in the file, {b} in the state)"
+    return None
+
+
+def _require_fit(path: str, tree, want) -> None:
+    diff = _first_difference(tree, want)
+    if diff is not None:
+        raise ValueError(f"{path} does not fit the training state: {diff}; "
+                         f"nothing was loaded")
+
+
+def _tensors_of(sd: dict) -> dict:
+    return {k: v if isinstance(v, torch.Tensor)
+            else torch.from_numpy(np.array(v)) for k, v in sd.items()}
+
+
+def _gan_nets(state: GanTrainState):
+    return ((state.gen, "gen", cunet_state_dict_from_jax,
+             cunet_state_dict_to_jax),
+            (state.disc, "disc", sndisc_state_dict_from_jax,
+             sndisc_state_dict_to_jax))
+
+
+def gan_tree_to_jax(state: GanTrainState) -> dict:
+    """The state as the JAX package saves a ``GanTrainState``: each
+    network's params and optax Adam state, ``spectral``, the counters
+    (numpy leaves; ``save_checkpoint_file`` writes it as flax does)."""
+    tree = {"epoch": state.epoch, "global_step": state.global_step}
+    for ts, key, _, to_jax in _gan_nets(state):
+        variables = to_jax(ts.module.state_dict())
+        tree[key] = {"params": variables["params"], "extra": None,
+                     "opt_state": adam_state_to_jax(ts.optimizer, ts.module,
+                                                    to_jax),
+                     "step": ts.step}
+        if "spectral" in variables:
+            tree["spectral"] = variables["spectral"]
+    return tree
+
+
+def _load_adam(optimizer: torch.optim.Optimizer, module: torch.nn.Module,
+               by_name: dict) -> None:
+    """Replace the optimizer's state with ``by_name``'s per-parameter
+    states, on each parameter's device (``step`` too where the group is
+    ``capturable``); a parameter without one starts fresh."""
+    names = {p: n for n, p in module.named_parameters()}
+    for group in optimizer.param_groups:
+        on_device = group.get("capturable") or group.get("fused")
+        for p in group["params"]:
+            st = by_name.get(names[p])
+            if st is None:
+                optimizer.state.pop(p, None)
+                continue
+            optimizer.state[p] = {
+                k: (v.to(p.device) if k != "step" or on_device else v)
+                for k, v in st.items()}
+
+
+def _load_jax_gan(path: str, tree: dict, state: GanTrainState) -> None:
+    """Load a JAX ``GanTrainState`` tree: weights through the converters
+    (the cUNet's unused ``adain{i}.emb``, absent from JAX, keeps its
+    value), Adam's moments and count, ``u`` (``weight_v`` recomputed from
+    it), both update counts, the epoch and the global step."""
+    _require_fit(path, tree, gan_tree_to_jax(state))
+    loads = []
+    for ts, key, from_jax, _ in _gan_nets(state):
+        sub = tree[key]
+        coll = {"spectral": tree["spectral"]} if key == "disc" else {}
+        current = ts.module.state_dict()
+        sd = {k: current[k] if ".emb." in k else v for k, v in
+              _tensors_of(from_jax({"params": sub["params"], **coll}))
+              .items()}
+        adam = adam_state_from_jax(sub["opt_state"], ts.module, from_jax,
+                                   coll)
+        loads.append((ts, sd, adam, int(np.asarray(sub["step"]))))
+    for ts, sd, adam, step in loads:
+        ts.module.load_state_dict(sd, strict=True)
+        _load_adam(ts.optimizer, ts.module, adam)
+        ts.step = step
+    state.epoch = int(np.asarray(tree["epoch"]))
+    state.global_step = int(np.asarray(tree["global_step"]))
+
+
+def supervised_tree_to_jax(state: TrainState, epoch: int, global_step: int,
+                           epoch_step: int = 0) -> dict:
+    """A ResNet's supervised state as the JAX package's loop saves it
+    (the inverse of ``_load_jax_supervised``'s newest layout)."""
+    variables = resnet_state_dict_to_jax(state.module.state_dict())
+    return {"params": variables["params"],
+            "batch_stats": variables["batch_stats"],
+            "opt_state": adam_state_to_jax(state.optimizer, state.module,
+                                           resnet_state_dict_to_jax),
+            "epoch": epoch, "global_step": global_step,
+            "epoch_step": epoch_step}
+
+
+# the JAX loop's layouts, newest first, by the fields each lacks
+_SUPERVISED_LAYOUTS = ((), ("epoch_step",), ("epoch_step", "opt_state"))
+
+
+def _load_jax_supervised(path: str, tree: dict, state: TrainState) -> dict:
+    """Load the JAX supervised loop's checkpoint into a ResNet's state, in
+    any of the three layouts that loop accepts: the newest; the one
+    without ``epoch_step`` (the resume starts the epoch over); the oldest,
+    params-only one, whose ``epoch`` is the epoch it completed (so the
+    resume starts at ``epoch + 1``) and which keeps the optimizer's
+    current state.  BatchNorm's ``num_batches_tracked``, which JAX does not
+    keep, and the update count become the global step."""
+    full = supervised_tree_to_jax(state, 0, 0, 0)
+    drop = next((d for d in _SUPERVISED_LAYOUTS
+                 if set(tree) == set(full) - set(d)), ())
+    _require_fit(path, tree, {k: v for k, v in full.items()
+                              if k not in drop})
+    global_step = int(np.asarray(tree["global_step"]))
+    variables = {"params": tree["params"],
+                 "batch_stats": tree["batch_stats"]}
+    sd = _tensors_of(resnet_state_dict_from_jax(variables))
+    for k in [k for k in sd if k.endswith("num_batches_tracked")]:
+        sd[k] = torch.tensor(global_step, dtype=torch.long)
+    adam = (None if "opt_state" in drop else adam_state_from_jax(
+        tree["opt_state"], state.module, resnet_state_dict_from_jax,
+        {"batch_stats": tree["batch_stats"]}))
+    state.module.load_state_dict(sd, strict=True)
+    if adam is not None:
+        _load_adam(state.optimizer, state.module, adam)
+    state.step = global_step
+    epoch = int(np.asarray(tree["epoch"])) + ("opt_state" in drop)
+    return {"epoch": epoch, "global_step": global_step,
+            "epoch_step": int(np.asarray(tree.get("epoch_step", 0)))}

@@ -7,9 +7,12 @@ steps, data, checkpoints, preemption and summaries on one device.
 ``aot_cache`` puts the steps through the AOT tier (``core/aot.py``): on a
 CUDA device each step program (the trainer's D-only and D+G steps, the
 supervised step) is captured once as a CUDA graph of its whole forward,
-backward and Adam update (Adam made ``capturable``) and replayed each step;
-steps have no disk tier.  ``profile_dir`` traces ``fit`` with
+backward and Adam update (Adam made ``capturable``) and replayed each step.  ``profile_dir`` traces ``fit`` with
 ``torch.profiler`` (``core/profiling.py::trace``).
+
+Both loops auto-resume from the newest checkpoint under ``save_dir/name``:
+the port's ``.pt`` or the JAX package's ``.msgpack``, so a JAX run's
+directory resumes here (``train/checkpoint.py``); the loops write ``.pt``.
 
 Not ported yet (``ROADMAP.md`` queue 1 item 4), and refused with the item's
 name when asked for: the mesh and tensor parallelism (``plan``,
@@ -51,14 +54,13 @@ def _tiered_steps(fns, aot_cache):
     programs ``program(state, *inputs) -> metrics``; returns ``(callables,
     cache)``, the programs through ``AotJit`` with the state updated in
     place and the shared ``AotCache``, or the programs themselves and None
-    without ``aot_cache``.  No disk tier: a CUDA graph cannot outlive its
-    process (``core/aot.py``)."""
+    without ``aot_cache``.  Nothing is kept on disk: a CUDA graph cannot
+    outlive its process (``core/aot.py``)."""
     if aot_cache is None:
         return list(fns), None
     cache = (aot_cache if isinstance(aot_cache, AotCache)
              else AotCache(aot_cache))
-    return [AotJit(fn, cache, inplace_argnums=(0,), disk=False)
-            for fn in fns], cache
+    return [AotJit(fn, cache, inplace_argnums=(0,)) for fn in fns], cache
 
 
 def _nhwc(t: torch.Tensor) -> np.ndarray:
@@ -176,7 +178,8 @@ class WeatherTransferTrainer:
             set_capturable(ts.optimizer, self._capturable)
 
     def _restore(self, path: str):
-        """Restore ``path`` into the state.  The modules load in place, but
+        """Restore ``path`` (the port's ``.pt`` or a JAX ``GanTrainState``
+        ``.msgpack``) into the state.  The modules load in place, but
         the optimizers' load replaces their state tensors, so the step
         programs' graphs (captured on the old ones) are dropped and
         captured again at the next step."""
