@@ -146,8 +146,12 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                tests/test_training_dynamics.py (readback below 0.60 of the
                untrained G's and 0.45 of the no-transfer baseline,
                reconstruction L1 below 0.5); prints each report's readback
-               and img/s and the first step where the runs' d_loss or
-               g_loss part by more than 1e-3 relative; K1 and K2 counted
+               and img/s (over the run so far, and each window's alone:
+               the graphed run's first holds its capture, whose seconds
+               are printed), the card's SM clock, power and utilization
+               range from nvidia-smi during each run, and the first step
+               where the runs' d_loss or g_loss part by more than 1e-3
+               relative; K1 and K2 counted
                in the eager run, and in the graphed run from the replayed
                graphs' nodes (6 + 6 a step).
 7b. jax_resume -- the GAN trainer at full width (use_pallas G, SNDisc, the
@@ -312,10 +316,13 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                224x224, max_batch 16) against a server without the tier,
                96 POSTs from 8 clients in turns (plain, tier, tier,
                plain), start-up seconds of a tiered and a plain server
-               in a young process as a restarted server is: the tier's
-               first start, then three warm starts of each in turns (the
-               warm tier's median within 0.3 s of the plain one's; no file
-               written), and in this process; the GAN trainer
+               in this process; as a restart makes them, each after one
+               untimed plain start in a young process (two processes,
+               plain then tier and tier then plain, so each tiered start
+               holds its process's first captures), run right after phase
+               build while this process holds nothing on the card: the
+               tier's median within 0.3 s of the plain one's, no file
+               written; the GAN trainer
                with aot_cache at 224x224, B=8, est mode, use_pallas G,
                K4-routed bf16 estimator: bf16 step ms (median of 10 in
                turns with the eager trainer), img/s, device busy share,
@@ -433,6 +440,8 @@ CUTS = ["eval_inception: the Frechet distance (a 2048x2048 host sqrtm) in "
         "eval_export_parity: the artifact at batches 1 and 16, not 1, 3 "
         "and 16",
         "dynamics: 120 steps of the demo (its default is 2000)",
+        "serving_cli: the demo CLI at 2 frames, not 5 (its GIF encode on "
+        "the host took ~25 s)",
         "aot_doctor: the doctor's main in this process, not a child "
         "process"]
 
@@ -3062,8 +3071,8 @@ def phase_cli(files, world, counters, launch_totals, smi, device, size):
          lambda: len(os.listdir(f"{out}/inf_c")) == 5 * n),
         ("demo", ["--input_dir", world["demo"], "--cp_path", cp,
                   "--estimator_path", est, "--num_classes", "5",
-                  "--batch_size", "8", "--num_frames", "5", "--output_dir",
-                  f"{out}/demo"], 5 * 5 * 16, 2 * 5,
+                  "--batch_size", "8", "--num_frames", "2", "--output_dir",
+                  f"{out}/demo"], 2 * 5 * 16, 2 * 2,
          lambda: sorted(os.listdir(f"{out}/demo")) == ["output0.gif",
                                                        "output1.gif"]),
         ("inf_transfer_e", ["--image_root", world["photos"], "--pkl_path",
@@ -3885,7 +3894,7 @@ def aot_serving(tmp, smi, graph_totals):
 SERVER_START_CHILD = r"""
 import contextlib, io, json, sys, time
 from weather_unet_tpu_torch.cli import serve
-cache_dir, argv = sys.argv[1], sys.argv[2:]
+cache_dir, order, argv = sys.argv[1], sys.argv[2].split(","), sys.argv[3:]
 def start(extra):
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
@@ -3895,41 +3904,91 @@ def start(extra):
     aot = server.transfer.aot
     server.server_close()
     return seconds, None if aot is None else dict(aot.stats)
-tier = ["--aot_cache", cache_dir]
 start([])     # the process's first CUDA, cuDNN and cuBLAS uses, untimed
-# the process's first captures (a cold start of the tier)
-out = {"tier_first": start(tier)[0], "plain": [], "tier": []}
-for what in ("plain", "tier") * 3:       # warm starts, in turns
-    seconds, stats = start(tier if what == "tier" else [])
-    out[what].append(seconds)
-    out[what + "_stats"] = stats
+import torch
+out = {"free_gib": torch.cuda.mem_get_info()[0] / 2**30}
+for what in order:
+    out[what], out[what + "_stats"] = start(
+        ["--aot_cache", cache_dir] if what == "tier" else [])
+out["alloc_retries"] = torch.cuda.memory_stats().get("num_alloc_retries", 0)
 print(json.dumps(out))
 """
+START_BAR_S = 0.3         # a restarted tiered server against a plain one
 
 
-def server_starts_in_child(cache_dir, argv):
+def server_starts(cache_dir, argv, pairs):
     """Server start-ups (``build_server``: load, a warm-up of every bucket,
-    with the tier its captures) in a young process, as a restarted server
-    is one: after one untimed plain start that pays the process's first
-    uses of the CUDA libraries, the tier's first start (the process's first
-    captures), then three warm starts of each in turns."""
-    proc = subprocess.run(
-        [sys.executable, "-c", SERVER_START_CHILD, cache_dir, *argv],
-        capture_output=True, text=True, timeout=300)
-    if proc.returncode != 0:
-        raise AssertionError(f"server start child: rc {proc.returncode}: "
-                             f"{proc.stderr[-2000:]}")
-    return json.loads(proc.stdout.strip().splitlines()[-1])
+    with the tier its captures) as a restarted server makes them: each in
+    a young process, after one untimed plain start that pays the process's
+    first uses of the CUDA libraries, so every tiered start holds the
+    process's first captures.  ``pairs`` times two child processes, one
+    timing a plain start and then a tiered one, the other the reverse, so
+    that each kind is timed as often second as third.  Returns the plain
+    and the tiered seconds, the tier's counters, and the difference of the
+    medians."""
+    out = {"plain": [], "tier": [], "order": []}
+    for i in range(2 * pairs):
+        order = ("plain", "tier") if i % 2 == 0 else ("tier", "plain")
+        proc = subprocess.run(
+            [sys.executable, "-c", SERVER_START_CHILD,
+             f"{cache_dir}_{i}", ",".join(order), *argv],
+            capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(f"server start child: rc {proc.returncode}: "
+                                 f"{proc.stderr[-2000:]}")
+        got = json.loads(proc.stdout.strip().splitlines()[-1])
+        for what in order:
+            out[what].append(got[what])
+        out["order"].append(",".join(order))
+        for k in ("free_gib", "alloc_retries"):
+            out.setdefault(k, []).append(got[k])
+        out["tier_stats"] = got["tier_stats"]
+    out["tier_minus_plain_s"] = float(np.median(out["tier"])
+                                      - np.median(out["plain"]))
+    return out
+
+
+def aot_server_starts(smi, pairs=1):
+    """Phase aot's server restarts, run right after the build, while this
+    process holds nothing on the card, as a restarted server's host does:
+    ``server_starts`` of serve --aot_cache against a plain server (bf16,
+    224x224, max_batch 16, a seeded random cUNet), ``pairs`` pairs of
+    young processes.  The tier's median within START_BAR_S of the plain
+    one's, five captures a tiered start, no file written."""
+    from weather_unet_tpu_torch.cli import serve
+    from weather_unet_tpu_torch.models import ConditionalUNet
+
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.manual_seed(SEED + 31)
+        pt = os.path.join(tmp, "server_cunet.pt")
+        torch.save({"inference": ConditionalUNet(5).state_dict()}, pt)
+        cache_dir = os.path.join(tmp, "aot")
+        got = server_starts(cache_dir, [
+            "--cp_path", pt, "--host", "127.0.0.1", "--port", "0",
+            "--input_size", "224", "--max_batch", "16", "--bf16"], pairs)
+        wrote = sorted(n for n in os.listdir(tmp) if n.startswith("aot"))
+    rec = {"phase": "aot_server_starts", "card": smi, "dtype": "bfloat16",
+           "size": 224, "max_batch": 16, **got, "wrote": wrote}
+    emit(rec)
+    n_buckets = len(serve.warmup_buckets(16))
+    failed = []
+    if not rec["tier_minus_plain_s"] <= START_BAR_S:
+        failed.append(f"tier restarts {rec['tier']} s against plain ones' "
+                      f"{rec['plain']} s")
+    if (rec["tier_stats"]["programs"],
+            rec["tier_stats"]["captures"]) != (n_buckets, n_buckets):
+        failed.append(f"tier stats {rec['tier_stats']}")
+    if wrote:
+        failed.append(f"the tier wrote {wrote}")
+    require("aot server starts", rec, failed)
 
 
 def aot_server(tmp, smi):
     """serve --aot_cache (bf16, 224x224, max_batch 16) against a server
-    without the tier: start-up seconds of each in a young process, the
-    tier's first start and three warm starts of each in turns (the warm
-    tier's median within 0.3 s of the plain one's: a CUDA graph per bucket
-    and no disk tier), and, for the record, in this process; then the same
-    96 POSTs of the i2w world's photos from 8 clients, in turns (plain,
-    tier, tier, plain)."""
+    without the tier: start-up seconds of each in this process, for the
+    record (``aot_server_starts`` holds a restart's), and no file written;
+    then the same 96 POSTs of the i2w world's photos from 8 clients, in
+    turns (plain, tier, tier, plain)."""
     import urllib.request
 
     from weather_unet_tpu_torch.cli import serve
@@ -3953,12 +4012,6 @@ def aot_server(tmp, smi):
     rec = {"phase": "aot_server", "card": smi, "dtype": "bfloat16",
            "requests": SERVE_REQUESTS, "clients": SERVE_CLIENTS,
            "size": 224, "max_batch": 16}
-    child = server_starts_in_child(os.path.join(tmp, "child_aot"),
-                                   base_args)
-    for what in ("plain", "tier"):
-        rec[f"{what}_young_process_startup_s"] = child[what]
-    rec["tier_young_process_first_startup_s"] = child["tier_first"]
-    rec["tier_young_process_stats"] = child["tier_stats"]
     servers = {}
     try:
         for what, extra in (("tier_cold", ["--aot_cache", cache_dir]),
@@ -4010,15 +4063,10 @@ def aot_server(tmp, smi):
     failed = []
     if not (ok and rec["max_mean_step_tier_vs_plain"] <= 1.0):
         failed.append("answers")
-    for what in ("tier_cold", "tier", "tier_young_process"):
+    for what in ("tier_cold", "tier"):
         st = rec[f"{what}_stats"]
         if (st["programs"], st["captures"]) != (n_buckets, n_buckets):
             failed.append(f"{what} stats {st}")
-    if not (np.median(rec["tier_young_process_startup_s"])
-            <= np.median(rec["plain_young_process_startup_s"]) + 0.3):
-        failed.append("tier restarts "
-                      f"{rec['tier_young_process_startup_s']} s against "
-                      f"plain ones' {rec['plain_young_process_startup_s']} s")
     if os.path.exists(cache_dir):
         failed.append(f"the tier wrote {os.listdir(cache_dir)}")
     require("aot server", rec, failed)
@@ -4466,6 +4514,42 @@ def learned(run):
             and recon < 0.5 and np.isfinite(run["losses"]).all())
 
 
+@contextlib.contextmanager
+def smi_samples(every_ms=250):
+    """The card's SM clock (MHz), power draw (W) and utilization (%) from
+    nvidia-smi every ``every_ms`` while the block runs; yields a dict that
+    holds each one's minimum and maximum once the block ends."""
+    fields = ("clocks.sm", "power.draw", "utilization.gpu")
+    proc = subprocess.Popen(
+        ["nvidia-smi", f"--query-gpu={','.join(fields)}",
+         "--format=csv,noheader,nounits", "-lms", str(every_ms)],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    out = {}
+    try:
+        yield out
+    finally:
+        proc.terminate()
+        text = proc.communicate(timeout=30)[0]
+        rows = [[float(v) for v in line.split(",")]
+                for line in text.strip().splitlines()
+                if line.count(",") == len(fields) - 1]
+        for name, col in zip(("sm_mhz", "power_w", "util_pct"),
+                             zip(*rows) if rows else ((),) * len(fields)):
+            out[name] = [min(col), max(col)] if col else None
+        out["samples"] = len(rows)
+
+
+def window_rates(reports, batch):
+    """img/s of each report window, from the demo's rates over the steps
+    so far: a window's steps over the time it added."""
+    out, done, elapsed = [], 0, 0.0
+    for r in reports:
+        until = r["step"] * batch / r["img_per_s"]
+        out.append((r["step"] - done) * batch / (until - elapsed))
+        done, elapsed = r["step"], until
+    return out
+
+
 def phase_dynamics(counters, launch_totals, smi):
     """Sub-phase dynamics: the synthetic weather demo (the port's GAN step,
     the use_pallas generator: K1 and K2) at 64x64, batch 32, bfloat16, 120
@@ -4485,13 +4569,15 @@ def phase_dynamics(counters, launch_totals, smi):
                 if what == "graph" else [])
             KeptGraph.replayed = []
             try:
-                t0 = time.perf_counter()
-                runs[what] = demo.run(argv, log=lambda _: None)
-                torch.cuda.synchronize()
-                rec[f"{what}_s"] = time.perf_counter() - t0
+                with smi_samples() as card:
+                    t0 = time.perf_counter()
+                    runs[what] = demo.run(argv, log=lambda _: None)
+                    torch.cuda.synchronize()
+                    rec[f"{what}_s"] = time.perf_counter() - t0
                 replayed = KeptGraph.replayed
             finally:
                 KeptGraph.replayed = None
+            rec[f"{what}_card"] = card
             rec[f"{what}_replay_launches"] = (
                 replayed_kernels(replayed) if replayed else None)
             rec[f"{what}_captures"] = watch["captures"][0]
@@ -4508,6 +4594,10 @@ def phase_dynamics(counters, launch_totals, smi):
                                "img_per_s")} for r in run["reports"]]
         rec[f"{what}_final"] = run["final"]
         rec[f"{what}_img_per_s"] = run["reports"][-1]["img_per_s"]
+        # the first window holds the graphed run's capture
+        rec[f"{what}_window_img_per_s"] = window_rates(
+            run["reports"], int(DYN_ARGS[DYN_ARGS.index("--batch") + 1]))
+        rec[f"{what}_aot"] = run["aot"]
         rec[f"{what}_learned"] = bool(learned(run))
     a, b = runs["eager"]["losses"], runs["graph"]["losses"]
     rel = np.abs(a - b) / np.maximum(np.maximum(np.abs(a), np.abs(b)),
@@ -4779,6 +4869,7 @@ def main():
 
     smi = phase_env()
     phase_build()
+    aot_server_starts(smi)
     summary = phase_kernels()
 
     launch_totals = {k: 0 for k in counters}

@@ -76,9 +76,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 def run(argv=None, log=print) -> dict:
     """Train and report; returns ``{"base_err", "start_err", "reports",
-    "losses", "final"}``: ``start_err`` the untrained generator's readback,
-    ``reports`` one dict per report line, ``losses`` every step's
-    ``(d_loss, g_loss)``."""
+    "losses", "final", "aot"}``: ``start_err`` the untrained generator's
+    readback, ``reports`` one dict per report line (its ``img_per_s`` over
+    the steps so far, the first one's capture included with
+    ``--aot_cache``), ``losses`` every step's ``(d_loss, g_loss)``, ``aot``
+    the tier's counters (``core/aot.py``; None without it)."""
     args = build_parser().parse_args(argv)
 
     import torch
@@ -107,9 +109,10 @@ def run(argv=None, log=print) -> dict:
     gen, disc, state = build_gan_state(cfg, 0, device,
                                        use_pallas=device.type == "cuda")
     step = make_gan_step(gen, disc, est_apply, cfg)
+    cache = None
     if args.aot_cache is not None:
         programs = step.programs
-        (programs[True], programs[False]), _ = _tiered_steps(
+        (programs[True], programs[False]), cache = _tiered_steps(
             [programs[True], programs[False]], args.aot_cache)
         for ts in (state.gen, state.disc):
             set_capturable(ts.optimizer, device.type == "cuda")
@@ -178,7 +181,8 @@ def run(argv=None, log=print) -> dict:
                                for d, g, _ in metrics]).cpu().numpy()
     return {"base_err": base_err, "start_err": start_err, "reports": reports,
             "losses": losses_host, "final": {"readback": err,
-                                             "recon_l1": recon}}
+                                             "recon_l1": recon},
+            "aot": None if cache is None else dict(cache.stats)}
 
 
 def main(argv=None):

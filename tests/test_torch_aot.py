@@ -3,7 +3,8 @@ against the JAX package's (``weather_unet_tpu/core/aot.py``) where a
 counterpart exists, mirroring ``tests/test_aot.py``: one program per shape;
 ``WeatherTransfer(aot_cache=)`` and ``serve --aot_cache``; the GAN trainer
 and ``train_supervised`` with the tier; restores into the state a graph
-would hold; no use of the tier writes or reads a program file.
+would hold, from the port's checkpoints and the JAX package's layout; no
+use of the tier writes or reads a program file; one capture at a time.
 
 On the CPU there is no CUDA graph: the per-shape programs run as on the
 card, and the port with the tier equals the port without it bit for bit.  Against the JAX package (on one CPU device): serving
@@ -15,6 +16,9 @@ bound, u 1e-4, BatchNorm statistics 1e-5).
 
 import os
 import shutil
+import sys
+import threading
+import time
 
 import numpy as np
 import jax
@@ -86,6 +90,62 @@ def test_aotjit_one_program_per_shape_and_bounded_memo(tmp_path):
                                                x)), rtol=1e-6)
     aj.reset()
     assert aj._cache_size() == 0 and not os.path.exists(tmp_path / "x")
+
+
+@pytest.mark.parametrize("entry_points", [1, 2])
+def test_captures_of_one_cache_take_turns(monkeypatch, entry_points):
+    """Threads reach new shapes at once, through one entry point or
+    through two that share an ``AotCache`` (a ``WeatherTransfer``'s
+    ``translate`` and ``translate_u8``): their warm-ups and captures, which
+    run on the cache's one side stream, never overlap, and each shape is
+    captured once.  The capture is stood in for here (there is no CUDA
+    graph on the CPU), and the check is of the cache's turn-taking around
+    it; more threads than cores, with a short switch interval."""
+    inside, seen, lock = [0], [], threading.Lock()
+
+    class Capture:
+        def __init__(self, fn, args, inplace, stream):
+            with lock:
+                inside[0] += 1
+                seen.append(inside[0])
+            time.sleep(0.02)
+            with lock:
+                inside[0] -= 1
+            self.fn = fn
+
+        def __call__(self, *args):
+            return self.fn(*args)
+
+    monkeypatch.setattr(aot, "_Graphed", Capture)
+    monkeypatch.setattr(aot, "_device_of", lambda args: torch.device("cuda"))
+    monkeypatch.setattr(AotCache, "_stream", lambda self, device: None)
+    cache = AotCache("unused")
+    jits = [AotJit(_fn, cache) for _ in range(entry_points)]
+    w = torch.ones(8, 8)
+    errors = []
+
+    def calls(t):
+        try:
+            for n in range(1, 5):
+                x = torch.full((n, 8), float(t))
+                assert torch.equal(jits[t % entry_points](w, x), _fn(w, x))
+        except Exception as e:      # noqa: BLE001  (re-raised below)
+            errors.append(e)
+
+    threads = [threading.Thread(target=calls, args=(t,))
+               for t in range(2 * (os.cpu_count() or 2))]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    assert max(seen) == 1
+    assert cache.stats["captures"] == 4 * entry_points == len(seen)
 
 
 @pytest.fixture(scope="module")
@@ -193,39 +253,83 @@ def test_graphed_serving_reads_the_weights_where_they_lie(gan_cp, tmp_path,
     assert torch.equal(after, plain.translate_u8(u8, conds))
 
 
+def _jax_layout_run(tmp_path, subs, tree):
+    """The same JAX-layout checkpoint (``tree``, a ``*_tree_to_jax``) in
+    the run directory ``<sub>/g`` of each of ``subs``."""
+    for sub in subs:
+        ckpt.save_checkpoint_file(str(
+            tmp_path / sub / "g" / f"ckpt_s{tree['global_step']:010d}"
+            ".msgpack"), tree)
+
+
 @pytest.mark.parametrize("use", ["serving", "gan_trainer", "supervised",
                                  "restored_trainer"])
 def test_the_tier_writes_and_reads_no_program(tmp_path, gan_cp, use,
                                               no_program_files):
-    """Every use of the tier -- serving, the GAN trainer, the supervised
-    loop, a trainer resumed from a checkpoint -- runs without exporting,
-    saving or loading a program, and leaves its directory unmade."""
+    """Uses of the tier that the tests above leave out, each bit-equal to
+    the same use without it, and none exporting, saving or loading a
+    program or making its directory: serving at every batch from 1 to 5
+    (buckets 1, 2, 4, 8); the GAN trainer in cls mode; and the supervised
+    loop and the GAN trainer resumed from a JAX-layout checkpoint
+    (``train/checkpoint.py``'s ``*_tree_to_jax``), which reset the
+    programs after the load."""
     cdir = tmp_path / "aot"
     if use == "serving":
-        wt = WeatherTransfer.load(gan_cp, device="cpu", aot_cache=str(cdir))
-        wt.translate_u8(np.zeros((3, 32, 32, 3), np.uint8),
-                        np.eye(5, dtype=np.float32)[:3])
-        assert wt.aot.stats["programs"] == 1
+        plain = WeatherTransfer.load(gan_cp, device="cpu")
+        tier = WeatherTransfer.load(gan_cp, device="cpu", aot_cache=str(cdir))
+        rng = np.random.default_rng(5)
+        for b in range(1, 6):
+            u8 = rng.integers(0, 256, (b, 32, 32, 3), np.uint8)
+            conds = np.eye(5, dtype=np.float32)[rng.integers(0, 5, b)]
+            x = WeatherTransfer.preprocess(u8).numpy()
+            assert torch.equal(tier.translate_u8(u8, conds),
+                               plain.translate_u8(u8, conds)), b
+            assert torch.equal(tier.translate(x, conds),
+                               plain.translate(x, conds)), b
+        assert tier._translate_u8._cache_size() == 4
+        assert tier.aot.stats["programs"] == 8
     elif use == "supervised":
         from tests.test_torch_resnet import jax_resnet_variables
 
         _, variables = jax_resnet_variables((1, 1, 1, 1), 5, 32)
-        state = train_supervised(
-            sup.make_classifier_step(), sup.make_eval_metrics("classifier"),
-            lambda: Batches(1), lambda: [], state=port_state(
-                variables, "classifier"), num_epoch=1, input_size=32,
-            save_dir=str(tmp_path / "cp"), name="s", eval_per_iter=100,
-            target_dtype=torch.long, aot_cache=str(cdir))
-        assert state.step == 1
+
+        def run(sub, num_epoch, **kw):
+            state = port_state(variables, "classifier")
+            train_supervised(
+                sup.make_classifier_step(),
+                sup.make_eval_metrics("classifier"), lambda: Batches(3),
+                lambda: [], state=state, num_epoch=num_epoch, input_size=32,
+                save_dir=str(tmp_path / sub), name="g", eval_per_iter=100,
+                target_dtype=torch.long, **kw)
+            return state
+
+        first = run("first", 1)
+        _jax_layout_run(tmp_path, ("eager", "tier"), ckpt.supervised_tree_to_jax(
+            first, epoch=1, global_step=3, epoch_step=0))
+        eager = run("eager", 2)
+        tier = run("tier", 2, aot_cache=str(cdir))
+        assert tier.step == eager.step == 6 and state_equal(tier, eager)
     else:
-        cfg = cfg_of(num_epoch=1, batch_size=2)
         data = Images(4)
-        if use == "restored_trainer":
-            trainer(tmp_path, cfg, "run").fit(*loaders(data))
-        tr = trainer(tmp_path, cfg_of(num_epoch=2, batch_size=2), "run",
-                     aot_cache=str(cdir))
-        tr.fit(*loaders(data))
-        assert tr.state.global_step == 4 and tr.aot.stats["programs"] == 1
+        if use == "gan_trainer":
+            cfg = cfg_of(num_epoch=1, batch_size=2, mode="cls")
+            eager = trainer(tmp_path, cfg, "eager")
+        else:
+            cfg = cfg_of(num_epoch=2, batch_size=2)
+            first = trainer(tmp_path, cfg_of(num_epoch=1, batch_size=2),
+                            "first")
+            first.fit(*loaders(data))
+            _jax_layout_run(tmp_path, ("eager", "tier"),
+                            ckpt.gan_tree_to_jax(first.state))
+            eager = trainer(tmp_path, cfg, "eager")
+        tier = trainer(tmp_path, cfg, "tier", aot_cache=str(cdir))
+        assert tier.state.global_step == eager.state.global_step
+        for tr in (eager, tier):
+            tr.fit(*loaders(data))
+        assert tier.state.global_step == eager.state.global_step
+        assert tier.state.global_step == (2 if use == "gan_trainer" else 4)
+        assert tier.aot.stats["programs"] == 1
+        assert_states_equal(tier.state, eager.state)
     assert not cdir.exists()
 
 

@@ -782,6 +782,44 @@ def test_aot_serving_bucket_graphed_matches_eager(cuda, tmp_path):
     assert (k1.launches, k2.launches) == before and torch.equal(again, got)
 
 
+def test_aot_two_entry_points_capture_from_two_threads(cuda, tmp_path):
+    """``translate`` and ``translate_u8`` of one tiered ``WeatherTransfer``
+    share an ``AotCache`` and its side stream; two threads reaching new
+    buckets through them at once capture one at a time, and every graph
+    computes what the eager forward does (float32, TF32 off: MAE 1e-5, 1
+    uint8 step)."""
+    torch.manual_seed(0)
+    model = ConditionalUNet(5, use_pallas=True)
+    eager = WeatherTransfer(model)
+    tier = WeatherTransfer(model, aot_cache=str(tmp_path))
+    rng = np.random.default_rng(1)
+    u8 = {b: rng.integers(0, 256, (b, 64, 64, 3), np.uint8) for b in (1, 2)}
+    c = {b: np.eye(5, dtype=np.float32)[:b] for b in (1, 2)}
+    got, errors = {}, []
+
+    def run(name, fn, inputs):
+        try:
+            for b in (1, 2, 1, 2):
+                got[name, b] = fn(inputs[b], c[b])
+        except Exception as e:      # noqa: BLE001  (re-raised below)
+            errors.append(e)
+
+    x = {b: WeatherTransfer.preprocess(u8[b]) for b in (1, 2)}
+    threads = [threading.Thread(target=run, args=a) for a in (
+        ("u8", tier.translate_u8, u8), ("f32", tier.translate, x))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    assert tier.aot.stats["captures"] == 4
+    for b in (1, 2):
+        assert int((got["u8", b].int() - eager.translate_u8(
+            u8[b], c[b]).int()).abs().max()) <= 1
+        assert float((got["f32", b] - eager.translate(x[b], c[b])).abs()
+                     .mean()) <= 1e-5
+
+
 def test_aot_gan_step_graphed_matches_eager(cuda, tmp_path):
     """The combined step captured as a CUDA graph (float32, TF32 off,
     dropout 0, use_pallas) against the eager step from the same seed, at

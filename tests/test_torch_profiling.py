@@ -1,8 +1,7 @@
 """The port's ``core/profiling.py`` on the CPU against the JAX package's
 (``weather_unet_tpu/core/profiling.py``, mirroring
-``tests/test_misc_coverage.py``): ``StepTimer``'s summary, the trace
-context (and the GAN trainer's ``profile_dir``), the host fingerprint, and
-the pruning of an AOT root."""
+``tests/test_misc_coverage.py``): ``StepTimer``'s summary and the trace
+context (and the GAN trainer's ``profile_dir``)."""
 
 import json
 import shutil
@@ -15,7 +14,7 @@ from tests.test_torch_trainer import Images, cfg_of, loaders, trainer
 from tests.torch_port_util import (  # noqa: F401
     close_summary_writers, no_thread_left, one_torch_thread)
 from weather_unet_tpu.core import profiling as jax_profiling
-from weather_unet_tpu_torch.core import aot, profiling
+from weather_unet_tpu_torch.core import profiling
 
 
 @pytest.fixture(autouse=True)
@@ -27,10 +26,13 @@ def drop_tmp(tmp_path):
     shutil.rmtree(tmp_path, ignore_errors=True)
 
 
-def test_step_timer_summary_equals_jax():
-    samples = list(np.random.default_rng(0).uniform(0.01, 0.3, 57))
-    port, ref = profiling.StepTimer(capacity=50), jax_profiling.StepTimer(
-        capacity=50)
+@pytest.mark.parametrize("capacity,n", [(50, 57), (1000, 3), (1, 4)])
+def test_step_timer_summary_equals_jax(capacity, n):
+    """The same samples give the JAX timer's summary: a full window that
+    dropped its oldest samples, a short one, and a window of one."""
+    samples = list(np.random.default_rng(n).uniform(0.01, 0.3, n))
+    port, ref = profiling.StepTimer(capacity=capacity), (
+        jax_profiling.StepTimer(capacity=capacity))
     assert port.summary() == ref.summary() == {}
     for dt in samples:
         for t in (port, ref):
@@ -38,7 +40,8 @@ def test_step_timer_summary_equals_jax():
                 pass
             t.samples[-1] = dt          # the same samples on both sides
     got, want = port.summary(), ref.summary()
-    assert got.keys() == want.keys() and len(port.samples) == 50
+    assert got.keys() == want.keys()
+    assert port.samples == ref.samples == samples[-capacity:]
     for k in want:
         assert abs(got[k] - want[k]) <= 1e-9, k
 
@@ -79,86 +82,3 @@ def test_trainer_profile_dir_traces_fit(tmp_path):
     names = {e.get("name", "") for e in json.loads(
         path.read_text())["traceEvents"]}
     assert any("convolution" in n for n in names)
-
-
-def test_host_fingerprint_is_stable_and_covers_cpu_identity():
-    fp = profiling._host_fingerprint()
-    assert len(fp) == 12 and fp == profiling._host_fingerprint()
-    int(fp, 16)
-    basis = profiling._host_basis()
-    assert basis["torch"] == torch.__version__ and basis["format"] == "v2"
-    assert ("model name" in basis or "CPU part" in basis
-            or "vendor_id" in basis)
-
-
-def _stale_root(root):
-    root.mkdir()
-    (root / "deadbeef0001").mkdir()                    # no manifest
-    (root / "deadbeef0001" / "entry.pt2").write_bytes(b"stale")
-    (root / "flat_entry").write_bytes(b"flat layout")
-    liar = root / "deadbeef0002"                       # manifest/name differ
-    liar.mkdir()
-    (liar / "HOST.json").write_text(json.dumps({"fingerprint": "other"}))
-    (liar / "0123.pt2").write_bytes(b"entry")
-    (liar / ".tmp-abc.pt2").write_bytes(b"partial")
-    other = root / "deadbeef0003"                      # valid, other host
-    other.mkdir()
-    (other / "HOST.json").write_text(
-        json.dumps({"fingerprint": "deadbeef0003"}))
-    keep = root / "deadbeef0004"
-    keep.mkdir()
-
-
-@pytest.mark.parametrize("via", ["function", "aot_cache"])
-def test_prune_stale_cache(tmp_path, via):
-    """A fingerprint directory whose manifest names another fingerprint
-    goes with its entries, finished and partial; the kept directory and
-    valid directories of other fingerprints stay, as the JAX function
-    leaves them.  The JAX function also clears its package's legacy
-    layouts (flat files, manifest-less directories), which the port never
-    wrote: here they stay.  An ``AotCache`` on the root, which keeps
-    nothing on disk, leaves every one of them as it is."""
-    port, ref = tmp_path / "port", tmp_path / "jax"
-    _stale_root(port)
-    shutil.copytree(port, ref)
-    jax_profiling._prune_stale_cache(str(ref), keep="deadbeef0004")
-    assert sorted(p.name for p in ref.iterdir()) == ["deadbeef0003",
-                                                     "deadbeef0004"]
-    legacy = ["deadbeef0001", "flat_entry"]
-    if via == "function":
-        profiling._prune_stale_cache(str(port), keep="deadbeef0004")
-        assert sorted(p.name for p in port.iterdir()) == sorted(
-            legacy + ["deadbeef0003", "deadbeef0004"])
-        return
-    before = sorted(str(p.relative_to(port)) for p in port.rglob("*"))
-    cache = aot.AotCache(str(port))
-    cache.load_or_compile(lambda a: a + 1, torch.ones(2))
-    assert sorted(str(p.relative_to(port)) for p in port.rglob("*")) == (
-        before)
-
-
-def test_prune_keeps_what_the_tier_did_not_write(tmp_path):
-    """A root that is also a run's directory (``--aot_cache runs``) loses
-    nothing of the run to the prune: files and directories of other names
-    stay, and in a fingerprint directory that goes, only the tier's own
-    files go (the directory stays while it holds anything else)."""
-    root = tmp_path / "runs"
-    root.mkdir()
-    (root / "train.log").write_text("log")
-    (root / "cp").mkdir()
-    (root / "cp" / "ckpt_s0000000002.pt").write_bytes(b"checkpoint")
-    (root / "events").mkdir()
-    (root / "events" / "HOST.json").write_text(
-        json.dumps({"fingerprint": "other"}))
-    mixed = root / "abcdef012345"
-    mixed.mkdir()
-    (mixed / "HOST.json").write_text(json.dumps({"fingerprint": "other"}))
-    (mixed / "0123.pt2").write_bytes(b"entry")
-    (mixed / "notes.txt").write_text("mine")
-    profiling._prune_stale_cache(str(root), keep="deadbeef0004")
-    assert sorted(p.name for p in root.iterdir()) == sorted(
-        ["train.log", "cp", "events", "abcdef012345"])
-    assert (root / "cp" / "ckpt_s0000000002.pt").read_bytes() == (
-        b"checkpoint")
-    assert (root / "events" / "HOST.json").exists()
-    assert [p.name for p in mixed.iterdir()] == ["notes.txt"]

@@ -206,7 +206,8 @@ def test_bf16_training_tracks_f32():
 def test_demo_runs_and_reports(dtype, tmp_path):
     """The torch demo on the CPU, a few steps at 16x16: the JAX example's
     report lines, one report a window, every step's losses, the tier's run
-    equal to the eager one (no CUDA graph on a CPU)."""
+    equal to the eager one (no CUDA graph on a CPU) and its counters
+    returned (one program: every step updates G)."""
     module = demo_module()
     argv = ["--device", "cpu", "--steps", "4", "--size", "16", "--batch", "2",
             "--report_every", "2", "--dtype", dtype]
@@ -223,3 +224,5 @@ def test_demo_runs_and_reports(dtype, tmp_path):
     assert np.isfinite(eager["losses"]).all()
     assert np.array_equal(eager["losses"], tier["losses"])
     assert eager["final"] == tier["final"]
+    assert eager["aot"] is None and tier["aot"] == {
+        "programs": 1, "captures": 0, "capture_s": 0.0}

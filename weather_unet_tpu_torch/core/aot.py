@@ -28,9 +28,10 @@ only:
   execution.
 * **nothing on disk**: a CUDA graph cannot outlive its process, so a
   restart captures each shape again (``PERF.md`` §6 gives a server's
-  start-up with and without the tier).  ``AotCache`` keeps the directory's
-  name (``aot_cache=`` / ``--aot_cache`` are the JAX package's arguments)
-  and the capture counters.
+  start-up with and without the tier).  ``AotCache`` takes a directory
+  because ``aot_cache=`` / ``--aot_cache`` are the JAX package's arguments,
+  and writes nothing there; it holds the capture counters and the side
+  stream, and runs one capture at a time.
 
 On the CPU there is no graph: each shape's program is the function itself,
 so the tier equals eager execution bit for bit there.
@@ -231,8 +232,8 @@ class _Graphed:
 
 # ------------------------------------------------------------- the cache
 class AotCache:
-    """The tier's shared state: the directory's name, the capture counters
-    (module docstring).
+    """The tier's shared state: the capture counters and one side stream
+    per device (module docstring).
 
     >>> cache = AotCache("/var/cache/wut_aot")
     >>> fwd = cache.load_or_compile(fn, x, c)   # a CUDA graph on the card
@@ -240,16 +241,27 @@ class AotCache:
 
     ``load_or_compile`` returns a callable with ``fn``'s signature: on a
     CUDA device a captured graph, on the CPU the program itself.  Nothing
-    is written to the directory.
+    is written to the directory.  Thread-safe: the ``AotJit``s of one cache
+    (a ``WeatherTransfer``'s three entry points) capture one at a time.
     """
 
     def __init__(self, cache_dir: str):
-        self.dir = cache_dir
+        del cache_dir   # the JAX package's argument; nothing is kept there
         self.stats = {"programs": 0, "captures": 0, "capture_s": 0.0}
         # one side stream per device for every warm-up and capture, as
         # torch.cuda.graph keeps one capture stream: a new stream each time
         # makes the CUDA libraries set up their per-stream state again
         self._streams: dict = {}
+        # held over a warm-up and its capture: in "thread_local" mode work
+        # that a second thread queued on the stream under capture would
+        # join the graph.  Reentrant, so a program that calls another
+        # entry point of the cache fails its capture instead of hanging.
+        self._lock = threading.RLock()
+
+    def _stream(self, device: torch.device) -> torch.cuda.Stream:
+        if device not in self._streams:
+            self._streams[device] = torch.cuda.Stream(device)
+        return self._streams[device]
 
     def load_or_compile(self, fn: Callable, *args: Any,
                         inplace_argnums: Sequence[int] = ()) -> Callable:
@@ -258,16 +270,15 @@ class AotCache:
         are the arguments whose tensors the graph reads and writes where
         they lie."""
         device = _device_of(args)
-        self.stats["programs"] += 1
-        if device.type != "cuda":
-            return fn
-        t0 = time.perf_counter()
-        if device not in self._streams:
-            self._streams[device] = torch.cuda.Stream(device)
-        exe = _Graphed(fn, args, inplace_argnums, self._streams[device])
-        self.stats["captures"] += 1
-        self.stats["capture_s"] += time.perf_counter() - t0
-        return exe
+        with self._lock:
+            self.stats["programs"] += 1
+            if device.type != "cuda":
+                return fn
+            t0 = time.perf_counter()
+            exe = _Graphed(fn, args, inplace_argnums, self._stream(device))
+            self.stats["captures"] += 1
+            self.stats["capture_s"] += time.perf_counter() - t0
+            return exe
 
 
 class AotJit:
@@ -280,7 +291,7 @@ class AotJit:
     at every call (a graph checks its tensors), and its own shapes change
     under the program (an optimizer's first step creates its moments), so
     it is not part of the key.  Thread-safe: a graph's static buffers serve
-    one call at a time.  ``_cache_size`` is the number of shapes, as
+    one call at a time, and the cache takes one capture at a time.  ``_cache_size`` is the number of shapes, as
     ``jax.jit``'s is.
     """
 

@@ -4,35 +4,28 @@
 ``trace(dir)`` wraps ``torch.profiler`` (host and, where there is a GPU,
 CUDA activity) and writes a Chrome trace under ``dir`` (viewable in
 Perfetto or ``chrome://tracing``); ``StepTimer`` records wall-clock per
-step and reports p50/p90/mean.  ``_host_fingerprint`` and
-``_prune_stale_cache`` are the JAX module's helpers of its AOT cache's disk
-layout, held to it by the tests; the port's AOT tier (``core/aot.py``)
-keeps nothing on disk, so no path of the port calls them (``ROADMAP.md``
-queue 1 item 11).
+step and reports p50/p90/mean.
 
 The JAX module's persistent-compile-cache and XLA:CPU AOT-loader helpers
 (``enable_compilation_cache``, ``install_aot_loader_guard``,
 ``classify_aot_mismatch_line``, ``aot_guard_stats``) have no counterpart:
 PyTorch runs eagerly, so there is no compile cache to enable, and no
-XLA:CPU executable whose loader could warn.
+XLA:CPU executable whose loader could warn.  Nor have the helpers of the
+JAX AOT cache's disk layout (``_host_fingerprint``,
+``_prune_stale_cache``): the port's tier (``core/aot.py``) keeps nothing on
+disk.
 """
 
 from __future__ import annotations
 
 import contextlib
-import hashlib
-import json
 import os
-import platform
-import re
 import socket
 import time
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
-
-_FINGERPRINT_NAME = re.compile(r"[0-9a-f]{12}")
 
 
 @contextlib.contextmanager
@@ -94,66 +87,3 @@ class StepTimer:
             "step_time_ms/p90": float(np.percentile(arr, 90) * 1e3),
             "steps_per_sec": float(1.0 / arr.mean()),
         }
-
-
-def _host_basis() -> Dict[str, str]:
-    """What the host fingerprint hashes: the architecture, the first
-    core's CPU identity (vendor, family, model, stepping, flags) and the
-    torch version, recorded in ``HOST.json`` so a mismatch is
-    diagnosable."""
-    basis = {"arch": platform.machine(), "format": "v2",
-             "torch": torch.__version__}
-    wanted = ("vendor_id", "cpu family", "model", "model name", "stepping",
-              "flags", "Features", "CPU implementer", "CPU part")
-    try:
-        with open("/proc/cpuinfo") as f:
-            for line in f:
-                key = line.split(":", 1)[0].strip()
-                if key in wanted and key not in basis:  # first core only
-                    basis[key] = line.split(":", 1)[-1].strip()
-                if line.strip() == "" and len(basis) > 3:
-                    break   # one processor block is enough
-    except OSError:
-        pass
-    return basis
-
-
-def _host_fingerprint() -> str:
-    """Short hash of :func:`_host_basis`."""
-    blob = json.dumps(_host_basis(), sort_keys=True).encode()
-    return hashlib.sha256(blob).hexdigest()[:12]
-
-
-def _prune_stale_cache(root: str, keep: str):
-    """Remove from an AOT root the fingerprint directories no fingerprint
-    can claim: a directory named by 12 hex digits whose ``HOST.json``
-    names another fingerprint than its own name (a collision, or a
-    fingerprint function that changed).  Only what the tier writes goes
-    (the manifest and ``.pt2`` entries, finished or partial); the directory
-    itself only once that leaves it empty.
-
-    The JAX function also clears the JAX package's legacy layouts (flat
-    files, manifest-less directories).  The port never wrote those, so here
-    anything else in the root -- ``keep``, valid directories of other
-    fingerprints, and whatever the user keeps there -- stays.  Never
-    fatal."""
-    try:
-        entries = os.listdir(root)
-    except OSError:
-        return
-    for name in entries:
-        full = os.path.join(root, name)
-        if name == keep or not _FINGERPRINT_NAME.fullmatch(name):
-            continue
-        try:
-            with open(os.path.join(full, "HOST.json")) as f:
-                recorded = json.load(f)
-            if recorded.get("fingerprint") == name:
-                continue
-            for entry in os.listdir(full):
-                if entry == "HOST.json" or entry.endswith(".pt2"):
-                    os.unlink(os.path.join(full, entry))
-            if not os.listdir(full):
-                os.rmdir(full)
-        except (OSError, ValueError, AttributeError):
-            pass
