@@ -4,7 +4,8 @@ paths, of its learning over many steps and its resume of a JAX training
 run, of its trainer and training CLI, of its data runtime and supervised
 pretraining, of its serving entry points (msgpack checkpoints, the HTTP
 server, the inference and eval CLIs), of FID / IS and the exported serving
-artifact, and of the AOT tier's CUDA graphs, on one NVIDIA GPU.
+artifact, of the reference-surface ops and the dataset tools, and of the
+AOT tier's CUDA graphs, on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the repository root, one GPU
 
@@ -303,6 +304,34 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                16 POSTs from 4 client threads of a child process (200,
                image/jpeg, within a mean of 1 step of the direct
                translate_u8 through the same encode, 3 K1 + 3 K2 a batch).
+11a. surface -- the reference-surface ops and modules that no model path
+               calls, and the dataset tools.  UpsampleBox (2x upsample,
+               affine-less BatchNorm) at the cUNet decoder's three
+               use_pallas upsample inputs of a 256x256, B=16 forward
+               (K2_SITES upsample3/2/1), float32 (TF32 off) and bfloat16,
+               eval and train mode: use_pallas (K2, one launch a call,
+               added to the main-path totals) against plain within
+               1e-5 * max|y| (float32; the running statistics to 1e-5) and
+               2^-6 * max|y| (bfloat16); device ms of each route.  The
+               upsample's gather and shift forms (ops/resize.py) at the
+               same inputs: float32 within 1e-5 * max of K2 and of
+               F.interpolate, bfloat16 within 2^-6 * max of their own
+               float32; device ms of gather, shift, K2 and F.interpolate.
+               DoubleConvDown at the upsample1 input (128 -> 256 channels)
+               and ConditionalNorm at the upsample2 input, card against
+               CPU, float32, eval and train: relative 1e-5 (outputs and
+               running statistics).  packed_dropout at (8, 256, 56, 56),
+               rate 0.3: the keep share within 4 sigma of thresh/256, kept
+               values exactly x * 256/thresh, one mask a seed and two
+               seeds two masks.  The deterministic utils_misc functions:
+               card equal to CPU.  The host tools over a fresh serving
+               world, in this process: preprocess split-i2w, split-flickr
+               and remove-gray (one gray and one missing photo dropped)
+               writing what the same data/preprocess.py calls return,
+               pkl_viewer on each output, write_image_summary over 3 image
+               events of a SummaryWriter (one JPEG an event), plot_signals
+               (a PNG where matplotlib is present, else its refusal naming
+               matplotlib; recorded).
 12. aot      -- the AOT tier (core/aot.py) at full width, each program a
                CUDA graph held to its eager counterpart: the use_pallas
                cUNet at 256x256 through WeatherTransfer(aot_cache=) at
@@ -346,7 +375,7 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                build a cached plan, table or scale anew (lru-cache misses
                during capture).
 13. kernels -- the summary line of every ported kernel (launches on the main
-               paths of phases 4-11, and "graph_replay_launches" counted
+               paths of phases 4-11a, and "graph_replay_launches" counted
                by name in phase 12's replays; error, times and bound over
                one serving forward's sites and, under "gan_step_forward",
                over one GAN generator (K1, K2) or estimator (K4)
@@ -3641,6 +3670,293 @@ def phase_eval_export(counters, launch_totals, smi):
           "seconds": time.perf_counter() - t_phase})
 
 
+# ------------------------------------------------------------------- surface
+SURFACE_SITES = ("upsample3", "upsample2", "upsample1")  # K2_SITES' decoder
+PACKED_SHAPE = (8, 256, 56, 56)     # the GAN step's middle decoder level
+PACKED_RATE = 0.3                   # the cUNet's dropout rate
+
+
+def rel_err(a, b) -> float:
+    """max |a - b| over max |b|, both on the CPU in float32."""
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def captured(main, argv):
+    """``main(argv)`` of a CLI in this process; what it printed."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        main(argv)
+    return out.getvalue()
+
+
+def surface_upsample(counters, launch_totals, rec, failed):
+    """UpsampleBox, use_pallas (K2) against plain, and the upsample's gather
+    and shift forms against K2 and F.interpolate, at the decoder's three
+    use_pallas upsample inputs in both dtypes; device ms of each."""
+    from weather_unet_tpu_torch.kernels import upsample as k2
+    from weather_unet_tpu_torch.models import UpsampleBox
+    from weather_unet_tpu_torch.ops import resize
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    box, forms = {}, {}
+    for site in SURFACE_SITES:
+        shape = K2_SITES[site]
+        c = shape[1]
+        x32 = torch.randn(shape, generator=g, device="cuda")
+        for dt in DTYPES:
+            x = x32.to(dt)
+            r = box[f"{site}_{DT_NAME[dt]}"] = {}
+            for train in (False, True):
+                mode = "train" if train else "eval"
+                plain = UpsampleBox(c).cuda()
+                plain.bn.running_mean.normal_(0.0, 1.0, generator=g)
+                plain.bn.running_var.uniform_(0.5, 2.0, generator=g)
+                fused = UpsampleBox(c, use_pallas=True).cuda()
+                fused.load_state_dict(plain.state_dict())
+                out, got = counted_run(lambda: fused(x, train=train),
+                                       counters, launch_totals)
+                if got != {"adain": 0, "upsample": 1, "upconv": 0,
+                           "bottleneck": 0}:
+                    failed.append(f"UpsampleBox {site} {mode}: launches "
+                                  f"{got}")
+                ref = plain(x, train=train)
+                err = max_err(out, ref)
+                tol = TOL_REL[dt] * float(ref.float().abs().max())
+                r[f"{mode}_max_abs_err"], r[f"{mode}_tol"] = err, tol
+                if not err <= tol:
+                    failed.append(f"UpsampleBox {site} {DT_NAME[dt]} {mode}:"
+                                  f" {err} > {tol}")
+                stats = max(max_err(getattr(fused.bn, n), getattr(plain.bn, n))
+                            for n in ("running_mean", "running_var"))
+                stats_tol = (1e-5 if dt == torch.float32 else TOL_REL[dt] *
+                             float(plain.bn.running_var.abs().max()))
+                r[f"{mode}_stats_err"] = stats
+                if not stats <= stats_tol:
+                    failed.append(f"UpsampleBox {site} {DT_NAME[dt]} {mode} "
+                                  f"running statistics: {stats} > "
+                                  f"{stats_tol}")
+            r["plain_ms"] = device_ms(lambda: plain(x))
+            r["use_pallas_ms"] = device_ms(lambda: fused(x))
+            # the forms of the upsample alone
+            f = forms[f"{site}_{DT_NAME[dt]}"] = {}
+            fns = {"k2": k2.upsample2x_fused,
+                   "interpolate": resize.upsample_bilinear_align_corners,
+                   "gather": resize.upsample_x2_gather,
+                   "shift": resize.upsample_x2_shift}
+            outs = {name: fn(x) for name, fn in fns.items()}
+            for name, fn in fns.items():
+                f[f"{name}_ms"] = device_ms(lambda: fn(x))
+            for name in ("gather", "shift"):
+                if dt == torch.float32:
+                    pairs = (("k2", outs["k2"]),
+                             ("interpolate", outs["interpolate"]))
+                else:   # bfloat16 against its own float32
+                    pairs = (("own_f32", fns[name](x32)),)
+                for against, ref in pairs:
+                    err = max_err(outs[name], ref)
+                    tol = TOL_REL[dt] * float(ref.float().abs().max())
+                    f[f"{name}_vs_{against}_err"] = err
+                    if not err <= tol:
+                        failed.append(f"{name} {site} {DT_NAME[dt]} against "
+                                      f"{against}: {err} > {tol}")
+            del outs
+    rec["upsample_box"], rec["upsample_forms"] = box, forms
+
+
+def surface_modules(rec, failed):
+    """DoubleConvDown and ConditionalNorm card against CPU (float32, eval and
+    train), packed_dropout's rules on the card, the deterministic
+    utils_misc functions card against CPU."""
+    from weather_unet_tpu_torch.models import ConditionalNorm, DoubleConvDown
+    from weather_unet_tpu_torch.ops import utils_misc as um
+    from weather_unet_tpu_torch.ops.dropout import packed_dropout
+
+    gcpu = torch.Generator().manual_seed(SEED + 41)
+    down, norm = K2_SITES["upsample1"], K2_SITES["upsample2"]
+    mods = {
+        "double_conv_down": (
+            DoubleConvDown(down[1], 2 * down[1], generator=gcpu),
+            (torch.randn(down, generator=gcpu),)),
+        "conditional_norm": (
+            ConditionalNorm(norm[1], 5),
+            (torch.randn(norm, generator=gcpu),
+             torch.randint(0, 5, norm[:1], generator=gcpu)))}
+    cn = mods["conditional_norm"][0]
+    with torch.no_grad():
+        cn.embed.normal_(0.0, 1.0, generator=gcpu)
+    for name, (cpu_mod, args) in mods.items():
+        card_mod = copy.deepcopy(cpu_mod).cuda()
+        for train in (False, True):
+            mode = "train" if train else "eval"
+            with torch.no_grad():
+                want = cpu_mod(*args, train=train)
+                got = card_mod(*(a.cuda() for a in args), train=train)
+            errs = [rel_err(got, want)] + [
+                rel_err(getattr(card_mod.bn, n), getattr(cpu_mod.bn, n))
+                for n in ("running_mean", "running_var")]
+            rec[f"{name}_{mode}_rel_err"] = max(errs)
+            if not max(errs) <= 1e-5:
+                failed.append(f"{name} {mode} card against CPU: {errs}")
+    # packed_dropout: the keep share, the kept values, one mask a seed
+    x = torch.randn(PACKED_SHAPE, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(3))
+
+    def draw(seed):
+        return packed_dropout(x, PACKED_RATE, torch.Generator(
+            device="cuda").manual_seed(seed))
+
+    a, a2, b = draw(1), draw(1), draw(2)
+    thresh = round((1 - PACKED_RATE) * 256)
+    p, n = thresh / 256, x.numel()
+    keep = a != 0
+    share = float(keep.float().mean())
+    sigma = (p * (1 - p) / n) ** 0.5
+    scale = torch.tensor(256 / thresh, dtype=x.dtype, device="cuda")
+    rec["packed_dropout"] = {"shape": list(PACKED_SHAPE), "thresh": thresh,
+                             "keep_share": share, "want": p, "sigma": sigma}
+    if not abs(share - p) <= 4 * sigma:
+        failed.append(f"packed_dropout keep share {share} not within 4 sigma "
+                      f"of {p}")
+    if not torch.equal(a[keep], x[keep] * scale):
+        failed.append("packed_dropout kept values are not x * 256/thresh")
+    if not torch.equal(a, a2) or torch.equal(keep, b != 0):
+        failed.append("packed_dropout: one seed must give one mask, two "
+                      "seeds two")
+    # utils_misc, card against CPU
+    v = torch.randn(6, 5, generator=gcpu)
+    img = torch.randn(4, 3, 8, 8, generator=gcpu)
+    mean, std = [0.485, 0.456, 0.406], [0.229, 0.224, 0.225]
+    pairs = {
+        "make_one_hot": lambda d: um.make_one_hot(v.to(d), 32),
+        "vector_to_one_hot": lambda d: um.vector_to_one_hot(v.to(d)),
+        "denormalize": lambda d: um.denormalize(img.to(d), mean, std),
+        "get_sequential_labels": lambda d: um.get_sequential_labels(
+            5, 16, device=d),
+        "get_sequential_labels_one_hot": lambda d: um.get_sequential_labels(
+            5, 16, True, device=d),
+        "const_batch": lambda d: um.const_batch(1.0, 8, device=d)}
+    unequal = [k for k, fn in pairs.items()
+               if not torch.equal(fn("cuda").cpu(), fn("cpu"))]
+    rec["utils_misc_card_equals_cpu"] = sorted(set(pairs) - set(unequal))
+    if unequal:
+        failed.append(f"utils_misc card != CPU: {unequal}")
+
+
+def surface_host_tools(rec, failed):
+    """The four host CLIs over a fresh serving world, in this process: the
+    preprocess subcommands' pickles against the same calls of
+    data/preprocess.py, pkl_viewer on each, write_image_summary over a
+    short SummaryWriter run (one JPEG an event), plot_signals (a PNG where
+    matplotlib is present, else its refusal)."""
+    import pandas as pd
+    from PIL import Image
+
+    from weather_unet_tpu_torch.cli import (
+        pkl_viewer, plot_signals, preprocess, write_image_summary)
+    from weather_unet_tpu_torch.data import preprocess as pp
+    from weather_unet_tpu_torch.data.datasets import SIGNAL_COLUMNS
+    from weather_unet_tpu_torch.train.metrics import SummaryWriter
+
+    with tempfile.TemporaryDirectory() as tmp:
+        world = serving_world(tmp)
+        # one gray photo and one missing, which remove-gray must drop
+        gray = np.repeat(np.random.default_rng(SEED + 42).integers(
+            0, 255, (64, 64, 1), dtype=np.uint8), 3, axis=2)
+        Image.fromarray(gray).save(os.path.join(world["photos"], "gray.jpg"),
+                                   quality=100, subsampling=0)
+        frame = pd.read_pickle(world["frame"])
+        extra = frame.iloc[:2].copy()
+        extra["photo"] = ["gray", "missing"]
+        gray_frame = os.path.join(tmp, "frame_gray.pkl")
+        pd.concat([frame, extra], ignore_index=True).to_pickle(gray_frame)
+        out = {k: os.path.join(tmp, f"{k}.pkl")
+               for k in ("split-i2w", "split-flickr", "remove-gray")}
+        argv = {"split-i2w": ["--root", os.path.join(tmp, "i2w"),
+                              "--test_per_class", "2"],
+                "split-flickr": ["--pkl_path", world["frame"]],
+                "remove-gray": ["--pkl_path", gray_frame, "--image_root",
+                                world["photos"]]}
+        printed = {cmd: captured(preprocess.main, [cmd] + a + [
+            "--output", out[cmd]]) for cmd, a in argv.items()}
+        want = {"split-i2w": pp.split_i2w(os.path.join(tmp, "i2w"), 2),
+                "split-flickr": pp.split_flickr(frame),
+                "remove-gray": pp.remove_gray(pd.read_pickle(gray_frame),
+                                              world["photos"])}
+        for cmd, w in want.items():
+            got = pd.read_pickle(out[cmd])
+            same = (got == w if isinstance(w, dict)
+                    else got.equals(w) and list(got.columns) == list(
+                        w.columns))
+            if not same:
+                failed.append(f"preprocess {cmd}: the pickle differs from "
+                              "the same call in this process")
+        kept = want["remove-gray"]["photo"].tolist()
+        if "gray" in kept or "missing" in kept or len(kept) != len(frame):
+            failed.append(f"remove-gray kept {len(kept)} rows")
+        rec["preprocess_printed"] = {k: v.strip() for k, v in
+                                     printed.items()}
+        views = {cmd: captured(pkl_viewer.main, [p]) for cmd, p in
+                 out.items()}
+        rec["pkl_viewer_first_lines"] = {k: v.splitlines()[0]
+                                         for k, v in views.items()}
+        if [v.splitlines()[0] for v in views.values()] != [
+                "type: dict", "type: DataFrame", "type: DataFrame"]:
+            failed.append(f"pkl_viewer: {rec['pkl_viewer_first_lines']}")
+        # write_image_summary over the port's own image events
+        rng = np.random.default_rng(SEED + 43)
+        writer = SummaryWriter(os.path.join(tmp, "runs"))
+        events = 0
+        for step in (0, 4, 8):
+            writer.add_image_grid("images/train", rng.random((4, 64, 64, 3)),
+                                  step, nrow=2)
+            events += 1
+        writer.close()
+        jpg_dir = os.path.join(tmp, "summary_images")
+        try:
+            text = captured(write_image_summary.main, [
+                "--event_path", writer.log_dir, "--output_dir", jpg_dir])
+        except SystemExit as e:
+            text = f"refused: {e}"
+        jpgs = sorted(glob.glob(os.path.join(jpg_dir, "*.jpg")))
+        rec["write_image_summary"] = {"printed": text.strip(),
+                                      "jpegs": len(jpgs), "events": events}
+        if len(jpgs) != events or any(Image.open(p).format != "JPEG"
+                                      for p in jpgs):
+            failed.append(f"write_image_summary: {rec['write_image_summary']}")
+        # plot_signals
+        gt = os.path.join(tmp, "gt.pkl")
+        pd.to_pickle(frame[SIGNAL_COLUMNS].to_numpy(), gt)
+        png = os.path.join(tmp, "signals.png")
+        has_mpl = host_packages()["matplotlib"]
+        try:
+            text = captured(plot_signals.main, ["--gt_pkl", gt, "--output",
+                                                png])
+            result = "png" if os.path.exists(png) else "no file"
+        except SystemExit as e:
+            result = f"refused: {e}"
+        rec["matplotlib"], rec["plot_signals"] = has_mpl, result
+        if has_mpl and result != "png":
+            failed.append(f"plot_signals with matplotlib {has_mpl}: {result}")
+        if not has_mpl and not (result.startswith("refused")
+                                and "matplotlib" in result):
+            failed.append(f"plot_signals without matplotlib: {result}")
+
+
+def phase_surface(counters, launch_totals, smi):
+    """Phase surface: the reference-surface ops and modules no model path
+    calls, on the card (UpsampleBox through K2), and the host tools."""
+    t_phase = time.perf_counter()
+    rec, failed = {"phase": "surface", "card": smi}, []
+    surface_upsample(counters, launch_totals, rec, failed)
+    surface_modules(rec, failed)
+    surface_host_tools(rec, failed)
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+    require("surface", rec, failed)
+    free_cuda()
+
+
 # ----------------------------------------------------------------------- aot
 AOT_BUCKETS = (1, 4, 16)   # serving buckets graphed in phase aot
 AOT_SIZE = 256             # bench.py's serving resolution
@@ -4892,6 +5208,7 @@ def main():
         phase_supervised(counters, launch_totals, smi)
         phase_serving_cli(est_path, counters, launch_totals, smi)
         phase_eval_export(counters, launch_totals, smi)
+        phase_surface(counters, launch_totals, smi)
         graph_totals = {k: 0 for k in counters}
         phase_aot(est_path, smi, graph_totals)
     for name, total in launch_totals.items():

@@ -197,7 +197,7 @@ def test_port_imports_no_jax():
         "('jax', 'jaxlib', 'flax', 'optax', 'triton', 'weather_unet_tpu', "
         "'sklearn'))\n"
         "lazy = sorted(k for k in sys.modules if k.split('.')[0] in "
-        "('PIL', 'pandas', 'tensorboard'))\n"
+        "('PIL', 'pandas', 'tensorboard', 'matplotlib'))\n"
         "print(json.dumps({'modules': names, 'bad': bad, 'lazy': lazy, "
         "'built': len(_build._libs), 'runtime_built': len(runtime._builds)"
         " + (runtime._jpeg_found is not None), 'ops': sorted("
@@ -229,12 +229,15 @@ def test_port_imports_no_jax():
                  "evaluation.fid", "evaluation.inception_score",
                  "evaluation.goldens", "cli.fid_score", "cli.inception_score",
                  "core.export", "cli.export_serving",
-                 "cli.convert_checkpoint"):
+                 "cli.convert_checkpoint", "ops.utils_misc",
+                 "data.preprocess", "cli.preprocess", "cli.pkl_viewer",
+                 "cli.write_image_summary", "cli.plot_signals"):
         assert f"weather_unet_tpu_torch.{name}" in out["modules"]
     assert out["bad"] == [] and out["built"] == 0
     # nor the native runtime (built at first use, not on import)
     assert out["runtime_built"] == 0
-    # Pillow, pandas and TensorBoard load only where a function needs them
+    # Pillow, pandas, TensorBoard and matplotlib load only where a function
+    # needs them
     assert out["lazy"] == []
     # K1 and K2 are registered ops once their modules are imported
     assert out["ops"] == ["adain", "upsample2x", "upsample2x_backward"]

@@ -166,6 +166,33 @@ def test_upsample_matches_plain(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_upsample_box_use_pallas_matches_plain(cuda, dtype):
+    """UpsampleBox's use_pallas route (K2, one launch a call) against its
+    plain route on the card, eval and train mode: outputs at K2's bars, the
+    running statistics to 1e-5 in float32 (bfloat16: K2's bar)."""
+    from weather_unet_tpu_torch.models import UpsampleBox
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(4, 32, 16, 24, generator=g, device=cuda).to(dtype)
+    for train in (False, True):
+        plain = UpsampleBox(32).to(cuda)
+        plain.bn.running_mean.normal_(0.0, 1.0, generator=g)
+        plain.bn.running_var.uniform_(0.5, 2.0, generator=g)
+        fused = UpsampleBox(32, use_pallas=True).to(cuda)
+        fused.load_state_dict(plain.state_dict())
+        n = k2.launches
+        out = fused(x, train=train)
+        torch.cuda.synchronize()
+        assert k2.launches == n + 1
+        assert_close(out, plain(x, train=train), dtype)
+        for name in ("running_mean", "running_var"):
+            ref = getattr(plain.bn, name)
+            tol = (1e-5 if dtype == torch.float32
+                   else TOL[dtype] * max(1.0, float(ref.abs().max())))
+            assert float((getattr(fused.bn, name) - ref).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_adain_every_plan(cuda, dtype):
     """K1 under every plan at a tiny plane, at the 32x32 site's small-plane
     path (one warp a plane, fewer samples), at a 128x128 plane held by 16

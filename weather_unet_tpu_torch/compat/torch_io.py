@@ -19,7 +19,10 @@ with ``strict=True``; the converters here only carry JAX parameters across
   ``layer3_22`` <-> dotted ``layer3.22`` block names, ``downsample_conv/_bn``
   <-> ``downsample.0/.1``,
 * the FID Inception-v3: the same BatchNorm mapping per ``BasicConv2d``, the
-  fc head kept, torchvision's ``AuxLogits`` tower dropped.
+  fc head kept, torchvision's ``AuxLogits`` tower dropped,
+* the reference-surface modules ``ConditionalNorm``, ``DoubleConvDown`` and
+  ``UpsampleBox``: their affine-less ``bn``'s ``batch_stats`` ``mean/var``
+  <-> ``bn.running_mean/running_var``, the convs and the ``embed`` table.
 """
 
 from __future__ import annotations
@@ -321,6 +324,66 @@ def inception_state_dict(sd, with_logits: bool) -> Dict[str, Any]:
         out.setdefault(key[:-len("running_mean")] + "num_batches_tracked",
                        torch.tensor(0, dtype=torch.long))
     return out
+
+
+# ------------------------------------------------ reference-surface modules
+
+def _bn_stats_from_jax(bs) -> Dict[str, np.ndarray]:
+    """An affine-less ``bn``'s JAX ``batch_stats`` as state-dict entries."""
+    return {"bn.running_mean": _np(bs["bn"]["mean"]),
+            "bn.running_var": _np(bs["bn"]["var"]),
+            "bn.num_batches_tracked": np.array(0, dtype=np.int64)}
+
+
+def _bn_stats_to_jax(sd) -> Dict[str, Any]:
+    return {"bn": {"mean": _np(sd["bn.running_mean"]),
+                   "var": _np(sd["bn.running_var"])}}
+
+
+def conditional_norm_state_dict_from_jax(variables) -> Dict[str, np.ndarray]:
+    """Flax ``ConditionalNorm`` variables -> the port's state dict (numpy):
+    ``params/embed`` -> ``embed``, ``batch_stats/bn/{mean,var}`` ->
+    ``bn.running_{mean,var}`` (+ ``bn.num_batches_tracked``, 0)."""
+    return {"embed": _np(variables["params"]["embed"]),
+            **_bn_stats_from_jax(variables["batch_stats"])}
+
+
+def conditional_norm_state_dict_to_jax(sd) -> Dict[str, Any]:
+    """The port's ``ConditionalNorm`` state dict -> Flax variables (numpy);
+    ``bn.num_batches_tracked`` is dropped."""
+    return {"params": {"embed": _np(sd["embed"])},
+            "batch_stats": _bn_stats_to_jax(sd)}
+
+
+def double_conv_down_state_dict_from_jax(variables
+                                         ) -> Dict[str, np.ndarray]:
+    """Flax ``DoubleConvDown`` variables -> the port's state dict (numpy):
+    ``params/conv{1,2}/{kernel,bias}`` (HWIO) -> ``conv{1,2}.{weight,bias}``
+    (OIHW), ``batch_stats/bn/{mean,var}`` -> ``bn.running_{mean,var}``."""
+    p = variables["params"]
+    sd = _bn_stats_from_jax(variables["batch_stats"])
+    for k in ("conv1", "conv2"):
+        sd[f"{k}.weight"] = _conv_out(p[k]["kernel"])
+        sd[f"{k}.bias"] = _np(p[k]["bias"])
+    return sd
+
+
+def double_conv_down_state_dict_to_jax(sd) -> Dict[str, Any]:
+    """The port's ``DoubleConvDown`` state dict -> Flax variables (numpy)."""
+    p = {k: {"kernel": _conv_in(sd[f"{k}.weight"]),
+             "bias": _np(sd[f"{k}.bias"])} for k in ("conv1", "conv2")}
+    return {"params": p, "batch_stats": _bn_stats_to_jax(sd)}
+
+
+def upsample_box_state_dict_from_jax(variables) -> Dict[str, np.ndarray]:
+    """Flax ``UpsampleBox`` variables (``batch_stats/bn/{mean,var}`` only;
+    no params) -> the port's state dict (numpy)."""
+    return _bn_stats_from_jax(variables["batch_stats"])
+
+
+def upsample_box_state_dict_to_jax(sd) -> Dict[str, Any]:
+    """The port's ``UpsampleBox`` state dict -> Flax variables (numpy)."""
+    return {"batch_stats": _bn_stats_to_jax(sd)}
 
 
 # ---------------------------------------------------------------- Adam state

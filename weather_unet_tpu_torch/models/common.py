@@ -78,7 +78,9 @@ class BatchNorm2d(nn.Module):
     near-constant channels), and blends the *unbiased* one into
     ``running_var``: ``new = (1 - momentum) * old + momentum * batch``.
     Statistics and the normalization run in float32 whatever the input
-    type; the result is cast back to it.
+    type; the result is cast back to it.  ``forward(x, train=...)`` picks
+    the mode for one call, as the JAX module's ``use_running_average``
+    does (the modules that own an affine-less one take ``train``).
     """
 
     def __init__(self, num_features: int, momentum: float = 0.1,
@@ -98,9 +100,9 @@ class BatchNorm2d(nn.Module):
         self.register_buffer("num_batches_tracked",
                              torch.tensor(0, dtype=torch.long))
 
-    def forward(self, x):
+    def forward(self, x, train: Optional[bool] = None):
         xf = x.float()
-        if self.training:
+        if self.training if train is None else train:
             n = x.shape[0] * x.shape[2] * x.shape[3]
             mean = xf.mean(dim=(0, 2, 3))
             var = (xf - mean[:, None, None]).square().mean(dim=(0, 2, 3))
@@ -118,6 +120,31 @@ class BatchNorm2d(nn.Module):
             y = (y * self.weight.float()[:, None, None]
                  + self.bias.float()[:, None, None])
         return y.to(x.dtype)
+
+
+class ConditionalNorm(nn.Module):
+    """Class-conditional BatchNorm (the reference's ``ConditionalNorm``): an
+    affine-less ``BatchNorm2d`` (``bn``), then per-class gamma and beta
+    looked up in ``embed`` (num_classes, 2C), whose gamma columns start at
+    1 and beta columns at 0.  No model path uses it; the JAX package keeps
+    it for the reference's surface, and so does the port."""
+
+    def __init__(self, num_features: int, num_classes: int = 5):
+        super().__init__()
+        self.bn = BatchNorm2d(num_features, affine=False)
+        self.embed = nn.Parameter(torch.cat(
+            [torch.ones(num_classes, num_features),
+             torch.zeros(num_classes, num_features)], dim=1))
+
+    def forward(self, x, class_id, train: bool = False):
+        """x (B, C, H, W), class_id (B,) integer classes; ``train`` uses and
+        updates the batch statistics."""
+        c = x.shape[1]
+        out = self.bn(x, train=train).float()
+        gb = self.embed.float()[class_id]               # (B, 2C)
+        gamma, beta = gb[:, :c], gb[:, c:]
+        return (gamma[:, :, None, None] * out
+                + beta[:, :, None, None]).to(x.dtype)
 
 
 class _SpectralNorm(nn.Module):

@@ -23,7 +23,7 @@ import torch.nn.functional as F
 
 from weather_unet_tpu_torch.kernels.adain import adain_fused
 from weather_unet_tpu_torch.kernels.upsample import upsample2x_fused
-from weather_unet_tpu_torch.models.common import TorchConv
+from weather_unet_tpu_torch.models.common import BatchNorm2d, TorchConv
 from weather_unet_tpu_torch.ops import inits
 from weather_unet_tpu_torch.ops.convs import max_pool_2x2
 from weather_unet_tpu_torch.ops.dropout import make_dropout
@@ -50,6 +50,48 @@ class RDoubleConv(nn.Sequential):
         else:
             x = F.relu(conv1(x, skip))
         return F.relu(conv2(x))
+
+
+class DoubleConvDown(nn.Module):
+    """The reference's ``double_conv``: 3x3 conv (in -> in), 3x3 stride-2
+    conv (in -> features), affine-less BatchNorm, LeakyReLU(0.2).  No model
+    path uses it; the JAX package keeps it for the reference's surface.
+    ``generator`` seeds the convs' init as ``ConditionalUNet``'s does."""
+
+    def __init__(self, in_channels: int, features: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.conv1 = TorchConv(in_channels, in_channels, 3, padding=1)
+        self.conv2 = TorchConv(in_channels, features, 3, stride=2, padding=1)
+        self.bn = BatchNorm2d(features, affine=False)
+        if generator is not None:
+            with torch.no_grad():
+                for conv in (self.conv1, self.conv2):
+                    conv.weight.copy_(inits.torch_kernel_init(
+                        conv.weight.shape, generator))
+                    conv.bias.copy_(inits.torch_bias_init_for(
+                        conv.weight[0].numel())(conv.bias.shape, generator))
+
+    def forward(self, x, *, train: bool = False):
+        x = self.conv2(self.conv1(x))
+        return F.leaky_relu(self.bn(x, train=train), 0.2)
+
+
+class UpsampleBox(nn.Module):
+    """The reference's ``upsample_box``: 2x bilinear upsample
+    (align_corners), then affine-less BatchNorm.  ``use_pallas`` runs the
+    upsample through K2 (``kernels/upsample.py``), as in
+    ``ConditionalUNet``.  No model path uses it."""
+
+    def __init__(self, num_features: int, use_pallas: bool = False):
+        super().__init__()
+        self.use_pallas = use_pallas
+        self.bn = BatchNorm2d(num_features, affine=False)
+
+    def forward(self, x, *, train: bool = False):
+        up = (upsample2x_fused if self.use_pallas
+              else upsample_bilinear_align_corners)
+        return self.bn(up(x), train=train)
 
 
 class AdaINBlock(nn.Module):

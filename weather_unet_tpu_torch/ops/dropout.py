@@ -8,10 +8,18 @@
 drawn as int16 in [-32768, 32768) and compared with ``thresh - 32768``: the
 same rule on a tensor of half the bytes of int32 words.
 
+``packed_dropout`` (and the module ``PackedDropout``) is the JAX package's
+8-bit form, which it rejected as a default and keeps as an opt-in: one
+32-bit random word per 4 channels, split into 4 8-bit lanes along the
+channel axis (dim 1 here; word ``j``'s lane ``k`` decides channel ``4j +
+k``); an element is kept when its lane is below ``thresh = round((1 - rate)
+* 256)``, and kept values are scaled by ``256 / thresh``.  Channel counts
+not divisible by 4, and rates whose ``thresh`` is 0 or 256, fall back to
+the Bernoulli rule.
+
 Masks carry no cross-framework parity duty (the reference's ``nn.Dropout``;
-parity runs at rate 0), so the random stream differs from JAX's; the keep
-rule and the scale do not.  ``packed_dropout`` (8-bit lanes, rejected as a
-default in the JAX package) is not ported yet.
+parity runs at rate 0), so the random streams differ from JAX's; the keep
+rules and the scales do not.
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ import os
 from typing import Callable, Optional
 
 import torch
+import torch.nn as nn
 
 _VALID = ("bits16", "torch")
 
@@ -36,15 +45,15 @@ def _bernoulli_dropout(x: torch.Tensor, rate: float,
 
 
 @functools.lru_cache(maxsize=64)
-def _keep_scale(thresh: int, dtype: torch.dtype,
-                device: torch.device) -> torch.Tensor:
-    """``65536 / thresh`` rounded to ``dtype``, on ``device``: made once, at
+def _keep_scale(thresh: int, dtype: torch.dtype, device: torch.device,
+                levels: int = 65536) -> torch.Tensor:
+    """``levels / thresh`` rounded to ``dtype``, on ``device``: made once, at
     first use, so a step captured as a CUDA graph copies nothing from the
     host (a CUDA graph cannot capture a host-to-device copy).  Rounding to
     x's dtype matters: a Python-float scale would multiply in float32 and
     move bf16 results."""
     with torch.inference_mode(False):
-        return torch.tensor(65536.0 / thresh, dtype=dtype, device=device)
+        return torch.tensor(levels / thresh, dtype=dtype, device=device)
 
 
 def bits_dropout(x: torch.Tensor, rate: float,
@@ -63,6 +72,46 @@ def bits_dropout(x: torch.Tensor, rate: float,
     scale = _keep_scale(thresh, x.dtype, x.device)
     return torch.where(mask, x * scale, torch.zeros((), dtype=x.dtype,
                                                     device=x.device))
+
+
+def packed_dropout(x: torch.Tensor, rate: float,
+                   generator: Optional[torch.Generator] = None
+                   ) -> torch.Tensor:
+    """Inverted dropout over an NCHW (or any (B, C, ...)) x from 8-bit lanes
+    of 32-bit random words, 4 lanes a word along dim 1 (module
+    docstring)."""
+    if rate <= 0.0:
+        return x
+    b, c = x.shape[:2]
+    thresh = round((1.0 - rate) * 256.0)
+    if c % 4 != 0 or not 0 < thresh < 256:
+        return _bernoulli_dropout(x, rate, generator)
+    words = torch.randint(-2 ** 31, 2 ** 31, (b, c // 4, 1) + x.shape[2:],
+                          generator=generator, device=x.device,
+                          dtype=torch.int32)
+    shifts = (8 * torch.arange(4, dtype=torch.int32, device=x.device)
+              ).reshape((1, 1, 4) + (1,) * (x.dim() - 2))
+    lanes = (words >> shifts) & 0xFF                # (B, C // 4, 4, ...)
+    mask = lanes.reshape(x.shape) < thresh
+    scale = _keep_scale(thresh, x.dtype, x.device, 256)
+    return torch.where(mask, x * scale, torch.zeros((), dtype=x.dtype,
+                                                    device=x.device))
+
+
+class PackedDropout(nn.Module):
+    """``packed_dropout`` as a module: the identity when ``deterministic``
+    or at rate 0, else ``packed_dropout(x, rate, generator)``."""
+
+    def __init__(self, rate: float, deterministic: bool = False):
+        super().__init__()
+        self.rate = rate
+        self.deterministic = deterministic
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if self.deterministic or self.rate == 0.0:
+            return x
+        return packed_dropout(x, self.rate, generator)
 
 
 def default_impl() -> str:

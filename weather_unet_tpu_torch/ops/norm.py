@@ -6,6 +6,9 @@ num_classes, C*4)``, views both the feature map and the projection as
 statistics come from only 4 values per channel, with *unbiased* variance
 (ddof=1) and ``var + eps`` inside the sqrt.  ``nn.InstanceNorm2d`` (biased
 variance, no 4-value style stats) is not this function.
+
+``instance_whiten``, ``batch_whiten`` and ``conditional_norm`` are the rest
+of the JAX module's surface, which no model path calls.
 """
 
 from __future__ import annotations
@@ -63,3 +66,37 @@ def adain_scale_shift(x: torch.Tensor, y_proj: torch.Tensor,
     scale = y_std / torch.sqrt(x_var + eps)
     shift = y_mean - x_mean * scale
     return scale, shift
+
+
+def instance_whiten(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Per-sample, per-channel whitening over H x W (no affine), unbiased
+    variance; float32 statistics, cast back to x's dtype."""
+    mean, var = _mean_var_unbiased(x, (2, 3))
+    out = ((x.float() - mean[:, :, None, None])
+           / torch.sqrt(var + eps)[:, :, None, None])
+    return out.to(x.dtype)
+
+
+def batch_whiten(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """The reference's custom ``BatchNorm``: per-*sample* whitening over all
+    of C, H, W flattened, unbiased variance; float32 statistics, cast back
+    to x's dtype."""
+    b = x.shape[0]
+    mean, var = _mean_var_unbiased(x.reshape(b, -1), 1)
+    shape = (b,) + (1,) * (x.dim() - 1)
+    out = ((x.float() - mean.reshape(shape))
+           / torch.sqrt(var + eps).reshape(shape))
+    return out.to(x.dtype)
+
+
+def conditional_norm(x: torch.Tensor, batch_mean: torch.Tensor,
+                     batch_var: torch.Tensor, gamma: torch.Tensor,
+                     beta: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Class-conditional BatchNorm core: affine-less BN with the given
+    per-channel ``batch_mean`` / ``batch_var`` (C,), then the per-sample
+    ``gamma`` / ``beta`` (B, C) the caller looked up by class; in float32,
+    cast back to x's dtype."""
+    inv = 1.0 / torch.sqrt(batch_var.float() + eps)
+    out = (x.float() - batch_mean.float()[:, None, None]) * inv[:, None, None]
+    return (gamma.float()[:, :, None, None] * out
+            + beta.float()[:, :, None, None]).to(x.dtype)

@@ -13,6 +13,12 @@ upsample+conv kernel (``kernels/upconv.py``); ``_interp_matrix_np`` is the
 dense form of the same weights (the upsample kernel's backward uses it) and
 ``_x2_shift_weights`` their even/odd-phase form (the tests hold all three to
 one another and to the JAX package).
+
+``upsample_x2_gather`` and ``upsample_x2_shift`` are the JAX package's two
+other plain forms of the same 2x upsample, the ``impl=`` choices of
+``upsample_bilinear_align_corners``: two gathers and a blend per axis in x's
+dtype, and shifted-slice blends in float32 rounded after each axis.  No
+model path calls them; ``impl="matmul"`` (the default) is ``F.interpolate``.
 """
 
 from __future__ import annotations
@@ -88,8 +94,64 @@ def _tap_tables(h: int, w: int, device: torch.device):
             torch.from_numpy(frac).to(device))
 
 
-def upsample_bilinear_align_corners(x: torch.Tensor, scale: int = 2):
-    """``(B, C, H, W) -> (B, C, scale*H, scale*W)``, align_corners=True."""
+def upsample_x2_gather(x: torch.Tensor) -> torch.Tensor:
+    """Exact 2x align-corners upsample, NCHW, as two gathers and a blend per
+    axis (H, then W), all in x's dtype: in bfloat16 each product and each
+    sum rounds, as in the JAX package."""
+    h, w = x.shape[2:]
+    i0, i1, f = (torch.from_numpy(a).to(x.device) for a in _x2_taps(h))
+    fh = f.to(x.dtype)[:, None]
+    y = (x.index_select(2, i0.long()) * (1 - fh)
+         + x.index_select(2, i1.long()) * fh)
+    j0, j1, g = (torch.from_numpy(a).to(x.device) for a in _x2_taps(w))
+    gw = g.to(x.dtype)
+    return (y.index_select(3, j0.long()) * (1 - gw)
+            + y.index_select(3, j1.long()) * gw)
+
+
+def upsample_x2_shift(x: torch.Tensor) -> torch.Tensor:
+    """Exact 2x align-corners upsample, NCHW, as shifted-slice blends and an
+    interleave: per axis, ``even = prev * a + x * (1 - a)`` and ``odd = x *
+    (1 - b) + next * b`` (``_x2_shift_weights``; the clamped edges carry
+    weight 0), stacked beside the axis and merged by a reshape.  Each axis
+    pass runs in float32 and rounds back to x's dtype."""
+
+    def axis_pass(t, dim):
+        size = t.shape[dim]
+        shape = [1, 1, 1, 1]
+        shape[dim] = size
+        a, b = (torch.from_numpy(v).to(t.device).reshape(shape)
+                for v in _x2_shift_weights(size))
+        tf = t.float()
+        prev = torch.cat([tf.narrow(dim, 0, 1), tf.narrow(dim, 0, size - 1)],
+                         dim)
+        nxt = torch.cat([tf.narrow(dim, 1, size - 1),
+                         tf.narrow(dim, size - 1, 1)], dim)
+        even = prev * a + tf * (1.0 - a)
+        odd = tf * (1.0 - b) + nxt * b
+        out_shape = list(t.shape)
+        out_shape[dim] = 2 * size
+        return torch.stack([even, odd], dim + 1).reshape(out_shape).to(
+            t.dtype)
+
+    return axis_pass(axis_pass(x, 2), 3)
+
+
+IMPLS = ("matmul", "gather", "shift")
+
+
+def upsample_bilinear_align_corners(x: torch.Tensor, scale: int = 2, *,
+                                    impl: str = "matmul"):
+    """``(B, C, H, W) -> (B, C, scale*H, scale*W)``, align_corners=True.
+    ``impl="matmul"`` (the JAX package's name for its dense-weight form) is
+    ``F.interpolate``; at scale 2, ``"gather"`` and ``"shift"`` are
+    ``upsample_x2_gather`` and ``upsample_x2_shift``."""
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r}; expected one of {IMPLS}")
+    if scale == 2 and impl == "gather":
+        return upsample_x2_gather(x)
+    if scale == 2 and impl == "shift":
+        return upsample_x2_shift(x)
     return F.interpolate(x, scale_factor=scale, mode="bilinear",
                          align_corners=True)
 
