@@ -332,6 +332,28 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                events of a SummaryWriter (one JPEG an event), plot_signals
                (a PNG where matplotlib is present, else its refusal naming
                matplotlib; recorded).
+11b. parallel -- data parallelism (parallel/launch.py, parallel/mesh.py),
+               the ranks in child processes of tools/dp_train_torch.py;
+               the card's compute mode must be Default.  (a) NCCL at
+               world size 1 through the launcher: the est trainer, 3
+               steps at 224x224, B=8, f32 (TF32 off, cuDNN
+               deterministic), dropout 0, K1, K2 and the K4-routed
+               estimator; its checkpoint bit-equal to the run without
+               the launcher.  (b) Two gloo ranks sharing cuda:0, the same
+               run at global B=8: the ranks' checkpoints byte-equal, each
+               step at the GAN f32 bars against the one-process step from
+               rank 0's state before it (sign-flip bound 2.2 * lr *
+               sqrt(k)); then 6 bf16 steps, each rank's step ms and
+               all-reduce ms (one card shared by two processes: not a
+               scaling figure).  (c) Two gloo ranks of train_estimator,
+               2 steps at 224x224, global B=64, f32, each step against the
+               one-process step on the ranks' joined rows (losses rel
+               1e-4; BN statistics and the sign-flip bound, each plus
+               twice that step's float32 floor).  (d) WeatherTransfer
+               with two replicas on cuda:0 against one, f32 and bf16, 256,
+               B=16: MAE <= 1e-5, 6 K1 and 6 K2 launches; serve
+               --data_parallel answers 16 POSTs.  Every rank's K1, K2 and
+               K4 launches join the main-path totals.
 12. aot      -- the AOT tier (core/aot.py) at full width, each program a
                CUDA graph held to its eager counterpart: the use_pallas
                cUNet at 256x256 through WeatherTransfer(aot_cache=) at
@@ -398,6 +420,7 @@ import itertools
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -3957,6 +3980,450 @@ def phase_surface(counters, launch_totals, smi):
     free_cuda()
 
 
+# ------------------------------------------------------------------ parallel
+DP_WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "tools", "dp_train_torch.py")
+DP_SIZE, DP_BATCH, DP_STEPS = 224, 8, 3   # the est trainer's defaults
+DP_TIMED = 6                              # bf16 steps a rank, 1 untimed
+DP_SUP_BATCH, DP_SUP_STEPS = 64, 2        # train_estimator's default batch
+DP_TIMEOUT = 400                          # seconds for one multi-rank run
+
+
+def dp_env():
+    """The ranks' environment: this checkout on the path, no inherited
+    launcher contract, a collective timeout well inside the run's."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("WUT_")}
+    root = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    env["WUT_BARRIER_TIMEOUT_S"] = "300"
+    return env
+
+
+def dp_run(n, argv, logs, backend=None):
+    """``argv`` of the worker as ``n`` ranks through the launcher (n > 0)
+    or as one plain process (n == 0); raises with the logs' tails unless
+    every process ends with 0.  Returns the rank records."""
+    from weather_unet_tpu_torch.parallel.launch import launch_local
+
+    out = argv[argv.index("--out") + 1]
+    cmd = [sys.executable, DP_WORKER] + argv
+    os.makedirs(logs, exist_ok=True)
+    if n:
+        rc = launch_local(n, cmd, backend=backend, env=dp_env(),
+                          timeout=DP_TIMEOUT, rank_logs=logs)
+    else:
+        with open(os.path.join(logs, "rank0.log"), "wb") as f:
+            rc = subprocess.run(cmd, env=dp_env(), stdout=f,
+                                stderr=subprocess.STDOUT,
+                                timeout=DP_TIMEOUT).returncode
+    if rc != 0:
+        tails = []
+        for log in sorted(glob.glob(os.path.join(logs, "*.log"))):
+            with open(log, errors="replace") as f:
+                tails.append(f"--- {log}\n" + f.read()[-3000:])
+        raise AssertionError(f"worker {argv[:4]} x{n}: rc {rc}\n"
+                             + "\n".join(tails))
+    recs = []
+    for r in range(max(n, 1)):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            recs.append(json.load(f))
+    return recs
+
+
+def dp_bytes(out, r=0):
+    with open(os.path.join(out, f"rank{r}.pt"), "rb") as f:
+        return f.read()
+
+
+def dp_worker_module():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("dp_train_torch",
+                                                  DP_WORKER)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def dp_concurrently(*calls):
+    """Run the zero-argument ``calls`` in threads at once (each starts its
+    own processes on the card); their results in order, the first error
+    raised."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(calls)) as pool:
+        futs = [pool.submit(c) for c in calls]
+        return [f.result() for f in futs]
+
+
+def dp_gan_parity(tmp, est_path, out, recs, rec):
+    """Each of the ranks' f32 steps k, taken again in this process by the
+    one-process step (K1, K2, K4 route, B = the global batch) from the
+    state the ranks took it from (rank 0's state after step k - 1), at
+    the GAN f32 bars of PERF.md §2 with the sign-flip bound 2.2 * lr *
+    sqrt(k); the K4 route's extra is its sensitivity to the batch being
+    split (K4 at B=4 per rank against B=8)."""
+    import argparse
+
+    from weather_unet_tpu_torch.core.rng import train_generator
+    from weather_unet_tpu_torch.data.transforms import normalize_batch
+    from weather_unet_tpu_torch.train import checkpoint as ckpt
+    from weather_unet_tpu_torch.train.gan import (
+        GanConfig, build_gan_state, make_gan_step)
+
+    cfg = GanConfig(input_size=DP_SIZE, batch_size=DP_BATCH, num_epoch=1,
+                    dropout_rate=0.0)
+    gen, disc, state = build_gan_state(cfg, 0, "cuda", use_pallas=True)
+    _, _, ranks = build_gan_state(cfg, 0, "cuda", use_pallas=True)
+    init = os.path.join(tmp, "dp_init.pt")
+    with open(init, "wb") as f:
+        f.write(ckpt.serialize(ckpt._to_host(ckpt.gan_tree(state, 0))))
+    est = estimators(est_path, torch.float32, "k4", {})
+    step = make_gan_step(gen, disc, est, cfg)
+    zeros = torch.zeros(DP_BATCH, dtype=torch.long, device="cuda")
+    w = dp_worker_module()
+    args = argparse.Namespace(steps=DP_STEPS, batch=DP_BATCH, size=DP_SIZE)
+    half = DP_BATCH // 2
+
+    def split(x):
+        return torch.cat([est(x[:half]), est(x[half:])])
+
+    batches = []
+    for make in w.gan_loaders(args):
+        ld = make()
+        ld.set_epoch(0)
+        batches.append([b[0] for b in ld])
+    steps = []
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True       # as the ranks run
+    for k, (xu, ru) in enumerate(zip(*batches), 1):
+        x = normalize_batch(torch.from_numpy(xu).cuda(), DP_SIZE)
+        r = normalize_batch(torch.from_numpy(ru).cuda(), DP_SIZE)
+        start = init if k == 1 else os.path.join(out, f"rank0_s{k - 1}.pt")
+
+        def run(images):
+            ckpt.restore_checkpoint(start, state)
+            st, m = step(state, images, zeros, r, zeros,
+                         train_generator(0, "cuda"), do_g=True)
+            return gan_snapshot(st, m)
+
+        one = run(x)
+        floor = float32_floor(run, x, one)
+        ckpt.restore_checkpoint(os.path.join(out, f"rank0_s{k}.pt"), ranks)
+        got = gan_snapshot(ranks, recs[0]["metrics"][k - 1])
+        sens, _ = route_sensitivity(est, split, x, r, cfg.con_eps)
+        steps.append(gan_states_agree(
+            got, one, cfg.lr * np.sqrt(k), GAN_TOL,
+            f"parallel (b) step {k} against the one-process step", floor,
+            extra=2 * sens))
+    torch.backends.cudnn.deterministic = deterministic
+    rec["b_parity"] = steps
+    del gen, disc, state, ranks, step
+    free_cuda()
+
+
+def dp_sup_parity(out, recs, rec):
+    """The two ranks' estimator-CLI steps k against the one-process step
+    on their joined rows from rank 0's state after step k - 1: losses rel
+    1e-4; BatchNorm's running statistics within 1e-5 and parameters within
+    the sign-flip bound (fewer than 0.5% beyond 5e-5, none beyond 2.2 * lr
+    * sqrt(k)), each plus twice the one-process step's own float32 floor
+    (the same step with its input moved by one rounding, in this call):
+    at full width and B=64, ResNet-101's step flips the sign of ~1% of its
+    Adam updates and moves its BatchNorm statistics (up to ~56) by ~6e-5
+    under one rounding of its input (on an H100), so no two float32
+    computations of it meet 0.5% and 1e-5 alone."""
+    from weather_unet_tpu_torch.models import ResNet101
+    from weather_unet_tpu_torch.train import checkpoint as ckpt
+    from weather_unet_tpu_torch.train import supervised as sup
+
+    def fresh():
+        model = ResNet101(5, param_dtype=torch.float32,
+                          generator=torch.Generator().manual_seed(0))
+        return sup.build_supervised_state(model.cuda(), 1e-4, 1e-5)
+
+    ref, moved, got = fresh(), fresh(), fresh()
+    init = ckpt._to_host(ckpt.supervised_tree(ref, 0, 0))  # the CLI's
+
+    def bn_err(a, b):
+        sa, sb = a.module.state_dict(), b.module.state_dict()
+        return max(float((sa[n].float() - sb[n].float()).abs().max())
+                   for n in sb if n.endswith(("running_mean",
+                                              "running_var")))
+
+    steps = []
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True       # as the ranks run
+    for k in range(1, DP_SUP_STEPS + 1):
+        parts = [torch.load(os.path.join(out, f"rank{r}_in{k}.pt"),
+                            weights_only=True) for r in (0, 1)]
+        x = torch.cat([p[0] for p in parts]).cuda()
+        t = torch.cat([p[1] for p in parts]).cuda()
+
+        def one(st, images):
+            if k == 1:
+                st.module.load_state_dict(init["model"])
+                st.optimizer.load_state_dict(init["opt"])
+                st.step = 0
+            else:
+                ckpt.restore_supervised(
+                    os.path.join(out, f"rank0_s{k - 1}.pt"), st)
+            return sup.make_estimator_step()(st, images, t)
+
+        ref, m = one(ref, x)
+        moved, _ = one(moved, x * (1 + ONE_ROUNDING))
+        floor = {"bn": bn_err(moved, ref),
+                 **sup_params_agree(moved, ref, 1e-4 * np.sqrt(k))}
+        ckpt.restore_supervised(os.path.join(out, f"rank0_s{k}.pt"), got)
+        loss_rel = {n: abs(recs[0]["metrics"][k - 1][n] - float(v))
+                    / max(abs(float(v)), 1e-30) for n, v in m.items()}
+        bn = bn_err(got, ref)
+        params = sup_params_agree(got, ref, 1e-4 * np.sqrt(k))
+        steps.append({"loss_rel_err": loss_rel, "bn_max_abs_err": bn,
+                      **params, "float32_floor": floor})
+        if not (max(loss_rel.values()) <= 1e-4
+                and bn <= 1e-5 + 2 * floor["bn"]
+                and params["loose_share"] < 5e-3 + 2 * floor["loose_share"]
+                and params["max_move_diff"] <= 2.2e-4 * np.sqrt(k) + 1e-6):
+            raise AssertionError(f"parallel (c) step {k}: {steps[-1]}")
+    del ref, moved, got
+    torch.backends.cudnn.deterministic = deterministic
+    rec["c_parity"] = steps
+    free_cuda()
+
+
+def dp_replicas(cunet_path, counters, launch_totals, rec):
+    """(d) WeatherTransfer with two replicas on cuda:0 against one, f32 and
+    bf16, 256², B=16: MAE <= 1e-5 against one replica at the replicas'
+    batch of 8 (and at 16: 1e-5 in f32, bf16's 1e-3 in bf16, where cuDNN
+    may pick another algorithm), K1 and K2 3 launches a replica forward;
+    serve --data_parallel (a replica on each local card) answers 16 POSTs
+    from 4 clients."""
+    import threading
+    import urllib.request
+
+    from weather_unet_tpu_torch.api import WeatherTransfer
+    from weather_unet_tpu_torch.cli import serve
+    from weather_unet_tpu_torch.parallel.mesh import make_mesh
+
+    plan = make_mesh(devices=["cuda:0", "cuda:0"])
+    rng = np.random.default_rng(SEED + 14)
+    x = torch.from_numpy(rng.uniform(-1, 1, (16, 256, 256, 3)).astype(
+        np.float32)).cuda()
+    c = torch.from_numpy(np.eye(5, dtype=np.float32)[rng.integers(
+        0, 5, 16)]).cuda()
+    out = {}
+    for dt in DTYPES:
+        one = WeatherTransfer.load(cunet_path, dtype=dt, device="cuda")
+        two = WeatherTransfer.load(cunet_path, dtype=dt, plan=plan)
+        ref = one.translate(x.to(dt), c)
+        got, launches = counted_run(lambda: two.translate(x.to(dt), c),
+                                    counters, launch_totals,
+                                    {"adain": 6, "upsample": 6},
+                                    f"two replicas {DT_NAME[dt]}")
+        # one replica at the replicas' shape (8 rows a forward), and at 16
+        halves = torch.cat([one.translate(x[:8].to(dt), c[:8]),
+                            one.translate(x[8:].to(dt), c[8:])])
+        mae = float((got.float() - halves.float()).abs().mean())
+        mae16 = float((got.float() - ref.float()).abs().mean())
+        out[DT_NAME[dt]] = {
+            "mae": mae, "mae_against_b16": mae16, "launches": launches,
+            "ms_two_replicas": wall_ms(lambda: two.translate(x.to(dt), c)),
+            "ms_one": wall_ms(lambda: one.translate(x.to(dt), c))}
+        # at B=16 cuDNN may pick other algorithms than at 8: bf16's bar
+        bar16 = 1e-5 if dt == torch.float32 else 1e-3
+        if not (mae <= 1e-5 and mae16 <= bar16):
+            raise AssertionError(f"two replicas {DT_NAME[dt]}: "
+                                 f"{out[DT_NAME[dt]]}")
+        del one, two, ref, got, halves
+    rec["d_replicas"] = out
+    free_cuda()
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(rng.integers(0, 256, (256, 256, 3), np.uint8)).save(
+        buf, format="JPEG")
+    body = buf.getvalue()
+    server = serve.build_server(serve.build_parser().parse_args(
+        ["--cp_path", cunet_path, "--host", "127.0.0.1", "--port", "0",
+         "--input_size", "224", "--data_parallel"]))
+    t = threading.Thread(target=server.serve_forever, daemon=True)
+    t.start()
+    codes = []
+
+    def client(n):
+        for _ in range(n):
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{server.server_address[1]}"
+                "/translate?class=rain", data=body, method="POST")
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                codes.append((resp.status, len(resp.read())))
+
+    try:
+        def traffic():
+            ts = [threading.Thread(target=client, args=(4,))
+                  for _ in range(4)]
+            for th in ts:
+                th.start()
+            for th in ts:
+                th.join()
+
+        t0 = time.perf_counter()
+        _, launches = counted_run(traffic, counters, launch_totals)
+        seconds = time.perf_counter() - t0
+    finally:
+        server.shutdown()
+        server.server_close()
+        t.join(30)
+    rec["d_serve"] = {"replicas": len(server.transfer._replicas),
+                      "mesh": server.transfer.plan.mesh_shape,
+                      "answers": len(codes), "seconds": seconds,
+                      "launches": launches}
+    if len(codes) != 16 or any(s != 200 or n == 0 for s, n in codes):
+        raise AssertionError(f"serve --data_parallel: {codes}")
+    if launches["adain"] == 0 or launches["upsample"] == 0:
+        raise AssertionError(f"serve --data_parallel launches {launches}")
+    del server
+    free_cuda()
+
+
+def phase_parallel(cunet_path, est_path, counters, launch_totals, smi):
+    """Phase parallel: the multi-process runtime and data parallelism
+    (parallel/launch.py, parallel/mesh.py) on the card, the ranks in child
+    processes of tools/dp_train_torch.py.  (a) NCCL at world size 1
+    through the launcher: the est trainer, 3 steps at 224², B=8, f32 (TF32
+    off, cuDNN deterministic), dropout 0, K1, K2 and the K4-routed
+    estimator, its checkpoint bit-equal to the same run without the
+    launcher.  (b) Two gloo ranks on cuda:0, the same run at global B=8:
+    the ranks' checkpoints byte-equal, each step held to the one-process
+    step (dp_gan_parity); then in bf16, 6 steps a rank, its step ms and
+    all-reduce ms (one card shared by two processes: not a scaling
+    measurement).  (c) Two gloo ranks: train_estimator, 2 steps at 224²,
+    global B=64, f32, against the one-process step (dp_sup_parity).  (d)
+    dp_replicas.  The ranks' K1, K2 and K4 launches join the main-path
+    totals."""
+    t_phase = time.perf_counter()
+    modes = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit,compute_mode",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+    print(modes, flush=True)
+    rec = {"phase": "parallel", "card": smi, "nvidia_smi": modes}
+    if not modes.endswith("Default"):
+        raise AssertionError(f"parallel: the card's compute mode forbids a "
+                             f"second process on it ({modes})")
+    free_cuda()
+    tmp = tempfile.mkdtemp(prefix="wut_dp_")
+    try:
+        gan = ["--mode", "gan", "--size", str(DP_SIZE), "--batch",
+               str(DP_BATCH), "--steps", str(DP_STEPS), "--estimator_path",
+               est_path, "--route", "k4"]
+        f32 = gan + ["--deterministic"]
+
+        def at(name):
+            return ["--out", os.path.join(tmp, name), "--save_dir",
+                    os.path.join(tmp, "cp_" + name)]
+
+        logs = os.path.join(tmp, "logs")
+        # (c)'s world: the estimator CLI over 128 train rows (2 steps of
+        # 64) and 8 test rows
+        import pandas as pd
+
+        t0 = time.perf_counter()
+        jpegs = os.path.join(tmp, "jpegs")
+        os.makedirs(jpegs)
+        n = 2 * DP_SUP_BATCH + 8
+        write_jpegs(jpegs, n)
+        sig = np.random.default_rng(SEED + 15).standard_normal((n, 5))
+        classes = ["Clear", "Clouds", "Rain", "Mist", "Snow"]
+        frame = os.path.join(tmp, "frame.pkl")
+        pd.DataFrame({
+            "photo": [f"{i:03d}" for i in range(n)],
+            "mode": ["train"] * (n - 8) + ["test"] * 8,
+            **{c: sig[:, j] for j, c in enumerate(
+                ["clouds", "temp", "humidity", "pressure", "windspeed"])},
+            "w_condition": [classes[i % 5] for i in range(n)],
+            "condition2": [classes[i % 5] for i in range(n)]}).to_pickle(
+            frame)
+        cli = ["--out", os.path.join(tmp, "c"), "--mode", "cli",
+               "--deterministic", "--snapshots", "--dump_inputs", "--",
+               "--image_root", jpegs, "--pkl_path", frame, "-bs",
+               str(DP_SUP_BATCH), "--num_epoch", "1", "--num_workers", "4",
+               "--save_path", os.path.join(tmp, "cp_c"), "--log_dir",
+               os.path.join(tmp, "runs"), "--name", "est"]
+        # the f32 runs of (a), (b) and (c) at once: none of them is timed
+        a1, a0, b, c = dp_concurrently(
+            lambda: dp_run(1, at("a1") + f32, os.path.join(logs, "a1")),
+            lambda: dp_run(0, at("a0") + f32 + ["--device", "cuda"],
+                           os.path.join(logs, "a0")),
+            lambda: dp_run(2, at("b") + f32 + ["--snapshots"],
+                           os.path.join(logs, "b"), backend="gloo"),
+            lambda: dp_run(2, cli, os.path.join(logs, "c"), backend="gloo"))
+        rec["a_b_c_seconds"] = time.perf_counter() - t0
+        with open(os.path.join(logs, "a1", "rank0.log"),
+                  errors="replace") as f:
+            if "(nccl, cuda:0)" not in f.read():
+                raise AssertionError("(a) did not join an NCCL group")
+        same_a = dp_bytes(os.path.join(tmp, "a1")) == dp_bytes(
+            os.path.join(tmp, "a0"))
+        same_b = dp_bytes(os.path.join(tmp, "b"), 0) == dp_bytes(
+            os.path.join(tmp, "b"), 1)
+        rec["a"] = {"world": a1[0]["world"], "bit_equal_to_plain": same_a,
+                    "launches": a1[0]["launches"],
+                    "metrics": a1[0]["metrics"]}
+        rec["b"] = {"ranks_byte_equal": same_b,
+                    "launches": [r["launches"] for r in b]}
+        if not (same_a and a1[0]["metrics"] == a0[0]["metrics"]):
+            raise AssertionError(f"(a) world 1 through the launcher != the "
+                                 f"plain run: {rec['a']}")
+        if not same_b:
+            raise AssertionError("(b) the two ranks' checkpoints differ")
+        if len(c[0]["metrics"]) != DP_SUP_STEPS or dp_bytes(
+                os.path.join(tmp, "c"), 0) != dp_bytes(
+                os.path.join(tmp, "c"), 1):
+            raise AssertionError(f"(c) ranks: {c[0]['metrics']}")
+        for r in a1 + b:
+            for k in ("adain", "upsample", "bottleneck"):
+                launch_totals[k] += r["launches"][k]
+        want = {"adain": 6 * DP_STEPS, "upsample": 6 * DP_STEPS}
+        for r in a1 + b:
+            if {k: r["launches"][k] for k in want} != want or (
+                    r["launches"]["bottleneck"] == 0):
+                raise AssertionError(f"rank launches {r['launches']}")
+        t0 = time.perf_counter()
+        dp_gan_parity(tmp, est_path, os.path.join(tmp, "b"), b, rec)
+        dp_sup_parity(os.path.join(tmp, "c"), c, rec)
+        rec["b_c_parity_seconds"] = time.perf_counter() - t0
+
+        # the bf16 timing, alone on the card
+        t0 = time.perf_counter()
+        bf = dp_run(2, at("bf16") + ["--mode", "gan", "--size",
+                                     str(DP_SIZE), "--batch", str(DP_BATCH),
+                                     "--steps", str(DP_TIMED),
+                                     "--estimator_path", est_path,
+                                     "--dtype", "bf16", "--timing"],
+                    os.path.join(logs, "bf16"), backend="gloo")
+        rec["b_bf16"] = {
+            f"rank{r['rank']}": {
+                "step_ms": float(np.median(r["step_ms"][1:])),
+                "allreduce_ms": float(np.median(r["allreduce_ms"][1:])),
+                "step_ms_all": r["step_ms"],
+                "allreduce_ms_all": r["allreduce_ms"],
+                "launches": r["launches"]} for r in bf}
+        for r in bf:
+            for k in ("adain", "upsample", "bottleneck"):
+                launch_totals[k] += r["launches"][k]
+        rec["b_bf16_seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dp_replicas(cunet_path, counters, launch_totals, rec)
+        rec["d_seconds"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+
+
 # ----------------------------------------------------------------------- aot
 AOT_BUCKETS = (1, 4, 16)   # serving buckets graphed in phase aot
 AOT_SIZE = 256             # bench.py's serving resolution
@@ -5209,6 +5676,7 @@ def main():
         phase_serving_cli(est_path, counters, launch_totals, smi)
         phase_eval_export(counters, launch_totals, smi)
         phase_surface(counters, launch_totals, smi)
+        phase_parallel(path, est_path, counters, launch_totals, smi)
         graph_totals = {k: 0 for k in counters}
         phase_aot(est_path, smi, graph_totals)
     for name, total in launch_totals.items():

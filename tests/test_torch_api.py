@@ -231,7 +231,8 @@ def test_port_imports_no_jax():
                  "core.export", "cli.export_serving",
                  "cli.convert_checkpoint", "ops.utils_misc",
                  "data.preprocess", "cli.preprocess", "cli.pkl_viewer",
-                 "cli.write_image_summary", "cli.plot_signals"):
+                 "cli.write_image_summary", "cli.plot_signals",
+                 "parallel", "parallel.launch", "parallel.mesh"):
         assert f"weather_unet_tpu_torch.{name}" in out["modules"]
     assert out["bad"] == [] and out["built"] == 0
     # nor the native runtime (built at first use, not on import)

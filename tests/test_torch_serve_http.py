@@ -294,9 +294,11 @@ def test_warmup_covers_the_rounded_up_bucket(cp_path, monkeypatch):
 
 REFUSED = {"artifact": (["--artifact", "art"],
                         "exactly one of --cp_path or --artifact"),
-           "data_parallel": (["--data_parallel"], "Mesh, tensor parallel"),
-           "tensor_parallel": (["--tensor_parallel", "2"],
-                               "Mesh, tensor parallel"),
+           # --data_parallel serves (tests/test_torch_data_parallel.py),
+           # except from an artifact, whose device layout is baked in
+           "data_parallel": (["--data_parallel"],
+                             "--data_parallel does not apply to --artifact"),
+           "tensor_parallel": (["--tensor_parallel", "2"], "item 4b"),
            # the AOT tier is ported; an artifact has no program to export
            "aot_cache": (["--aot_cache", "aot"],
                          "--aot_cache does not apply to --artifact"),
@@ -307,7 +309,7 @@ REFUSED = {"artifact": (["--artifact", "art"],
 @pytest.mark.parametrize("case", list(REFUSED))
 def test_refused_flags_name_their_roadmap_item(cp_path, case, monkeypatch):
     flags, match = REFUSED[case]
-    source = (["--artifact", "art"] if case == "aot_cache"
+    source = (["--artifact", "art"] if case in ("aot_cache", "data_parallel")
               else ["--cp_path", cp_path])
     args = [] if flags is None else source + flags
     if case == "no_gpu":          # neither a GPU nor --device cpu

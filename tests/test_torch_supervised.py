@@ -318,8 +318,15 @@ def test_preempted_run_resumes_bit_equal(setup, tmp_path, capsys):
     again = run(variables, tmp_path, "p")
     assert "resumed from" in capsys.readouterr().out
     assert state_equal(again, whole)
-    with pytest.raises(NotImplementedError, match="Mesh, tensor parallel"):
-        run(variables, tmp_path, "x", plan=object())
+    # a plan's model axis (tensor parallelism) names ROADMAP.md item 4b;
+    # a one-device plan resumes and ends bit-equal as the plain loop does
+    from weather_unet_tpu_torch.parallel.mesh import make_mesh
+
+    with pytest.raises(NotImplementedError, match="item 4b"):
+        run(variables, tmp_path, "x", plan=make_mesh(["cpu", "cpu"],
+                                                     model=2))
+    planned = run(variables, tmp_path, "planned", plan=make_mesh(["cpu"]))
+    assert state_equal(planned, whole)
 
 
 def test_bf16_step_trains_float32_master_weights(setup):

@@ -73,17 +73,16 @@ def test_classifier_cli_pre_trained(data, tmp_path, capsys):  # noqa: F811
 
 
 def test_unported_flags_and_missing_gpu(data, tmp_path,  # noqa: F811
-                                        monkeypatch):
+                                        monkeypatch, capsys):
+    """``--multi`` is the JAX package's parity flag (data parallelism
+    follows the process group): one process trains as without it; without
+    a GPU and without ``--device cpu`` both CLIs raise."""
     est = ["--image_root", data["flickr"], "--pkl_path",
            str(data["root"] / "frame.pkl")]
     cls = ["--pkl_path", str(data["root"] / "i2w.pkl")]
-    for cli, base, flags in ((est_cli, est, [["--multi"]]),
-                             (cls_cli, cls, [])):
-        for flag in flags:
-            with pytest.raises(SystemExit, match="Mesh, tensor parallelism "
-                                                 "and multi-process") as e:
-                cli.main(base + flag + common(tmp_path, 1))
-            assert e.value.code not in (0, None)
+    est_cli.main(est + ["--multi"] + common(tmp_path, 1))
+    assert "Done: training" in capsys.readouterr().out
+    assert final(tmp_path)["global_step"] == 4
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for cli, base in ((est_cli, est), (cls_cli, cls)):
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -113,7 +113,8 @@ def test_unported_flags_and_missing_gpu(data, tmp_path, monkeypatch):
     base = ["--image_root", data["flickr"], "--image_only"]
     for cli in (est_cli, cls_cli):
         for flag, item in ((["--tensor_parallel", "2"],
-                            "Mesh, tensor parallelism and multi-process"),):
+                            "item 4b, 'Tensor parallelism and spatial "
+                            "partitioning'"),):
             with pytest.raises(SystemExit, match=item) as e:
                 cli.main(base + flag + common(data, tmp_path))
             assert e.value.code not in (0, None)

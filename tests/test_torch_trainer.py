@@ -303,13 +303,36 @@ def test_export_torch_gan_matches_jax(tmp_path):
 
 
 def test_unported_options_and_missing_gpu_raise(tmp_path, monkeypatch):
+    """Tensor parallelism, as the flag or as a plan's 'model' axis, names
+    ROADMAP.md item 4b; a plan's data axis trains (the test below)."""
+    from weather_unet_tpu_torch.parallel.mesh import make_mesh
+
     cfg = cfg_of()
-    for kw, item in ((dict(plan=object()),
-                      "Mesh, tensor parallelism and multi-process"),
-                     (dict(tensor_parallel=True), "Mesh, tensor parallel")):
+    for kw, item in ((dict(plan=make_mesh(["cpu", "cpu"], model=2)),
+                      "item 4b, 'Tensor parallelism and spatial"),
+                     (dict(tensor_parallel=True), "item 4b")):
         with pytest.raises(NotImplementedError, match=item):
             trainer(tmp_path, cfg, **kw)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         WeatherTransferTrainer(cfg, est_apply, save_dir=str(tmp_path),
                                log_dir=str(tmp_path / "runs"))
+
+
+def test_a_plan_of_one_device_trains_as_the_plain_trainer(tmp_path):
+    """``plan=make_mesh(["cpu"])``: one rank, data axis 1; fit equals the
+    trainer without a plan bit for bit (the data-parallel runs of several
+    ranks are in tests/test_torch_data_parallel.py)."""
+    from weather_unet_tpu_torch.parallel.mesh import make_mesh
+
+    data = Images(8)
+    cfg = cfg_of(num_epoch=1)
+    runs = []
+    for sub, kw in (("plain", {}), ("plan", dict(plan=make_mesh(["cpu"])))):
+        tr = trainer(tmp_path, cfg, sub=sub, **kw)
+        assert (tr.plan is None) == (not kw)
+        tr.fit(*loaders(data))
+        runs.append(state_tensors(tr.state))
+    assert runs[0].keys() == runs[1].keys()
+    for k, v in runs[0].items():
+        assert torch.equal(v, runs[1][k]), k

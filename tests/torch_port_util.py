@@ -10,6 +10,8 @@ A test module imports the fixtures to put them in force for itself:
         nchw, nhwc, no_thread_left, one_torch_thread)
 """
 
+import glob
+import os
 import threading
 import time
 
@@ -98,3 +100,55 @@ def block_inputs(rng, b=2, h=8, w=12, c=16, o=8):
             (0.1 * rng.standard_normal((b, 2 * h, 2 * w, o))).astype(np.float32),
             rng.uniform(0.5, 2.0, (b, c)).astype(np.float32),
             rng.standard_normal((b, c)).astype(np.float32))
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+DP_WORKER = os.path.join(REPO, "tools", "dp_train_torch.py")
+
+
+def rank_env(**extra) -> dict:
+    """The environment of a test's rank processes: the repository on the
+    path, one thread each, a collective timeout of 60 s."""
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1",
+               WUT_BARRIER_TIMEOUT_S="60")
+    for k in ("WUT_NUM_PROCESSES", "WUT_PROCESS_ID", "WUT_COORDINATOR",
+              "WUT_DEVICE", "WUT_DIST_BACKEND", "WUT_LOCAL_RANK",
+              "WUT_LOCAL_WORLD_SIZE"):
+        env.pop(k, None)
+    env.update(extra)
+    return env
+
+
+def launch_ranks(n: int, cmd, logs, *, cpu: bool = True, timeout=120,
+                 env=None) -> int:
+    """``parallel/launch.py::launch_local`` for a test: ranks in child
+    processes (a pytest worker never joins a process group itself), each
+    rank's output in ``logs/rank<i>.log``, the whole run bounded by
+    ``timeout`` seconds.  A rendezvous that lost its port to another
+    process (EADDRINUSE) is retried once on a new port; nothing else is."""
+    from weather_unet_tpu_torch.parallel.launch import launch_local
+
+    for attempt in range(2):
+        d = os.path.join(str(logs), f"try{attempt}")
+        rc = launch_local(n, list(cmd), cpu=cpu, env=env or rank_env(),
+                          timeout=timeout, rank_logs=d)
+        text = "".join(_read(f) for f in sorted(
+            glob.glob(os.path.join(d, "*.log"))))
+        if rc == 0 or not ("EADDRINUSE" in text
+                           or "Address already in use" in text):
+            break
+    if rc != 0:
+        print(text)
+    return rc
+
+
+def _read(path: str) -> str:
+    with open(path, errors="replace") as f:
+        return f.read()
+
+
+def rank_log(logs, rank: int) -> str:
+    """The text of ``rank``'s log from the last attempt of
+    ``launch_ranks``."""
+    d = sorted(glob.glob(os.path.join(str(logs), "try*")))[-1]
+    return _read(os.path.join(d, f"rank{rank}.log"))

@@ -1,0 +1,333 @@
+"""One rank of a data-parallel training run of the PyTorch port, for the
+tests and ``chip_smoke.py``: the GAN trainer (``--mode gan``),
+``train_supervised`` (``--mode sup``) or the estimator CLI
+(``--mode cli``) for a few steps on seeded synthetic data, with what each
+rank saw written to ``--out``:
+
+* ``rank{r}.json``: the world, the device, each step's metrics (the ranks'
+  means), each step's wall ms and all-reduce ms with ``--timing``, and the
+  K1/K2/K4 launches of the run;
+* ``rank{r}.pt``: the rank's final train state as a checkpoint holds it
+  (``train/checkpoint.py::serialize`` bytes);
+* with ``--snapshots``, rank 0's state after each step k as
+  ``rank0_s{k}.pt``, so that a reference can take step k from the state
+  the ranks took it from (Adam's sign flips compound over steps taken
+  apart); with ``--dump_inputs`` each rank's step inputs (images,
+  targets) of the supervised modes as ``rank{r}_in{k}.pt``, which joined
+  are step k's global batch.
+
+Launched by ``parallel/launch.py`` it is one rank of the process group;
+run plainly it is the one-process run the ranks are held to:
+
+    python -m weather_unet_tpu_torch.parallel.launch -n 2 --cpu -- \\
+        python tools/dp_train_torch.py --mode gan --out OUT --save_dir CP \\
+        --device cpu --size 16 --batch 4 --steps 2
+
+The trainers resume from ``--save_dir`` (``--name``): a run that starts
+from given weights has them saved there at step 0 first.  TensorBoard is
+not imported (the summaries fall back to JSONL), so a rank starts in
+seconds.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if REPO not in sys.path:
+    sys.path.insert(0, REPO)
+
+EST_SEED = 5          # the linear stand-in estimator's weights
+DATA_SEED = 11        # the synthetic images and targets
+
+
+def est_weights() -> np.ndarray:
+    return np.random.default_rng(EST_SEED).standard_normal(
+        (3, 5)).astype(np.float32)
+
+
+def linear_estimator(images: torch.Tensor) -> torch.Tensor:
+    """A differentiable stand-in for the frozen estimator: the images'
+    channel means through a seeded (3, 5) matrix (NCHW in)."""
+    w = torch.from_numpy(est_weights()).to(images.device, images.dtype)
+    return images.mean(dim=(2, 3)) @ w
+
+
+class Synthetic:
+    """n seeded uint8 NHWC images with an int class and 5 float signals."""
+
+    def __init__(self, n: int, size: int, seed: int = DATA_SEED):
+        rng = np.random.default_rng(seed)
+        self.images = rng.integers(0, 256, (n, size, size, 3), np.uint8)
+        self.labels = rng.integers(0, 5, n)
+        self.signals = rng.standard_normal((n, 5)).astype(np.float32)
+
+    def __len__(self):
+        return len(self.images)
+
+    def get_class(self, i):
+        return int(self.labels[i])
+
+
+class GanItems(Synthetic):
+    def __getitem__(self, i):
+        return self.images[i], int(self.labels[i])
+
+
+class SignalItems(Synthetic):
+    def __getitem__(self, i):
+        return self.images[i], self.signals[i]
+
+
+def gan_loaders(args):
+    """The content and random-condition loaders (one epoch = ``steps``
+    batches), split by rank under a process group.  The random conditions
+    come from images of their own: where a row's content and condition
+    images are one image, ``loss_con`` divides that row's error by its
+    eps alone (1e-7), and the step's gradient becomes that one row's, so
+    sensitive that one rounding of the input moves ``g_loss`` by ~97%
+    (measured on an H100 with the two loaders over one small set)."""
+    from weather_unet_tpu_torch.data.pipeline import BatchLoader
+
+    n = args.steps * args.batch
+    ds = GanItems(n, args.size)
+    rand = GanItems(n, args.size, seed=DATA_SEED + 2)
+    return ((lambda: BatchLoader(ds, args.batch, shuffle=True, seed=0,
+                                 num_workers=2, process_shard=True)),
+            (lambda: BatchLoader(rand, args.batch, shuffle=True, seed=1,
+                                 num_workers=2, process_shard=True)))
+
+
+def sup_loaders(args):
+    from weather_unet_tpu_torch.data.pipeline import BatchLoader
+    from weather_unet_tpu_torch.parallel.launch import process_count
+
+    train = SignalItems(args.steps * args.batch, args.size)
+    test = SignalItems(args.batch, args.size, seed=DATA_SEED + 1)
+    return ((lambda: BatchLoader(train, args.batch, shuffle=True, seed=0,
+                                 num_workers=2, process_shard=True)),
+            (lambda: BatchLoader(test, args.batch,
+                                 drop_last=process_count() > 1,
+                                 num_workers=2, process_shard=True)))
+
+
+class Recorder:
+    """Each step's metrics and, with ``timing``, its wall ms and the ms of
+    its all-reduces (the device synchronized around each, so that the
+    all-reduce's time is apart from the work queued before it)."""
+
+    def __init__(self, device, timing: bool, snap_dir=None, dump_dir=None):
+        self.device, self.timing, self.snap_dir = device, timing, snap_dir
+        self.dump_dir = dump_dir
+        self.tree_fn = None         # state -> checkpoint tree
+        self.metrics, self.step_ms, self.allreduce_ms = [], [], []
+        self._ar = 0.0
+        if timing:
+            inner = torch.distributed.all_reduce
+
+            def timed(*a, **k):
+                self._sync()
+                t0 = time.perf_counter()
+                out = inner(*a, **k)
+                self._sync()
+                self._ar += (time.perf_counter() - t0) * 1e3
+                return out
+
+            torch.distributed.all_reduce = timed
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def wrap(self, step):
+        def recorded(*a, **k):
+            if self.dump_dir is not None:
+                from weather_unet_tpu_torch.parallel.launch import (
+                    process_index)
+
+                torch.save((a[1].cpu(), a[2].cpu()), os.path.join(
+                    self.dump_dir, f"rank{process_index()}_in"
+                    f"{len(self.metrics) + 1}.pt"))
+            self._sync()
+            self._ar, t0 = 0.0, time.perf_counter()
+            out = step(*a, **k)
+            self.metrics.append({n: float(v) for n, v in out[1].items()})
+            self._sync()
+            self.step_ms.append((time.perf_counter() - t0) * 1e3)
+            self.allreduce_ms.append(self._ar)
+            self.state = out[0]
+            if self.snap_dir is not None:
+                save_tree(os.path.join(self.snap_dir, f"rank0_s"
+                                       f"{len(self.metrics)}.pt"),
+                          self.tree_fn(self.state))
+            return out
+
+        for attr in ("program", "programs"):
+            if hasattr(step, attr):
+                setattr(recorded, attr, getattr(step, attr))
+        return recorded
+
+
+def save_tree(path: str, tree) -> None:
+    from weather_unet_tpu_torch.train import checkpoint as ckpt
+
+    with open(path, "wb") as f:
+        f.write(ckpt.serialize(ckpt._to_host(tree)))
+
+
+def run_gan(args, device, dt, rec):
+    from weather_unet_tpu_torch.train import checkpoint as ckpt
+    from weather_unet_tpu_torch.train.gan import GanConfig
+    from weather_unet_tpu_torch.train.loops import WeatherTransferTrainer
+
+    kw = dict(input_size=args.size, batch_size=args.batch, lr=args.lr,
+              num_epoch=1, dropout_rate=args.dropout, dtype=dt)
+    if args.gan_mode == "cls":
+        kw.update(mode="cls", cross_ent=True)
+    if args.estimator_path:
+        from weather_unet_tpu_torch.cli.common import load_step_estimator
+
+        est = load_step_estimator(args.estimator_path, dtype=dt,
+                                  device=device, route=args.route)
+    else:
+        est = linear_estimator
+    tr = WeatherTransferTrainer(
+        GanConfig(**kw), est, save_dir=args.save_dir, name=args.name,
+        log_dir=os.path.join(args.out, "runs"), seed=args.seed,
+        aot_cache=args.aot_cache, device=device)
+    rec.tree_fn = lambda state: ckpt.gan_tree(state, tr.seed)
+    tr._step = rec.wrap(tr._step)
+    tl, rl = gan_loaders(args)
+    tr.fit(tl, rl)
+    return ckpt.gan_tree(tr.state, tr.seed)
+
+
+def run_sup(args, device, dt, rec):
+    from weather_unet_tpu_torch.models import ResNet
+    from weather_unet_tpu_torch.train import checkpoint as ckpt
+    from weather_unet_tpu_torch.train import supervised as sup
+    from weather_unet_tpu_torch.train.loops import train_supervised
+
+    model = ResNet(tuple(args.counts), 5, dtype=dt,
+                   param_dtype=torch.float32,
+                   generator=torch.Generator().manual_seed(args.seed))
+    state = sup.build_supervised_state(model.to(device), args.lr, args.wd)
+    tl, te = sup_loaders(args)
+    rec.tree_fn = lambda st: ckpt.supervised_tree(st, 0, st.step)
+    state = train_supervised(
+        rec.wrap(sup.make_estimator_step()), sup.make_eval_metrics(
+            "estimator"), tl, te, state=state, num_epoch=1,
+        input_size=args.size, save_dir=args.save_dir, name=args.name,
+        eval_per_iter=1000, batch_size=args.batch, aot_cache=args.aot_cache)
+    return ckpt.supervised_tree(state, 1, args.steps)
+
+
+def run_cli(args, rec):
+    """``cli/train_estimator.py::main(args.cli_args)`` with its steps
+    recorded; the state as its last step left it."""
+    from weather_unet_tpu_torch.cli import train_estimator
+    from weather_unet_tpu_torch.train import checkpoint as ckpt
+    from weather_unet_tpu_torch.train import supervised as sup
+
+    make = sup.make_estimator_step
+    rec.tree_fn = lambda st: ckpt.supervised_tree(st, 0, st.step)
+    sup.make_estimator_step = lambda: rec.wrap(make())
+    try:
+        train_estimator.main(args.cli_args)
+    finally:
+        sup.make_estimator_step = make
+    return ckpt.supervised_tree(rec.state, 1, len(rec.metrics))
+
+
+def build_parser():
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--mode", choices=["gan", "sup", "cli"], required=True)
+    p.add_argument("--out", required=True)
+    p.add_argument("--save_dir", default=None)
+    p.add_argument("--name", default="run")
+    p.add_argument("--device", default=None)
+    p.add_argument("--gan_mode", choices=["est", "cls"], default="est")
+    p.add_argument("--size", type=int, default=16)
+    p.add_argument("--batch", type=int, default=4, help="the global batch")
+    p.add_argument("--steps", type=int, default=2)
+    p.add_argument("--dtype", choices=["f32", "bf16"], default="f32")
+    p.add_argument("--dropout", type=float, default=0.0)
+    p.add_argument("--lr", type=float, default=1e-4)
+    p.add_argument("--wd", type=float, default=1e-5)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--counts", type=int, nargs=4, default=[1, 1, 1, 1])
+    p.add_argument("--estimator_path", default=None)
+    p.add_argument("--route", choices=["k4", "plain"], default=None)
+    p.add_argument("--aot_cache", default=None)
+    p.add_argument("--timing", action="store_true")
+    p.add_argument("--snapshots", action="store_true",
+                   help="rank 0 writes its state after each step")
+    p.add_argument("--dump_inputs", action="store_true",
+                   help="each rank writes its supervised step inputs")
+    p.add_argument("--deterministic", action="store_true",
+                   help="cuDNN's deterministic algorithms, TF32 off")
+    p.add_argument("cli_args", nargs=argparse.REMAINDER,
+                   help="--mode cli: the estimator CLI's arguments after --")
+    return p
+
+
+def main(argv=None) -> int:
+    sys.modules.setdefault("torch.utils.tensorboard", None)  # JSONL
+    args = build_parser().parse_args(argv)
+    if args.cli_args and args.cli_args[0] == "--":
+        args.cli_args = args.cli_args[1:]
+    from weather_unet_tpu_torch._device import resolve_device
+    from weather_unet_tpu_torch.kernels import adain, bottleneck, upsample
+    from weather_unet_tpu_torch.parallel.launch import (
+        maybe_initialize, process_count, process_index)
+    from weather_unet_tpu_torch.train import checkpoint as ckpt
+
+    maybe_initialize()
+    if args.deterministic:
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    device = resolve_device(args.device)
+    dt = torch.bfloat16 if args.dtype == "bf16" else torch.float32
+    kernels = {"adain": adain, "upsample": upsample,
+               "bottleneck": bottleneck}
+    for m in kernels.values():
+        m.launches = 0
+    os.makedirs(args.out, exist_ok=True)
+    rec = Recorder(device, args.timing, args.out if args.snapshots
+                   and process_index() == 0 else None,
+                   args.out if args.dump_inputs else None)
+    t0 = time.perf_counter()
+    if args.mode == "gan":
+        tree = run_gan(args, device, dt, rec)
+    elif args.mode == "sup":
+        tree = run_sup(args, device, dt, rec)
+    else:
+        tree = run_cli(args, rec)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    rank = process_index()
+    save_tree(os.path.join(args.out, f"rank{rank}.pt"), tree)
+    with open(os.path.join(args.out, f"rank{rank}.json"), "w") as f:
+        json.dump({"rank": rank, "world": process_count(),
+                   "device": str(device),
+                   "seconds": time.perf_counter() - t0,
+                   "metrics": rec.metrics, "step_ms": rec.step_ms,
+                   "allreduce_ms": rec.allreduce_ms,
+                   "launches": {k: m.launches
+                                for k, m in kernels.items()}}, f)
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

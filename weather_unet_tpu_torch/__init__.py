@@ -27,11 +27,16 @@ its module names so each counterpart is easy to find:
 * ``train``      -- the GAN combined train step and its evaluation step
                     (``gan``), the trainer loop (``loops``), checkpoints
                     (``.pt``, and flax msgpack without flax), summaries and
-                    preemption handling.
+                    preemption handling;
+* ``parallel``   -- data parallelism over ``torch.distributed``: the
+                    launcher and its env contract (``launch``), the plan,
+                    placement and collectives (``mesh``).
 
 The package imports ``torch`` and never ``jax`` or ``weather_unet_tpu``.
 Entry points run on CUDA unless the caller passes ``device="cpu"``; without
-a GPU and without an explicit device they raise.
+a GPU and without an explicit device they raise.  Under a process group
+the default device is this rank's card (or the CPU where the launcher put
+the ranks there).
 """
 
 from weather_unet_tpu_torch._device import resolve_device

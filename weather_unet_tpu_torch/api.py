@@ -12,6 +12,13 @@ The public layout is the JAX package's: images NHWC (float in [-1, 1] or
 uint8), conditions ``(B, num_classes)``; results are tensors on the model's
 device.  The model itself runs NCHW.
 
+With ``plan`` (``parallel/mesh.py::make_mesh``) the model is replicated
+once on each of the plan's local devices, each bucketed batch is split
+evenly over the replicas (padded as the buckets are) and their results
+are concatenated in order on the first device; each replica runs K1 and K2
+under ``use_pallas``.  The cUNet has no coupling between samples in eval
+mode, so no collective runs.
+
 With ``aot_cache`` (a directory or ``core.aot.AotCache``), ``translate``,
 ``translate_u8`` and ``translate_to_classes`` go through the AOT tier: one
 program per input shape (bucketing keeps them to the power-of-two
@@ -22,6 +29,8 @@ kept on disk: a restart captures again.
 
 from __future__ import annotations
 
+import copy
+import functools
 from typing import Callable
 
 import numpy as np
@@ -31,120 +40,171 @@ from weather_unet_tpu_torch._device import DeviceLike, resolve_device
 
 
 class WeatherTransfer:
-    """A conditional U-Net on one device with translation entry points."""
+    """A conditional U-Net with translation entry points, on one device or,
+    with ``plan``, replicated on each of the plan's local devices
+    (``self.model`` and ``self.device`` are the first replica's)."""
 
-    def __init__(self, model, device: DeviceLike = None, aot_cache=None):
-        self.device = resolve_device(device)
+    def __init__(self, model, device: DeviceLike = None, aot_cache=None,
+                 plan=None):
+        self.plan = plan
+        if plan is None:
+            devices = [resolve_device(device)]
+        else:
+            plan.require_data_parallel("WeatherTransfer")
+            if getattr(model, "fuse_levels", ()):
+                raise ValueError(
+                    "fuse_upconv serving is single-device; rebuild the model "
+                    "with fuse_upconv=False when passing a MeshPlan")
+            devices = list(plan.devices)
+        self.device = devices[0]
+        self._devices = devices
         self.model = model.to(self.device).eval()
+        self._replicas = [self.model] + [
+            copy.deepcopy(self.model).to(d).eval() for d in devices[1:]]
         # preprocess() of every uint8 value, computed on the host: the device
         # path gathers from it, so both normalize bit-identically (a CUDA
         # division by a scalar multiplies by its reciprocal, which differs
         # from the host's division by 1 ulp on some values)
-        self._u8_norm = self.preprocess(
-            np.arange(256, dtype=np.uint8)).to(self.device)
+        table = self.preprocess(np.arange(256, dtype=np.uint8))
+        self._u8_norm = [table.to(d) for d in devices]
         self.aot = None
-        self._translate = self._fwd
-        self._translate_u8 = self._fwd_u8
-        self._translate_all = self._fwd_all
+        # each entry point's program on each replica
+        self._fns = {name: [functools.partial(fn, i)
+                            for i in range(len(devices))]
+                     for name, fn in (("translate", self._fwd),
+                                      ("translate_u8", self._fwd_u8),
+                                      ("translate_all", self._fwd_all))}
         if aot_cache is not None:
             self._tier(aot_cache)
 
+    # the first replica's programs (the only ones without a plan)
+    _translate = property(lambda self: self._fns["translate"][0])
+    _translate_u8 = property(lambda self: self._fns["translate_u8"][0])
+    _translate_all = property(lambda self: self._fns["translate_all"][0])
+
     def _tier(self, aot_cache) -> None:
-        """Route the three entry points through ``AotJit``: one program per
-        input shape, a CUDA graph of the eager forward on the card."""
+        """Route the three entry points of each replica through ``AotJit``:
+        one program per input shape, a CUDA graph of the eager forward on
+        the card."""
         from weather_unet_tpu_torch.core.aot import AotCache, AotJit
 
         self.aot = (aot_cache if isinstance(aot_cache, AotCache)
                     else AotCache(aot_cache))
-        self._translate = AotJit(self._fwd, self.aot)
-        self._translate_u8 = AotJit(self._fwd_u8, self.aot)
-        self._translate_all = AotJit(self._fwd_all, self.aot)
+        self._fns = {name: [AotJit(f, self.aot) for f in fns]
+                     for name, fns in self._fns.items()}
 
     @classmethod
     def load(cls, cp_path: str, num_classes: int = 5,
              dtype: torch.dtype = torch.float32, fuse_upconv="auto",
-             use_pallas="auto", device: DeviceLike = None, aot_cache=None):
+             use_pallas="auto", device: DeviceLike = None, aot_cache=None,
+             plan=None):
         """Load from a reference ``.pt`` GAN bundle or a JAX-package msgpack
         checkpoint (``cli.common.load_transfer``).  ``use_pallas``: K1 + K2
         in the decoder, ``"auto"`` resolves to on; ``fuse_upconv``: the
-        fused upsample+conv decoder kernel, ``"auto"`` resolves to off.
-        ``aot_cache``: a directory (or ``AotCache``) for the AOT tier, each
-        bucket a CUDA graph on the card."""
+        fused upsample+conv decoder kernel, ``"auto"`` resolves to off (and
+        is refused with a ``plan``).  ``aot_cache``: a directory (or
+        ``AotCache``) for the AOT tier, each bucket a CUDA graph on the
+        card.  ``plan``: one replica on each of its local devices."""
         from weather_unet_tpu_torch.cli.common import load_transfer
 
-        device = resolve_device(device)
+        device = (resolve_device(device) if plan is None
+                  else plan.devices[0])
         model = load_transfer(cp_path, num_classes=num_classes, dtype=dtype,
                               fuse_upconv=fuse_upconv, use_pallas=use_pallas,
                               device=device)
-        return cls(model, device, aot_cache=aot_cache)
+        return cls(model, device, aot_cache=aot_cache, plan=plan)
 
-    def _fwd(self, x, c):
-        """NHWC in, NHWC out, on the device."""
+    def _fwd(self, i, x, c):
+        """Replica ``i``: NHWC in, NHWC out, on its device."""
         x = x.permute(0, 3, 1, 2).contiguous()
-        return self.model(x, c).permute(0, 2, 3, 1)
+        return self._replicas[i](x, c).permute(0, 2, 3, 1)
 
-    def _fwd_u8(self, x_u8, c):
+    def _fwd_u8(self, i, x_u8, c):
         # normalize like preprocess() and denormalize like to_uint8(), but on
         # the device: the host<->device wire carries uint8 both ways
-        y = self._fwd(self._u8_norm[x_u8.long()], c)
+        y = self._fwd(i, self._u8_norm[i][x_u8.long()], c)
         return ((y.float() + 1.0) * 127.5).clamp(0, 255).to(torch.uint8)
+
+    def _split(self, fns, *arrays, dim: int = 0):
+        """Replica i's ``fns[i]`` on the i-th of equal row chunks of
+        ``arrays`` (each moved to its device); the results concatenated in
+        order along ``dim`` on the first device.  The launches of every
+        replica are queued before any result is gathered."""
+        if len(fns) == 1:
+            return fns[0](*(a.to(self.device) for a in arrays))
+        chunks = zip(*(a.chunk(len(fns)) for a in arrays))
+        outs = [fn(*(a.to(d) for a in chunk))
+                for fn, d, chunk in zip(fns, self._devices, chunks)]
+        return torch.cat([o.to(self.device) for o in outs], dim=dim)
 
     def translate(self, images, conditions, *, bucket: bool = True):
         """(B,H,W,3) in [-1,1] + (B,num_classes) conditions -> translated
         (B,H,W,3) in the model's dtype.  ``bucket=True`` pads the batch with
         zero rows up to the next power of two (rows are independent in eval;
         the JAX package does this to bound its compiled shapes, the port to
-        keep the same batch sizes reaching the kernels)."""
-        return self._bucketed(self._translate, images, conditions, bucket)
+        keep the same batch sizes reaching the kernels); with a plan, up to
+        a multiple of the replicas too, each taking an equal share."""
+        return self._bucketed(self._fns["translate"], images, conditions,
+                              bucket)
 
     def translate_u8(self, images_u8, conditions, *, bucket: bool = True):
         """uint8 NHWC in, uint8 NHWC out, with normalize/denormalize on the
         device: same formulas as ``to_uint8(translate(preprocess(u8)))``."""
-        return self._bucketed(self._translate_u8, images_u8, conditions,
-                              bucket)
+        return self._bucketed(self._fns["translate_u8"], images_u8,
+                              conditions, bucket)
 
     @torch.inference_mode()
-    def _bucketed(self, fn, images, conditions, bucket):
+    def _bucketed(self, fns, images, conditions, bucket):
         x = torch.as_tensor(images)
         c = torch.as_tensor(conditions)
-        b = x.shape[0]
-        nb = 1 << max(b - 1, 0).bit_length()
-        if bucket and 0 < b < nb:
+        b, n = x.shape[0], len(fns)
+        nb = 1 << max(b - 1, 0).bit_length() if bucket else b
+        nb = -(-nb // n) * n                  # an equal share per replica
+        if 0 < b < nb:
             # pads where the input lives: host inputs cross to the device once
             x = torch.cat([x, x.new_zeros((nb - b,) + x.shape[1:])])
             c = torch.cat([c, c.new_zeros((nb - b,) + c.shape[1:])])
-        return fn(x.to(self.device), c.to(self.device))[:b]
+        return self._split(fns, x, c)[:b]
 
-    def _fwd_all(self, x):
+    def _fwd_all(self, i, x):
         b, k = x.shape[0], self.model.num_classes
-        c = torch.eye(k, device=self.device).repeat_interleave(b, dim=0)
-        out = self._fwd(x.repeat(k, 1, 1, 1), c)
+        c = torch.eye(k, device=x.device).repeat_interleave(b, dim=0)
+        out = self._fwd(i, x.repeat(k, 1, 1, 1), c)
         return out.reshape(k, b, *out.shape[1:])
 
     @torch.inference_mode()
     def translate_to_classes(self, images):
-        """All one-hot class translations: -> (num_classes, B, H, W, 3)."""
-        return self._translate_all(torch.as_tensor(images).to(self.device))
+        """All one-hot class translations: -> (num_classes, B, H, W, 3);
+        with a plan the batch is split over the replicas."""
+        return self._split(self._fns["translate_all"],
+                           torch.as_tensor(images), dim=1)
 
     @torch.inference_mode()
     def sweep(self, images, estimate: Callable, num_frames: int = 10,
               alpha: float = 2.0):
         """demo theta sweep: (T, num_classes, B, H, W, 3) frames where axis
         k's condition is sin(theta)*alpha with estimator predictions
-        elsewhere.  Each call runs on the model's current weights."""
+        elsewhere.  Each call runs on the model's current weights; with a
+        plan each frame's batch is split over the replicas."""
         thetas = np.arange(-np.pi / 2, np.pi / 2 + np.pi / num_frames,
                            np.pi / (num_frames - 1)).astype(np.float32)
         x = torch.as_tensor(images).to(self.device)
         pred = torch.as_tensor(estimate(x)).to(self.device, torch.float32)
         b, k = x.shape[0], self.model.num_classes
         eye = torch.eye(k, device=self.device)
-        xs = x.repeat(k, 1, 1, 1)
+
+        def frame(i, xs, cs):
+            bi = xs.shape[0]
+            out = self._fwd(i, xs.repeat(k, 1, 1, 1), cs.transpose(
+                0, 1).reshape(k * bi, k))
+            return out.reshape(k, bi, *out.shape[1:])
+
+        fns = [functools.partial(frame, i) for i in range(len(self._devices))]
         frames = []
         for theta in torch.from_numpy(thetas):
             c = ((torch.sin(theta) * alpha * eye)[:, None, :]
                  + (1.0 - eye)[:, None, :] * pred[None])      # (K, B, K)
-            out = self._fwd(xs, c.reshape(k * b, k))
-            frames.append(out.reshape(k, b, *out.shape[1:]))
+            frames.append(self._split(fns, x, c.transpose(0, 1), dim=1))
         return torch.stack(frames)
 
     @staticmethod

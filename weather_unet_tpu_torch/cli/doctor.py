@@ -8,7 +8,8 @@ and what will the kernels use?".
 Reports Python, torch and CUDA versions; the GPUs (name, compute
 capability, memory); whether ``nvcc`` is found; the kernel build directory
 (``kernels/_build.py``) and which kernel libraries are built; the native
-runtime's build mode; the ``WUT_*`` environment.  The JAX doctor's AOT
+runtime's build mode; the ``WUT_*`` environment; the process count and
+index and the default mesh (``parallel/``).  The JAX doctor's AOT
 cache report has no counterpart: the port's AOT tier (``core/aot.py``)
 keeps nothing on disk.  ``--probe`` also times a small tensor's first call
 and round trip on the card.  Without a GPU it says so and exits non-zero:
@@ -80,6 +81,14 @@ def collect(probe: bool = False, init_timeout: float = 60.0) -> dict:
     info["platform"] = "gpu"
     info["devices"] = backend["devices"]
     info["device_count"] = len(backend["devices"])
+    from weather_unet_tpu_torch.parallel.launch import (
+        process_count, process_index)
+    from weather_unet_tpu_torch.parallel.mesh import make_mesh
+
+    info["process_count"] = process_count()
+    info["process_index"] = process_index()
+    # the plan the trainers would train under
+    info["default_mesh"] = make_mesh().mesh_shape
     if probe:
         x = torch.ones((256, 256), dtype=torch.bfloat16, device="cuda")
         t0 = time.perf_counter()

@@ -356,13 +356,10 @@ def make_handler(batcher: Batcher, classes, num_classes: int, size: int,
 
 
 def refuse_unported(args) -> None:
-    """Exit non-zero, naming the roadmap item, for a flag whose module is
-    not ported yet."""
-    for flag, name in ((args.data_parallel, "--data_parallel"),
-                       (args.tensor_parallel > 1,
-                        f"--tensor_parallel {args.tensor_parallel}")):
-        if flag:
-            raise SystemExit(f"{name}: not yet ported ({MESH_ITEM})")
+    """Exit non-zero, naming the roadmap item, for tensor parallelism."""
+    if args.tensor_parallel > 1:
+        raise SystemExit(f"--tensor_parallel {args.tensor_parallel}: not "
+                         f"yet ported ({MESH_ITEM})")
 
 
 class Server(ThreadingHTTPServer):
@@ -418,9 +415,17 @@ def load_transfer_for(args):
 
     refuse_unported(args)
     dtype = torch.bfloat16 if args.bf16 else torch.float32
+    plan = None
+    if args.data_parallel:
+        from weather_unet_tpu_torch.parallel.mesh import make_mesh
+
+        # a replica of the model on each local card (the CPU with
+        # --device cpu); each request group is split over them
+        plan = make_mesh(devices=None if args.device == "cuda"
+                         else [args.device])
     return WeatherTransfer.load(args.cp_path, num_classes=args.num_classes,
                                 dtype=dtype, device=args.device,
-                                aot_cache=args.aot_cache)
+                                aot_cache=args.aot_cache, plan=plan)
 
 
 def build_server(args) -> Server:
@@ -473,7 +478,8 @@ def build_parser():
     p.add_argument("--bf16", action="store_true",
                    help="serve in bfloat16")
     p.add_argument("--data_parallel", action="store_true",
-                   help=f"several GPUs: not ported yet ({MESH_ITEM})")
+                   help="a replica of the model on each local GPU; each "
+                        "request group is split evenly over them")
     p.add_argument("--tensor_parallel", type=int, default=1,
                    help=f"1 only; more is not ported yet ({MESH_ITEM})")
     p.add_argument("--no-warmup", dest="warmup", action="store_false")

@@ -5,7 +5,9 @@ flags ``estimator.py:9-27``).
 Per-column MSE with backward(ones) semantics, the imbalance sampler on the
 train split, z-scoring by the train split's statistics, an eval sweep every
 100 steps, a checkpoint every 5 epochs.  Runs on CUDA unless ``--device
-cpu``.
+cpu``.  Under ``parallel/launch.py`` the ranks train data-parallel
+(``train/loops.py::train_supervised``); ``--multi`` is the JAX package's
+parity flag.
 
     python -m weather_unet_tpu_torch.cli.train_estimator \\
         --image_root DIR --pkl_path frame.pkl --augmentation --dtype bf16
@@ -15,16 +17,13 @@ from __future__ import annotations
 
 import argparse
 
-MESH_ITEM = ("ROADMAP.md queue 1 item 4, 'Mesh, tensor parallelism and "
-             "multi-process'")
-
-
 def add_common_flags(p: argparse.ArgumentParser) -> None:
     """The flags the estimator and classifier CLIs share."""
     p.add_argument("--log_dir", type=str, default="runs")
     p.add_argument("--gpu", type=str, default="0", help="parity flag; ignored")
-    p.add_argument("--device", type=str, default="cuda",
-                   help="torch device: cuda (default) or cpu")
+    p.add_argument("--device", type=str, default=None,
+                   help="torch device: cuda (default; this rank's card "
+                        "under the launcher) or cpu")
     p.add_argument("--input_size", type=int, default=224)
     p.add_argument("--lr", type=float, default=1e-4)
     p.add_argument("--num_epoch", type=int, default=100)
@@ -56,18 +55,22 @@ def build_parser():
     p.add_argument("--mode", type=str, default="T",
                    help="T (train split) or E (val split)")
     p.add_argument("--multi", action="store_true",
-                   help=f"several GPUs: not ported yet ({MESH_ITEM})")
+                   help="parity flag; data parallelism follows the process "
+                        "group (python -m "
+                        "weather_unet_tpu_torch.parallel.launch -n K)")
     add_common_flags(p)
     return p
 
 
 def setup(args, num_classes: int, wd: float):
-    """Refuse what is not ported, then build the ResNet-101 train state on
-    the device (seeded, float32 master weights, the backbone frozen with
-    ``--pre_trained``).  Returns (the decode size the augmentation works
-    from: 1.15x with ``--augmentation``, as the reference crops; state)."""
-    if getattr(args, "multi", False):
-        raise SystemExit(f"--multi: not yet ported ({MESH_ITEM})")
+    """Join the process group where the launcher asks for it, then build
+    the ResNet-101 train state on the device (seeded, float32 master
+    weights, the backbone frozen with ``--pre_trained``).  Returns (the
+    decode size the augmentation works from: 1.15x with ``--augmentation``,
+    as the reference crops; state)."""
+    from weather_unet_tpu_torch.parallel.launch import maybe_initialize
+
+    maybe_initialize()
     import torch
 
     from weather_unet_tpu_torch._device import resolve_device
@@ -106,9 +109,13 @@ def train_augment(args, base: int, paths):
 def run(args, train_set, test_set, state, step_fn, eval_fn, **kw):
     """The supervised loop over the two sets: the imbalance sampler on the
     train split; the test split keeps its tail (padded and masked by the
-    eval sweep, as the reference DataLoader's drop_last=False)."""
+    eval sweep, as the reference DataLoader's drop_last=False) in one
+    process, and drops it with several ranks, which must all see the same
+    number of eval batches.  Rank 0 alone writes summaries."""
     from weather_unet_tpu_torch.data.pipeline import BatchLoader
     from weather_unet_tpu_torch.data.sampler import ImbalancedSampler
+    from weather_unet_tpu_torch.parallel.launch import (
+        process_count, process_index)
     from weather_unet_tpu_torch.train.loops import train_supervised
     from weather_unet_tpu_torch.train.metrics import (
         SummaryWriter, run_comment)
@@ -120,19 +127,22 @@ def run(args, train_set, test_set, state, step_fn, eval_fn, **kw):
 
     def test_loader():
         return BatchLoader(test_set, batch_size=args.batch_size,
-                           drop_last=False, num_workers=args.num_workers,
-                           process_shard=True)
+                           drop_last=process_count() > 1,
+                           num_workers=args.num_workers, process_shard=True)
 
-    writer = SummaryWriter(log_dir=args.log_dir, comment=run_comment(
+    writer = (SummaryWriter(log_dir=args.log_dir, comment=run_comment(
         args.lr, args.batch_size, args.num_epoch, args.name))
+        if process_index() == 0 else None)
     try:
         train_supervised(step_fn, eval_fn, train_loader, test_loader,
                          state=state, num_epoch=args.num_epoch,
                          writer=writer, input_size=args.input_size,
                          save_dir=args.save_path, name=args.name,
+                         batch_size=args.batch_size,
                          aot_cache=args.aot_cache, **kw)
     finally:
-        writer.close()
+        if writer is not None:
+            writer.close()
     print("Done: training", flush=True)
 
 

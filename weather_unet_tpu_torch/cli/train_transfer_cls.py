@@ -22,8 +22,9 @@ def build_parser():
     p.add_argument("--image_root", type=str, required=True)
     p.add_argument("--name", type=str, default="cUNet")
     p.add_argument("--gpu", type=str, default="0", help="parity flag; ignored")
-    p.add_argument("--device", type=str, default="cuda",
-                   help="torch device: cuda (default) or cpu")
+    p.add_argument("--device", type=str, default=None,
+                   help="torch device: cuda (default; this rank's card "
+                        "under the launcher) or cpu")
     p.add_argument("--save_dir", type=str, default="cp/transfer")
     p.add_argument("--log_dir", type=str, default="runs")
     p.add_argument("--pkl_path", type=str, default=None,
@@ -87,6 +88,9 @@ def main(argv=None):
                              "imbalance sampler; drop --sampler")
     elif args.pkl_path is None:
         raise SystemExit("--pkl_path is required unless --image_only")
+    from weather_unet_tpu_torch.parallel.launch import maybe_initialize
+
+    multiproc = maybe_initialize()
     refuse_unported(args)
     import torch
 
@@ -132,7 +136,9 @@ def main(argv=None):
     else:
         import pandas as pd
 
-        df = pd.read_pickle(args.pkl_path).sample(frac=1)
+        # the same shuffle on every rank: the loaders split each batch
+        df = pd.read_pickle(args.pkl_path).sample(
+            frac=1, random_state=0 if multiproc else None)
         train_df = df[df["mode"] == "train"]
         aug = wrap_decode_cache(
             aug, args.decode_cache, base,
@@ -161,6 +167,7 @@ def main(argv=None):
             labels = eye[torch.from_numpy(cls_ids).to(device)]
             tb.append((normalize_batch(torch.from_numpy(imgs_u8).to(device)),
                        labels))                    # t_cls_train.py:327-329
+        it.close()      # stop the loader's threads now
         test_batches = tuple(tb)
 
     trainer = WeatherTransferTrainer(

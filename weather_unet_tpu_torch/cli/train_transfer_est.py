@@ -5,6 +5,8 @@ port of ``weather_unet_tpu/cli/train_transfer_est.py`` (reference
 Conditions are the 5 z-scored weather signals that a frozen ResNet-101
 estimator predicts; a content loader and a random-condition loader over the
 train split are zipped per step.  Runs on CUDA unless ``--device cpu``.
+Under ``parallel/launch.py`` each rank trains on its rows of every batch
+(data parallel, ``train/loops.py``).
 
     python -m weather_unet_tpu_torch.cli.train_transfer_est \\
         --image_root DIR --estimator_path est.pt --image_only --dtype bf16
@@ -14,8 +16,8 @@ from __future__ import annotations
 
 import argparse
 
-MESH_ITEM = ("ROADMAP.md queue 1 item 4, 'Mesh, tensor parallelism and "
-             "multi-process'")
+MESH_ITEM = ("ROADMAP.md queue 1 item 4b, 'Tensor parallelism and spatial "
+             "partitioning'")
 
 
 def build_parser():
@@ -24,8 +26,9 @@ def build_parser():
     p.add_argument("--image_root", type=str, required=True)
     p.add_argument("--name", type=str, default="cUNet")
     p.add_argument("--gpu", type=str, default="0", help="parity flag; ignored")
-    p.add_argument("--device", type=str, default="cuda",
-                   help="torch device: cuda (default) or cpu")
+    p.add_argument("--device", type=str, default=None,
+                   help="torch device: cuda (default; this rank's card "
+                        "under the launcher) or cpu")
     p.add_argument("--save_dir", type=str, default="cp/transfer")
     p.add_argument("--log_dir", type=str, default="runs")
     p.add_argument("--pkl_path", type=str, default=None,
@@ -68,7 +71,7 @@ def build_parser():
 
 
 def refuse_unported(args) -> None:
-    """Exit non-zero, naming the roadmap item, for a mesh flag."""
+    """Exit non-zero, naming the roadmap item, for tensor parallelism."""
     if args.tensor_parallel > 1:
         raise SystemExit(f"--tensor_parallel {args.tensor_parallel}: not yet "
                          f"ported ({MESH_ITEM})")
@@ -123,6 +126,9 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     if not args.image_only and args.pkl_path is None:
         raise SystemExit("--pkl_path is required unless --image_only")
+    from weather_unet_tpu_torch.parallel.launch import maybe_initialize
+
+    multiproc = maybe_initialize()
     refuse_unported(args)
     import torch
 
@@ -157,7 +163,9 @@ def main(argv=None):
         test_df = None
     else:
         df, _, _ = load_flickr_frame(args.pkl_path, stats_pkl=args.stats_pkl)
-        df = df.sample(frac=1)
+        # every rank must draw the same shuffle: the loaders split each
+        # batch by rank
+        df = df.sample(frac=1, random_state=0 if multiproc else None)
         train_df = df[df["mode"] == "train"]
         test_df = df[df["mode"] == "test"]
         aug = wrap_decode_cache(
@@ -183,6 +191,7 @@ def main(argv=None):
             imgs_u8, conds, _ = next(it)
             tb.append((normalize_batch(torch.from_numpy(imgs_u8).to(device)),
                        torch.from_numpy(conds).to(device)))
+        it.close()      # stop the loader's threads now
         test_batches = tuple(tb)
 
     trainer = WeatherTransferTrainer(

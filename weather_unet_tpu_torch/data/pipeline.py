@@ -3,6 +3,12 @@
 (``BatchLoader``, in place of torch DataLoader worker processes,
 ``t_est_train.py:176-196``) and a prefetch that copies batches onto the GPU
 ahead of the step from pinned memory on a side stream.
+
+Under a process group (``parallel/launch.py``) each rank loads only its
+``process_slice`` of every global batch (``process_shard``) and keeps its
+rows: where the JAX package assembles one global array from the hosts'
+shards, a rank's rows here stay its own, and the steps all-reduce their
+gradients instead.
 """
 
 from __future__ import annotations
@@ -13,6 +19,9 @@ from typing import Iterable, Iterator, Optional, Sequence
 
 import numpy as np
 import torch
+
+from weather_unet_tpu_torch.parallel.launch import (
+    process_count, process_slice)
 
 
 def _stack(samples):
@@ -30,21 +39,19 @@ def _stack(samples):
     return tuple(out)
 
 
-def _world_size() -> int:
-    dist = torch.distributed
-    return (dist.get_world_size()
-            if dist.is_available() and dist.is_initialized() else 1)
-
-
 class BatchLoader:
     """Iterable over collated batches with threaded sample loading.
 
     The knobs are the reference DataLoader's: ``shuffle``, ``drop_last``,
     ``sampler`` (an iterable of indices, e.g. ``ImbalancedSampler``),
-    ``num_workers`` (threads).  ``process_shard`` splits each batch among
-    the processes of a multi-process run in the JAX package; with one
-    process it changes nothing, and several processes are not ported yet
-    (``ROADMAP.md`` queue 1, the multi-process item), so it raises there.
+    ``num_workers`` (threads).  ``process_shard``: under a process group
+    every rank draws the same seeded index sequence (the ``seed`` and the
+    sampler's are the caller's to keep equal) and loads only its
+    ``process_slice`` of each batch, so a batch of ``batch_size`` global
+    rows reaches each of W ranks as ``batch_size / W`` rows; without a
+    process group it changes nothing.  A ``drop_last=False`` tail that
+    does not divide over the ranks is refused here, not at the epoch's
+    last batch.
     """
 
     def __init__(self, dataset, batch_size: int, *, shuffle: bool = False,
@@ -52,10 +59,20 @@ class BatchLoader:
                  sampler: Optional[Iterable[int]] = None,
                  num_workers: int = 8, seed: int = 0,
                  process_shard: bool = False):
-        if process_shard and _world_size() > 1:
-            raise NotImplementedError(
-                "process_shard across processes is not ported yet (ROADMAP.md"
-                " queue 1, the mesh, AOT and multi-process item)")
+        pc = process_count()
+        if process_shard and not drop_last and pc > 1:
+            try:
+                n = len(sampler) if sampler is not None else len(dataset)
+            except TypeError:
+                n = None              # an unsized sampler: no pre-check
+            tail = n % batch_size if n is not None else 0
+            if tail % pc:
+                raise ValueError(
+                    f"process_shard with drop_last=False: the tail batch "
+                    f"({tail} rows) is not divisible by "
+                    f"process_count={pc}, so the epoch would crash at its "
+                    f"last batch -- use drop_last=True (what the training "
+                    f"CLIs do multi-process) or size the dataset")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -99,6 +116,8 @@ class BatchLoader:
         batches = [indices[i * bs:(i + 1) * bs] for i in range(n_full)]
         if not self.drop_last and len(indices) % bs:
             batches.append(indices[n_full * bs:])
+        if self.process_shard and process_count() > 1:
+            batches = [b[process_slice(len(b))] for b in batches]
         with ThreadPoolExecutor(self.num_workers) as pool:
             # the next batch's samples load while the current one is used
             pending = collections.deque()
@@ -115,9 +134,28 @@ class BatchLoader:
                 yield _stack([f.result() for f in futs])
 
 
+def assemble_global_batch(sharding, local: np.ndarray) -> torch.Tensor:
+    """This rank's rows of a batch on its device: the DDP counterpart of
+    the JAX package's ``assemble_global_batch``, which builds one global
+    array from every process's rows.  Here a rank's rows stay its own; the
+    gradients meet in the steps' all-reduce.  ``sharding`` is a plan's
+    ``batch()`` (its first device) or a device."""
+    device = (sharding.plan.devices[0] if hasattr(sharding, "plan")
+              else torch.device(sharding))
+    return torch.as_tensor(np.asarray(local)).to(device)
+
+
 def device_prefetch(iterator: Iterable, device, depth: int = 2,
-                    device_fields: Optional[Sequence[int]] = None):
+                    device_fields: Optional[Sequence[int]] = None,
+                    assembly: str = "auto"):
     """Copy batches onto ``device`` ``depth`` steps ahead of their use.
+
+    ``assembly`` says what a batch is under a process group, as in the JAX
+    package: ``"process_local"`` this rank's rows (kept as they are),
+    ``"global"`` the whole global batch on every rank (each field cut to
+    this rank's ``process_slice``), ``"auto"`` process-local under a
+    process group of several ranks and global otherwise (where the two are
+    the same).
 
     On CUDA each selected field (a numeric numpy array; ``device_fields``
     picks the tuple positions, default all) is pinned and copied on a side
@@ -126,6 +164,12 @@ def device_prefetch(iterator: Iterable, device, depth: int = 2,
     (``record_stream``) so its memory is not reused under it.  Fields left
     out (photo ids, labels the caller ships itself) stay on the host.  On
     a CPU device batches pass through unchanged."""
+    if assembly not in ("auto", "global", "process_local"):
+        raise ValueError(f"unknown assembly mode {assembly!r}")
+    if assembly == "global" and process_count() > 1:
+        iterator = (tuple(x[process_slice(len(x))]
+                          if isinstance(x, np.ndarray) else x for x in b)
+                    for b in iterator)
     device = torch.device(device)
     if device.type != "cuda":
         yield from iterator

@@ -18,6 +18,8 @@ import torch.nn.functional as F
 from weather_unet_tpu_torch.kernels.upconv import upconv_block_fused
 from weather_unet_tpu_torch.ops import inits
 from weather_unet_tpu_torch.ops.convs import conv2d
+from weather_unet_tpu_torch.parallel.mesh import (
+    all_reduce_sum, data_parallel)
 from weather_unet_tpu_torch.ops.spectral import (
     power_iteration, spectral_normalize, weight_matrix)
 
@@ -81,6 +83,14 @@ class BatchNorm2d(nn.Module):
     type; the result is cast back to it.  ``forward(x, train=...)`` picks
     the mode for one call, as the JAX module's ``use_running_average``
     does (the modules that own an affine-less one take ``train``).
+
+    ``sync`` (set by :func:`sync_batchnorm`; off by default): under a
+    process group train mode computes the moments of the global batch, as
+    the JAX package's SPMD step does over its sharded batch axis, in the
+    same two passes -- the ranks' sums and counts all-reduced for the
+    mean, then their sums of squared deviations from it -- with the
+    all-reduce in the gradient too, and the unbiased variance over the
+    global count in ``running_var``.
     """
 
     def __init__(self, num_features: int, momentum: float = 0.1,
@@ -99,18 +109,37 @@ class BatchNorm2d(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
         self.register_buffer("num_batches_tracked",
                              torch.tensor(0, dtype=torch.long))
+        self.sync = False
+
+    def _global_moments(self, xf):
+        """(mean, biased var, count) of the global batch: two all-reduces
+        of per-channel sums over the ranks."""
+        c = xf.shape[1]
+        n_local = xf.shape[0] * xf.shape[2] * xf.shape[3]
+        s = all_reduce_sum(torch.cat([xf.sum(dim=(0, 2, 3)),
+                                      xf.new_full((1,), n_local)]))
+        n = s[c].detach()
+        mean = s[:c] / n
+        ssd = all_reduce_sum(
+            (xf - mean[:, None, None]).square().sum(dim=(0, 2, 3)))
+        return mean, ssd / n, n
 
     def forward(self, x, train: Optional[bool] = None):
         xf = x.float()
         if self.training if train is None else train:
-            n = x.shape[0] * x.shape[2] * x.shape[3]
-            mean = xf.mean(dim=(0, 2, 3))
-            var = (xf - mean[:, None, None]).square().mean(dim=(0, 2, 3))
+            if self.sync and data_parallel():
+                mean, var, n = self._global_moments(xf)
+            else:
+                n = x.shape[0] * x.shape[2] * x.shape[3]
+                mean = xf.mean(dim=(0, 2, 3))
+                var = (xf - mean[:, None, None]).square().mean(
+                    dim=(0, 2, 3))
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(1 - m).add_(m * mean)
-                self.running_var.mul_(1 - m).add_(
-                    m * var * (n / max(n - 1, 1)))
+                self.running_var.mul_(1 - m).add_(m * var * (
+                    n / ((n - 1).clamp(min=1) if isinstance(n, torch.Tensor)
+                         else max(n - 1, 1))))
                 self.num_batches_tracked += 1
         else:
             mean, var = self.running_mean.float(), self.running_var.float()
@@ -120,6 +149,15 @@ class BatchNorm2d(nn.Module):
             y = (y * self.weight.float()[:, None, None]
                  + self.bias.float()[:, None, None])
         return y.to(x.dtype)
+
+
+def sync_batchnorm(module: nn.Module, on: bool = True) -> nn.Module:
+    """Set ``sync`` on every ``BatchNorm2d`` of ``module``: under a process
+    group their train-mode moments are the global batch's."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm2d):
+            m.sync = on
+    return module
 
 
 class ConditionalNorm(nn.Module):

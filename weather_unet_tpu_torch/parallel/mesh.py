@@ -1,0 +1,268 @@
+"""Device mesh, placement and the data-parallel collectives -- the port of
+``weather_unet_tpu/parallel/mesh.py``.
+
+The JAX package shards the batch over a ``'data'`` axis of one SPMD
+program and lets XLA insert the gradient ``psum``.  Here one process is one
+rank: a :class:`MeshPlan` is a (data, model) grid over the world's ranks
+times this process's devices, each rank loads its rows of the global batch,
+and the steps all-reduce their gradients in one flat bucket per network
+(:func:`all_reduce_mean`).  Without a process group a plan describes the
+devices of this one process (``api.py`` keeps a replica of the model on
+each).
+
+The ``'model'`` axis carries tensor parallelism and spatial partitioning in
+the JAX package; neither is ported yet (``ROADMAP.md`` queue 1 item 4b), so
+a trainer or the API refuses a plan whose model axis is above 1, and
+:meth:`MeshPlan.spatial` raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from weather_unet_tpu_torch.parallel import launch
+
+MODEL_AXIS_ITEM = ("ROADMAP.md queue 1 item 4b, 'Tensor parallelism and "
+                   "spatial partitioning'")
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshPlan:
+    """A (data, model) grid over ``process_count`` ranks times each rank's
+    devices, rank-major: rank r holds global positions ``[r * k, (r + 1) *
+    k)`` of the ``data * model`` grid, k = ``len(devices)``.  ``devices``
+    are this process's devices in the grid."""
+
+    shape: Tuple[int, int]
+    devices: Tuple[torch.device, ...]
+    process_count: int = 1
+    process_index: int = 0
+
+    @property
+    def mesh_shape(self) -> dict:
+        """The axes as the JAX package's ``plan.mesh.shape`` names them."""
+        return {"data": self.shape[0], "model": self.shape[1]}
+
+    @property
+    def n_data(self) -> int:
+        return self.shape[0]
+
+    @property
+    def n_model(self) -> int:
+        return self.shape[1]
+
+    def batch(self) -> "Sharding":
+        return Sharding(self, ("data",))
+
+    def replicated(self) -> "Sharding":
+        return Sharding(self, ())
+
+    def spatial(self, input_size: Optional[int] = None,
+                deepest_stride: int = 16):
+        """Image height over ``'model'``: not ported yet."""
+        raise NotImplementedError(
+            f"spatial partitioning is not ported yet ({MODEL_AXIS_ITEM})")
+
+    def require_data_parallel(self, what: str) -> None:
+        """Refuse a model axis above 1 in ``what`` (a trainer or the API)."""
+        if self.n_model > 1:
+            raise NotImplementedError(
+                f"{what}: a plan with a 'model' axis of {self.n_model} "
+                f"(tensor parallelism) is not ported yet ({MODEL_AXIS_ITEM})")
+
+
+@dataclasses.dataclass(frozen=True)
+class Sharding:
+    """How a tree is laid out over a plan: ``("data",)`` splits dimension 0
+    by rank and then over the rank's devices, ``()`` copies it to each."""
+
+    plan: MeshPlan
+    spec: tuple
+
+
+def _local_devices(devices) -> list:
+    if devices is not None:
+        return [torch.device(d) for d in devices]
+    from weather_unet_tpu_torch._device import resolve_device
+
+    if data_parallel():
+        return [resolve_device(None)]           # this rank's card (or CPU)
+    resolve_device(None)                        # raises without a GPU
+    return [torch.device("cuda", i)
+            for i in range(torch.cuda.device_count())]
+
+
+def make_mesh(devices: Optional[Sequence] = None, data: Optional[int] = None,
+              model: int = 1, batch_size: Optional[int] = None) -> MeshPlan:
+    """Build a (data, model) plan over the world's devices: each rank's
+    ``devices`` (default: this rank's card under a process group, every
+    local card without one), rank-major.
+
+    ``batch_size`` clamps the data axis to the largest divisor of the batch
+    (a batch of 4 on 8 devices trains 4-way), as the JAX package does; its
+    refusals, with its messages: a model axis larger than the devices, a
+    grid that does not fit, and a multi-process grid that leaves a device
+    out."""
+    local = _local_devices(devices)
+    pc, pid = launch.process_count(), launch.process_index()
+    n = len(local) * pc
+    if model < 1 or model > n:
+        raise ValueError(
+            f"model axis {model} does not fit the {n} available "
+            f"device(s); reduce --tensor_parallel / the spatial degree or "
+            f"run on a larger slice")
+    if data is None:
+        data = n // model
+        if batch_size is not None:
+            while data > 1 and batch_size % data != 0:
+                data -= 1
+    if data < 1 or data * model > n:
+        raise ValueError(
+            f"mesh (data={data} x model={model}) does not fit the "
+            f"{n} available device(s)")
+    if pc > 1 and data * model != n:
+        raise ValueError(
+            f"multi-process mesh must span all {n} devices, got "
+            f"data={data} x model={model}"
+            + (f" (batch_size={batch_size} is not divisible by the device "
+               f"count)" if batch_size is not None else ""))
+    k = len(local)
+    mine = [d for i, d in enumerate(local) if pid * k + i < data * model]
+    return MeshPlan((data, model), tuple(mine), pc, pid)
+
+
+def batch_sharding(plan: MeshPlan) -> Sharding:
+    return plan.batch()
+
+
+def replicated_sharding(plan: MeshPlan) -> Sharding:
+    return plan.replicated()
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _as_tensor(x) -> torch.Tensor:
+    return x if isinstance(x, torch.Tensor) else torch.as_tensor(
+        np.asarray(x))
+
+
+def _place(plan: MeshPlan, spec: tuple, x):
+    """One leaf onto the plan's devices: one tensor for one device, else a
+    tuple of one tensor a device (the rows split evenly for ``("data",)``,
+    copies for ``()``)."""
+    t = _as_tensor(x)
+    devs = plan.devices
+    if spec:
+        if t.shape[0] % len(devs):
+            raise ValueError(f"{t.shape[0]} rows do not split evenly over "
+                             f"{len(devs)} device(s)")
+        parts = [p.to(d) for p, d in zip(t.chunk(len(devs)), devs)]
+    else:
+        parts = [t.to(d) for d in devs]
+    return parts[0] if len(parts) == 1 else tuple(parts)
+
+
+def put_host_local(sharding: Sharding, tree):
+    """Place this process's view of a value: for ``("data",)`` its rows as
+    given (a rank's rows stay its own), for ``()`` the whole value, which
+    the caller holds the same on every rank.  Nothing crosses ranks."""
+    return _map(lambda x: _place(sharding.plan, sharding.spec, x), tree)
+
+
+def shard_batch(plan: MeshPlan, tree):
+    """Place a global batch: this rank's ``process_slice`` of each leaf's
+    rows onto its device(s)."""
+    def one(x):
+        t = _as_tensor(x)
+        return _place(plan, ("data",), t[launch.process_slice(t.shape[0])])
+
+    return _map(one, tree)
+
+
+def replicate(plan: MeshPlan, tree):
+    """Place a value on the plan's devices as rank 0 holds it: each leaf is
+    broadcast from rank 0 under a process group."""
+    def one(x):
+        t = _as_tensor(x).to(plan.devices[0], copy=True)
+        broadcast_([t])
+        return _place(plan, (), t)
+
+    return _map(one, tree)
+
+
+# --------------------------------------------------------------- collectives
+#
+# Built from ``broadcast`` and ``all_reduce`` alone: gloo carries CUDA
+# tensors for those two and for nothing else.
+
+def data_parallel() -> bool:
+    """True under a process group: the steps all-reduce their gradients."""
+    d = torch.distributed
+    return d.is_available() and d.is_initialized()
+
+
+def broadcast_(tensors: Sequence[torch.Tensor], src: int = 0) -> None:
+    """Overwrite each tensor with rank ``src``'s, in place (a no-op without
+    a process group)."""
+    if not data_parallel():
+        return
+    for t in tensors:
+        torch.distributed.broadcast(t.data, src)
+
+
+def broadcast_module_(module: torch.nn.Module, src: int = 0) -> None:
+    """Rank ``src``'s parameters and buffers into ``module``, in place."""
+    broadcast_(list(module.parameters()) + list(module.buffers()), src)
+
+
+def all_reduce_mean(tensors: Sequence[torch.Tensor]) -> list:
+    """The mean over ranks of each tensor, through one flat float32 bucket
+    and one ``all_reduce``: ``SUM``, then a division by the world size
+    (gloo has no ``AVG``).  Returns new tensors, each in its input's dtype
+    and shape (float32 ones are views of the bucket)."""
+    tensors = list(tensors)
+    if not tensors or not data_parallel():
+        return tensors
+    flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
+    torch.distributed.all_reduce(flat)
+    flat.div_(torch.distributed.get_world_size())
+    out, at = [], 0
+    for t in tensors:
+        n = t.numel()
+        out.append(flat[at:at + n].view(t.shape).to(t.dtype))
+        at += n
+    return out
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """``all_reduce(SUM)`` whose gradient is the same all-reduce of the
+    incoming gradients: y = sum over ranks of x, so each x's gradient sums
+    every rank's gradient of y."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = x.detach().clone()
+        torch.distributed.all_reduce(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        torch.distributed.all_reduce(g)
+        return g
+
+
+def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum of ``x`` over ranks, differentiable (``BatchNorm2d``'s moments
+    under a plan of several ranks)."""
+    return _AllReduceSum.apply(x)

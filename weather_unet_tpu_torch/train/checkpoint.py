@@ -25,6 +25,7 @@ are the inverses; the port's trainers keep writing ``.pt``.
 
 from __future__ import annotations
 
+import io
 import os
 import re
 import uuid
@@ -41,6 +42,7 @@ from weather_unet_tpu_torch.compat.torch_io import (
     resnet_state_dict_to_jax, sndisc_state_dict_from_jax,
     sndisc_state_dict_to_jax)
 from weather_unet_tpu_torch.core.state import GanTrainState, TrainState
+from weather_unet_tpu_torch.parallel.launch import process_index
 
 _CKPT_RE = re.compile(r"ckpt_s(\d+)\.(pt|msgpack)$")
 
@@ -61,12 +63,25 @@ def checkpoint_path(directory: str, name: str, step: int) -> str:
     return os.path.join(directory, name, f"ckpt_s{step:010d}.pt")
 
 
+def serialize(host_tree: Any) -> bytes:
+    """``torch.save``'s bytes for a host tree, a function of the tree
+    alone: saved to a path, the zip's record names would carry the file's
+    name, which differs between the staging names of two writers."""
+    buf = io.BytesIO()
+    torch.save(host_tree, buf)
+    return buf.getvalue()
+
+
 def _write(path: str, host_tree: Any) -> str:
-    """Write a host tree to ``path`` through a unique temporary file."""
+    """Write a host tree to ``path`` through a unique temporary file.  Under
+    a process group every rank writes the same bytes to the same path (the
+    states are equal), newest wins; the staging name carries the rank, the
+    pid and a random token, so two writers never share one."""
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    # a unique staging name: two writers of one step never share a file
-    tmp = f"{path}.tmp.{os.getpid()}.{uuid.uuid4().hex[:8]}"
-    torch.save(host_tree, tmp)
+    tmp = (f"{path}.tmp.r{process_index()}.{os.getpid()}."
+           f"{uuid.uuid4().hex[:8]}")
+    with open(tmp, "wb") as f:
+        f.write(serialize(host_tree))
     os.replace(tmp, path)
     return path
 
@@ -223,9 +238,10 @@ def export_torch_gan(path: str, gen, disc, epoch: int,
     'global_step'}``.  The port's modules carry the reference key names, so
     the entries are their state dicts, the discriminator's with the JAX
     package's spectral-norm entries (``reference_disc_state_dict``)."""
-    torch.save({"inference": _to_host(gen.state_dict()),
-                "discriminator": reference_disc_state_dict(disc.state_dict()),
-                "epoch": epoch, "global_step": global_step}, path)
+    _write(path, {"inference": _to_host(gen.state_dict()),
+                  "discriminator": reference_disc_state_dict(
+                      disc.state_dict()),
+                  "epoch": epoch, "global_step": global_step})
 
 
 # ---------------------------------------------------------------- msgpack

@@ -27,6 +27,13 @@ takes NHWC images: wrap it as ``lambda x: apply(x.permute(0, 2, 3, 1))``
 (the permuted view is the same memory, which the module permutes back).
 The step mutates the state's modules and optimizers in place and returns
 the state with its metrics (0-d tensors on the device, not synchronized).
+
+Under a process group each rank steps on its rows of the global batch and
+all-reduces each network's gradients between ``autograd.grad`` and Adam, in
+one flat bucket that also carries the metrics known by then
+(``parallel/mesh.py::all_reduce_mean``): every loss is a batch mean, so the
+mean over equal shards of the rows is the global batch's gradient and
+loss, and the ranks' states stay equal.
 """
 
 from __future__ import annotations
@@ -44,6 +51,8 @@ from weather_unet_tpu_torch.core.state import GanTrainState, TrainState
 from weather_unet_tpu_torch.models.cunet import ConditionalUNet
 from weather_unet_tpu_torch.models.sndisc import SNDisc
 from weather_unet_tpu_torch.ops import losses
+from weather_unet_tpu_torch.parallel.mesh import (
+    all_reduce_mean, data_parallel)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,15 +99,26 @@ def build_gan_state(cfg: GanConfig, seed: int, device: DeviceLike = None,
     return gen, disc, state
 
 
-def _apply_gradients(ts: TrainState, loss: torch.Tensor) -> None:
+def _apply_gradients(ts: TrainState, loss: torch.Tensor,
+                     metrics: dict) -> None:
     """One optimizer step on the gradient of ``loss`` with respect to the
     state's own parameters only (the other network's are not touched); the
     update count is the caller's (host counters stay out of a step's device
     work, which a CUDA graph replays without running this code).  A
     parameter the loss does not use (the cUNet's ``adain{i}.emb``, absent
-    from the JAX model) gets no gradient, so Adam leaves it as it is."""
+    from the JAX model) gets no gradient, so Adam leaves it as it is.
+    Under a process group the gradients and ``metrics`` (replaced in place)
+    are averaged over the ranks in one bucket first."""
     params = [p for p in ts.module.parameters() if p.requires_grad]
-    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    grads = list(torch.autograd.grad(loss, params, allow_unused=True))
+    if data_parallel():
+        used = [i for i, g in enumerate(grads) if g is not None]
+        keys = list(metrics)
+        out = all_reduce_mean([grads[i] for i in used]
+                              + [metrics[k] for k in keys])
+        for i, g in zip(used, out):
+            grads[i] = g
+        metrics.update(zip(keys, out[len(used):]))
     for p, g in zip(params, grads):
         p.grad = g
     ts.optimizer.step()
@@ -152,8 +172,8 @@ def make_gan_step(gen: ConditionalUNet, disc: SNDisc, est_apply: Callable,
         real_out, _ = disc(images, pred_labels, update_stats=True)
         fake_out, _ = disc(fake_detached, rand_labels, update_stats=True)
         d_loss = losses.dis_hinge(fake_out, real_out)
-        _apply_gradients(state.disc, d_loss)
         metrics = {"d_loss": d_loss.detach()}
+        _apply_gradients(state.disc, d_loss, metrics)
 
         if do_g:
             # ------------- generator update (t_est_train.py:214-259)
@@ -175,10 +195,11 @@ def make_gan_step(gen: ConditionalUNet, disc: SNDisc, est_apply: Callable,
                 fake, images, pred_labels, rand_labels, eps=cfg.con_eps)
             g_l1 = losses.l1_loss(fake, images)
             g_loss = g_adv + loss_con + g_w
-            _apply_gradients(state.gen, g_loss)
-            metrics.update({k: v.detach() for k, v in (
+            g_metrics = {k: v.detach() for k, v in (
                 ("g_loss", g_loss), ("g_loss_adv", g_adv), ("g_loss_w", g_w),
-                ("loss_con", loss_con), ("g_loss_l1", g_l1))})
+                ("loss_con", loss_con), ("g_loss_l1", g_l1))}
+            _apply_gradients(state.gen, g_loss, g_metrics)
+            metrics.update(g_metrics)
         return metrics
 
     programs = {do_g: functools.partial(device_step, do_g=do_g)

@@ -14,13 +14,23 @@ Both loops auto-resume from the newest checkpoint under ``save_dir/name``:
 the port's ``.pt`` or the JAX package's ``.msgpack``, so a JAX run's
 directory resumes here (``train/checkpoint.py``); the loops write ``.pt``.
 
-Not ported yet (``ROADMAP.md`` queue 1 item 4), and refused with the item's
-name when asked for: the mesh and tensor parallelism (``plan``,
-``tensor_parallel``).
+``plan`` (``parallel/mesh.py::MeshPlan``; the default under a process
+group, ``parallel/launch.py``) trains data-parallel, one rank a process:
+each rank steps on its rows of the global batch (the loaders'
+``process_shard``), the steps all-reduce gradients and metrics, the
+state is broadcast from rank 0 once built, each rank's dropout (and
+device augment) generator folds in its rank, evaluation sums its
+weighted metrics over the ranks, rank 0 alone writes summaries, and every
+rank writes the same checkpoint bytes to the same file.  ``aot_cache``
+under a process group is ignored with the JAX package's warning: a CUDA
+graph cannot hold a gloo collective.  Not ported yet (``ROADMAP.md``
+queue 1 item 4b), and refused with the item's name: tensor parallelism
+(``tensor_parallel``, a plan's ``'model'`` axis above 1).
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import os
 import time
@@ -38,6 +48,12 @@ from weather_unet_tpu_torch.core.state import TrainState
 from weather_unet_tpu_torch.data.pipeline import device_prefetch
 from weather_unet_tpu_torch.data.transforms import (
     AugmentConfig, augment_batch, normalize_batch)
+from weather_unet_tpu_torch.models.common import sync_batchnorm
+from weather_unet_tpu_torch.parallel.launch import (
+    lockstep_compile, process_count, process_index)
+from weather_unet_tpu_torch.parallel.mesh import (
+    MODEL_AXIS_ITEM, all_reduce_mean, broadcast_module_, data_parallel,
+    make_mesh)
 from weather_unet_tpu_torch.train import checkpoint as ckpt
 from weather_unet_tpu_torch.train.gan import (
     GanConfig, build_gan_state, make_eval_step, make_gan_step)
@@ -45,8 +61,26 @@ from weather_unet_tpu_torch.train.metrics import SummaryWriter, run_comment
 from weather_unet_tpu_torch.train.preemption import GracefulShutdown
 from weather_unet_tpu_torch.train.supervised import stepped
 
-MESH_ITEM = ("ROADMAP.md queue 1 item 4, 'Mesh, tensor parallelism and "
-             "multi-process'")
+
+def _data_plan(plan, batch_size, what: str):
+    """The plan a loop trains under: ``plan``, or under a process group the
+    default one over the world (as the JAX loops' ``make_mesh``), or None.
+    Refuses a model axis (item 4b) and a process holding several of the
+    plan's devices (one rank a process: ``parallel/launch.py``)."""
+    if plan is None and data_parallel():
+        plan = make_mesh(batch_size=batch_size)
+    if plan is None:
+        return None
+    plan.require_data_parallel(what)
+    if len(plan.devices) != 1:
+        raise ValueError(
+            f"{what} trains one device a process, but this process holds "
+            f"{len(plan.devices)} of the plan's devices; launch one rank a "
+            f"device: python -m weather_unet_tpu_torch.parallel.launch -n K")
+    if batch_size is not None and batch_size % plan.process_count:
+        raise ValueError(f"global batch {batch_size} does not divide over "
+                         f"{plan.process_count} ranks")
+    return plan
 
 
 def _tiered_steps(fns, aot_cache):
@@ -55,9 +89,14 @@ def _tiered_steps(fns, aot_cache):
     cache)``, the programs through ``AotJit`` with the state updated in
     place and the shared ``AotCache``, or the programs themselves and None
     without ``aot_cache``.  Nothing is kept on disk: a CUDA graph cannot
-    outlive its process (``core/aot.py``)."""
+    outlive its process (``core/aot.py``).  Under a process group the tier
+    is ignored with the JAX package's warning and the steps run eagerly."""
+    if aot_cache is not None and data_parallel():
+        print("WARNING: --aot_cache is single-process only; ignoring it "
+              "for this multi-process run", flush=True)
+        aot_cache = None
     if aot_cache is None:
-        return list(fns), None
+        return [lockstep_compile(fn, "step") for fn in fns], None
     cache = (aot_cache if isinstance(aot_cache, AotCache)
              else AotCache(aot_cache))
     return [AotJit(fn, cache, inplace_argnums=(0,)) for fn in fns], cache
@@ -87,6 +126,8 @@ class WeatherTransferTrainer:
     0.5 / 0.3 / 0.3), each step's generator seeded from ``(seed + 3,
     global step)`` so a resumed run replays the warps.
 
+    ``plan``: data-parallel over the plan's ranks (module docstring); the
+    loaders then yield each rank's ``cfg.batch_size / world`` rows.
     ``aot_cache`` (a directory or ``AotCache``, exposed as ``self.aot``):
     both step programs, D-only and D+G, run through the AOT tier, on CUDA as
     CUDA graphs captured at their first step (module docstring).
@@ -108,19 +149,25 @@ class WeatherTransferTrainer:
                  profile_dir: Optional[str] = None, nan_guard: bool = False,
                  max_rollbacks: int = 3, aot_cache: Optional[str] = None,
                  tensor_parallel: bool = False, device: DeviceLike = None):
-        for flag, value in (("plan", plan), ("tensor_parallel",
-                                             tensor_parallel)):
-            if value:
-                raise NotImplementedError(
-                    f"{flag} is not ported yet ({MESH_ITEM})")
+        if tensor_parallel:
+            raise NotImplementedError(
+                f"tensor_parallel is not ported yet ({MODEL_AXIS_ITEM})")
+        self.plan = _data_plan(plan, cfg.batch_size, "the GAN trainer")
         self.cfg = cfg
         self.name = name
         self.save_dir = save_dir
         self.export_torch = export_torch
         self.seed = seed
-        self.device = resolve_device(device)
-        self.writer = SummaryWriter(log_dir, comment=run_comment(
+        self.device = resolve_device(
+            device if device is not None or self.plan is None
+            else self.plan.devices[0])
+        self._world = self.plan.process_count if self.plan else 1
+        self._rank = process_index()
+        self._local_batch = cfg.batch_size // self._world
+        # summaries come from rank 0 alone
+        self.writer = (SummaryWriter(log_dir, comment=run_comment(
             cfg.lr, cfg.batch_size, cfg.num_epoch, name))
+            if self._rank == 0 else None)
 
         self.gen, self.disc, self.state = build_gan_state(
             cfg, seed, self.device, use_pallas=self.device.type == "cuda")
@@ -139,11 +186,17 @@ class WeatherTransferTrainer:
         programs[True], programs[False] = tiered
         self._set_capturable()
         self._resume()
+        if self.plan is not None:
+            for m in (self.gen, self.disc):
+                broadcast_module_(m)
         self._eval = make_eval_step(self.gen, self.disc, est_apply, cfg)
         self.profile_dir = profile_dir
 
-        # each step's dropout generator is seeded from (base, global step)
-        self._base_seed = seed + 1
+        # each step's dropout generator is seeded from (base, global step);
+        # with several ranks the base folds in the rank, so the shards'
+        # rows do not share masks
+        self._base_seed = self._rank_seed(seed + 1)
+        self._aug_seed = self._rank_seed(seed + 3)
         self._step_rng = torch.Generator(device=self.device)
         self._eval_rng = train_generator(seed + 2, self.device)
         self._aug_cfg = None
@@ -163,6 +216,9 @@ class WeatherTransferTrainer:
         self.nan_guard = nan_guard
         self.max_rollbacks = max_rollbacks
         self._rollbacks = 0
+
+    def _rank_seed(self, seed: int) -> int:
+        return seed if self._world == 1 else fold_seed(seed, self._rank)
 
     # ------------------------------------------------------------- state io
     def _resume(self):
@@ -227,7 +283,7 @@ class WeatherTransferTrainer:
         zipped = zip(
             device_prefetch(tl_it, self.device, device_fields=[0]),
             device_prefetch(rl_it, self.device, device_fields=[0]))
-        zeros = torch.zeros(cfg.batch_size, dtype=torch.long,
+        zeros = torch.zeros(self._local_batch, dtype=torch.long,
                             device=self.device)
         # no device -> host read in this loop: metrics stay on the device
         # until the summary cadence
@@ -249,7 +305,11 @@ class WeatherTransferTrainer:
                 self._save()
                 self._ckpt.wait()   # the grace window must see the file
                 return False
-            if data[0].shape[0] != cfg.batch_size:
+            if data[0].shape[0] != self._local_batch:
+                if self._world > 1 and data[0].shape[0] == cfg.batch_size:
+                    raise ValueError(
+                        "the loaders yield the global batch on every rank; "
+                        "give them process_shard=True")
                 continue
             if labeled:
                 c_d = torch.as_tensor(data[1]).to(self.device, torch.long)
@@ -267,7 +327,7 @@ class WeatherTransferTrainer:
                 images = normalize_batch(data[0], cfg.input_size)
                 rand = normalize_batch(rand_data[0], cfg.input_size)
             else:
-                self._aug_rng.manual_seed(fold_seed(self.seed + 3, gstep))
+                self._aug_rng.manual_seed(fold_seed(self._aug_seed, gstep))
                 images = augment_batch(self._aug_rng, data[0], self._aug_cfg)
                 rand = augment_batch(self._aug_rng, rand_data[0],
                                      self._aug_cfg)
@@ -371,10 +431,11 @@ class WeatherTransferTrainer:
                 self._window_steps * self.cfg.batch_size / dt)
         self._window_t0 = time.perf_counter()
         self._window_steps = 0
-        if self.scalar_dict:
-            self.writer.add_scalars(self.scalar_dict, step)
-        for tag, imgs in self.image_dict.items():
-            self.writer.add_image_grid(tag, imgs, step)
+        if self.writer is not None:
+            if self.scalar_dict:
+                self.writer.add_scalars(self.scalar_dict, step)
+            for tag, imgs in self.image_dict.items():
+                self.writer.add_image_grid(tag, imgs, step)
         self.image_dict = {}
 
     def _epoch_skip(self, tl, rl, abs_ep: int) -> int:
@@ -433,6 +494,33 @@ class WeatherTransferTrainer:
             self._ckpt.close()
 
 
+@contextlib.contextmanager
+def _synced_bn(model, on: bool):
+    """The model's BatchNorms reduce their moments over the ranks inside."""
+    if on:
+        sync_batchnorm(model, True)
+    try:
+        yield
+    finally:
+        if on:
+            sync_batchnorm(model, False)
+
+
+def _over_ranks(test_accum: list, counts: list):
+    """Each eval batch's metrics over every rank's real rows, and the rows:
+    the ranks' weighted sums (metric x rows) and rows in one all-reduce
+    bucket."""
+    keys = list(test_accum[0])
+    n = torch.tensor(counts, dtype=torch.float32,
+                     device=test_accum[0][keys[0]].device)
+    rows = torch.stack([torch.stack([m[k].float() for k in keys])
+                        for m in test_accum]) * n[:, None]
+    rows, n = all_reduce_mean([rows, n])      # the ratios are the sums'
+    means = (rows / n[:, None]).tolist()
+    return ([dict(zip(keys, r)) for r in means],
+            [round(c * process_count()) for c in n.tolist()])
+
+
 def _padded_eval_batches(loader, counts: list):
     """Yield ``(images, targets, weights)`` eval batches with a partial
     batch padded (last row repeated) up to the first batch's size, so the
@@ -465,6 +553,7 @@ def train_supervised(step_fn: Callable, eval_fn: Callable,
                      save_per_epoch: int = 5,
                      target_dtype: torch.dtype = torch.float32,
                      seed: int = 0, plan=None,
+                     batch_size: Optional[int] = None,
                      aot_cache: Optional[str] = None) -> TrainState:
     """The classifier/estimator loop (reference ``classifier.py:132-182``,
     ``estimator.py:170-227``) on the device of ``state.module``: an eval
@@ -483,9 +572,17 @@ def train_supervised(step_fn: Callable, eval_fn: Callable,
     ``(seed, global step)``.  ``aot_cache``: ``step_fn.program`` (the
     steps of ``train/supervised.py`` have one) runs through the AOT tier,
     on CUDA as a CUDA graph with Adam made ``capturable`` (the caller's
-    optimizer stays so).  ``plan`` is not ported."""
-    if plan:
-        raise NotImplementedError(f"plan is not ported yet ({MESH_ITEM})")
+    optimizer stays so).
+
+    ``plan`` (the default under a process group, over ``batch_size``, the
+    global batch): data-parallel (module docstring).  The loaders yield
+    each rank's rows (``process_shard``); with several ranks the model's
+    BatchNorms reduce their train-mode moments over the ranks for the
+    run (``models/common.py::sync_batchnorm``), and the test loader must
+    give every rank the same number of batches (the CLIs' ``drop_last``).
+    """
+    plan = _data_plan(plan, batch_size, "train_supervised")
+    world = plan.process_count if plan is not None else 1
     if aot_cache is not None and not hasattr(step_fn, "program"):
         raise ValueError("aot_cache needs a step with a device program "
                          "(train/supervised.py::stepped)")
@@ -508,10 +605,16 @@ def train_supervised(step_fn: Callable, eval_fn: Callable,
               + (f" (epoch {start_epoch} batch {resume_epoch_step})"
                  if resume_epoch_step else ""), flush=True)
 
+    if plan is not None:
+        broadcast_module_(model)
+    if process_index() != 0:
+        writer = None                     # summaries come from rank 0
+    aug_seed = seed if world == 1 else fold_seed(seed, process_index())
+
     # after the restore: its load replaces the optimizer's tensors and takes
     # the capturable flag from the file, whichever side of the tier wrote it
-    set_capturable(state.optimizer,
-                   aot_cache is not None and device.type == "cuda")
+    set_capturable(state.optimizer, aot_cache is not None
+                   and device.type == "cuda" and not data_parallel())
     if aot_cache is not None:
         (program,), _ = _tiered_steps([step_fn.program], aot_cache)
         step_fn = stepped(program)
@@ -529,7 +632,7 @@ def train_supervised(step_fn: Callable, eval_fn: Callable,
 
     train_metrics = []
     warned_empty_test = False
-    with GracefulShutdown() as stop, ckpter:
+    with GracefulShutdown() as stop, ckpter, _synced_bn(model, world > 1):
         for epoch in range(start_epoch, num_epoch):
             tl = train_loader_fn()
             se = getattr(tl, "set_epoch", None)
@@ -555,7 +658,7 @@ def train_supervised(step_fn: Callable, eval_fn: Callable,
                 if aug_rng is None:
                     images = normalize_batch(batch[0], out_size)
                 else:
-                    aug_rng.manual_seed(fold_seed(seed, global_step))
+                    aug_rng.manual_seed(fold_seed(aug_seed, global_step))
                     images = augment_batch(aug_rng, batch[0], augment_cfg)
                 state, metrics = step_fn(state, images,
                                          to_device(batch[1], target_dtype))
@@ -572,8 +675,11 @@ def train_supervised(step_fn: Callable, eval_fn: Callable,
                             x, torch.uint8), out_size),
                             to_device(t, target_dtype),
                             to_device(w, torch.float32))
-                        test_accum.append({k: float(v)
-                                           for k, v in m.items()})
+                        test_accum.append(m)
+                    if world > 1 and test_accum:
+                        test_accum, counts = _over_ranks(test_accum, counts)
+                    test_accum = [{k: float(v) for k, v in m.items()}
+                                  for m in test_accum]
                     if not test_accum and not warned_empty_test:
                         warned_empty_test = True
                         print("warning: test loader yielded no batches "

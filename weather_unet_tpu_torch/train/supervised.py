@@ -12,6 +12,12 @@ ResNet-101.
 * BatchNorm updates its batch statistics in train mode
   (``models/common.py::BatchNorm2d``).
 
+Under a process group the step all-reduces the gradients after the
+backward and before Adam, with the metrics, in one flat bucket
+(``parallel/mesh.py::all_reduce_mean``); ``train/loops.py::
+train_supervised`` with a plan of several ranks also has BatchNorm reduce
+its batch moments over the ranks, so the step is the global batch's.
+
 A step ``step(state, images NCHW, targets) -> (state, metrics)`` runs the
 module in train mode, updates its parameters in place with the state's
 optimizer and returns device-tensor metrics; losses are computed in
@@ -38,6 +44,8 @@ import torch.nn.functional as F
 from weather_unet_tpu_torch.core.optim import torch_adam
 from weather_unet_tpu_torch.core.state import TrainState
 from weather_unet_tpu_torch.ops import losses
+from weather_unet_tpu_torch.parallel.mesh import (
+    all_reduce_mean, data_parallel)
 
 FROZEN_PREFIXES = ("conv1.", "bn1.", "layer1.", "layer2.", "layer3.")
 
@@ -63,9 +71,21 @@ def build_supervised_state(model: nn.Module, lr: float, weight_decay: float,
                                         weight_decay=weight_decay))
 
 
-def _update(state: TrainState, loss: torch.Tensor) -> None:
+def _update(state: TrainState, loss: torch.Tensor, metrics: dict) -> None:
+    """Backward and Adam; under a process group the gradients and
+    ``metrics`` (replaced in place) are averaged over the ranks between
+    the two, in one bucket."""
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    if data_parallel():
+        params = [p for p in state.module.parameters()
+                  if p.grad is not None]
+        keys = list(metrics)
+        out = all_reduce_mean([p.grad for p in params]
+                              + [metrics[k] for k in keys])
+        for p, g in zip(params, out):
+            p.grad = g
+        metrics.update(zip(keys, out[len(params):]))
     state.optimizer.step()
 
 
@@ -94,9 +114,10 @@ def make_classifier_step():
         state.module.train()
         logits = state.module(images).float()
         loss = losses.cross_entropy_loss(logits, labels)
-        _update(state, loss)
         acc = (logits.detach().argmax(1) == labels).float().mean()
-        return {"loss": loss.detach(), "accuracy": acc}
+        metrics = {"loss": loss.detach(), "accuracy": acc}
+        _update(state, loss, metrics)
+        return metrics
 
     return stepped(program)
 
@@ -110,11 +131,12 @@ def make_estimator_step():
         state.module.train()
         preds = state.module(images).float()
         loss = (preds - signals).square().mean(dim=0).sum()
-        _update(state, loss)
         preds = preds.detach()
-        return {"loss": loss.detach(),
-                "mse": losses.mse_loss(preds, signals),
-                "l1": losses.l1_loss(preds, signals)}
+        metrics = {"loss": loss.detach(),
+                   "mse": losses.mse_loss(preds, signals),
+                   "l1": losses.l1_loss(preds, signals)}
+        _update(state, loss, metrics)
+        return metrics
 
     return stepped(program)
 
