@@ -4,8 +4,9 @@ paths, of its learning over many steps and its resume of a JAX training
 run, of its trainer and training CLI, of its data runtime and supervised
 pretraining, of its serving entry points (msgpack checkpoints, the HTTP
 server, the inference and eval CLIs), of FID / IS and the exported serving
-artifact, of the reference-surface ops and the dataset tools, and of the
-AOT tier's CUDA graphs, on one NVIDIA GPU.
+artifact, of the reference-surface ops and the dataset tools, of data
+and tensor parallelism, and of the AOT tier's CUDA graphs, on one NVIDIA
+GPU.
 
     python3 chip_smoke.py            # from the repository root, one GPU
 
@@ -343,9 +344,7 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                run at global B=8: the ranks' checkpoints byte-equal, each
                step at the GAN f32 bars against the one-process step from
                rank 0's state before it (sign-flip bound 2.2 * lr *
-               sqrt(k)); then 6 bf16 steps, each rank's step ms and
-               all-reduce ms (one card shared by two processes: not a
-               scaling figure).  (c) Two gloo ranks of train_estimator,
+               sqrt(k)) (its bf16 timing run is cut: CUTS).  (c) Two gloo ranks of train_estimator,
                2 steps at 224x224, global B=64, f32, each step against the
                one-process step on the ranks' joined rows (losses rel
                1e-4; BN statistics and the sign-flip bound, each plus
@@ -354,6 +353,38 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                B=16: MAE <= 1e-5, 6 K1 and 6 K2 launches; serve
                --data_parallel answers 16 POSTs.  Every rank's K1, K2 and
                K4 launches join the main-path totals.
+11c. tensor_parallel -- tensor parallelism (parallel/tp.py): every
+               double conv split Megatron-style over a model axis of 2.
+               (a) A seeded reference .pt through WeatherTransfer.load(
+               plan=make_mesh(["cuda:0", "cuda:0"], data=1, model=2),
+               tensor_parallel=True) with use_pallas, 256x256, B=16, the
+               two shards in two threads: float32 (TF32 off) within MAE
+               1e-5 of the unsharded use_pallas forward, bfloat16 within
+               1e-3 of its own float32, translate_u8 within 1 of the
+               unsharded wire, 7 model-group sums and 3 K1 and 3 K2
+               launches a forward on each shard, each shard's weight MiB
+               beside the whole model's; then data=2, model=2 over cuda:0
+               four times, 8 rows a data row.  (b) Two gloo ranks sharing
+               cuda:0 running train_transfer_est --tensor_parallel 2
+               (through tools/dp_train_torch.py --mode est_cli, the
+               estimator K4-routed) at 224x224, B=8, 3 steps in float32:
+               the ranks' gathered checkpoints byte-equal, each step held
+               to the one-process step from rank 0's state before it on
+               the same inputs and dropout seed at the bars of phase
+               parallel (b) (the float32 floor also from the step with
+               its weights moved by one rounding, which re-rounds every
+               conv as the split does; the parity steps in a child
+               process), K1, K2 and K4 launches a step and rank; then
+               3 bf16 steps with each rank's step ms and ms in model-group
+               sums (one card shared by two processes, the sums through
+               the host: a correctness run, not a scaling figure).  (c)
+               The TP=2 checkpoint resumes in this process without tensor
+               parallelism bit-equal on load and takes one more step at
+               the same bars.  (d) Four gloo ranks, data=2, model=2, 2
+               steps at global B=8, dropout 0.3: the ranks of a data row
+               load the same rows and draw the same masks, the rows
+               differ; the four checkpoints byte-equal.  Every rank's K1,
+               K2 and K4 launches join the main-path totals.
 12. aot      -- the AOT tier (core/aot.py) at full width, each program a
                CUDA graph held to its eager counterpart: the use_pallas
                cUNet at 256x256 through WeatherTransfer(aot_cache=) at
@@ -397,7 +428,7 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                build a cached plan, table or scale anew (lru-cache misses
                during capture).
 13. kernels -- the summary line of every ported kernel (launches on the main
-               paths of phases 4-11a, and "graph_replay_launches" counted
+               paths of phases 4-11c, and "graph_replay_launches" counted
                by name in phase 12's replays; error, times and bound over
                one serving forward's sites and, under "gan_step_forward",
                over one GAN generator (K1, K2) or estimator (K4)
@@ -495,7 +526,9 @@ CUTS = ["eval_inception: the Frechet distance (a 2048x2048 host sqrtm) in "
         "serving_cli: the demo CLI at 2 frames, not 5 (its GIF encode on "
         "the host took ~25 s)",
         "aot_doctor: the doctor's main in this process, not a child "
-        "process"]
+        "process",
+        "parallel: no bf16 timing run of the two data-parallel ranks "
+        "(phase tensor_parallel times two split ranks' bf16 steps)"]
 
 
 def emit(obj) -> None:
@@ -3984,7 +4017,6 @@ def phase_surface(counters, launch_totals, smi):
 DP_WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "tools", "dp_train_torch.py")
 DP_SIZE, DP_BATCH, DP_STEPS = 224, 8, 3   # the est trainer's defaults
-DP_TIMED = 6                              # bf16 steps a rank, 1 untimed
 DP_SUP_BATCH, DP_SUP_STEPS = 64, 2        # train_estimator's default batch
 DP_TIMEOUT = 400                          # seconds for one multi-rank run
 
@@ -4297,10 +4329,9 @@ def phase_parallel(cunet_path, est_path, counters, launch_totals, smi):
     estimator, its checkpoint bit-equal to the same run without the
     launcher.  (b) Two gloo ranks on cuda:0, the same run at global B=8:
     the ranks' checkpoints byte-equal, each step held to the one-process
-    step (dp_gan_parity); then in bf16, 6 steps a rank, its step ms and
-    all-reduce ms (one card shared by two processes: not a scaling
-    measurement).  (c) Two gloo ranks: train_estimator, 2 steps at 224²,
-    global B=64, f32, against the one-process step (dp_sup_parity).  (d)
+    step (dp_gan_parity).  (c) Two gloo ranks: train_estimator, 2 steps
+    at 224², global B=64, f32, against the one-process step
+    (dp_sup_parity).  (d)
     dp_replicas.  The ranks' K1, K2 and K4 launches join the main-path
     totals."""
     t_phase = time.perf_counter()
@@ -4395,31 +4426,327 @@ def phase_parallel(cunet_path, est_path, counters, launch_totals, smi):
         dp_gan_parity(tmp, est_path, os.path.join(tmp, "b"), b, rec)
         dp_sup_parity(os.path.join(tmp, "c"), c, rec)
         rec["b_c_parity_seconds"] = time.perf_counter() - t0
-
-        # the bf16 timing, alone on the card
-        t0 = time.perf_counter()
-        bf = dp_run(2, at("bf16") + ["--mode", "gan", "--size",
-                                     str(DP_SIZE), "--batch", str(DP_BATCH),
-                                     "--steps", str(DP_TIMED),
-                                     "--estimator_path", est_path,
-                                     "--dtype", "bf16", "--timing"],
-                    os.path.join(logs, "bf16"), backend="gloo")
-        rec["b_bf16"] = {
-            f"rank{r['rank']}": {
-                "step_ms": float(np.median(r["step_ms"][1:])),
-                "allreduce_ms": float(np.median(r["allreduce_ms"][1:])),
-                "step_ms_all": r["step_ms"],
-                "allreduce_ms_all": r["allreduce_ms"],
-                "launches": r["launches"]} for r in bf}
-        for r in bf:
-            for k in ("adain", "upsample", "bottleneck"):
-                launch_totals[k] += r["launches"][k]
-        rec["b_bf16_seconds"] = time.perf_counter() - t0
+        # no bf16 timing run of the two data-parallel ranks here (CUTS):
+        # phase tensor_parallel times two ranks' bf16 steps
         t0 = time.perf_counter()
         dp_replicas(cunet_path, counters, launch_totals, rec)
         rec["d_seconds"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+
+
+# ---------------------------------------------------------- tensor_parallel
+TP_SIZE, TP_BATCH, TP_STEPS = 224, 8, 3   # the est trainer's defaults
+TP_SERVE_SIZE, TP_SERVE_BATCH = 256, 16
+TP_JPEGS = 36          # 70% of them train: 3 steps of 8
+
+
+def tp_serving(cunet_path, counters, launch_totals, rec):
+    """(a) the in-process split on cuda:0 twice, and data=2, model=2."""
+    from weather_unet_tpu_torch.api import WeatherTransfer
+    from weather_unet_tpu_torch.parallel import tp
+    from weather_unet_tpu_torch.parallel.mesh import make_mesh
+
+    rng = np.random.default_rng(SEED + 50)
+    b, size = TP_SERVE_BATCH, TP_SERVE_SIZE
+    x = torch.from_numpy(rng.uniform(-1, 1, (b, size, size, 3)).astype(
+        np.float32)).cuda()
+    c = torch.from_numpy(np.eye(5, dtype=np.float32)[rng.integers(
+        0, 5, b)]).cuda()
+    u8 = rng.integers(0, 256, (b, size, size, 3), dtype=np.uint8)
+    plan = make_mesh(["cuda:0", "cuda:0"], data=1, model=2)
+    out, f32 = {}, None
+    for dt in DTYPES:
+        one = WeatherTransfer.load(cunet_path, dtype=dt, device="cuda")
+        two = WeatherTransfer.load(cunet_path, dtype=dt, plan=plan,
+                                   tensor_parallel=True)
+        group = two._groups[0]
+        before = group.pair_sums
+        got, launches = counted_run(
+            lambda: two.translate(x.to(dt), c), counters, launch_totals,
+            {"adain": 6, "upsample": 6}, f"split {DT_NAME[dt]}")
+        sums = group.pair_sums - before
+        ref = one.translate(x.to(dt), c)
+        r = {"launches": launches, "pair_sums_a_forward": sums,
+             "mae_against_unsharded": float(
+                 (got.float() - ref.float()).abs().mean()),
+             "shard_weight_mib": [tp.weight_bytes(m) / 2 ** 20
+                                  for m in two._replicas],
+             "whole_weight_mib": tp.weight_bytes(one.model) / 2 ** 20,
+             "ms_split": wall_ms(lambda: two.translate(x.to(dt), c)),
+             "ms_unsharded": wall_ms(lambda: one.translate(x.to(dt), c))}
+        if dt == torch.float32:
+            f32 = got.float()
+            w8 = two.translate_u8(u8, c).to(torch.int16)
+            r["u8_max_diff"] = int((w8 - one.translate_u8(u8, c).to(
+                torch.int16)).abs().max())
+            ok = r["mae_against_unsharded"] <= 1e-5 and r["u8_max_diff"] <= 1
+        else:
+            r["mae_against_own_float32"] = float(
+                (got.float() - f32).abs().mean())
+            ok = r["mae_against_own_float32"] <= 1e-3
+        out[DT_NAME[dt]] = r
+        if not (ok and sums == 7):
+            raise AssertionError(f"tensor_parallel (a) {DT_NAME[dt]}: {r}")
+        del one, two, ref, got
+    rows = make_mesh(["cuda:0"] * 4, data=2, model=2)
+    four = WeatherTransfer.load(cunet_path, plan=rows, tensor_parallel=True)
+    got, launches = counted_run(lambda: four.translate(x, c), counters,
+                                launch_totals, {"adain": 12, "upsample": 12},
+                                "data=2, model=2")
+    r = {"launches": launches,
+         "pair_sums": [g.pair_sums for g in four._groups],
+         "mae_against_unsharded": float((got.float() - f32).abs().mean())}
+    out["data2_model2"] = r
+    if not (r["mae_against_unsharded"] <= 1e-5 and r["pair_sums"] == [7, 7]):
+        raise AssertionError(f"tensor_parallel (a) data=2, model=2: {r}")
+    rec["a_serving"] = out
+    del four, got
+    free_cuda()
+
+
+def tp_cli_world(tmp):
+    """The est CLI's world: TP_JPEGS seeded 256x256 JPEGs (--image_only:
+    the first 70% train, in order of their sorted names)."""
+    root = os.path.join(tmp, "tp_jpegs")
+    os.makedirs(root)
+    write_jpegs(root, TP_JPEGS, seed=SEED + 51)
+    return root
+
+
+def tp_step_parity(tmp, est_path, out, rec):
+    """(b) each f32 step k of the split ranks against the one-process step
+    from the state they took it from (the initial state, or rank 0's after
+    step k - 1), on rank 0's inputs of step k and the trainer's dropout
+    seed of step k, at phase parallel (b)'s bars with the float32 floor
+    the larger of two: the step with its input moved by one rounding
+    (float32_floor), and the step with every weight moved by one rounding,
+    which re-rounds every conv's output as the split's partial sums do;
+    (c) the TP checkpoint loaded without tensor parallelism: bit-equal,
+    and one more step at the same bars."""
+    from weather_unet_tpu_torch.core.rng import fold_seed
+    from weather_unet_tpu_torch.train import checkpoint as ckpt
+    from weather_unet_tpu_torch.train.gan import (
+        GanConfig, build_gan_state, make_gan_step)
+
+    cfg = GanConfig(input_size=TP_SIZE, batch_size=TP_BATCH, num_epoch=1)
+    gen, disc, state = build_gan_state(cfg, 0, "cuda", use_pallas=True)
+    _, _, ranks = build_gan_state(cfg, 0, "cuda", use_pallas=True)
+    init = os.path.join(tmp, "tp_init.pt")
+    with open(init, "wb") as f:
+        f.write(ckpt.serialize(ckpt._to_host(ckpt.gan_tree(state, 0))))
+    est = estimators(est_path, torch.float32, "k4", {})
+    step = make_gan_step(gen, disc, est, cfg)
+    g = torch.Generator(device="cuda")
+    steps = []
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True       # as the ranks run
+
+    def one_step(start, k, inputs, scale=1.0, weight_scale=1.0):
+        x, c_d, r, c_r = (t.cuda() for t in inputs)
+        ckpt.restore_checkpoint(start, state)
+        if weight_scale != 1.0:
+            with torch.no_grad():
+                for ts in (state.gen, state.disc):
+                    for p in ts.module.parameters():
+                        p.mul_(weight_scale)
+        g.manual_seed(fold_seed(1, k))               # seed + 1, step k
+        st, m = step(state, x * scale, c_d, r, c_r, g, do_g=True)
+        return gan_snapshot(st, m)
+
+    for k in range(1, TP_STEPS + 2):
+        last = k == TP_STEPS + 1
+        inputs = torch.load(os.path.join(out, f"rank0_in{min(k, TP_STEPS)}"
+                                         ".pt"), weights_only=True)
+        if last:                                     # (c)
+            start = os.path.join(out, "rank0.pt")
+            with open(start, "rb") as f:
+                saved = f.read()
+            ckpt.restore_checkpoint(start, ranks)
+            rec["c_bit_equal_on_load"] = ckpt.serialize(ckpt._to_host(
+                ckpt.gan_tree(ranks, 0))) == saved
+            if not rec["c_bit_equal_on_load"]:
+                raise AssertionError("tensor_parallel (c): the TP=2 "
+                                     "checkpoint does not load bit-equal")
+            g.manual_seed(fold_seed(1, k))
+            x, c_d, r, c_r = (t.cuda() for t in inputs)
+            ranks_step = make_gan_step(*(ranks.gen.module, ranks.disc.module),
+                                       est, cfg)
+            _, m = ranks_step(ranks, x, c_d, r, c_r, g, do_g=True)
+            got = gan_snapshot(ranks, m)
+        else:
+            start = init if k == 1 else os.path.join(
+                out, f"rank0_s{k - 1}.pt")
+            ckpt.restore_checkpoint(os.path.join(out, f"rank0_s{k}.pt"),
+                                    ranks)
+            got = gan_snapshot(ranks, rec["b_metrics"][k - 1])
+        want = one_step(start, k, inputs)
+        parts = {"input": float32_floor(lambda xs: one_step(start, k, (
+            xs.cpu(), *inputs[1:])), inputs[0].cuda(), want)}
+        errs = [snapshot_errs(one_step(start, k, inputs, weight_scale=(
+            1 + sign * ONE_ROUNDING)), want) for sign in (1, -1)]
+        parts["weights"] = {key: max(e[key] for e in errs)
+                            for key in MOMENT_KEYS}
+        floor = {key: max(f[key] for f in parts.values())
+                 for key in MOMENT_KEYS}
+        steps.append(gan_states_agree(
+            got, want, cfg.lr * np.sqrt(k), GAN_TOL,
+            f"tensor_parallel {'(c) resumed' if last else '(b)'} step {k} "
+            f"against the one-process step", floor))
+        steps[-1]["float32_floors"] = parts
+    torch.backends.cudnn.deterministic = deterministic
+    rec["b_parity"], rec["c_parity"] = steps[:-1], steps[-1]
+    del gen, disc, state, ranks, step
+    free_cuda()
+
+
+# tp_step_parity in a process of its own: in a whole run of the script
+# the one-process float32 steps, taken in this process after its
+# earlier phases and beside starting ranks, moved D's moments 7.5x their
+# float32 floor from the split ranks (whose bytes were the same in three
+# runs), while the same steps in a fresh process met their bars
+TP_PARITY_CHILD = ("import json, sys, torch\n"
+                   "sys.path.insert(0, sys.argv[1])\n"
+                   "import chip_smoke as cs\n"
+                   "torch.backends.cudnn.allow_tf32 = False\n"
+                   "torch.backends.cuda.matmul.allow_tf32 = False\n"
+                   "with open(sys.argv[5]) as f:\n"
+                   "    rec = json.load(f)\n"
+                   "cs.tp_step_parity(*sys.argv[2:5], rec)\n"
+                   "with open(sys.argv[5], 'w') as f:\n"
+                   "    json.dump(rec, f)\n")
+
+
+def tp_step_parity_child(tmp, est_path, out, rec):
+    """tp_step_parity in a child process; its records join ``rec``."""
+    path = os.path.join(tmp, "tp_parity.json")
+    with open(path, "w") as f:
+        json.dump({"b_metrics": rec["b_metrics"]}, f)
+    root = os.path.dirname(os.path.abspath(__file__))
+    res = subprocess.run(
+        [sys.executable, "-c", TP_PARITY_CHILD, root, tmp, est_path, out,
+         path], env=dp_env(), capture_output=True, text=True,
+        timeout=DP_TIMEOUT)
+    if res.returncode != 0:
+        raise AssertionError(f"tensor_parallel parity (rc {res.returncode})"
+                             f": {res.stderr[-3000:]}")
+    with open(path) as f:
+        got = json.load(f)
+    for key in ("b_parity", "c_parity", "c_bit_equal_on_load"):
+        rec[key] = got[key]
+
+
+def phase_tensor_parallel(cunet_path, est_path, counters, launch_totals,
+                          smi):
+    """Phase tensor_parallel (module docstring, 11c)."""
+    t_phase = time.perf_counter()
+    rec = {"phase": "tensor_parallel", "card": smi}
+    free_cuda()
+    t0 = time.perf_counter()
+    tp_serving(cunet_path, counters, launch_totals, rec)
+    rec["a_seconds"] = time.perf_counter() - t0
+    emit({**rec, "phase": "tensor_parallel_serving"})
+    tmp = tempfile.mkdtemp(prefix="wut_tp_")
+    try:
+        root = tp_cli_world(tmp)
+        logs = os.path.join(tmp, "logs")
+
+        def cli(name, dtype, timing=False):
+            out = os.path.join(tmp, name)
+            # TF32 off and cuDNN deterministic, as this process runs
+            return ["--out", out, "--mode", "est_cli", "--route", "k4",
+                    "--snapshots", "--dump_inputs", "--deterministic"] + (
+                ["--timing"] if timing else []) + [
+                "--", "--image_root", root, "--image_only",
+                "--estimator_path", est_path, "--input_size", str(TP_SIZE),
+                "--batch_size", str(TP_BATCH), "--num_epoch", "1",
+                "--num_workers", "4", "--dtype", dtype,
+                "--save_dir", os.path.join(tmp, "cp_" + name),
+                "--log_dir", os.path.join(tmp, "runs"),
+                "--tensor_parallel", "2"]
+
+        # (d) keys rows and masks: the worker's linear estimator stands
+        # in for ResNet-101, which (b) runs through K4
+        four = ["--out", os.path.join(tmp, "d"), "--mode", "gan", "--size",
+                str(TP_SIZE), "--batch", str(TP_BATCH), "--steps", "2",
+                "--dropout", "0.3", "--tensor_parallel", "2", "--dump_inputs",
+                "--dump_activations", "--deterministic",
+                "--save_dir", os.path.join(tmp, "cp_d")]
+        t0 = time.perf_counter()
+        b, d = dp_concurrently(
+            lambda: dp_run(2, cli("b", "f32"), os.path.join(logs, "b"),
+                           backend="gloo"),
+            lambda: dp_run(4, four, os.path.join(logs, "d"),
+                           backend="gloo"))
+        rec["b_d_seconds"] = time.perf_counter() - t0
+        out_b = os.path.join(tmp, "b")
+        rec["b"] = {"ranks_byte_equal": dp_bytes(out_b, 0) == dp_bytes(
+            out_b, 1), "launches_a_step": [
+            {k: v / TP_STEPS for k, v in r["launches"].items()} for r in b],
+            "model_group_sums": [r["tp_sums"] for r in b]}
+        rec["b_metrics"] = b[0]["metrics"]
+        if not rec["b"]["ranks_byte_equal"] or len(b[0]["metrics"]) != (
+                TP_STEPS):
+            raise AssertionError(f"tensor_parallel (b): {rec['b']}")
+        want = {"adain": 6, "upsample": 6, "bottleneck": 58}
+        for r in b:
+            for k in ("adain", "upsample", "bottleneck"):
+                launch_totals[k] += r["launches"][k]
+            if {k: r["launches"][k] / TP_STEPS for k in want} != want:
+                raise AssertionError(f"tensor_parallel (b) launches "
+                                     f"{r['launches']}")
+        out_d = os.path.join(tmp, "d")
+        rows = [torch.load(os.path.join(out_d, f"rank{r}_in1.pt"),
+                           weights_only=True) for r in range(4)]
+        acts = [torch.load(os.path.join(out_d, f"rank{r}_act.pt"),
+                           weights_only=True) for r in range(4)]
+        rec["d"] = {
+            "rows_equal_in_a_data_row": all(
+                torch.equal(x_, y_) for a, b_ in ((0, 1), (2, 3))
+                for x_, y_ in zip(rows[a], rows[b_])),
+            "rows_differ_across_data_rows": not torch.equal(rows[0][0],
+                                                            rows[2][0]),
+            "masks_equal_in_a_data_row": torch.equal(acts[0], acts[1])
+            and torch.equal(acts[2], acts[3]),
+            "masks_differ_across_data_rows": not torch.equal(
+                acts[0] == 0, acts[2] == 0),
+            "ranks_byte_equal": len({dp_bytes(out_d, r) for r in range(4)})
+            == 1,
+            "launches": [r["launches"] for r in d]}
+        for r in d:
+            for k in ("adain", "upsample", "bottleneck"):
+                launch_totals[k] += r["launches"][k]
+        if not all(v for k, v in rec["d"].items() if k != "launches"):
+            raise AssertionError(f"tensor_parallel (d): {rec['d']}")
+        t0 = time.perf_counter()
+        tp_step_parity_child(tmp, est_path, out_b, rec)
+        rec["b_c_parity_seconds"] = time.perf_counter() - t0
+        # the bf16 timing, alone on the card: ranks started beside the
+        # parity steps moved this process's float32 steps past their bars
+        # (in a whole run of the script), though the ranks' own bytes
+        # do not move
+        t0 = time.perf_counter()
+        bf = dp_run(2, cli("bf16", "bf16", timing=True),
+                    os.path.join(logs, "bf16"), backend="gloo")
+        rec["b_bf16"] = {
+            f"rank{r['rank']}": {
+                "step_ms": float(np.median(r["step_ms"][1:])),
+                "model_group_sum_ms": float(np.median(r["tp_sum_ms"][1:])),
+                "model_group_sums_a_step": r["tp_sums"],
+                "step_ms_all": r["step_ms"], "sum_ms_all": r["tp_sum_ms"],
+                "launches": r["launches"]} for r in bf}
+        for r in bf:
+            for k in ("adain", "upsample", "bottleneck"):
+                launch_totals[k] += r["launches"][k]
+            if not all(np.isfinite(v) for m in r["metrics"]
+                       for v in m.values()):
+                raise AssertionError(f"tensor_parallel bf16: {r['metrics']}")
+        rec["b_bf16_seconds"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec.pop("b_metrics", None)
     rec["seconds"] = time.perf_counter() - t_phase
     emit(rec)
 
@@ -5677,6 +6004,7 @@ def main():
         phase_eval_export(counters, launch_totals, smi)
         phase_surface(counters, launch_totals, smi)
         phase_parallel(path, est_path, counters, launch_totals, smi)
+        phase_tensor_parallel(path, est_path, counters, launch_totals, smi)
         graph_totals = {k: 0 for k in counters}
         phase_aot(est_path, smi, graph_totals)
     for name, total in launch_totals.items():

@@ -939,3 +939,34 @@ def test_doctor_names_the_card(cuda, capsys):
     assert info["devices"][0]["name"] == torch.cuda.get_device_name(0)
     # the AOT tier keeps nothing on disk: the doctor reports no cache
     assert info["probe_roundtrip_ms"] > 0 and "aot_cache" not in info
+
+
+def test_tensor_parallel_on_one_card_matches_unsharded(cuda, tmp_path):
+    """``WeatherTransfer`` split over ``["cuda:0", "cuda:0"]`` (two shards
+    of one card, in two threads) with K1 and K2: float32 within MAE 1e-5
+    of the unsharded ``use_pallas`` forward, 7 model-group sums and 3 K1
+    and 3 K2 launches a forward on each shard; the doctor reports the
+    split."""
+    from weather_unet_tpu_torch.cli import doctor
+    from weather_unet_tpu_torch.parallel.mesh import make_mesh
+
+    torch.manual_seed(0)
+    path = str(tmp_path / "g.pt")
+    torch.save({"inference": ConditionalUNet(5).state_dict(), "epoch": 0,
+                "global_step": 0}, path)
+    one = WeatherTransfer.load(path, device="cuda")
+    two = WeatherTransfer.load(path, plan=make_mesh(
+        ["cuda:0", "cuda:0"], model=2), tensor_parallel=True)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.uniform(-1, 1, (4, 64, 64, 3)).astype(
+        np.float32)).cuda()
+    c = torch.from_numpy(np.eye(5, dtype=np.float32)[[0, 1, 2, 3]]).cuda()
+    ref = one.translate(x, c)
+    k1.launches = k2.launches = 0
+    got = two.translate(x, c)
+    torch.cuda.synchronize()
+    assert (k1.launches, k2.launches) == (6, 6)
+    assert two._groups[0].pair_sums == 7
+    assert float((got - ref).abs().mean()) <= 1e-5
+    info = doctor.collect(tensor_parallel=2)
+    assert info["tensor_parallel"]["cUNet"]["split_pairs"][0] == "dconv_down1"

@@ -92,12 +92,24 @@ def test_lockstep_compile_is_the_identity():
 
 
 def test_launch_local_propagates_failure_and_sets_the_contract(tmp_path):
-    script = ("import os, sys\n"
+    # rank 1 fails only once rank 0 has printed: the launcher terminates a
+    # failed rank's peers at once, which under load could stop rank 0
+    # before its line is written
+    script = ("import os, sys, time\n"
               "keys = ('WUT_NUM_PROCESSES', 'WUT_PROCESS_ID', "
               "'WUT_COORDINATOR', 'WUT_DEVICE', 'WUT_DIST_BACKEND')\n"
-              "print({k: os.environ.get(k) for k in keys})\n"
-              "sys.exit(int(os.environ['WUT_PROCESS_ID']))\n")
-    rc = launch.launch_local(2, [sys.executable, "-c", script], cpu=True,
+              "print({k: os.environ.get(k) for k in keys}, flush=True)\n"
+              "rank = int(os.environ['WUT_PROCESS_ID'])\n"
+              "ready = os.path.join(sys.argv[1], 'rank0.printed')\n"
+              "if rank == 0:\n"
+              "    open(ready, 'w').close()\n"
+              "deadline = time.monotonic() + 30\n"
+              "while not os.path.exists(ready) and "
+              "time.monotonic() < deadline:\n"
+              "    time.sleep(0.01)\n"
+              "sys.exit(rank)\n")
+    rc = launch.launch_local(2, [sys.executable, "-c", script,
+                                 str(tmp_path)], cpu=True,
                              backend="gloo", env=rank_env(), timeout=60,
                              rank_logs=str(tmp_path))
     assert rc == 1

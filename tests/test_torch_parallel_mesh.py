@@ -4,8 +4,10 @@ mesh.py``) on the CPU, held to the JAX package's ``make_mesh`` over
 computation): the same axis choices, the clamp of the data axis to a
 divisor of the batch, the same refusals with the same messages (the
 multi-process one with two processes of four devices each against JAX's
-eight); the refusals of a model axis in the trainers and the API and of
-``MeshPlan.spatial``, naming ``ROADMAP.md`` item 4b; the placement helpers
+eight); the JAX package's guards on tensor parallelism in the trainers
+and the API, a model axis without it (replicas), the trainers' one rank a
+process, and ``MeshPlan.spatial``'s refusal naming ``ROADMAP.md`` item 4c;
+the placement helpers
 over two local CPU devices; the same exports as the JAX package."""
 
 import shutil
@@ -26,7 +28,7 @@ from weather_unet_tpu_torch.parallel.mesh import (
     MeshPlan, batch_sharding, make_mesh, put_host_local, replicate,
     replicated_sharding, shard_batch)
 
-ITEM_4B = "item 4b"
+ITEM_4C = "item 4c, 'Spatial partitioning'"
 
 
 @pytest.fixture(autouse=True)
@@ -85,6 +87,12 @@ def test_multi_process_refusal_matches_jax(monkeypatch):
 
 
 def test_model_axis_and_spatial_refuse_naming_item_4b(tmp_path):
+    """Spatial partitioning names ROADMAP.md item 4c (item 4b, tensor
+    parallelism, is ported: tests/test_torch_tensor_parallel.py);
+    ``tensor_parallel`` without a model axis of 2 meets the JAX package's
+    guard; a model axis without it keeps a replica on each device, as in
+    JAX; a trainer given a plan of two devices in one process meets the
+    one-rank-a-process refusal."""
     from weather_unet_tpu_torch.api import WeatherTransfer
     from weather_unet_tpu_torch.models import ConditionalUNet
     from weather_unet_tpu_torch.train.gan import GanConfig
@@ -93,19 +101,29 @@ def test_model_axis_and_spatial_refuse_naming_item_4b(tmp_path):
 
     tp = make_mesh(["cpu", "cpu"], model=2)
     assert tp.mesh_shape == {"data": 1, "model": 2}
-    with pytest.raises(NotImplementedError, match=ITEM_4B):
+    with pytest.raises(NotImplementedError, match=ITEM_4C):
         tp.spatial(input_size=64)
-    with pytest.raises(NotImplementedError, match=ITEM_4B):
-        WeatherTransfer(ConditionalUNet(5), plan=tp)
-    with pytest.raises(NotImplementedError, match=ITEM_4B):
+    with pytest.raises(ValueError, match="tensor_parallel requires a "
+                                         "MeshPlan with a 'model' axis"):
+        WeatherTransfer(ConditionalUNet(5), plan=make_mesh(["cpu"]),
+                        tensor_parallel=True)
+    assert len(WeatherTransfer(ConditionalUNet(5), plan=tp)._replicas) == 2
+    with pytest.raises(ValueError, match="tensor_parallel requires a mesh "
+                                         "with a 'model' axis"):
         WeatherTransferTrainer(GanConfig(input_size=16, batch_size=2),
-                               lambda x: x.mean(dim=(2, 3)), plan=tp,
+                               lambda x: x.mean(dim=(2, 3)),
+                               tensor_parallel=True,
                                save_dir=str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match=ITEM_4B):
-        train_supervised(None, None, None, None, state=None, num_epoch=1,
-                         plan=tp)
     # one rank a process: a plan that puts two devices in this process is
     # the launcher's job in a trainer
+    with pytest.raises(ValueError, match="parallel.launch -n K"):
+        WeatherTransferTrainer(GanConfig(input_size=16, batch_size=2),
+                               lambda x: x.mean(dim=(2, 3)), plan=tp,
+                               tensor_parallel=True,
+                               save_dir=str(tmp_path), device="cpu")
+    with pytest.raises(ValueError, match="parallel.launch -n K"):
+        train_supervised(None, None, None, None, state=None, num_epoch=1,
+                         plan=tp)
     with pytest.raises(ValueError, match="parallel.launch -n K"):
         train_supervised(None, None, None, None, state=None, num_epoch=1,
                          plan=make_mesh(["cpu", "cpu"]))

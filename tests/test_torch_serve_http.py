@@ -298,7 +298,11 @@ REFUSED = {"artifact": (["--artifact", "art"],
            # except from an artifact, whose device layout is baked in
            "data_parallel": (["--data_parallel"],
                              "--data_parallel does not apply to --artifact"),
-           "tensor_parallel": (["--tensor_parallel", "2"], "item 4b"),
+           # a model axis of 2 over the one local card: make_mesh's
+           # refusal (two CPU shards serve: test_torch_tensor_parallel.py)
+           "tensor_parallel": (["--tensor_parallel", "2"],
+                               "model axis 2 does not fit the 1 available "
+                               "device"),
            # the AOT tier is ported; an artifact has no program to export
            "aot_cache": (["--aot_cache", "aot"],
                          "--aot_cache does not apply to --artifact"),
@@ -314,6 +318,9 @@ def test_refused_flags_name_their_roadmap_item(cp_path, case, monkeypatch):
     args = [] if flags is None else source + flags
     if case == "no_gpu":          # neither a GPU nor --device cpu
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises((SystemExit, RuntimeError), match=match):
+    if case == "tensor_parallel":  # one card
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises((SystemExit, RuntimeError, ValueError), match=match):
         serve.build_server(serve.build_parser().parse_args(
             args + ["--no-warmup"]))

@@ -318,11 +318,13 @@ def test_preempted_run_resumes_bit_equal(setup, tmp_path, capsys):
     again = run(variables, tmp_path, "p")
     assert "resumed from" in capsys.readouterr().out
     assert state_equal(again, whole)
-    # a plan's model axis (tensor parallelism) names ROADMAP.md item 4b;
-    # a one-device plan resumes and ends bit-equal as the plain loop does
+    # a plan of two devices with a model axis in one process meets the
+    # one-rank-a-process refusal (under the launcher a model axis holds
+    # replicas, as in JAX); a one-device plan resumes and ends bit-equal
+    # as the plain loop does
     from weather_unet_tpu_torch.parallel.mesh import make_mesh
 
-    with pytest.raises(NotImplementedError, match="item 4b"):
+    with pytest.raises(ValueError, match="parallel.launch -n K"):
         run(variables, tmp_path, "x", plan=make_mesh(["cpu", "cpu"],
                                                      model=2))
     planned = run(variables, tmp_path, "planned", plan=make_mesh(["cpu"]))

@@ -112,12 +112,13 @@ def test_cls_cli(data, tmp_path, mode, capsys):
 def test_unported_flags_and_missing_gpu(data, tmp_path, monkeypatch):
     base = ["--image_root", data["flickr"], "--image_only"]
     for cli in (est_cli, cls_cli):
-        for flag, item in ((["--tensor_parallel", "2"],
-                            "item 4b, 'Tensor parallelism and spatial "
-                            "partitioning'"),):
-            with pytest.raises(SystemExit, match=item) as e:
-                cli.main(base + flag + common(data, tmp_path))
-            assert e.value.code not in (0, None)
+        # one process holds one device: a model axis of 2 does not fit it
+        # (make_mesh's message, as the JAX CLIs give it on one device);
+        # under the launcher it trains (test_torch_tensor_parallel.py)
+        with pytest.raises(ValueError, match="model axis 2 does not fit "
+                                             "the 1 available device"):
+            cli.main(base + ["--tensor_parallel", "2"]
+                     + common(data, tmp_path))
     for cli in (est_cli, cls_cli):
         with pytest.raises(SystemExit, match="--pkl_path is required"):
             cli.main(["--image_root", data["flickr"], "--estimator_path",

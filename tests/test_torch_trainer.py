@@ -303,15 +303,20 @@ def test_export_torch_gan_matches_jax(tmp_path):
 
 
 def test_unported_options_and_missing_gpu_raise(tmp_path, monkeypatch):
-    """Tensor parallelism, as the flag or as a plan's 'model' axis, names
-    ROADMAP.md item 4b; a plan's data axis trains (the test below)."""
+    """Tensor parallelism without a plan's 'model' axis meets the JAX
+    package's guard, and a plan of two devices in one process the
+    one-rank-a-process refusal (the split trainer runs one rank a process:
+    tests/test_torch_tensor_parallel.py); a plan's data axis trains (the
+    test below)."""
     from weather_unet_tpu_torch.parallel.mesh import make_mesh
 
     cfg = cfg_of()
-    for kw, item in ((dict(plan=make_mesh(["cpu", "cpu"], model=2)),
-                      "item 4b, 'Tensor parallelism and spatial"),
-                     (dict(tensor_parallel=True), "item 4b")):
-        with pytest.raises(NotImplementedError, match=item):
+    for kw, match in ((dict(plan=make_mesh(["cpu", "cpu"], model=2)),
+                       "parallel.launch -n K"),
+                      (dict(tensor_parallel=True),
+                       "tensor_parallel requires a mesh with a 'model' "
+                       "axis of >= 2 devices")):
+        with pytest.raises(ValueError, match=match):
             trainer(tmp_path, cfg, **kw)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

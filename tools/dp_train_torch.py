@@ -1,12 +1,14 @@
-"""One rank of a data-parallel training run of the PyTorch port, for the
-tests and ``chip_smoke.py``: the GAN trainer (``--mode gan``),
-``train_supervised`` (``--mode sup``) or the estimator CLI
-(``--mode cli``) for a few steps on seeded synthetic data, with what each
-rank saw written to ``--out``:
+"""One rank of a data- or tensor-parallel training run of the PyTorch
+port, for the tests and ``chip_smoke.py``: the GAN trainer (``--mode
+gan``, ``--tensor_parallel T`` to split its networks over T ranks),
+``train_supervised`` (``--mode sup``), the estimator CLI (``--mode cli``)
+or the GAN estimator CLI (``--mode est_cli``) for a few steps on seeded
+synthetic data, with what each rank saw written to ``--out``:
 
 * ``rank{r}.json``: the world, the device, each step's metrics (the ranks'
-  means), each step's wall ms and all-reduce ms with ``--timing``, and the
-  K1/K2/K4 launches of the run;
+  means), each step's wall ms and all-reduce ms with ``--timing`` (under
+  tensor parallelism the model-group sums apart: their count and ms a
+  step), and the K1/K2/K4 launches of the run;
 * ``rank{r}.pt``: the rank's final train state as a checkpoint holds it
   (``train/checkpoint.py::serialize`` bytes);
 * with ``--snapshots``, rank 0's state after each step k as
@@ -14,7 +16,17 @@ rank saw written to ``--out``:
   the ranks took it from (Adam's sign flips compound over steps taken
   apart); with ``--dump_inputs`` each rank's step inputs (images,
   targets) of the supervised modes as ``rank{r}_in{k}.pt``, which joined
-  are step k's global batch.
+  are step k's global batch, and of the GAN modes each rank's content
+  images, labels, condition images and labels; with
+  ``--dump_activations`` each rank's input of the generator's last
+  decoder block (after the dropout) at its first forward,
+  ``rank{r}_act.pt``;
+* with ``--save_start``, rank 0's state as the trainer holds it once
+  built (resumed), ``start.pt``.
+
+``--save_every N`` makes the GAN trainer checkpoint every N steps;
+``--stop_after K`` sends this rank SIGTERM after its step K, so the
+trainer checkpoints at step K and stops (preemption).
 
 Launched by ``parallel/launch.py`` it is one rank of the process group;
 run plainly it is the one-process run the ranks are held to:
@@ -121,13 +133,21 @@ def sup_loaders(args):
 class Recorder:
     """Each step's metrics and, with ``timing``, its wall ms and the ms of
     its all-reduces (the device synchronized around each, so that the
-    all-reduce's time is apart from the work queued before it)."""
+    all-reduce's time is apart from the work queued before it); the
+    model-group sums of a split model (``shards``, set once the trainer
+    is built) are counted and timed on their own, and taken out of the
+    all-reduce ms.
+    With ``snap_dir`` every rank builds the checkpoint tree after each
+    step (a split model gathers it over its model group) and rank 0
+    writes it."""
 
     def __init__(self, device, timing: bool, snap_dir=None, dump_dir=None):
         self.device, self.timing, self.snap_dir = device, timing, snap_dir
         self.dump_dir = dump_dir
         self.tree_fn = None         # state -> checkpoint tree
+        self.shards = None          # parallel/tp.py::Shards of a split model
         self.metrics, self.step_ms, self.allreduce_ms = [], [], []
+        self.tp_sums, self.tp_sum_ms = [], []
         self._ar = 0.0
         if timing:
             inner = torch.distributed.all_reduce
@@ -142,6 +162,7 @@ class Recorder:
 
             torch.distributed.all_reduce = timed
 
+
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -152,21 +173,35 @@ class Recorder:
                 from weather_unet_tpu_torch.parallel.launch import (
                     process_index)
 
-                torch.save((a[1].cpu(), a[2].cpu()), os.path.join(
-                    self.dump_dir, f"rank{process_index()}_in"
-                    f"{len(self.metrics) + 1}.pt"))
+                torch.save(tuple(t.cpu() for t in a[1:5]
+                                 if isinstance(t, torch.Tensor)),
+                           os.path.join(self.dump_dir,
+                                        f"rank{process_index()}_in"
+                                        f"{len(self.metrics) + 1}.pt"))
             self._sync()
+            g = self.shards
+            sums0, sum_s0 = (g.sums, g.sum_s) if g is not None else (0, 0.0)
             self._ar, t0 = 0.0, time.perf_counter()
             out = step(*a, **k)
             self.metrics.append({n: float(v) for n, v in out[1].items()})
             self._sync()
             self.step_ms.append((time.perf_counter() - t0) * 1e3)
-            self.allreduce_ms.append(self._ar)
+            tp_ms = 0.0
+            if g is not None:
+                tp_ms = (g.sum_s - sum_s0) * 1e3
+                self.tp_sums.append(g.sums - sums0)
+                self.tp_sum_ms.append(tp_ms)
+            # the gradient all-reduces: every all-reduce but the sums'
+            self.allreduce_ms.append(max(self._ar - tp_ms, 0.0))
             self.state = out[0]
             if self.snap_dir is not None:
-                save_tree(os.path.join(self.snap_dir, f"rank0_s"
-                                       f"{len(self.metrics)}.pt"),
-                          self.tree_fn(self.state))
+                from weather_unet_tpu_torch.parallel.launch import (
+                    process_index)
+
+                tree = self.tree_fn(self.state)
+                if process_index() == 0:
+                    save_tree(os.path.join(self.snap_dir, f"rank0_s"
+                                           f"{len(self.metrics)}.pt"), tree)
             return out
 
         for attr in ("program", "programs"):
@@ -182,7 +217,21 @@ def save_tree(path: str, tree) -> None:
         f.write(ckpt.serialize(ckpt._to_host(tree)))
 
 
+def watch_decoder(gen, out_dir):
+    """Save this rank's input of ``gen.dconv_up1`` at its first forward."""
+    from weather_unet_tpu_torch.parallel.launch import process_index
+
+    def hook(module, inputs):
+        if not getattr(hook, "done", False):
+            hook.done = True
+            torch.save(inputs[0].detach().cpu(), os.path.join(
+                out_dir, f"rank{process_index()}_act.pt"))
+
+    gen.dconv_up1.register_forward_pre_hook(hook)
+
+
 def run_gan(args, device, dt, rec):
+    from weather_unet_tpu_torch.parallel.mesh import make_mesh
     from weather_unet_tpu_torch.train import checkpoint as ckpt
     from weather_unet_tpu_torch.train.gan import GanConfig
     from weather_unet_tpu_torch.train.loops import WeatherTransferTrainer
@@ -198,12 +247,43 @@ def run_gan(args, device, dt, rec):
                                   device=device, route=args.route)
     else:
         est = linear_estimator
+    tp = args.tensor_parallel > 1
+    model = args.tensor_parallel if tp else args.model_axis
+    plan = make_mesh(model=model, batch_size=args.batch) if (
+        model > 1) else None
     tr = WeatherTransferTrainer(
         GanConfig(**kw), est, save_dir=args.save_dir, name=args.name,
         log_dir=os.path.join(args.out, "runs"), seed=args.seed,
-        aot_cache=args.aot_cache, device=device)
+        aot_cache=args.aot_cache, device=device, plan=plan,
+        tensor_parallel=tp)
     rec.tree_fn = lambda state: ckpt.gan_tree(state, tr.seed)
+    if tp:
+        rec.shards = tr.gen.tp_layout.group
+        rec.shards.timed = rec.timing
+    if args.dump_activations:
+        watch_decoder(tr.gen, args.out)
+    if args.save_every:
+        tr.EVAL_PER_STEP = args.save_every
+    if args.save_start:
+        from weather_unet_tpu_torch.parallel.launch import process_index
+
+        tree = rec.tree_fn(tr.state)
+        if process_index() == 0:
+            save_tree(os.path.join(args.out, "start.pt"), tree)
     tr._step = rec.wrap(tr._step)
+    if args.stop_after:
+        import signal
+
+        step = tr._step
+
+        def stopping(*a, **k):
+            out = step(*a, **k)
+            if len(rec.metrics) == args.stop_after:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return out
+
+        stopping.programs = step.programs
+        tr._step = stopping
     tl, rl = gan_loaders(args)
     tr.fit(tl, rl)
     return ckpt.gan_tree(tr.state, tr.seed)
@@ -211,6 +291,7 @@ def run_gan(args, device, dt, rec):
 
 def run_sup(args, device, dt, rec):
     from weather_unet_tpu_torch.models import ResNet
+    from weather_unet_tpu_torch.parallel.mesh import make_mesh
     from weather_unet_tpu_torch.train import checkpoint as ckpt
     from weather_unet_tpu_torch.train import supervised as sup
     from weather_unet_tpu_torch.train.loops import train_supervised
@@ -225,7 +306,9 @@ def run_sup(args, device, dt, rec):
         rec.wrap(sup.make_estimator_step()), sup.make_eval_metrics(
             "estimator"), tl, te, state=state, num_epoch=1,
         input_size=args.size, save_dir=args.save_dir, name=args.name,
-        eval_per_iter=1000, batch_size=args.batch, aot_cache=args.aot_cache)
+        eval_per_iter=1000, batch_size=args.batch, aot_cache=args.aot_cache,
+        plan=make_mesh(model=args.model_axis, batch_size=args.batch)
+        if args.model_axis > 1 else None)
     return ckpt.supervised_tree(state, 1, args.steps)
 
 
@@ -246,9 +329,40 @@ def run_cli(args, rec):
     return ckpt.supervised_tree(rec.state, 1, len(rec.metrics))
 
 
+def run_est_cli(args, rec):
+    """``cli/train_transfer_est.py::main(args.cli_args)`` with its GAN steps
+    recorded (and its estimator's route forced with ``--route``); the
+    state as its last step left it."""
+    from weather_unet_tpu_torch.cli import common, train_transfer_est
+    from weather_unet_tpu_torch.train import checkpoint as ckpt
+    from weather_unet_tpu_torch.train import loops
+
+    if args.route is not None:
+        load = common.load_step_estimator
+        common.load_step_estimator = lambda *a, **k: load(
+            *a, **{**k, "route": args.route})
+    make = loops.make_gan_step
+    rec.tree_fn = lambda st: ckpt.gan_tree(st, 0)
+
+    def recorded(gen, *a, **k):
+        layout = getattr(gen, "tp_layout", None)
+        if layout is not None:
+            rec.shards = layout.group
+            rec.shards.timed = rec.timing
+        return rec.wrap(make(gen, *a, **k))
+
+    loops.make_gan_step = recorded
+    try:
+        train_transfer_est.main(args.cli_args)
+    finally:
+        loops.make_gan_step = make
+    return ckpt.gan_tree(rec.state, 0)
+
+
 def build_parser():
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--mode", choices=["gan", "sup", "cli"], required=True)
+    p.add_argument("--mode", choices=["gan", "sup", "cli", "est_cli"],
+                   required=True)
     p.add_argument("--out", required=True)
     p.add_argument("--save_dir", default=None)
     p.add_argument("--name", default="run")
@@ -266,6 +380,21 @@ def build_parser():
     p.add_argument("--estimator_path", default=None)
     p.add_argument("--route", choices=["k4", "plain"], default=None)
     p.add_argument("--aot_cache", default=None)
+    p.add_argument("--tensor_parallel", type=int, default=1,
+                   help="--mode gan: split the networks over T ranks")
+    p.add_argument("--model_axis", type=int, default=1,
+                   help="--mode gan / sup: a plan with a model axis of M "
+                        "and no tensor parallelism (replicas)")
+    p.add_argument("--dump_activations", action="store_true",
+                   help="--mode gan: each rank writes its last decoder "
+                        "block's input at the first forward")
+    p.add_argument("--save_every", type=int, default=0,
+                   help="--mode gan: checkpoint every N steps")
+    p.add_argument("--stop_after", type=int, default=0,
+                   help="--mode gan: SIGTERM this rank after step K")
+    p.add_argument("--save_start", action="store_true",
+                   help="--mode gan: rank 0 writes the built (resumed) "
+                        "state as start.pt")
     p.add_argument("--timing", action="store_true")
     p.add_argument("--snapshots", action="store_true",
                    help="rank 0 writes its state after each step")
@@ -274,7 +403,8 @@ def build_parser():
     p.add_argument("--deterministic", action="store_true",
                    help="cuDNN's deterministic algorithms, TF32 off")
     p.add_argument("cli_args", nargs=argparse.REMAINDER,
-                   help="--mode cli: the estimator CLI's arguments after --")
+                   help="--mode cli / est_cli: the CLI's arguments "
+                        "after --")
     return p
 
 
@@ -302,16 +432,18 @@ def main(argv=None) -> int:
     for m in kernels.values():
         m.launches = 0
     os.makedirs(args.out, exist_ok=True)
-    rec = Recorder(device, args.timing, args.out if args.snapshots
-                   and process_index() == 0 else None,
+    rec = Recorder(device, args.timing,
+                   args.out if args.snapshots else None,
                    args.out if args.dump_inputs else None)
     t0 = time.perf_counter()
     if args.mode == "gan":
         tree = run_gan(args, device, dt, rec)
     elif args.mode == "sup":
         tree = run_sup(args, device, dt, rec)
-    else:
+    elif args.mode == "cli":
         tree = run_cli(args, rec)
+    else:
+        tree = run_est_cli(args, rec)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     rank = process_index()
@@ -322,6 +454,7 @@ def main(argv=None) -> int:
                    "seconds": time.perf_counter() - t0,
                    "metrics": rec.metrics, "step_ms": rec.step_ms,
                    "allreduce_ms": rec.allreduce_ms,
+                   "tp_sums": rec.tp_sums, "tp_sum_ms": rec.tp_sum_ms,
                    "launches": {k: m.launches
                                 for k, m in kernels.items()}}, f)
     if torch.distributed.is_initialized():

@@ -17,14 +17,22 @@ once on each of the plan's local devices, each bucketed batch is split
 evenly over the replicas (padded as the buckets are) and their results
 are concatenated in order on the first device; each replica runs K1 and K2
 under ``use_pallas``.  The cUNet has no coupling between samples in eval
-mode, so no collective runs.
+mode, so no collective runs.  With ``tensor_parallel`` the plan's devices
+form data rows of ``model`` devices: each row holds one shard of the
+model on each of its devices (``parallel/tp.py``, every double conv split
+Megatron-style), takes an equal share of the rows, and runs its shards in
+threads of their own that sum each pair's partial outputs in host order;
+every shard runs the replicated layers, K1 and K2 among them.  A plan may
+name one card several times.
 
 With ``aot_cache`` (a directory or ``core.aot.AotCache``), ``translate``,
 ``translate_u8`` and ``translate_to_classes`` go through the AOT tier: one
 program per input shape (bucketing keeps them to the power-of-two
 batches), on a CUDA device the eager forward captured as a CUDA graph that
 reads the model's weights where they lie (``core/aot.py``).  Nothing is
-kept on disk: a restart captures again.
+kept on disk: a restart captures again.  With ``tensor_parallel`` it is
+refused: a CUDA graph cannot hold the shards' threads meeting in host
+memory.
 """
 
 from __future__ import annotations
@@ -42,25 +50,54 @@ from weather_unet_tpu_torch._device import DeviceLike, resolve_device
 class WeatherTransfer:
     """A conditional U-Net with translation entry points, on one device or,
     with ``plan``, replicated on each of the plan's local devices
-    (``self.model`` and ``self.device`` are the first replica's)."""
+    (``self.model`` and ``self.device`` are the first replica's), or with
+    ``tensor_parallel`` split over each data row of them (``self.model`` is
+    then the first row's shard 0)."""
 
     def __init__(self, model, device: DeviceLike = None, aot_cache=None,
-                 plan=None):
+                 plan=None, tensor_parallel: bool = False):
+        from weather_unet_tpu_torch.parallel.mesh import require_model_axis
+
         self.plan = plan
+        if tensor_parallel:
+            require_model_axis(plan, "a MeshPlan")
         if plan is None:
             devices = [resolve_device(device)]
         else:
-            plan.require_data_parallel("WeatherTransfer")
             if getattr(model, "fuse_levels", ()):
                 raise ValueError(
                     "fuse_upconv serving is single-device; rebuild the model "
                     "with fuse_upconv=False when passing a MeshPlan")
             devices = list(plan.devices)
+        if tensor_parallel and aot_cache is not None:
+            raise ValueError(
+                "aot_cache with tensor_parallel: a CUDA graph cannot hold "
+                "the in-process shards, which meet in host memory; serve "
+                "the split model eagerly")
+        self.tensor_parallel = tensor_parallel
+        # the devices by data row; a row is one replica, or one shard each
+        rows = plan.rows() if tensor_parallel else [[d] for d in devices]
         self.device = devices[0]
         self._devices = devices
+        self._row_devices = [r[0] for r in rows]
         self.model = model.to(self.device).eval()
+        whole = copy.deepcopy(self.model) if tensor_parallel else None
         self._replicas = [self.model] + [
-            copy.deepcopy(self.model).to(d).eval() for d in devices[1:]]
+            copy.deepcopy(whole if tensor_parallel else self.model).to(
+                d).eval() for d in devices[1:]]
+        self._groups = []
+        if tensor_parallel:
+            from weather_unet_tpu_torch.parallel import tp
+
+            specs = tp.tp_specs(whole, plan.n_model)
+            tp.require_split([specs], plan.n_model)
+            for r, row in enumerate(rows):
+                group = tp.ThreadShards(row)
+                for j in range(len(row)):
+                    tp.shard_(self._replicas[r * len(row) + j], group,
+                              specs, index=j)
+                self._groups.append(group)
+            del whole
         # preprocess() of every uint8 value, computed on the host: the device
         # path gathers from it, so both normalize bit-identically (a CUDA
         # division by a scalar multiplies by its reciprocal, which differs
@@ -68,14 +105,25 @@ class WeatherTransfer:
         table = self.preprocess(np.arange(256, dtype=np.uint8))
         self._u8_norm = [table.to(d) for d in devices]
         self.aot = None
-        # each entry point's program on each replica
-        self._fns = {name: [functools.partial(fn, i)
-                            for i in range(len(devices))]
+        # each entry point's program on each data row
+        self._fns = {name: [functools.partial(self._row, i, fn)
+                            for i in range(len(rows))]
                      for name, fn in (("translate", self._fwd),
                                       ("translate_u8", self._fwd_u8),
                                       ("translate_all", self._fwd_all))}
         if aot_cache is not None:
             self._tier(aot_cache)
+
+    def _row(self, i, fn, *args):
+        """``fn(j, *args)`` for data row ``i``: on its replica ``j = i``, or
+        on each of its shards ``j`` at once (each given the inputs on its
+        device), returning shard 0's result."""
+        if not self._groups:
+            return fn(i, *args)
+        group = self._groups[i]
+        base = i * group.n
+        return group.run(lambda k, dev: fn(
+            base + k, *(a.to(dev) for a in args)))[0]
 
     # the first replica's programs (the only ones without a plan)
     _translate = property(lambda self: self._fns["translate"][0])
@@ -97,14 +145,16 @@ class WeatherTransfer:
     def load(cls, cp_path: str, num_classes: int = 5,
              dtype: torch.dtype = torch.float32, fuse_upconv="auto",
              use_pallas="auto", device: DeviceLike = None, aot_cache=None,
-             plan=None):
+             plan=None, tensor_parallel: bool = False):
         """Load from a reference ``.pt`` GAN bundle or a JAX-package msgpack
         checkpoint (``cli.common.load_transfer``).  ``use_pallas``: K1 + K2
         in the decoder, ``"auto"`` resolves to on; ``fuse_upconv``: the
         fused upsample+conv decoder kernel, ``"auto"`` resolves to off (and
         is refused with a ``plan``).  ``aot_cache``: a directory (or
         ``AotCache``) for the AOT tier, each bucket a CUDA graph on the
-        card.  ``plan``: one replica on each of its local devices."""
+        card.  ``plan``: one replica on each of its local devices, or with
+        ``tensor_parallel`` one shard (the JAX package's guard: the plan's
+        model axis must be at least 2)."""
         from weather_unet_tpu_torch.cli.common import load_transfer
 
         device = (resolve_device(device) if plan is None
@@ -112,7 +162,8 @@ class WeatherTransfer:
         model = load_transfer(cp_path, num_classes=num_classes, dtype=dtype,
                               fuse_upconv=fuse_upconv, use_pallas=use_pallas,
                               device=device)
-        return cls(model, device, aot_cache=aot_cache, plan=plan)
+        return cls(model, device, aot_cache=aot_cache, plan=plan,
+                   tensor_parallel=tensor_parallel)
 
     def _fwd(self, i, x, c):
         """Replica ``i``: NHWC in, NHWC out, on its device."""
@@ -134,7 +185,7 @@ class WeatherTransfer:
             return fns[0](*(a.to(self.device) for a in arrays))
         chunks = zip(*(a.chunk(len(fns)) for a in arrays))
         outs = [fn(*(a.to(d) for a in chunk))
-                for fn, d, chunk in zip(fns, self._devices, chunks)]
+                for fn, d, chunk in zip(fns, self._row_devices, chunks)]
         return torch.cat([o.to(self.device) for o in outs], dim=dim)
 
     def translate(self, images, conditions, *, bucket: bool = True):
@@ -143,7 +194,8 @@ class WeatherTransfer:
         zero rows up to the next power of two (rows are independent in eval;
         the JAX package does this to bound its compiled shapes, the port to
         keep the same batch sizes reaching the kernels); with a plan, up to
-        a multiple of the replicas too, each taking an equal share."""
+        a multiple of the replicas (or data rows of shards) too, each
+        taking an equal share."""
         return self._bucketed(self._fns["translate"], images, conditions,
                               bucket)
 
@@ -199,7 +251,8 @@ class WeatherTransfer:
                 0, 1).reshape(k * bi, k))
             return out.reshape(k, bi, *out.shape[1:])
 
-        fns = [functools.partial(frame, i) for i in range(len(self._devices))]
+        fns = [functools.partial(self._row, i, frame)
+               for i in range(len(self._row_devices))]
         frames = []
         for theta in torch.from_numpy(thetas):
             c = ((torch.sin(theta) * alpha * eye)[:, None, :]

@@ -9,7 +9,9 @@ Reports Python, torch and CUDA versions; the GPUs (name, compute
 capability, memory); whether ``nvcc`` is found; the kernel build directory
 (``kernels/_build.py``) and which kernel libraries are built; the native
 runtime's build mode; the ``WUT_*`` environment; the process count and
-index and the default mesh (``parallel/``).  The JAX doctor's AOT
+index and the default mesh (``parallel/``), and with ``--tensor_parallel
+T`` the mesh of a model axis of T and what T-way tensor parallelism splits
+(``parallel/tp.py::describe``).  The JAX doctor's AOT
 cache report has no counterpart: the port's AOT tier (``core/aot.py``)
 keeps nothing on disk.  ``--probe`` also times a small tensor's first call
 and round trip on the card.  Without a GPU it says so and exits non-zero:
@@ -64,7 +66,8 @@ def _init_backend(timeout_s: float) -> dict:
     return out
 
 
-def collect(probe: bool = False, init_timeout: float = 60.0) -> dict:
+def collect(probe: bool = False, init_timeout: float = 60.0,
+            tensor_parallel: int = 1) -> dict:
     import torch
 
     info: dict = {"python": sys.version.split()[0], "torch": torch.__version__,
@@ -89,6 +92,16 @@ def collect(probe: bool = False, init_timeout: float = 60.0) -> dict:
     info["process_index"] = process_index()
     # the plan the trainers would train under
     info["default_mesh"] = make_mesh().mesh_shape
+    if tensor_parallel > 1:
+        from weather_unet_tpu_torch.parallel.tp import describe
+
+        try:
+            info["tensor_parallel_mesh"] = make_mesh(
+                model=tensor_parallel).mesh_shape
+        except ValueError as e:
+            info["tensor_parallel_mesh"] = f"refused: {e}"
+        # the split pairs and one shard's weights (parallel/tp.py)
+        info["tensor_parallel"] = describe(tensor_parallel)
     if probe:
         x = torch.ones((256, 256), dtype=torch.bfloat16, device="cuda")
         t0 = time.perf_counter()
@@ -164,13 +177,19 @@ def main(argv=None) -> int:
                         "weights (status, expected sha256, where the files "
                         "go, which tests they activate); exits non-zero "
                         "until all are certified")
+    p.add_argument("--tensor_parallel", type=int, default=1,
+                   help="also report the mesh of a model axis of T and, for "
+                        "the cUNet and the SNDisc, the double convs T-way "
+                        "tensor parallelism splits and one shard's weight "
+                        "bytes")
     p.add_argument("--init_timeout", type=float, default=60.0,
                    help="seconds to wait for CUDA init before reporting "
                         "the device unreachable")
     args = p.parse_args(argv)
     if args.goldens:
         return report_goldens(as_json=args.json)
-    info = collect(probe=args.probe, init_timeout=args.init_timeout)
+    info = collect(probe=args.probe, init_timeout=args.init_timeout,
+                   tensor_parallel=args.tensor_parallel)
     if args.json:
         print(json.dumps(info, indent=2, default=str))
     else:

@@ -21,8 +21,13 @@ the model runs on CUDA unless ``--device cpu``, with K1 + K2 in its decoder
 (``load_transfer``'s ``use_pallas="auto"``).  ``--artifact DIR`` serves an
 exported program instead (``core/export.py``, written by
 ``cli/export_serving.py``), through the same ``Batcher`` and handler.
+``--data_parallel`` keeps a replica on each local card; ``--tensor_parallel
+T`` splits every double conv over T cards (``parallel/tp.py``, the shards
+of a replica in threads of one process).
 
     python -m weather_unet_tpu_torch.cli.serve --cp_path cp.pt --port 8000
+    python -m weather_unet_tpu_torch.cli.serve --cp_path cp.pt \\
+        --tensor_parallel 2 --port 8000
     python -m weather_unet_tpu_torch.cli.serve --artifact art/ --port 8000
 """
 
@@ -43,7 +48,6 @@ from urllib.parse import parse_qs, urlparse
 
 import numpy as np
 
-from weather_unet_tpu_torch.cli.train_transfer_est import MESH_ITEM
 from weather_unet_tpu_torch.data.datasets import WEATHER_CLASSES_I2W
 
 
@@ -355,13 +359,6 @@ def make_handler(batcher: Batcher, classes, num_classes: int, size: int,
     return Handler
 
 
-def refuse_unported(args) -> None:
-    """Exit non-zero, naming the roadmap item, for tensor parallelism."""
-    if args.tensor_parallel > 1:
-        raise SystemExit(f"--tensor_parallel {args.tensor_parallel}: not "
-                         f"yet ported ({MESH_ITEM})")
-
-
 class Server(ThreadingHTTPServer):
     """``ThreadingHTTPServer`` with a listen queue that holds a burst:
     with ``socketserver``'s default of 5 pending connections, the ones
@@ -413,19 +410,22 @@ def load_transfer_for(args):
         return wt
     from weather_unet_tpu_torch.api import WeatherTransfer
 
-    refuse_unported(args)
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     plan = None
-    if args.data_parallel:
+    tp = max(args.tensor_parallel, 1)
+    if args.data_parallel or tp > 1:
         from weather_unet_tpu_torch.parallel.mesh import make_mesh
 
-        # a replica of the model on each local card (the CPU with
-        # --device cpu); each request group is split over them
+        # a replica of the model on each local card, or with
+        # --tensor_parallel T one shard on each card of a data row of T;
+        # each request group is split over the replicas (rows).  With
+        # --device cpu the CPU stands for the T devices of one row.
         plan = make_mesh(devices=None if args.device == "cuda"
-                         else [args.device])
+                         else [args.device] * tp, model=tp)
     return WeatherTransfer.load(args.cp_path, num_classes=args.num_classes,
                                 dtype=dtype, device=args.device,
-                                aot_cache=args.aot_cache, plan=plan)
+                                aot_cache=args.aot_cache, plan=plan,
+                                tensor_parallel=tp > 1)
 
 
 def build_server(args) -> Server:
@@ -481,7 +481,10 @@ def build_parser():
                    help="a replica of the model on each local GPU; each "
                         "request group is split evenly over them")
     p.add_argument("--tensor_parallel", type=int, default=1,
-                   help=f"1 only; more is not ported yet ({MESH_ITEM})")
+                   help="split every double conv of the model over T "
+                        "local cards (parallel/tp.py); with "
+                        "--data_parallel, a data row of T cards for each "
+                        "replica")
     p.add_argument("--no-warmup", dest="warmup", action="store_false")
     p.add_argument("--aot_cache", type=str, default=None,
                    help="AOT tier (core/aot.py): on CUDA each warmed "

@@ -5,7 +5,9 @@ port of ``weather_unet_tpu/cli/train_transfer_cls.py`` (reference
 One-hot (``--supervised``) or classifier-softmax (semi-supervised)
 conditions over 5 weather classes, on the i2w directory split, the Flickr
 frame or a bare image directory (``t_cls_train.py:110-144``).  Runs on CUDA
-unless ``--device cpu``.
+unless ``--device cpu``; under ``parallel/launch.py`` data parallel, and
+with ``--tensor_parallel T`` split over T ranks at a time
+(``train_transfer_est.py``).
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ from __future__ import annotations
 import argparse
 
 from weather_unet_tpu_torch.cli.train_transfer_est import (
-    MESH_ITEM, augmentation, loader_fns, refuse_unported)
+    augmentation, loader_fns, tensor_parallel_plan)
 
 
 def build_parser():
@@ -68,7 +70,9 @@ def build_parser():
                         "step program runs as a CUDA graph captured at its "
                         "first step")
     p.add_argument("--tensor_parallel", type=int, default=1,
-                   help=f"1 only; more is not ported yet ({MESH_ITEM})")
+                   help="split every double conv over T ranks of the "
+                        "launcher (parallel/tp.py); the data axis is the "
+                        "ranks / T")
     p.add_argument("--dtype", choices=["f32", "bf16"], default="f32",
                    help="compute dtype of the train step (parameters stay "
                         "float32)")
@@ -91,7 +95,6 @@ def main(argv=None):
     from weather_unet_tpu_torch.parallel.launch import maybe_initialize
 
     multiproc = maybe_initialize()
-    refuse_unported(args)
     import torch
 
     from weather_unet_tpu_torch._device import resolve_device
@@ -106,6 +109,7 @@ def main(argv=None):
     from weather_unet_tpu_torch.train.loops import WeatherTransferTrainer
 
     device = resolve_device(args.device)
+    plan = tensor_parallel_plan(args, multiproc, device)
     dt = torch.bfloat16 if args.dtype == "bf16" else torch.float32
     cfg = GanConfig(
         num_classes=5, lr=args.lr, input_size=args.input_size,
@@ -174,7 +178,7 @@ def main(argv=None):
         cfg, est_apply, save_dir=args.save_dir, name=args.name,
         log_dir=args.log_dir, export_torch=args.export_torch,
         nan_guard=args.nan_guard, aot_cache=args.aot_cache,
-        device=device)
+        device=device, plan=plan, tensor_parallel=plan is not None)
     # image_only batches are (img, True) with no class ids: the step runs
     # fully semi-supervised
     trainer.fit(train_loader, random_loader, test_batches=test_batches,

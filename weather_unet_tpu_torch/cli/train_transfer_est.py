@@ -6,7 +6,14 @@ Conditions are the 5 z-scored weather signals that a frozen ResNet-101
 estimator predicts; a content loader and a random-condition loader over the
 train split are zipped per step.  Runs on CUDA unless ``--device cpu``.
 Under ``parallel/launch.py`` each rank trains on its rows of every batch
-(data parallel, ``train/loops.py``).
+(data parallel, ``train/loops.py``); with ``--tensor_parallel T`` every T
+ranks split the networks' double convs between them (``parallel/tp.py``)
+and the data axis is the rest:
+
+    python -m weather_unet_tpu_torch.parallel.launch -n 2 --cpu -- \\
+        python -m weather_unet_tpu_torch.cli.train_transfer_est \\
+        --tensor_parallel 2 --image_root DIR --estimator_path est.pt \\
+        --image_only
 
     python -m weather_unet_tpu_torch.cli.train_transfer_est \\
         --image_root DIR --estimator_path est.pt --image_only --dtype bf16
@@ -15,10 +22,6 @@ Under ``parallel/launch.py`` each rank trains on its rows of every batch
 from __future__ import annotations
 
 import argparse
-
-MESH_ITEM = ("ROADMAP.md queue 1 item 4b, 'Tensor parallelism and spatial "
-             "partitioning'")
-
 
 def build_parser():
     p = argparse.ArgumentParser(
@@ -63,18 +66,27 @@ def build_parser():
                         "(first epoch), later epochs only augment "
                         "(data/cache.py)")
     p.add_argument("--tensor_parallel", type=int, default=1,
-                   help=f"1 only; more is not ported yet ({MESH_ITEM})")
+                   help="split every double conv over T ranks of the "
+                        "launcher (parallel/tp.py); the data axis is the "
+                        "ranks / T")
     p.add_argument("--dtype", choices=["f32", "bf16"], default="f32",
                    help="compute dtype of the train step (parameters stay "
                         "float32)")
     return p
 
 
-def refuse_unported(args) -> None:
-    """Exit non-zero, naming the roadmap item, for tensor parallelism."""
-    if args.tensor_parallel > 1:
-        raise SystemExit(f"--tensor_parallel {args.tensor_parallel}: not yet "
-                         f"ported ({MESH_ITEM})")
+def tensor_parallel_plan(args, multiproc: bool, device):
+    """The plan of ``--tensor_parallel T`` (None for 1): ``make_mesh(model=T,
+    batch_size=...)`` over the launcher's ranks, or in one process over its
+    one device, which ``make_mesh`` refuses with the JAX package's
+    message."""
+    if args.tensor_parallel <= 1:
+        return None
+    from weather_unet_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(devices=None if multiproc else [device],
+                     model=args.tensor_parallel,
+                     batch_size=args.batch_size)
 
 
 def augmentation(args):
@@ -129,7 +141,6 @@ def main(argv=None):
     from weather_unet_tpu_torch.parallel.launch import maybe_initialize
 
     multiproc = maybe_initialize()
-    refuse_unported(args)
     import torch
 
     from weather_unet_tpu_torch._device import resolve_device
@@ -144,6 +155,7 @@ def main(argv=None):
     from weather_unet_tpu_torch.train.loops import WeatherTransferTrainer
 
     device = resolve_device(args.device)
+    plan = tensor_parallel_plan(args, multiproc, device)
     dt = torch.bfloat16 if args.dtype == "bf16" else torch.float32
     cfg = GanConfig(
         num_classes=len(SIGNAL_COLUMNS), lr=args.lr,
@@ -198,7 +210,7 @@ def main(argv=None):
         cfg, est_apply, save_dir=args.save_dir, name=args.name,
         log_dir=args.log_dir, export_torch=args.export_torch,
         nan_guard=args.nan_guard, aot_cache=args.aot_cache,
-        device=device)
+        device=device, plan=plan, tensor_parallel=plan is not None)
     trainer.fit(train_loader, random_loader, test_batches=test_batches)
 
 

@@ -27,7 +27,7 @@ with ``strict=True``; the converters here only carry JAX parameters across
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -455,19 +455,27 @@ def adam_state_from_jax(opt_state, module: torch.nn.Module, from_jax,
 
 
 def adam_state_to_jax(optimizer: torch.optim.Adam, module: torch.nn.Module,
-                      to_jax) -> Dict[str, Any]:
+                      to_jax, sd: Optional[dict] = None,
+                      states: Optional[dict] = None) -> Dict[str, Any]:
     """``torch.optim.Adam``'s state over ``module`` -> the optax chain state
     the JAX package's ``torch_adam`` with the same weight decay keeps (the
     inverse of ``adam_state_from_jax``).  A parameter without an Adam
     state (frozen, or not stepped yet) gets zero moments, as optax keeps
-    for it; ``count`` is the largest ``step``."""
+    for it; ``count`` is the largest ``step``.  ``sd`` and ``states``
+    (per-parameter states by name) stand in for the module's state dict
+    and the optimizer's states where they are split
+    (``parallel/tp.py``: the whole model's)."""
     decay = any(g.get("weight_decay") for g in optimizer.param_groups)
-    sd = {k: v.detach() for k, v in module.state_dict().items()}
+    sd = {k: v.detach() for k, v in (
+        module.state_dict() if sd is None else sd).items()}
+    if states is None:
+        states = {name: optimizer.state.get(p) or {}
+                  for name, p in module.named_parameters()}
     mu, nu, count = dict(sd), dict(sd), 0
-    for name, p in module.named_parameters():
-        st = optimizer.state.get(p) or {}
-        mu[name] = st.get("exp_avg", torch.zeros_like(p))
-        nu[name] = st.get("exp_avg_sq", torch.zeros_like(p))
+    for name, _ in module.named_parameters():
+        st = states.get(name) or {}
+        mu[name] = st.get("exp_avg", torch.zeros_like(sd[name]))
+        nu[name] = st.get("exp_avg_sq", torch.zeros_like(sd[name]))
         if "step" in st:
             count = max(count, int(st["step"]))
     adam = {"count": np.asarray(count, np.int32),

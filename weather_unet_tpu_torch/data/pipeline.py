@@ -6,9 +6,10 @@ ahead of the step from pinned memory on a side stream.
 
 Under a process group (``parallel/launch.py``) each rank loads only its
 ``process_slice`` of every global batch (``process_shard``) and keeps its
-rows: where the JAX package assembles one global array from the hosts'
-shards, a rank's rows here stay its own, and the steps all-reduce their
-gradients instead.
+rows (the ranks of one data row of a tensor-parallel grid load the same
+rows: ``launch.data_index``): where the JAX package assembles one global
+array from the hosts' shards, a rank's rows here stay its own, and the
+steps all-reduce their gradients instead.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import numpy as np
 import torch
 
 from weather_unet_tpu_torch.parallel.launch import (
-    process_count, process_slice)
+    data_count, process_slice)
 
 
 def _stack(samples):
@@ -48,8 +49,10 @@ class BatchLoader:
     every rank draws the same seeded index sequence (the ``seed`` and the
     sampler's are the caller's to keep equal) and loads only its
     ``process_slice`` of each batch, so a batch of ``batch_size`` global
-    rows reaches each of W ranks as ``batch_size / W`` rows; without a
-    process group it changes nothing.  A ``drop_last=False`` tail that
+    rows reaches each of W data rows of ranks as ``batch_size / W`` rows
+    (``launch.data_count``: the ranks, unless a tensor-parallel grid puts
+    several in one data row); without a process group it changes
+    nothing.  A ``drop_last=False`` tail that
     does not divide over the ranks is refused here, not at the epoch's
     last batch.
     """
@@ -59,7 +62,7 @@ class BatchLoader:
                  sampler: Optional[Iterable[int]] = None,
                  num_workers: int = 8, seed: int = 0,
                  process_shard: bool = False):
-        pc = process_count()
+        pc = data_count()
         if process_shard and not drop_last and pc > 1:
             try:
                 n = len(sampler) if sampler is not None else len(dataset)
@@ -116,7 +119,7 @@ class BatchLoader:
         batches = [indices[i * bs:(i + 1) * bs] for i in range(n_full)]
         if not self.drop_last and len(indices) % bs:
             batches.append(indices[n_full * bs:])
-        if self.process_shard and process_count() > 1:
+        if self.process_shard and data_count() > 1:
             batches = [b[process_slice(len(b))] for b in batches]
         with ThreadPoolExecutor(self.num_workers) as pool:
             # the next batch's samples load while the current one is used
@@ -166,7 +169,7 @@ def device_prefetch(iterator: Iterable, device, depth: int = 2,
     a CPU device batches pass through unchanged."""
     if assembly not in ("auto", "global", "process_local"):
         raise ValueError(f"unknown assembly mode {assembly!r}")
-    if assembly == "global" and process_count() > 1:
+    if assembly == "global" and data_count() > 1:
         iterator = (tuple(x[process_slice(len(x))]
                           if isinstance(x, np.ndarray) else x for x in b)
                     for b in iterator)

@@ -22,6 +22,10 @@ from typing import Dict
 
 import torch
 
+# kernel modules count their launches under it: the shards of an in-process
+# tensor-parallel model launch from threads of their own
+COUNT_LOCK = threading.Lock()
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"

@@ -128,7 +128,8 @@ def adain_kernel(x: torch.Tensor, y_proj: torch.Tensor, eps: float,
              int(plan["vec"] > 1), plan["wp"], plan["ppb"],
              int(plan["on_chip"]), eps, x.device.index, _build.stream_of(x))
     _build.check_launch(lib, err, "adain")
-    launches += 1
+    with _build.COUNT_LOCK:
+        launches += 1
     return out
 
 

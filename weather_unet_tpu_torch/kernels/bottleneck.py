@@ -349,7 +349,8 @@ def bottleneck_kernel(x, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
              b3.data_ptr(), out.data_ptr(), b, c, p, h, w, x.device.index,
              _build.stream_of(x))
     _build.check_launch(lib, err, "bottleneck")
-    launches += 1
+    with _build.COUNT_LOCK:
+        launches += 1
     return out
 
 
@@ -391,8 +392,9 @@ def bottleneck_tc_kernel(x, packed: PackedBottleneck,
              plan["off_t"], plan["smem"], x.device.index,
              _build.stream_of(x))
     _build.check_launch(lib, err, "bottleneck (tensor cores)")
-    launches += 1
-    tensor_core_launches += 1
+    with _build.COUNT_LOCK:
+        launches += 1
+        tensor_core_launches += 1
     return out
 
 

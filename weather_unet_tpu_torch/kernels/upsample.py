@@ -151,7 +151,8 @@ def upsample_kernel(x: torch.Tensor, plan: dict = None) -> torch.Tensor:
              plan["off_taps"], plan["smem"], x.device.index,
              _build.stream_of(x))
     _build.check_launch(lib, err, "upsample")
-    launches += 1
+    with _build.COUNT_LOCK:
+        launches += 1
     return out
 
 

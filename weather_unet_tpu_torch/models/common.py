@@ -45,12 +45,28 @@ class TorchConv(nn.Conv2d):
     The weight and bias are cast to x's dtype (a no-op when they already
     have it): float32 master weights serve a bfloat16 forward, as the JAX
     package's ``param_dtype`` does.
+
+    ``tp`` (set by ``parallel/tp.py::shard_`` on a split pair's members):
+    a column-parallel conv1 holds its shard of the output channels and
+    takes its replicated inputs through the split's backward sum; a
+    row-parallel conv2 holds its shard of the input channels, runs
+    bias-free and returns the sum over the shards plus its bias.
     """
+
+    tp = None
 
     def forward(self, x, skip=None, fused_upsample: bool = False,
                 scale_shift=None):
         w = self.weight.to(x.dtype)
         bias = None if self.bias is None else self.bias.to(x.dtype)
+        if self.tp is not None:
+            if fused_upsample:
+                raise ValueError("fuse_upconv does not run split")
+            x, skip = self.tp.inputs(x, skip)
+            if self.tp.kind == "row":
+                return self.tp.output(conv2d(
+                    x, w, None, stride=self.stride, padding=self.padding),
+                    self.bias)
         if skip is None:
             return conv2d(x, w, bias, stride=self.stride,
                           padding=self.padding)
@@ -196,8 +212,12 @@ class _SpectralNorm(nn.Module):
 
     ``weight_orig`` is normalized in float32 and cast to the input's dtype.
     ``update_stats=True`` advances ``u`` (and stores ``v``) once; without it
-    the forward reads ``u`` and changes nothing.
+    the forward reads ``u`` and changes nothing.  Split by
+    ``parallel/tp.py`` (``tp``), the layer holds its shard and the power
+    iteration is the whole weight's (``ops/spectral.py``).
     """
+
+    tp = None
 
     def _init_sn(self, shape, gain: float, fan_in: int,
                  generator: Optional[torch.Generator]):
@@ -212,7 +232,8 @@ class _SpectralNorm(nn.Module):
 
     def normalized_weight(self, dtype, update_stats: bool) -> torch.Tensor:
         w_bar, u, v = spectral_normalize(self.weight_orig.float(),
-                                         self.weight_u, update_stats)
+                                         self.weight_u, update_stats,
+                                         split=self.tp)
         if update_stats:
             with torch.no_grad():
                 self.weight_u.copy_(u)
@@ -238,6 +259,12 @@ class SNConv(_SpectralNorm):
 
     def forward(self, x, update_stats: bool = False):
         w = self.normalized_weight(x.dtype, update_stats)
+        if self.tp is not None:
+            (x,) = self.tp.inputs(x)
+            if self.tp.kind == "row":
+                return self.tp.output(conv2d(
+                    x, w, None, stride=self.stride, padding=self.padding),
+                    self.bias)
         return conv2d(x, w, self.bias.to(x.dtype), stride=self.stride,
                       padding=self.padding)
 

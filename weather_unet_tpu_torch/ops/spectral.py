@@ -24,22 +24,47 @@ def _l2norm(v: torch.Tensor) -> torch.Tensor:
 
 
 def power_iteration(w_mat: torch.Tensor, u: torch.Tensor, update: bool,
-                    n_iter: int = 1):
+                    n_iter: int = 1, split=None):
     """Power iteration on ``w_mat`` (out, in); returns ``(sigma, u, v)``.
 
     ``u`` and ``v`` come back detached and are never the tensor passed in,
     so a caller may write them into its buffers in place while ``sigma``'s
-    graph still holds them."""
+    graph still holds them.
+
+    ``split`` (``parallel/tp.py::Split``): ``w_mat`` is this shard's slice
+    of the whole matrix, and the iteration is the whole matrix's.  A
+    column split holds rows of it (and the shard ``u_r``): ``v =
+    normalize(sum_r W_r^T u_r)``, ``u_r = W_r v / |W v|`` with the norm's
+    squares summed.  A row split holds columns (and the shard ``v_r``):
+    ``v_r = W_r^T u / |W^T u|`` likewise, ``u = normalize(sum_r W_r v_r)``.
+    ``sigma`` is summed over the shards either way (its gradient too)."""
+    column = split is not None and split.kind == "column"
+    row = split is not None and split.kind == "row"
+
+    def along_in(u):        # normalize(W^T u)
+        t = w_ng.t() @ u
+        if row:
+            return t / (split.norm(t) + EPS)
+        return _l2norm(split.vector_sum(t) if column else t)
+
+    def along_out(v):       # normalize(W v)
+        t = w_ng @ v
+        if column:
+            return t / (split.norm(t) + EPS)
+        return _l2norm(split.vector_sum(t) if row else t)
+
     with torch.no_grad():
         w_ng = w_mat.detach()
         u = u.detach().clone()
         if update:
             for _ in range(n_iter):
-                v = _l2norm(w_ng.t() @ u)
-                u = _l2norm(w_ng @ v)
+                v = along_in(u)
+                u = along_out(v)
         else:
-            v = _l2norm(w_ng.t() @ u)
+            v = along_in(u)
     sigma = u @ (w_mat @ v)
+    if split is not None:
+        sigma = split.sigma(sigma)
     return sigma, u, v
 
 
@@ -53,8 +78,11 @@ def weight_matrix(weight: torch.Tensor) -> torch.Tensor:
     raise ValueError(f"unsupported weight rank {weight.dim()}")
 
 
-def spectral_normalize(weight: torch.Tensor, u: torch.Tensor, update: bool):
+def spectral_normalize(weight: torch.Tensor, u: torch.Tensor, update: bool,
+                       split=None):
     """``weight`` (OIHW conv or ``(out, in)`` linear) divided by its spectral
-    norm.  Returns ``(weight / sigma, new_u, v)``."""
-    sigma, new_u, v = power_iteration(weight_matrix(weight), u, update)
+    norm (the whole weight's, where ``split`` says ``weight`` is a shard of
+    it).  Returns ``(weight / sigma, new_u, v)``."""
+    sigma, new_u, v = power_iteration(weight_matrix(weight), u, update,
+                                      split=split)
     return weight / sigma, new_u, v

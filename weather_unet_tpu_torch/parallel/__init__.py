@@ -1,5 +1,6 @@
-"""Data parallelism over ``torch.distributed``: the plan, placement and
-collectives (``mesh``) and the multi-process launcher (``launch``)."""
+"""Data and tensor parallelism over ``torch.distributed``: the plan,
+placement and collectives (``mesh``), the multi-process launcher
+(``launch``) and the Megatron split of the double convs (``tp``)."""
 
 from weather_unet_tpu_torch.parallel.mesh import (
     make_mesh, batch_sharding, replicated_sharding, shard_batch, MeshPlan,

@@ -123,16 +123,61 @@ def maybe_initialize() -> bool:
     return True
 
 
+# (data, model) of the grid the ranks form: set by ``mesh.make_mesh`` under
+# a process group; rank r sits at (r // model, r % model)
+_GRID: Optional[tuple] = None
+
+
+def set_grid(data: int, model: int) -> None:
+    """Record the (data, model) grid of the ranks (``mesh.make_mesh``)."""
+    global _GRID
+    _GRID = (data, model)
+
+
+def _grid() -> tuple:
+    """The grid of the ranks: the recorded one while it spans the world,
+    else every rank its own data row."""
+    pc = process_count()
+    if _GRID is not None and _GRID[0] * _GRID[1] == pc:
+        return _GRID
+    return pc, 1
+
+
+def data_count() -> int:
+    """Data rows of the grid: the ranks that load different rows."""
+    return _grid()[0]
+
+
+def model_count() -> int:
+    """The grid's model axis: ranks of one data row (tensor parallelism's
+    shards, or replicas of one row without it)."""
+    return _grid()[1]
+
+
+def data_index() -> int:
+    """This rank's data row: what its loaders, dropout masks and augment
+    draws key on, so that the model ranks of one row see the same rows."""
+    return process_index() // model_count()
+
+
+def model_index() -> int:
+    """This rank's position along the model axis (its shard)."""
+    return process_index() % model_count()
+
+
 def process_slice(global_batch_size: int) -> slice:
     """This process's row range of a global batch: every rank runs the same
-    seeded sampling sequence and loads only its ``global / world`` rows."""
-    pc, pid = process_count(), process_index()
-    if global_batch_size % pc:
+    seeded sampling sequence and loads only its data row's ``global /
+    data_count()`` rows (the ranks of one data row load the same rows)."""
+    n, i = data_count(), data_index()
+    if global_batch_size % n:
         raise ValueError(
             f"global batch {global_batch_size} not divisible by "
-            f"process count {pc}")
-    per = global_batch_size // pc
-    return slice(pid * per, (pid + 1) * per)
+            f"process count {n}" if n == process_count() else
+            f"global batch {global_batch_size} not divisible by the "
+            f"{n} data rows")
+    per = global_batch_size // n
+    return slice(i * per, (i + 1) * per)
 
 
 def barrier(name: str, timeout_s: Optional[float] = None) -> None:

@@ -4,16 +4,24 @@
 The JAX package shards the batch over a ``'data'`` axis of one SPMD
 program and lets XLA insert the gradient ``psum``.  Here one process is one
 rank: a :class:`MeshPlan` is a (data, model) grid over the world's ranks
-times this process's devices, each rank loads its rows of the global batch,
-and the steps all-reduce their gradients in one flat bucket per network
-(:func:`all_reduce_mean`).  Without a process group a plan describes the
-devices of this one process (``api.py`` keeps a replica of the model on
-each).
+times this process's devices, each rank loads its data row's rows of the
+global batch, and the steps all-reduce their gradients in one flat bucket
+per network over the ranks' data group (:func:`all_reduce_mean`).  Without
+a process group a plan describes the devices of this one process
+(``api.py`` keeps a replica of the model, or with ``tensor_parallel`` one
+shard, on each).
 
-The ``'model'`` axis carries tensor parallelism and spatial partitioning in
-the JAX package; neither is ported yet (``ROADMAP.md`` queue 1 item 4b), so
-a trainer or the API refuses a plan whose model axis is above 1, and
-:meth:`MeshPlan.spatial` raises.
+Under a process group rank r sits at grid position ``(r // model, r %
+model)`` (``launch.data_index`` / ``launch.model_index``), and
+:func:`make_mesh` makes each rank's two groups: its **model group** (the
+ranks of its data row, over which ``parallel/tp.py`` sums the split conv
+pairs) and its **data group** (the ranks of its model column, over which
+the gradients, the evaluation sums and BatchNorm's moments go).  Without
+tensor parallelism each model position holds a full replica and steps on
+its data row's rows, as in the JAX package.
+
+Spatial partitioning over the ``'model'`` axis is not ported yet
+(``ROADMAP.md`` queue 1 item 4c): :meth:`MeshPlan.spatial` raises.
 """
 
 from __future__ import annotations
@@ -26,8 +34,7 @@ import torch
 
 from weather_unet_tpu_torch.parallel import launch
 
-MODEL_AXIS_ITEM = ("ROADMAP.md queue 1 item 4b, 'Tensor parallelism and "
-                   "spatial partitioning'")
+MODEL_AXIS_ITEM = "ROADMAP.md queue 1 item 4c, 'Spatial partitioning'"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,18 +68,29 @@ class MeshPlan:
     def replicated(self) -> "Sharding":
         return Sharding(self, ())
 
+    def rows(self) -> list:
+        """This process's devices by data row: one list of ``n_model``
+        devices for each data row the process holds."""
+        m = self.n_model
+        return [list(self.devices[i:i + m])
+                for i in range(0, len(self.devices), m)]
+
     def spatial(self, input_size: Optional[int] = None,
                 deepest_stride: int = 16):
         """Image height over ``'model'``: not ported yet."""
         raise NotImplementedError(
             f"spatial partitioning is not ported yet ({MODEL_AXIS_ITEM})")
 
-    def require_data_parallel(self, what: str) -> None:
-        """Refuse a model axis above 1 in ``what`` (a trainer or the API)."""
-        if self.n_model > 1:
-            raise NotImplementedError(
-                f"{what}: a plan with a 'model' axis of {self.n_model} "
-                f"(tensor parallelism) is not ported yet ({MODEL_AXIS_ITEM})")
+
+def require_model_axis(plan: Optional["MeshPlan"],
+                       what: str = "a mesh") -> None:
+    """The JAX package's guard: ``tensor_parallel`` needs a plan whose
+    model axis has at least two devices (``what`` names the plan as the
+    caller's message does)."""
+    if plan is None or plan.n_model < 2:
+        raise ValueError(
+            f"tensor_parallel requires {what} with a 'model' axis of >= 2 "
+            f"devices (make_mesh(model=K))")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,7 +150,61 @@ def make_mesh(devices: Optional[Sequence] = None, data: Optional[int] = None,
                f"count)" if batch_size is not None else ""))
     k = len(local)
     mine = [d for i, d in enumerate(local) if pid * k + i < data * model]
+    if pc > 1 and k == 1:
+        # one device a rank: the ranks themselves form the grid
+        launch.set_grid(data, model)
+        _make_groups(data, model)
     return MeshPlan((data, model), tuple(mine), pc, pid)
+
+
+# (data, model) -> this rank's (model group, data group), each a (process
+# group or None for the world, its ranks) pair
+_GROUPS: dict = {}
+
+
+def _make_groups(data: int, model: int) -> None:
+    """Make the grid's model groups (one a data row) and data groups (one a
+    model column); every rank makes every group, in one order, as
+    ``torch.distributed.new_group`` requires.  A group of one rank or of
+    the whole world gets no group of its own."""
+    if (data, model) in _GROUPS:
+        return
+    d = torch.distributed
+    world, rank = data * model, d.get_rank()
+
+    def make(rank_sets):
+        mine = None
+        for ranks in rank_sets:
+            pg = (d.new_group(ranks) if 1 < len(ranks) < world else None)
+            if rank in ranks:
+                mine = (pg, ranks)
+        return mine
+
+    _GROUPS[(data, model)] = (
+        make([list(range(i * model, (i + 1) * model))
+              for i in range(data)]),
+        make([list(range(m, world, model)) for m in range(model)]))
+
+
+def _groups():
+    grid = launch._grid()
+    if grid in _GROUPS:
+        return _GROUPS[grid]
+    # no grid with a model axis: every rank its own data row
+    rank = launch.process_index()
+    return (None, [rank]), (None, list(range(launch.process_count())))
+
+
+def model_group() -> tuple:
+    """This rank's model group: ``(process group or None for the world,
+    its ranks)``, the ranks of its data row."""
+    return _groups()[0]
+
+
+def data_group() -> tuple:
+    """This rank's data group: ``(process group or None for the world, its
+    ranks)``, the ranks of its model column."""
+    return _groups()[1]
 
 
 def batch_sharding(plan: MeshPlan) -> Sharding:
@@ -220,22 +292,39 @@ def broadcast_(tensors: Sequence[torch.Tensor], src: int = 0) -> None:
         torch.distributed.broadcast(t.data, src)
 
 
-def broadcast_module_(module: torch.nn.Module, src: int = 0) -> None:
-    """Rank ``src``'s parameters and buffers into ``module``, in place."""
-    broadcast_(list(module.parameters()) + list(module.buffers()), src)
+def broadcast_module_(module: torch.nn.Module) -> None:
+    """The first rank of this rank's data group's parameters and buffers
+    into ``module``, in place: rank 0's without a model axis, and under
+    tensor parallelism the rank holding the same shard in data row 0."""
+    pg, ranks = data_group()
+    if len(ranks) > 1:
+        for t in list(module.parameters()) + list(module.buffers()):
+            torch.distributed.broadcast(t.data, ranks[0], group=pg)
+
+
+def _reduces() -> bool:
+    """True where a data-group all-reduce has work: a group of several
+    ranks, or the world of one rank that ``launch -n 1`` makes."""
+    if not data_parallel():
+        return False
+    _, ranks = data_group()
+    return len(ranks) > 1 or launch.process_count() == 1
 
 
 def all_reduce_mean(tensors: Sequence[torch.Tensor]) -> list:
-    """The mean over ranks of each tensor, through one flat float32 bucket
-    and one ``all_reduce``: ``SUM``, then a division by the world size
-    (gloo has no ``AVG``).  Returns new tensors, each in its input's dtype
-    and shape (float32 ones are views of the bucket)."""
+    """The mean over this rank's data group of each tensor, through one flat
+    float32 bucket and one ``all_reduce``: ``SUM``, then a division by the
+    group's size (gloo has no ``AVG``).  Without a model axis the group is
+    the world; under tensor parallelism the ranks holding the same shard,
+    whose gradients are of the same slice.  Returns new tensors, each in
+    its input's dtype and shape (float32 ones are views of the bucket)."""
     tensors = list(tensors)
-    if not tensors or not data_parallel():
+    if not tensors or not _reduces():
         return tensors
+    pg, ranks = data_group()
     flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
-    torch.distributed.all_reduce(flat)
-    flat.div_(torch.distributed.get_world_size())
+    torch.distributed.all_reduce(flat, group=pg)
+    flat.div_(len(ranks))
     out, at = [], 0
     for t in tensors:
         n = t.numel()
@@ -245,24 +334,26 @@ def all_reduce_mean(tensors: Sequence[torch.Tensor]) -> list:
 
 
 class _AllReduceSum(torch.autograd.Function):
-    """``all_reduce(SUM)`` whose gradient is the same all-reduce of the
-    incoming gradients: y = sum over ranks of x, so each x's gradient sums
-    every rank's gradient of y."""
+    """``all_reduce(SUM)`` over the data group whose gradient is the same
+    all-reduce of the incoming gradients: y = sum over ranks of x, so each
+    x's gradient sums every rank's gradient of y."""
 
     @staticmethod
     def forward(ctx, x):
         y = x.detach().clone()
-        torch.distributed.all_reduce(y)
+        torch.distributed.all_reduce(y, group=data_group()[0])
         return y
 
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous().clone()
-        torch.distributed.all_reduce(g)
+        torch.distributed.all_reduce(g, group=data_group()[0])
         return g
 
 
 def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """Sum of ``x`` over ranks, differentiable (``BatchNorm2d``'s moments
-    under a plan of several ranks)."""
+    """Sum of ``x`` over the data group, differentiable (``BatchNorm2d``'s
+    moments under a plan of several data rows)."""
+    if not _reduces():
+        return x
     return _AllReduceSum.apply(x)

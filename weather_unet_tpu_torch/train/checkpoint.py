@@ -42,6 +42,7 @@ from weather_unet_tpu_torch.compat.torch_io import (
     resnet_state_dict_to_jax, sndisc_state_dict_from_jax,
     sndisc_state_dict_to_jax)
 from weather_unet_tpu_torch.core.state import GanTrainState, TrainState
+from weather_unet_tpu_torch.parallel import tp
 from weather_unet_tpu_torch.parallel.launch import process_index
 
 _CKPT_RE = re.compile(r"ckpt_s(\d+)\.(pt|msgpack)$")
@@ -102,11 +103,15 @@ def gan_tree(state: GanTrainState, seed: int) -> dict:
     """What a GAN checkpoint holds: both networks' state dicts (D's with its
     spectral-norm ``weight_u`` / ``weight_v`` buffers), both Adam states,
     the update counts, the epoch, the global step and the trainer's seed.
-    The tensors are the live ones; saving copies them."""
-    return {"gen": state.gen.module.state_dict(),
-            "disc": state.disc.module.state_dict(),
-            "gen_opt": state.gen.optimizer.state_dict(),
-            "disc_opt": state.disc.optimizer.state_dict(),
+    The tensors are the live ones; saving copies them.  Where the networks
+    are split (``parallel/tp.py``) the tree is the whole model's, gathered
+    over the model group: every rank of the group must call this, and
+    each gets the tree an unsplit run would save."""
+    g, d = state.gen, state.disc
+    return {"gen": tp.full_state_dict(g.module),
+            "disc": tp.full_state_dict(d.module),
+            "gen_opt": tp.full_optimizer_state_dict(g.optimizer, g.module),
+            "disc_opt": tp.full_optimizer_state_dict(d.optimizer, d.module),
             "gen_step": state.gen.step, "disc_step": state.disc.step,
             "epoch": state.epoch, "global_step": state.global_step,
             "seed": seed}
@@ -119,7 +124,9 @@ def restore_checkpoint(path: str, state: Optional[GanTrainState] = None):
     A path that does not end in ``.pt``/``.pth`` is a JAX-package flax
     msgpack file, as in ``weather_unet_tpu/cli/common.py``: its raw nested
     dict comes back (``read_msgpack``), and with ``state`` it is loaded as
-    the JAX package's ``GanTrainState`` (``_load_jax_gan``)."""
+    the JAX package's ``GanTrainState`` (``_load_jax_gan``).  Split
+    networks (``parallel/tp.py``) load this shard's slice of the whole
+    tree, so one file restores under any degree."""
     if not path.endswith((".pt", ".pth")):
         tree = read_msgpack(path)
         if state is not None:
@@ -128,8 +135,9 @@ def restore_checkpoint(path: str, state: Optional[GanTrainState] = None):
     tree = torch.load(path, map_location="cpu", weights_only=True)
     if state is not None:
         for ts, key in ((state.gen, "gen"), (state.disc, "disc")):
-            ts.module.load_state_dict(tree[key], strict=True)
-            ts.optimizer.load_state_dict(tree[key + "_opt"])
+            tp.load_full_state_dict(ts.module, tree[key])
+            tp.load_full_optimizer_state_dict(ts.optimizer, ts.module,
+                                              tree[key + "_opt"])
             ts.step = int(tree[key + "_step"])
         state.epoch = int(tree["epoch"])
         state.global_step = int(tree["global_step"])
@@ -237,10 +245,11 @@ def export_torch_gan(path: str, gen, disc, epoch: int,
     (``t_est_train.py:367-373``): ``{'inference', 'discriminator', 'epoch',
     'global_step'}``.  The port's modules carry the reference key names, so
     the entries are their state dicts, the discriminator's with the JAX
-    package's spectral-norm entries (``reference_disc_state_dict``)."""
-    _write(path, {"inference": _to_host(gen.state_dict()),
+    package's spectral-norm entries (``reference_disc_state_dict``); the
+    whole model's where the networks are split (every shard calls it)."""
+    _write(path, {"inference": _to_host(tp.full_state_dict(gen)),
                   "discriminator": reference_disc_state_dict(
-                      disc.state_dict()),
+                      tp.full_state_dict(disc)),
                   "epoch": epoch, "global_step": global_step})
 
 
@@ -491,10 +500,13 @@ def gan_tree_to_jax(state: GanTrainState) -> dict:
     (numpy leaves; ``save_checkpoint_file`` writes it as flax does)."""
     tree = {"epoch": state.epoch, "global_step": state.global_step}
     for ts, key, _, to_jax in _gan_nets(state):
-        variables = to_jax(ts.module.state_dict())
+        sd = tp.full_state_dict(ts.module)
+        states = (tp.full_param_states(ts.optimizer, ts.module)
+                  if tp.layout_of(ts.module) is not None else None)
+        variables = to_jax(sd)
         tree[key] = {"params": variables["params"], "extra": None,
                      "opt_state": adam_state_to_jax(ts.optimizer, ts.module,
-                                                    to_jax),
+                                                    to_jax, sd, states),
                      "step": ts.step}
         if "spectral" in variables:
             tree["spectral"] = variables["spectral"]
@@ -529,7 +541,7 @@ def _load_jax_gan(path: str, tree: dict, state: GanTrainState) -> None:
     for ts, key, from_jax, _ in _gan_nets(state):
         sub = tree[key]
         coll = {"spectral": tree["spectral"]} if key == "disc" else {}
-        current = ts.module.state_dict()
+        current = tp.full_state_dict(ts.module)
         sd = {k: current[k] if ".emb." in k else v for k, v in
               _tensors_of(from_jax({"params": sub["params"], **coll}))
               .items()}
@@ -537,8 +549,9 @@ def _load_jax_gan(path: str, tree: dict, state: GanTrainState) -> None:
                                    coll)
         loads.append((ts, sd, adam, int(np.asarray(sub["step"]))))
     for ts, sd, adam, step in loads:
-        ts.module.load_state_dict(sd, strict=True)
-        _load_adam(ts.optimizer, ts.module, adam)
+        tp.load_full_state_dict(ts.module, sd)
+        _load_adam(ts.optimizer, ts.module,
+                   tp.shard_param_states(adam, ts.module))
         ts.step = step
     state.epoch = int(np.asarray(tree["epoch"]))
     state.global_step = int(np.asarray(tree["global_step"]))

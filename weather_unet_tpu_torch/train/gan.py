@@ -28,12 +28,16 @@ takes NHWC images: wrap it as ``lambda x: apply(x.permute(0, 2, 3, 1))``
 The step mutates the state's modules and optimizers in place and returns
 the state with its metrics (0-d tensors on the device, not synchronized).
 
-Under a process group each rank steps on its rows of the global batch and
-all-reduces each network's gradients between ``autograd.grad`` and Adam, in
-one flat bucket that also carries the metrics known by then
-(``parallel/mesh.py::all_reduce_mean``): every loss is a batch mean, so the
-mean over equal shards of the rows is the global batch's gradient and
-loss, and the ranks' states stay equal.
+Under a process group each rank steps on its data row's rows of the global
+batch and all-reduces each network's gradients between ``autograd.grad``
+and Adam over its data group, in one flat bucket that also carries the
+metrics known by then (``parallel/mesh.py::all_reduce_mean``): every loss
+is a batch mean, so the mean over equal shards of the rows is the global
+batch's gradient and loss, and the ranks' states stay equal.  With the
+networks split by ``parallel/tp.py`` the split convs sum over the model
+group inside the forward and backward; a split parameter's gradient (and
+so Adam's moments) is its shard's, and a parameter every shard holds whole
+gets the same gradient on each with no further sum.
 """
 
 from __future__ import annotations

@@ -15,17 +15,21 @@ the port's ``.pt`` or the JAX package's ``.msgpack``, so a JAX run's
 directory resumes here (``train/checkpoint.py``); the loops write ``.pt``.
 
 ``plan`` (``parallel/mesh.py::MeshPlan``; the default under a process
-group, ``parallel/launch.py``) trains data-parallel, one rank a process:
-each rank steps on its rows of the global batch (the loaders'
-``process_shard``), the steps all-reduce gradients and metrics, the
-state is broadcast from rank 0 once built, each rank's dropout (and
-device augment) generator folds in its rank, evaluation sums its
-weighted metrics over the ranks, rank 0 alone writes summaries, and every
-rank writes the same checkpoint bytes to the same file.  ``aot_cache``
-under a process group is ignored with the JAX package's warning: a CUDA
-graph cannot hold a gloo collective.  Not ported yet (``ROADMAP.md``
-queue 1 item 4b), and refused with the item's name: tensor parallelism
-(``tensor_parallel``, a plan's ``'model'`` axis above 1).
+group, ``parallel/launch.py``) trains over a (data, model) grid of ranks,
+one rank a process: each data row of ranks steps on its rows of the
+global batch (the loaders' ``process_shard``), the steps all-reduce
+gradients and metrics over each rank's data group, the state is
+broadcast from the data group's first rank once built, each data row's
+dropout (and device augment) generator folds in its data index, so the
+ranks of one row draw the same masks, evaluation sums its weighted
+metrics over the data rows, rank 0 alone writes summaries, and every
+rank writes the same checkpoint bytes to the same file.  Without
+``tensor_parallel`` each model position holds a full replica, as in the
+JAX package; with it (``WeatherTransferTrainer``) every double conv of
+both networks is split over the rank's model group
+(``parallel/tp.py``), and each save gathers the whole state.
+``aot_cache`` under a process group is ignored with the JAX package's
+warning: a CUDA graph cannot hold a gloo collective.
 """
 
 from __future__ import annotations
@@ -49,11 +53,12 @@ from weather_unet_tpu_torch.data.pipeline import device_prefetch
 from weather_unet_tpu_torch.data.transforms import (
     AugmentConfig, augment_batch, normalize_batch)
 from weather_unet_tpu_torch.models.common import sync_batchnorm
+from weather_unet_tpu_torch.parallel import tp
 from weather_unet_tpu_torch.parallel.launch import (
-    lockstep_compile, process_count, process_index)
+    data_count, data_index, lockstep_compile, process_index)
 from weather_unet_tpu_torch.parallel.mesh import (
-    MODEL_AXIS_ITEM, all_reduce_mean, broadcast_module_, data_parallel,
-    make_mesh)
+    all_reduce_mean, broadcast_module_, data_parallel, make_mesh,
+    require_model_axis)
 from weather_unet_tpu_torch.train import checkpoint as ckpt
 from weather_unet_tpu_torch.train.gan import (
     GanConfig, build_gan_state, make_eval_step, make_gan_step)
@@ -65,21 +70,21 @@ from weather_unet_tpu_torch.train.supervised import stepped
 def _data_plan(plan, batch_size, what: str):
     """The plan a loop trains under: ``plan``, or under a process group the
     default one over the world (as the JAX loops' ``make_mesh``), or None.
-    Refuses a model axis (item 4b) and a process holding several of the
-    plan's devices (one rank a process: ``parallel/launch.py``)."""
+    Refuses a process holding several of the plan's devices (one rank a
+    process: ``parallel/launch.py``) and a global batch that does not
+    divide over the data rows."""
     if plan is None and data_parallel():
         plan = make_mesh(batch_size=batch_size)
     if plan is None:
         return None
-    plan.require_data_parallel(what)
     if len(plan.devices) != 1:
         raise ValueError(
             f"{what} trains one device a process, but this process holds "
             f"{len(plan.devices)} of the plan's devices; launch one rank a "
             f"device: python -m weather_unet_tpu_torch.parallel.launch -n K")
-    if batch_size is not None and batch_size % plan.process_count:
+    if batch_size is not None and batch_size % plan.n_data:
         raise ValueError(f"global batch {batch_size} does not divide over "
-                         f"{plan.process_count} ranks")
+                         f"{plan.n_data} data rows of ranks")
     return plan
 
 
@@ -126,8 +131,14 @@ class WeatherTransferTrainer:
     0.5 / 0.3 / 0.3), each step's generator seeded from ``(seed + 3,
     global step)`` so a resumed run replays the warps.
 
-    ``plan``: data-parallel over the plan's ranks (module docstring); the
-    loaders then yield each rank's ``cfg.batch_size / world`` rows.
+    ``plan``: over the plan's grid of ranks (module docstring); the
+    loaders then yield each rank's ``cfg.batch_size / data rows`` rows.
+    ``tensor_parallel`` (a plan with a model axis of at least 2, else
+    the JAX package's ``ValueError``): both networks split over each
+    rank's model group (``parallel/tp.py``), the optimizers' moments
+    shard-shaped, each checkpoint the whole state gathered, and on CUDA
+    cuDNN's deterministic algorithms, so that the layers every shard
+    runs whole get equal gradients on every shard.
     ``aot_cache`` (a directory or ``AotCache``, exposed as ``self.aot``):
     both step programs, D-only and D+G, run through the AOT tier, on CUDA as
     CUDA graphs captured at their first step (module docstring).
@@ -149,10 +160,9 @@ class WeatherTransferTrainer:
                  profile_dir: Optional[str] = None, nan_guard: bool = False,
                  max_rollbacks: int = 3, aot_cache: Optional[str] = None,
                  tensor_parallel: bool = False, device: DeviceLike = None):
-        if tensor_parallel:
-            raise NotImplementedError(
-                f"tensor_parallel is not ported yet ({MODEL_AXIS_ITEM})")
         self.plan = _data_plan(plan, cfg.batch_size, "the GAN trainer")
+        if tensor_parallel:
+            require_model_axis(self.plan)
         self.cfg = cfg
         self.name = name
         self.save_dir = save_dir
@@ -161,9 +171,11 @@ class WeatherTransferTrainer:
         self.device = resolve_device(
             device if device is not None or self.plan is None
             else self.plan.devices[0])
-        self._world = self.plan.process_count if self.plan else 1
+        # rows (and seeds) are the data row's: the ranks of one row hold
+        # the shards of one model, or replicas, and see the same rows
+        self._n_data = data_count() if self.plan else 1
         self._rank = process_index()
-        self._local_batch = cfg.batch_size // self._world
+        self._local_batch = cfg.batch_size // self._n_data
         # summaries come from rank 0 alone
         self.writer = (SummaryWriter(log_dir, comment=run_comment(
             cfg.lr, cfg.batch_size, cfg.num_epoch, name))
@@ -171,6 +183,13 @@ class WeatherTransferTrainer:
 
         self.gen, self.disc, self.state = build_gan_state(
             cfg, seed, self.device, use_pallas=self.device.type == "cuda")
+        if tensor_parallel:
+            # before any optimizer state exists: the shards swap the
+            # parameters' data, which the optimizers keep
+            tp.shard_gan_(self.gen, self.disc, tp.process_shards())
+            if self.device.type == "cuda":
+                torch.backends.cudnn.deterministic = True
+                torch.backends.cudnn.benchmark = False
         self._ckpt = ckpt.AsyncCheckpointer()
         # host-side step mirror; the last checkpointed step guards the
         # terminal save
@@ -193,8 +212,8 @@ class WeatherTransferTrainer:
         self.profile_dir = profile_dir
 
         # each step's dropout generator is seeded from (base, global step);
-        # with several ranks the base folds in the rank, so the shards'
-        # rows do not share masks
+        # with several data rows the base folds in the data index, so the
+        # rows' shards do not share masks and a row's model ranks do
         self._base_seed = self._rank_seed(seed + 1)
         self._aug_seed = self._rank_seed(seed + 3)
         self._step_rng = torch.Generator(device=self.device)
@@ -218,7 +237,7 @@ class WeatherTransferTrainer:
         self._rollbacks = 0
 
     def _rank_seed(self, seed: int) -> int:
-        return seed if self._world == 1 else fold_seed(seed, self._rank)
+        return seed if self._n_data == 1 else fold_seed(seed, data_index())
 
     # ------------------------------------------------------------- state io
     def _resume(self):
@@ -306,7 +325,7 @@ class WeatherTransferTrainer:
                 self._ckpt.wait()   # the grace window must see the file
                 return False
             if data[0].shape[0] != self._local_batch:
-                if self._world > 1 and data[0].shape[0] == cfg.batch_size:
+                if self._n_data > 1 and data[0].shape[0] == cfg.batch_size:
                     raise ValueError(
                         "the loaders yield the global batch on every rank; "
                         "give them process_shard=True")
@@ -507,9 +526,9 @@ def _synced_bn(model, on: bool):
 
 
 def _over_ranks(test_accum: list, counts: list):
-    """Each eval batch's metrics over every rank's real rows, and the rows:
-    the ranks' weighted sums (metric x rows) and rows in one all-reduce
-    bucket."""
+    """Each eval batch's metrics over every data row's real rows, and the
+    rows: the data group's weighted sums (metric x rows) and rows in one
+    all-reduce bucket."""
     keys = list(test_accum[0])
     n = torch.tensor(counts, dtype=torch.float32,
                      device=test_accum[0][keys[0]].device)
@@ -518,7 +537,7 @@ def _over_ranks(test_accum: list, counts: list):
     rows, n = all_reduce_mean([rows, n])      # the ratios are the sums'
     means = (rows / n[:, None]).tolist()
     return ([dict(zip(keys, r)) for r in means],
-            [round(c * process_count()) for c in n.tolist()])
+            [round(c * data_count()) for c in n.tolist()])
 
 
 def _padded_eval_batches(loader, counts: list):
@@ -575,14 +594,15 @@ def train_supervised(step_fn: Callable, eval_fn: Callable,
     optimizer stays so).
 
     ``plan`` (the default under a process group, over ``batch_size``, the
-    global batch): data-parallel (module docstring).  The loaders yield
-    each rank's rows (``process_shard``); with several ranks the model's
-    BatchNorms reduce their train-mode moments over the ranks for the
-    run (``models/common.py::sync_batchnorm``), and the test loader must
+    global batch): over the plan's grid of ranks (module docstring; a
+    model axis holds replicas).  The loaders yield each data row's rows
+    (``process_shard``); with several data rows the model's BatchNorms
+    reduce their train-mode moments over the data group for the run
+    (``models/common.py::sync_batchnorm``), and the test loader must
     give every rank the same number of batches (the CLIs' ``drop_last``).
     """
     plan = _data_plan(plan, batch_size, "train_supervised")
-    world = plan.process_count if plan is not None else 1
+    world = data_count() if plan is not None else 1
     if aot_cache is not None and not hasattr(step_fn, "program"):
         raise ValueError("aot_cache needs a step with a device program "
                          "(train/supervised.py::stepped)")
@@ -609,7 +629,7 @@ def train_supervised(step_fn: Callable, eval_fn: Callable,
         broadcast_module_(model)
     if process_index() != 0:
         writer = None                     # summaries come from rank 0
-    aug_seed = seed if world == 1 else fold_seed(seed, process_index())
+    aug_seed = seed if world == 1 else fold_seed(seed, data_index())
 
     # after the restore: its load replaces the optimizer's tensors and takes
     # the capturable flag from the file, whichever side of the tier wrote it
