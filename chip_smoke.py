@@ -4,9 +4,9 @@ paths, of its learning over many steps and its resume of a JAX training
 run, of its trainer and training CLI, of its data runtime and supervised
 pretraining, of its serving entry points (msgpack checkpoints, the HTTP
 server, the inference and eval CLIs), of FID / IS and the exported serving
-artifact, of the reference-surface ops and the dataset tools, of data
-and tensor parallelism, and of the AOT tier's CUDA graphs, on one NVIDIA
-GPU.
+artifact, of the reference-surface ops and the dataset tools, of data,
+tensor and spatial parallelism, and of the AOT tier's CUDA graphs, on one
+NVIDIA GPU.
 
     python3 chip_smoke.py            # from the repository root, one GPU
 
@@ -363,28 +363,61 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                1e-3 of its own float32, translate_u8 within 1 of the
                unsharded wire, 7 model-group sums and 3 K1 and 3 K2
                launches a forward on each shard, each shard's weight MiB
-               beside the whole model's; then data=2, model=2 over cuda:0
-               four times, 8 rows a data row.  (b) Two gloo ranks sharing
-               cuda:0 running train_transfer_est --tensor_parallel 2
+               beside the whole model's; the float32 split through the AOT
+               tier (aot_cache with tensor_parallel: each shape's program
+               the eager split forward) bit-equal to the untiered split, 2
+               programs, no capture, no file; then data=2, model=2 over
+               cuda:0 four times, 8 rows a data row.  (b) Two gloo ranks
+               sharing cuda:0 running train_transfer_est --tensor_parallel 2
                (through tools/dp_train_torch.py --mode est_cli, the
-               estimator K4-routed) at 224x224, B=8, 3 steps in float32:
+               estimator K4-routed) at 224x224, B=8, 3 steps in float32,
+               from the JPEGs' directory with a relative image root (the
+               augmentation streams are keyed on the paths, so the rows
+               are the same in every run; their digest is recorded):
                the ranks' gathered checkpoints byte-equal, each step held
                to the one-process step from rank 0's state before it on
                the same inputs and dropout seed at the bars of phase
                parallel (b) (the float32 floor also from the step with
                its weights moved by one rounding, which re-rounds every
                conv as the split does; the parity steps in a child
-               process), K1, K2 and K4 launches a step and rank; then
-               3 bf16 steps with each rank's step ms and ms in model-group
-               sums (one card shared by two processes, the sums through
-               the host: a correctness run, not a scaling figure).  (c)
-               The TP=2 checkpoint resumes in this process without tensor
-               parallelism bit-equal on load and takes one more step at
-               the same bars.  (d) Four gloo ranks, data=2, model=2, 2
+               process, where no allocation may be refused: a refused
+               cuDNN workspace runs another engine, fault F1; its step 1
+               taken again in this process after the earlier phases must
+               leave the same bytes unless an allocation was refused), K1,
+               K2 and K4 launches a step and rank, no refused allocation
+               in a rank; the ranks alone on the card (its bf16 timing run
+               is cut: CUTS).  (c) The TP=2 checkpoint resumes in this
+               process without tensor parallelism bit-equal on load and
+               takes one more step at the same bars.  (d) Four gloo ranks, data=2, model=2, 2
                steps at global B=8, dropout 0.3: the ranks of a data row
                load the same rows and draw the same masks, the rows
                differ; the four checkpoints byte-equal.  Every rank's K1,
                K2 and K4 launches join the main-path totals.
+11d. spatial -- spatial partitioning (parallel/spatial.py): image height
+               cut over a model axis at multiples of 16 rows.  K1's split
+               form (local plane statistics, the mean and M2 each at its
+               own scale; modulation with merged ones, also against the
+               merge of the plain statistics) and K2's row window against
+               their plain versions at every shard shape below, float32
+               and bfloat16, timed at shard 0 of 256x256, B=16, degree 2,
+               K2's window also as one F.grid_sample (float32).  (a) The use_pallas cUNet from the
+               seeded .pt through SpatialModel over cuda:0 named 2 and 4
+               times (threads), 256x256, B=16: float32 (TF32 off) within
+               MAE 1e-5 of the unsharded forward, bfloat16 within 1e-3 of
+               its own float32, 3 of each split launch a shard and no
+               whole-plane K1 or whole-image K2, 20 exchanges a forward;
+               224x224 at degree 4 (rows 48/64/48/64) in float32.  (b) Two
+               gloo ranks sharing cuda:0 (tools/dp_train_torch.py --spatial
+               2) take 3 combined GAN steps at 224x224, B=8, est mode,
+               dropout 0.3, the K4-routed estimator on the gathered rows,
+               float32 (TF32 off, cuDNN deterministic): the ranks' states
+               byte-equal, 6 of each split launch and 58 K4 launches a step
+               and rank, no refused allocation; each step against the
+               one-process step (a child process) from rank 0's state
+               before it on the ranks' rows joined, at phase
+               tensor_parallel (b)'s bars; then 3 bf16 steps timed (step
+               ms, exchange ms).  The split launches are reported as
+               "adain_split" and "upsample_rows" on the kernels line.
 12. aot      -- the AOT tier (core/aot.py) at full width, each program a
                CUDA graph held to its eager counterpart: the use_pallas
                cUNet at 256x256 through WeatherTransfer(aot_cache=) at
@@ -446,6 +479,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import glob
+import hashlib
 import io
 import itertools
 import json
@@ -528,7 +562,9 @@ CUTS = ["eval_inception: the Frechet distance (a 2048x2048 host sqrtm) in "
         "aot_doctor: the doctor's main in this process, not a child "
         "process",
         "parallel: no bf16 timing run of the two data-parallel ranks "
-        "(phase tensor_parallel times two split ranks' bf16 steps)"]
+        "(phase tensor_parallel times two split ranks' bf16 steps)",
+        "tensor_parallel: no bf16 timing run of the two split ranks "
+        "(phase spatial times two spatial ranks' bf16 steps)"]
 
 
 def emit(obj) -> None:
@@ -4482,7 +4518,25 @@ def tp_serving(cunet_path, counters, launch_totals, rec):
             w8 = two.translate_u8(u8, c).to(torch.int16)
             r["u8_max_diff"] = int((w8 - one.translate_u8(u8, c).to(
                 torch.int16)).abs().max())
-            ok = r["mae_against_unsharded"] <= 1e-5 and r["u8_max_diff"] <= 1
+            # item 4d: the AOT tier over the split model, each shape's
+            # program the eager split forward, bit-equal to the untiered
+            with tempfile.TemporaryDirectory() as aot_dir:
+                tiered = WeatherTransfer.load(cunet_path, dtype=dt,
+                                              plan=plan, tensor_parallel=True,
+                                              aot_cache=aot_dir)
+                r["aot_tier"] = {
+                    "bit_equal_to_untiered": bool(torch.equal(
+                        tiered.translate(x, c), got))
+                    and bool(torch.equal(tiered.translate_u8(u8, c).to(
+                        torch.int16), w8)),
+                    "stats": dict(tiered.aot.stats),
+                    "files_written": len(os.listdir(aot_dir))}
+                del tiered
+            ok = (r["mae_against_unsharded"] <= 1e-5 and r["u8_max_diff"] <= 1
+                  and r["aot_tier"]["bit_equal_to_untiered"]
+                  and r["aot_tier"]["stats"]["captures"] == 0
+                  and r["aot_tier"]["stats"]["programs"] == 2
+                  and r["aot_tier"]["files_written"] == 0)
         else:
             r["mae_against_own_float32"] = float(
                 (got.float() - f32).abs().mean())
@@ -4509,23 +4563,35 @@ def tp_serving(cunet_path, counters, launch_totals, rec):
 
 def tp_cli_world(tmp):
     """The est CLI's world: TP_JPEGS seeded 256x256 JPEGs (--image_only:
-    the first 70% train, in order of their sorted names)."""
-    root = os.path.join(tmp, "tp_jpegs")
-    os.makedirs(root)
-    write_jpegs(root, TP_JPEGS, seed=SEED + 51)
-    return root
+    the first 70% train, in order of their sorted names) under ``tmp``.
+    Returns their root relative to ``tmp``, from where the CLI runs: the
+    train augmentation's streams are keyed on each image's path, so a root
+    under tempfile's random name drew other augmentations in every run."""
+    os.makedirs(os.path.join(tmp, "tp_jpegs"))
+    write_jpegs(os.path.join(tmp, "tp_jpegs"), TP_JPEGS, seed=SEED + 51)
+    return "tp_jpegs"
 
 
-def tp_step_parity(tmp, est_path, out, rec):
-    """(b) each f32 step k of the split ranks against the one-process step
-    from the state they took it from (the initial state, or rank 0's after
-    step k - 1), on rank 0's inputs of step k and the trainer's dropout
-    seed of step k, at phase parallel (b)'s bars with the float32 floor
-    the larger of two: the step with its input moved by one rounding
-    (float32_floor), and the step with every weight moved by one rounding,
-    which re-rounds every conv's output as the split's partial sums do;
-    (c) the TP checkpoint loaded without tensor parallelism: bit-equal,
-    and one more step at the same bars."""
+def no_refusal(what, before):
+    """F1: raise, before a parity bar is read, where the card refused an
+    allocation since ``before`` (``_device.refused_allocations``): a
+    refused cuDNN workspace runs another engine, so the step compared is
+    not the one a card with room computes."""
+    from weather_unet_tpu_torch._device import refused_allocations
+
+    n = refused_allocations() - before
+    if n:
+        raise AssertionError(
+            f"{what}: the card refused {n} allocation(s) during the "
+            f"reference steps ({torch.cuda.mem_get_info()[0] / 2 ** 20:.0f} "
+            f"MiB free now): another cuDNN engine ran (F1)")
+
+
+def f1_step_digest(init, est_path, out):
+    """F1: the one-process f32 reference step 1 of (b), from ``init`` on
+    rank 0's inputs of step 1, as tp_step_parity takes it; the digest of
+    the state it leaves and the allocations the card refused meanwhile."""
+    from weather_unet_tpu_torch._device import refused_allocations
     from weather_unet_tpu_torch.core.rng import fold_seed
     from weather_unet_tpu_torch.train import checkpoint as ckpt
     from weather_unet_tpu_torch.train.gan import (
@@ -4533,16 +4599,46 @@ def tp_step_parity(tmp, est_path, out, rec):
 
     cfg = GanConfig(input_size=TP_SIZE, batch_size=TP_BATCH, num_epoch=1)
     gen, disc, state = build_gan_state(cfg, 0, "cuda", use_pallas=True)
-    _, _, ranks = build_gan_state(cfg, 0, "cuda", use_pallas=True)
-    init = os.path.join(tmp, "tp_init.pt")
-    with open(init, "wb") as f:
-        f.write(ckpt.serialize(ckpt._to_host(ckpt.gan_tree(state, 0))))
-    est = estimators(est_path, torch.float32, "k4", {})
-    step = make_gan_step(gen, disc, est, cfg)
-    g = torch.Generator(device="cuda")
-    steps = []
+    ckpt.restore_checkpoint(init, state)
+    step = make_gan_step(gen, disc, estimators(
+        est_path, torch.float32, "k4", {}), cfg)
+    x, c_d, r, c_r = (t.cuda() for t in torch.load(
+        os.path.join(out, "rank0_in1.pt"), weights_only=True))
+    g = torch.Generator(device="cuda").manual_seed(fold_seed(1, 1))
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True       # as the ranks run
+    refused = refused_allocations()
+    st, _ = step(state, x, c_d, r, c_r, g, do_g=True)
+    torch.cuda.synchronize()
+    torch.backends.cudnn.deterministic = deterministic
+    tree = ckpt.serialize(ckpt._to_host(ckpt.gan_tree(st, 0)))
+    return {"digest": hashlib.sha256(tree).hexdigest()[:16],
+            "refused_allocations": refused_allocations() - refused}
+
+
+def gan_step_parity(what, cfg, est, n_steps, init, out, case):
+    """Each f32 step k (1..n_steps) of split ranks against the one-process
+    step from the state they took it from, at phase parallel (b)'s bars
+    with the float32 floor the larger of two: the step with its input
+    moved by one rounding (float32_floor), and the step with every weight
+    moved by one rounding, which re-rounds every conv's output as the
+    split's partial sums do.  ``case(k)`` gives step k's label, start
+    state (None: ``init`` at k = 1, else rank 0's after step k - 1), the
+    one-process step's inputs and the ranks' snapshot.  No allocation may
+    be refused during the reference steps (F1).  Returns the steps'
+    records and the allocations refused."""
+    from weather_unet_tpu_torch._device import refused_allocations
+    from weather_unet_tpu_torch.core.rng import fold_seed
+    from weather_unet_tpu_torch.train import checkpoint as ckpt
+    from weather_unet_tpu_torch.train.gan import (
+        build_gan_state, make_gan_step)
+
+    gen, disc, state = build_gan_state(cfg, 0, "cuda", use_pallas=True)
+    step = make_gan_step(gen, disc, est, cfg)
+    g = torch.Generator(device="cuda")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True       # as the ranks run
+    refused = refused_allocations()
 
     def one_step(start, k, inputs, scale=1.0, weight_scale=1.0):
         x, c_d, r, c_r = (t.cuda() for t in inputs)
@@ -4556,32 +4652,12 @@ def tp_step_parity(tmp, est_path, out, rec):
         st, m = step(state, x * scale, c_d, r, c_r, g, do_g=True)
         return gan_snapshot(st, m)
 
-    for k in range(1, TP_STEPS + 2):
-        last = k == TP_STEPS + 1
-        inputs = torch.load(os.path.join(out, f"rank0_in{min(k, TP_STEPS)}"
-                                         ".pt"), weights_only=True)
-        if last:                                     # (c)
-            start = os.path.join(out, "rank0.pt")
-            with open(start, "rb") as f:
-                saved = f.read()
-            ckpt.restore_checkpoint(start, ranks)
-            rec["c_bit_equal_on_load"] = ckpt.serialize(ckpt._to_host(
-                ckpt.gan_tree(ranks, 0))) == saved
-            if not rec["c_bit_equal_on_load"]:
-                raise AssertionError("tensor_parallel (c): the TP=2 "
-                                     "checkpoint does not load bit-equal")
-            g.manual_seed(fold_seed(1, k))
-            x, c_d, r, c_r = (t.cuda() for t in inputs)
-            ranks_step = make_gan_step(*(ranks.gen.module, ranks.disc.module),
-                                       est, cfg)
-            _, m = ranks_step(ranks, x, c_d, r, c_r, g, do_g=True)
-            got = gan_snapshot(ranks, m)
-        else:
+    steps = []
+    for k in range(1, n_steps + 1):
+        label, start, inputs, got = case(k)
+        if start is None:
             start = init if k == 1 else os.path.join(
                 out, f"rank0_s{k - 1}.pt")
-            ckpt.restore_checkpoint(os.path.join(out, f"rank0_s{k}.pt"),
-                                    ranks)
-            got = gan_snapshot(ranks, rec["b_metrics"][k - 1])
         want = one_step(start, k, inputs)
         parts = {"input": float32_floor(lambda xs: one_step(start, k, (
             xs.cpu(), *inputs[1:])), inputs[0].cuda(), want)}
@@ -4591,50 +4667,107 @@ def tp_step_parity(tmp, est_path, out, rec):
                             for key in MOMENT_KEYS}
         floor = {key: max(f[key] for f in parts.values())
                  for key in MOMENT_KEYS}
+        no_refusal(what, refused)
         steps.append(gan_states_agree(
             got, want, cfg.lr * np.sqrt(k), GAN_TOL,
-            f"tensor_parallel {'(c) resumed' if last else '(b)'} step {k} "
-            f"against the one-process step", floor))
+            f"{label} step {k} against the one-process step", floor))
         steps[-1]["float32_floors"] = parts
     torch.backends.cudnn.deterministic = deterministic
-    rec["b_parity"], rec["c_parity"] = steps[:-1], steps[-1]
-    del gen, disc, state, ranks, step
+    del gen, disc, state, step
     free_cuda()
+    return steps, refused_allocations() - refused
 
 
-# tp_step_parity in a process of its own: in a whole run of the script
-# the one-process float32 steps, taken in this process after its
-# earlier phases and beside starting ranks, moved D's moments 7.5x their
-# float32 floor from the split ranks (whose bytes were the same in three
-# runs), while the same steps in a fresh process met their bars
-TP_PARITY_CHILD = ("import json, sys, torch\n"
-                   "sys.path.insert(0, sys.argv[1])\n"
-                   "import chip_smoke as cs\n"
-                   "torch.backends.cudnn.allow_tf32 = False\n"
-                   "torch.backends.cuda.matmul.allow_tf32 = False\n"
-                   "with open(sys.argv[5]) as f:\n"
-                   "    rec = json.load(f)\n"
-                   "cs.tp_step_parity(*sys.argv[2:5], rec)\n"
-                   "with open(sys.argv[5], 'w') as f:\n"
-                   "    json.dump(rec, f)\n")
+def tp_step_parity(tmp, est_path, out, rec):
+    """(b) each f32 step k of the split ranks against the one-process step
+    (gan_step_parity) on rank 0's inputs of step k and the trainer's
+    dropout seed of step k; (c) the TP checkpoint loaded without tensor
+    parallelism: bit-equal, and one more step at the same bars."""
+    from weather_unet_tpu_torch.core.rng import fold_seed
+    from weather_unet_tpu_torch.train import checkpoint as ckpt
+    from weather_unet_tpu_torch.train.gan import (
+        GanConfig, build_gan_state, make_gan_step)
+
+    cfg = GanConfig(input_size=TP_SIZE, batch_size=TP_BATCH, num_epoch=1)
+    _, _, state = build_gan_state(cfg, 0, "cuda", use_pallas=True)
+    _, _, ranks = build_gan_state(cfg, 0, "cuda", use_pallas=True)
+    init = os.path.join(tmp, "tp_init.pt")
+    with open(init, "wb") as f:
+        f.write(ckpt.serialize(ckpt._to_host(ckpt.gan_tree(state, 0))))
+    del state
+    est = estimators(est_path, torch.float32, "k4", {})
+
+    def case(k):
+        inputs = torch.load(os.path.join(out, f"rank0_in{min(k, TP_STEPS)}"
+                                         ".pt"), weights_only=True)
+        if k <= TP_STEPS:
+            ckpt.restore_checkpoint(os.path.join(out, f"rank0_s{k}.pt"),
+                                    ranks)
+            return ("tensor_parallel (b)", None, inputs,
+                    gan_snapshot(ranks, rec["b_metrics"][k - 1]))
+        start = os.path.join(out, "rank0.pt")                  # (c)
+        with open(start, "rb") as f:
+            saved = f.read()
+        ckpt.restore_checkpoint(start, ranks)
+        rec["c_bit_equal_on_load"] = ckpt.serialize(ckpt._to_host(
+            ckpt.gan_tree(ranks, 0))) == saved
+        if not rec["c_bit_equal_on_load"]:
+            raise AssertionError("tensor_parallel (c): the TP=2 "
+                                 "checkpoint does not load bit-equal")
+        g = torch.Generator(device="cuda").manual_seed(fold_seed(1, k))
+        x, c_d, r, c_r = (t.cuda() for t in inputs)
+        ranks_step = make_gan_step(ranks.gen.module, ranks.disc.module,
+                                   est, cfg)
+        _, m = ranks_step(ranks, x, c_d, r, c_r, g, do_g=True)
+        return ("tensor_parallel (c) resumed", start, inputs,
+                gan_snapshot(ranks, m))
+
+    steps, rec["b_refused_allocations_in_reference"] = gan_step_parity(
+        "tensor_parallel (b)", cfg, est, TP_STEPS + 1, init, out, case)
+    rec["b_parity"], rec["c_parity"] = steps[:-1], steps[-1]
+    del ranks, est
+    free_cuda()
+    rec["f1_fresh_process"] = f1_step_digest(init, est_path, out)
 
 
-def tp_step_parity_child(tmp, est_path, out, rec):
-    """tp_step_parity in a child process; its records join ``rec``."""
-    path = os.path.join(tmp, "tp_parity.json")
+# A parity function of this script in a process of its own: argv root,
+# the function's name, the record's path, then the function's arguments.
+# In a whole run of the script the one-process float32 steps, taken in
+# this process after its earlier phases and beside starting ranks, moved
+# D's moments 7.5x their float32 floor from the split ranks (whose bytes
+# were the same in three runs), while the same steps in a fresh process
+# met their bars
+PARITY_CHILD = ("import json, sys, torch\n"
+                "sys.path.insert(0, sys.argv[1])\n"
+                "import chip_smoke as cs\n"
+                "torch.backends.cudnn.allow_tf32 = False\n"
+                "torch.backends.cuda.matmul.allow_tf32 = False\n"
+                "with open(sys.argv[3]) as f:\n"
+                "    rec = json.load(f)\n"
+                "getattr(cs, sys.argv[2])(*sys.argv[4:], rec=rec)\n"
+                "with open(sys.argv[3], 'w') as f:\n"
+                "    json.dump(rec, f)\n")
+
+
+def parity_child(fn, args, tmp, rec, keys):
+    """``fn(*args, rec=...)`` of this script in a child process, given
+    ``rec``'s b_metrics; its records under ``keys`` join ``rec``."""
+    path = os.path.join(tmp, f"{fn}.json")
     with open(path, "w") as f:
         json.dump({"b_metrics": rec["b_metrics"]}, f)
     root = os.path.dirname(os.path.abspath(__file__))
+    free_cuda()
+    rec["b_free_mib_before_parity"] = (torch.cuda.mem_get_info()[0]
+                                       / 2 ** 20)
     res = subprocess.run(
-        [sys.executable, "-c", TP_PARITY_CHILD, root, tmp, est_path, out,
-         path], env=dp_env(), capture_output=True, text=True,
-        timeout=DP_TIMEOUT)
+        [sys.executable, "-c", PARITY_CHILD, root, fn, path, *args],
+        env=dp_env(), capture_output=True, text=True, timeout=DP_TIMEOUT)
     if res.returncode != 0:
-        raise AssertionError(f"tensor_parallel parity (rc {res.returncode})"
-                             f": {res.stderr[-3000:]}")
+        raise AssertionError(f"{fn} (rc {res.returncode}): "
+                             f"{res.stderr[-3000:]}")
     with open(path) as f:
         got = json.load(f)
-    for key in ("b_parity", "c_parity", "c_bit_equal_on_load"):
+    for key in keys:
         rec[key] = got[key]
 
 
@@ -4674,16 +4807,29 @@ def phase_tensor_parallel(cunet_path, est_path, counters, launch_totals,
                 "--dropout", "0.3", "--tensor_parallel", "2", "--dump_inputs",
                 "--dump_activations", "--deterministic",
                 "--save_dir", os.path.join(tmp, "cp_d")]
+        # (b) alone on the card: ranks started beside others can find no
+        # room for a cuDNN workspace and run another engine (F1), which
+        # their refused-allocation counts would show
         t0 = time.perf_counter()
-        b, d = dp_concurrently(
-            lambda: dp_run(2, cli("b", "f32"), os.path.join(logs, "b"),
-                           backend="gloo"),
-            lambda: dp_run(4, four, os.path.join(logs, "d"),
-                           backend="gloo"))
-        rec["b_d_seconds"] = time.perf_counter() - t0
+        with contextlib.chdir(tmp):             # the root is relative
+            b = dp_run(2, cli("b", "f32"), os.path.join(logs, "b"),
+                       backend="gloo")
+        rec["b_seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        d = dp_run(4, four, os.path.join(logs, "d"), backend="gloo")
+        rec["d_seconds"] = time.perf_counter() - t0
+        rec["b_refused_allocations"] = [r["refused_allocations"] for r in b]
+        if any(rec["b_refused_allocations"]):
+            raise AssertionError(f"tensor_parallel (b): refused allocations "
+                                 f"{rec['b_refused_allocations']} (F1)")
         out_b = os.path.join(tmp, "b")
+        rows = [torch.load(os.path.join(out_b, f"rank0_in{k}.pt"),
+                           weights_only=True)[0] for k in range(
+                               1, TP_STEPS + 1)]
         rec["b"] = {"ranks_byte_equal": dp_bytes(out_b, 0) == dp_bytes(
-            out_b, 1), "launches_a_step": [
+            out_b, 1), "rows_digest": hashlib.sha256(b"".join(
+                r.contiguous().numpy().tobytes() for r in rows)).hexdigest(
+                )[:16], "launches_a_step": [
             {k: v / TP_STEPS for k, v in r["launches"].items()} for r in b],
             "model_group_sums": [r["tp_sums"] for r in b]}
         rec["b_metrics"] = b[0]["metrics"]
@@ -4721,34 +4867,424 @@ def phase_tensor_parallel(cunet_path, est_path, counters, launch_totals,
         if not all(v for k, v in rec["d"].items() if k != "launches"):
             raise AssertionError(f"tensor_parallel (d): {rec['d']}")
         t0 = time.perf_counter()
-        tp_step_parity_child(tmp, est_path, out_b, rec)
+        parity_child("tp_step_parity", (tmp, est_path, out_b), tmp, rec,
+                     ("b_parity", "c_parity", "c_bit_equal_on_load",
+                      "b_refused_allocations_in_reference",
+                      "f1_fresh_process"))
         rec["b_c_parity_seconds"] = time.perf_counter() - t0
-        # the bf16 timing, alone on the card: ranks started beside the
-        # parity steps moved this process's float32 steps past their bars
-        # (in a whole run of the script), though the ranks' own bytes
-        # do not move
+        # F1: the reference step 1 again in this process, after every
+        # earlier phase, bit-equal to the fresh process's unless the card
+        # refused an allocation (then another cuDNN engine ran)
+        free_cuda()
+        rec["f1_this_process"] = f1_step_digest(
+            os.path.join(tmp, "tp_init.pt"), est_path, out_b)
+        here, fresh = rec["f1_this_process"], rec["f1_fresh_process"]
+        if (here["digest"] != fresh["digest"]
+                and not (here["refused_allocations"]
+                         or fresh["refused_allocations"])):
+            raise AssertionError(f"F1: the f32 reference step differs "
+                                 f"between processes with no allocation "
+                                 f"refused: {here} != {fresh}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec.pop("b_metrics", None)
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+
+
+# ------------------------------------------------------------------ spatial
+SP_SIZE, SP_BATCH = 256, 16       # (a): the serving forward's shape
+SP_UNEVEN = 224                   # (a) at degree 4: rows 48/64/48/64
+SP_GAN_SIZE, SP_GAN_BATCH, SP_STEPS = 224, 8, 3   # (b): the est trainer's
+# K1's split form and K2's row window at shard 0 of a 256x256, B=16
+# forward at degree 2 (rows 0-127): the decoder's AdaIN and upsample
+# inputs, once each a forward (the kernels line times these)
+SPLIT_SITES = {"adain3": (16, 512, 16, 32), "adain2": (16, 256, 32, 64),
+               "adain1": (16, 128, 64, 128)}
+SPLIT_NAMES = ("adain_split", "upsample_rows")
+
+
+def split_counts(k1, k2, zero=False):
+    """The split forms' launch counts (K1's two launches, K2's row
+    window); with ``zero`` set them to 0 first."""
+    attrs = ((k1, "stats_launches"), (k1, "apply_launches"),
+             (k2, "rows_launches"))
+    if zero:
+        for m, a in attrs:
+            setattr(m, a, 0)
+    return {a: getattr(m, a) for m, a in attrs}
+
+
+def shard_shapes():
+    """Every shard's decoder AdaIN / upsample input (b, c, h, w) on the
+    spatial paths, with its window (n_in, start): phase (a)'s 256² at
+    degrees 2 and 4 and 224² at degree 4, (b)'s 224² at degree 2."""
+    from weather_unet_tpu_torch.parallel.mesh import row_cut
+
+    out = []
+    for size, n, b in ((SP_SIZE, 2, SP_BATCH), (SP_SIZE, 4, SP_BATCH),
+                       (SP_UNEVEN, 4, SP_BATCH),
+                       (SP_GAN_SIZE, 2, SP_GAN_BATCH)):
+        for f, c in ((8, 512), (4, 256), (2, 128)):
+            for start, rows in row_cut(size, n):
+                shape = (b, c, rows // f, size // f)
+                out.append((f"{size}/{n} rows {start // f}+{rows // f}",
+                            shape, (size // f, start // f)))
+    return out
+
+
+def stats_errs(stats, ref):
+    """K1's split statistics against their plain version, each channel at
+    its own scale: the mean's largest error over max(1, max |mean|), and
+    M2's largest error relative to its own plane's M2."""
+    mean, ref_mean = stats[..., 0], ref[..., 0]
+    m2, ref_m2 = stats[..., 1], ref[..., 1]
+    return (max_err(mean, ref_mean) / max(1.0, float(ref_mean.abs().max())),
+            float(((m2 - ref_m2).abs() / ref_m2.abs().clamp_min(
+                torch.finfo(torch.float32).tiny)).max()))
+
+
+def window_grid(slab, n_in, start):
+    """``F.grid_sample``'s grid (align_corners=True) for the output rows
+    ``[2 start, 2 (start + h))`` of an image of ``n_in`` rows from
+    ``slab`` (B, C, h + 2, W), its rows ``[start - 1, start + h + 1)``:
+    each output row's source row on the whole image's 2x align-corners
+    grid, offset to the slab, and each output column's on the row's."""
+    b, _, hs, w = slab.shape
+    o = np.arange(2 * start, 2 * (start + hs - 2), dtype=np.float64)
+    gy = 2 * (o * (n_in - 1) / (2 * n_in - 1) - (start - 1)) / (hs - 1) - 1
+    gx = 2 * np.arange(2 * w, dtype=np.float64) / (2 * w - 1) - 1
+    grid = np.stack(np.broadcast_arrays(gx[None, :], gy[:, None]), -1)
+    return torch.from_numpy(grid.astype(np.float32)).to(
+        slab.device, slab.dtype).expand(b, -1, -1, -1).contiguous()
+
+
+def split_records(k1, k2, dt, site, shape, window, timed, failures):
+    """K1's split form and K2's row window at one shard shape against their
+    plain versions (ops/norm.py::plane_stats, each channel at its own
+    scale; adain_from_stats with the merge of the kernel's statistics and
+    with the merge of the plain ones; ops/resize.py::upsample_x2_rows);
+    with ``timed`` their ms, plain ms, bound and library ms (K2's:
+    ``F.grid_sample`` on the slab with the window's grid)."""
+    import torch.nn.functional as F
+
+    from weather_unet_tpu_torch.ops.norm import (
+        adain_from_stats, merge_plane_stats, plane_stats)
+    from weather_unet_tpu_torch.ops.resize import upsample_x2_rows
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 61)
+    b, c, h, w = shape
+    x = (torch.randn(b, c, h, w, generator=gen, device="cuda") * 2
+         + 0.5).to(dt)
+    y = torch.randn(b, 4 * c, generator=gen, device="cuda").to(dt)
+    stats = k1.adain_stats_kernel(x)
+    ref_stats = plane_stats(x)
+    # the merge of this shard with a second shard of the same values
+    merged = merge_plane_stats(torch.stack([stats, stats]), [h * w] * 2)
+    plain_merged = merge_plane_stats(torch.stack([ref_stats, ref_stats]),
+                                     [h * w] * 2)
+    out = k1.adain_apply_kernel(x, y, merged, 1e-5)
+    ref = adain_from_stats(x, y, merged, 1e-5)
+    plain = adain_from_stats(x, y, plain_merged, 1e-5)
+    name = f"adain_split {site} {DT_NAME[dt]}"
+    mean_err, m2_err = stats_errs(stats, ref_stats)
+    for what, e in (("mean", mean_err), ("M2", m2_err)):
+        if not e <= TOL_REL[torch.float32]:
+            failures.append(f"{name} stats: {what} relative err {e} > "
+                            f"tol {TOL_REL[torch.float32]}")
+    err = max_err(out, ref)
+    tol = check(name, err, ref, dt, failures)
+    plain_err = max_err(out, plain)
+    check(name + " on plain statistics", plain_err, plain, dt, failures)
+    a = {"phase": "spatial_kernel", "kernel": "adain_split", "site": site,
+         "dtype": DT_NAME[dt], "shape": list(shape), "max_abs_err": max(
+             err, plain_err), "apply_max_abs_err": err,
+         "plain_stats_max_abs_err": plain_err,
+         "stats_mean_rel_err": mean_err, "stats_m2_rel_err": m2_err,
+         "tol": tol}
+    n_in, start = window
+    slab = torch.randn(b, c, h + 2, w, generator=gen, device="cuda").to(dt)
+    if start == 0:
+        slab[:, :, 0] = 0
+    if start + h == n_in:
+        slab[:, :, -1] = 0
+    up = k2.upsample_rows_kernel(slab, n_in, start)
+    uref = upsample_x2_rows(slab, n_in, start)
+    uerr = max_err(up, uref)
+    utol = check(f"upsample_rows {site} {DT_NAME[dt]}", uerr, uref, dt,
+                 failures)
+    u = {"phase": "spatial_kernel", "kernel": "upsample_rows", "site": site,
+         "dtype": DT_NAME[dt], "shape": list(slab.shape), "window": window,
+         "plan": k2.plan_upsample(b, c, h, w, dt, window=window)["name"],
+         "max_abs_err": uerr, "tol": utol}
+    if timed:
+        def pair():
+            k1.adain_apply_kernel(x, y, merge_plane_stats(torch.stack(
+                [k1.adain_stats_kernel(x)] * 2), [h * w] * 2), 1e-5)
+
+        def plain_pair():
+            adain_from_stats(x, y, merge_plane_stats(torch.stack(
+                [plane_stats(x)] * 2), [h * w] * 2), 1e-5)
+
+        a["ms"] = time_ms(pair)
+        a["device_ms"] = a["launch_only_ms"] = device_ms(pair)
+        a["cold_l2_ms"] = None
+        a["plain_ms"] = time_ms(plain_pair)
+        # stats: x read, (mean, M2) written; modulate: x, y_proj and the
+        # merged statistics read, out written
+        a["bound_ms"], a["bound_by"] = bound(
+            2 * nbytes(x) + 3 * nbytes(stats) + nbytes(y, out),
+            6.0 * x.numel(), dt)
+        a["library_ms"] = None
+        u["ms"] = time_ms(lambda: k2.upsample_rows_kernel(slab, n_in, start))
+        u["device_ms"] = u["launch_only_ms"] = device_ms(
+            lambda: k2.upsample_rows_kernel(slab, n_in, start))
+        u["cold_l2_ms"] = None
+        u["plain_ms"] = time_ms(lambda: upsample_x2_rows(slab, n_in, start))
+        u["bound_ms"], u["bound_by"] = bound(nbytes(slab, up),
+                                             8.0 * up.numel(), dt)
+        grid = window_grid(slab, n_in, start)        # built once, untimed
+
+        def library():
+            return F.grid_sample(slab, grid, mode="bilinear",
+                                 align_corners=True)
+
+        # grid_sample takes its grid in the slab's dtype: in float32 it
+        # computes the window to the coordinates' rounding; a bfloat16 grid
+        # misplaces the taps, so no call computes the bfloat16 window
+        try:
+            u["library_max_abs_err"] = max_err(library(), uref)
+        except RuntimeError as e:        # no grid_sample kernel for dt
+            if "BFloat16" not in str(e):
+                raise
+            u["library_note"] = str(e)[:200]
+        u["library_ms"] = (time_ms(library) if dt == torch.float32
+                           else None)
+    return a, u
+
+
+def sp_kernels(k1, k2, rec):
+    """K1's split form and K2's row window at every shard shape of the
+    phase in float32 and bfloat16 against their plain versions; the three
+    SPLIT_SITES timed.  Returns the summary the kernels line reads."""
+    failures, summary = [], {n: {} for n in SPLIT_NAMES}
+    timed_shapes = {shape: site for site, shape in SPLIT_SITES.items()}
+    worst = {}
+    for dt in DTYPES:
+        for site, shape, window in shard_shapes():
+            tsite = timed_shapes.get(shape) if window[1] == 0 else None
+            a, u = split_records(k1, k2, dt, site, shape, window,
+                                 tsite is not None, failures)
+            for r in (a, u):
+                key = (r["kernel"], DT_NAME[dt])
+                worst[key] = max(worst.get(key, 0.0), r["max_abs_err"])
+                if tsite is not None:
+                    emit(r)
+                    summary[r["kernel"]].setdefault(dt, {})[tsite] = r
+    rec["kernel_max_abs_err"] = {f"{k} {d}": v for (k, d), v in
+                                 worst.items()}
+    rec["kernel_shapes_checked"] = len(shard_shapes())
+    if failures:
+        raise AssertionError("spatial kernels: " + "; ".join(failures))
+    return summary
+
+
+def sp_serving(cunet_path, counters, split_totals, rec):
+    """(a) the use_pallas cUNet split by height over cuda:0 named 2 and 4
+    times (ThreadShards) at 256², B=16, float32 (TF32 off) and bfloat16,
+    and 224² at degree 4 (rows 48/64/48/64) in float32."""
+    from weather_unet_tpu_torch.cli.common import load_transfer
+    from weather_unet_tpu_torch.parallel import spatial
+    from weather_unet_tpu_torch.parallel.mesh import (
+        make_mesh, put_host_local)
+
+    k1, k2 = counters["adain"], counters["upsample"]
+    rng = np.random.default_rng(SEED + 60)
+    c = torch.from_numpy(np.eye(5, dtype=np.float32)[rng.integers(
+        0, 5, SP_BATCH)])
+    out = {}
+    for size, n, dts in ((SP_SIZE, 2, DTYPES), (SP_SIZE, 4, DTYPES),
+                         (SP_UNEVEN, 4, (torch.float32,))):
+        x = torch.from_numpy(rng.uniform(-1, 1, (SP_BATCH, size, size, 3))
+                             .astype(np.float32))
+        f32 = None
+        for dt in dts:
+            model = load_transfer(cunet_path, dtype=dt, use_pallas=True,
+                                  device="cuda")
+            with torch.no_grad():
+                ref = model(x.permute(0, 3, 1, 2).cuda().to(dt),
+                            c.cuda().to(dt)).permute(0, 2, 3, 1)
+            plan = make_mesh(["cuda:0"] * n, model=n)
+            sm = spatial.SpatialModel(model, plan, size)
+            parts = put_host_local(plan.spatial(input_size=size), x.to(dt))
+            cd = c.to(dt)
+            ex0 = sm.groups[0].exchanges
+            for m in counters.values():
+                m.launches = 0
+            split_counts(k1, k2, zero=True)
+            outs = sm(parts, cd)
+            torch.cuda.synchronize()
+            launches = {k: m.launches for k, m in counters.items()}
+            split = split_counts(k1, k2)
+            split_totals["adain_split"] += (split["stats_launches"]
+                                            + split["apply_launches"])
+            split_totals["upsample_rows"] += split["rows_launches"]
+            got = sm.join(outs)
+            r = {"rows": [p.shape[1] for p in parts],
+                 "split_launches": split, "launches": launches,
+                 "exchanges_a_forward": sm.groups[0].exchanges - ex0,
+                 "ms_split": wall_ms(lambda: sm(parts, cd)),
+                 "ms_unsharded": wall_ms(lambda: model(
+                     x.permute(0, 3, 1, 2).cuda().to(dt), c.cuda().to(dt)))}
+            want = {k: 3 * n for k in split}
+            if dt == torch.float32:
+                f32 = got.float()
+                r["mae_against_unsharded"] = float(
+                    (got.float() - ref.float()).abs().mean())
+                ok = r["mae_against_unsharded"] <= 1e-5
+            else:
+                r["mae_against_own_float32"] = float(
+                    (got.float() - f32).abs().mean())
+                ok = r["mae_against_own_float32"] <= 1e-3
+            key = f"{size}_degree{n}_{DT_NAME[dt]}"
+            out[key] = r
+            if not (ok and split == want and launches["adain"] == 0
+                    and launches["upsample"] == 0
+                    and r["exchanges_a_forward"] == 20):
+                raise AssertionError(f"spatial (a) {key}: {r}")
+            del model, sm, ref, got, outs, parts
+            free_cuda()
+    rec["a_serving"] = out
+
+
+def sp_gan_ranks(tmp, est_path, init, name, dtype, timing=False):
+    out = os.path.join(tmp, name)
+    argv = ["--out", out, "--mode", "gan", "--spatial", "2", "--size",
+            str(SP_GAN_SIZE), "--batch", str(SP_GAN_BATCH), "--steps",
+            str(SP_STEPS), "--dropout", "0.3", "--estimator_path", est_path,
+            "--route", "k4", "--dtype", dtype, "--init", init,
+            "--deterministic"]
+    argv += ["--timing"] if timing else ["--snapshots", "--dump_inputs"]
+    return out, dp_run(2, argv, os.path.join(tmp, "logs", name),
+                       backend="gloo")
+
+
+def sp_step_parity(tmp, est_path, out, init, rec):
+    """(b) each f32 step k of the spatial ranks against the one-process
+    step (gan_step_parity) from ``init`` or rank 0's state after step
+    k - 1, on the ranks' rows of step k joined and the dropout seed of
+    step k."""
+    from weather_unet_tpu_torch.train import checkpoint as ckpt
+    from weather_unet_tpu_torch.train.gan import GanConfig, build_gan_state
+
+    cfg = GanConfig(input_size=SP_GAN_SIZE, batch_size=SP_GAN_BATCH,
+                    num_epoch=1)
+    _, _, ranks = build_gan_state(cfg, 0, "cuda", use_pallas=True)
+
+    def case(k):
+        rows = [torch.load(os.path.join(out, f"rank{i}_in{k}.pt"),
+                           weights_only=True) for i in range(2)]
+        inputs = (torch.cat([rows[0][0], rows[1][0]], dim=2), rows[0][1],
+                  torch.cat([rows[0][2], rows[1][2]], dim=2), rows[0][3])
+        ckpt.restore_checkpoint(os.path.join(out, f"rank0_s{k}.pt"), ranks)
+        return ("spatial (b)", None, inputs,
+                gan_snapshot(ranks, rec["b_metrics"][k - 1]))
+
+    rec["b_parity"], rec["b_refused_allocations_in_reference"] = (
+        gan_step_parity("spatial (b)", cfg, estimators(
+            est_path, torch.float32, "k4", {}), SP_STEPS, init, out, case))
+    del ranks
+    free_cuda()
+
+
+def phase_spatial(cunet_path, est_path, counters, launch_totals,
+                  split_totals, smi):
+    """Phase spatial (module docstring, 11d).  Returns the split forms'
+    summary for the kernels line."""
+    from weather_unet_tpu_torch.train import checkpoint as ckpt
+    from weather_unet_tpu_torch.train.gan import GanConfig, build_gan_state
+
+    t_phase = time.perf_counter()
+    rec = {"phase": "spatial", "card": smi}
+    free_cuda()
+    k1, k2 = counters["adain"], counters["upsample"]
+    t0 = time.perf_counter()
+    summary = sp_kernels(k1, k2, rec)
+    rec["kernels_seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sp_serving(cunet_path, counters, split_totals, rec)
+    rec["a_seconds"] = time.perf_counter() - t0
+    emit({**rec, "phase": "spatial_serving"})
+    tmp = tempfile.mkdtemp(prefix="wut_sp_")
+    try:
+        cfg = GanConfig(input_size=SP_GAN_SIZE, batch_size=SP_GAN_BATCH,
+                        num_epoch=1)
+        _, _, state = build_gan_state(cfg, 0, "cuda", use_pallas=True)
+        init = os.path.join(tmp, "sp_init.pt")
+        with open(init, "wb") as f:
+            f.write(ckpt.serialize(ckpt._to_host(ckpt.gan_tree(state, 0))))
+        del state
+        free_cuda()
         t0 = time.perf_counter()
-        bf = dp_run(2, cli("bf16", "bf16", timing=True),
-                    os.path.join(logs, "bf16"), backend="gloo")
+        out, b = sp_gan_ranks(tmp, est_path, init, "b", "f32")
+        rec["b_seconds"] = time.perf_counter() - t0
+        want = {"adain_stats": 6, "adain_apply": 6, "upsample_rows": 6}
+        rec["b"] = {
+            "ranks_byte_equal": dp_bytes(out, 0) == dp_bytes(out, 1),
+            "launches_a_step": [{k: v / SP_STEPS for k, v in
+                                 {**r["launches"], **r["split_launches"]}
+                                 .items()} for r in b],
+            "exchanges_a_step": [r["tp_sums"] for r in b],
+            "refused_allocations": [r["refused_allocations"] for r in b]}
+        rec["b_metrics"] = b[0]["metrics"]
+        for r in b:
+            launch_totals["bottleneck"] += r["launches"]["bottleneck"]
+            split_totals["adain_split"] += (r["split_launches"]["adain_stats"]
+                                            + r["split_launches"][
+                                                "adain_apply"])
+            split_totals["upsample_rows"] += r["split_launches"][
+                "upsample_rows"]
+            per = {k: v / SP_STEPS for k, v in r["split_launches"].items()}
+            if (per != want or r["launches"]["bottleneck"] != 58 * SP_STEPS
+                    or r["launches"]["adain"] or r["launches"]["upsample"]
+                    or r["refused_allocations"]):
+                raise AssertionError(f"spatial (b) launches {r}")
+        if not rec["b"]["ranks_byte_equal"] or len(b[0]["metrics"]) != (
+                SP_STEPS):
+            raise AssertionError(f"spatial (b): {rec['b']}")
+        t0 = time.perf_counter()
+        parity_child("sp_step_parity", (tmp, est_path, out, init), tmp, rec,
+                     ("b_parity", "b_refused_allocations_in_reference"))
+        rec["b_parity_seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _, bf = sp_gan_ranks(tmp, est_path, init, "bf16", "bf16",
+                             timing=True)
         rec["b_bf16"] = {
             f"rank{r['rank']}": {
                 "step_ms": float(np.median(r["step_ms"][1:])),
-                "model_group_sum_ms": float(np.median(r["tp_sum_ms"][1:])),
-                "model_group_sums_a_step": r["tp_sums"],
-                "step_ms_all": r["step_ms"], "sum_ms_all": r["tp_sum_ms"],
+                "exchange_ms": float(np.median(r["tp_sum_ms"][1:])),
+                "exchanges_a_step": r["tp_sums"],
+                "step_ms_all": r["step_ms"],
+                "exchange_ms_all": r["tp_sum_ms"],
+                "split_launches": r["split_launches"],
                 "launches": r["launches"]} for r in bf}
         for r in bf:
-            for k in ("adain", "upsample", "bottleneck"):
-                launch_totals[k] += r["launches"][k]
+            launch_totals["bottleneck"] += r["launches"]["bottleneck"]
+            split_totals["adain_split"] += (r["split_launches"]["adain_stats"]
+                                            + r["split_launches"][
+                                                "adain_apply"])
+            split_totals["upsample_rows"] += r["split_launches"][
+                "upsample_rows"]
             if not all(np.isfinite(v) for m in r["metrics"]
                        for v in m.values()):
-                raise AssertionError(f"tensor_parallel bf16: {r['metrics']}")
+                raise AssertionError(f"spatial bf16: {r['metrics']}")
         rec["b_bf16_seconds"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     rec.pop("b_metrics", None)
     rec["seconds"] = time.perf_counter() - t_phase
     emit(rec)
+    return summary
 
 
 # ----------------------------------------------------------------------- aot
@@ -5911,7 +6447,8 @@ def phase_jax_resume(est_path, counters, launch_totals, smi):
           "seconds": time.perf_counter() - t_phase})
 
 
-def kernels_line(summary, launch_totals, graph_totals):
+def kernels_line(summary, launch_totals, graph_totals, split_summary,
+                 split_totals):
     meta = {
         "adain": ("weather_unet_tpu_torch/csrc/adain.cu",
                   "weather_unet_tpu/kernels/adain_pallas.py:74"),
@@ -5923,9 +6460,11 @@ def kernels_line(summary, launch_totals, graph_totals):
                        "weather_unet_tpu/kernels/bottleneck_pallas.py:92"),
     }
 
+    every = {**summary, **split_summary}
+
     def totals(name, dt, sites):
         """One forward's worth of the kernel's records over ``sites``."""
-        recs = [(summary[name][dt][s], n) for s, n in sites.items()]
+        recs = [(every[name][dt][s], n) for s, n in sites.items()]
 
         def total(key):
             if any(r.get(key) is None for r, _ in recs):
@@ -5962,6 +6501,30 @@ def kernels_line(summary, launch_totals, graph_totals):
                  "gan_sites": GAN_SITES.get(name),
                  "float32": per_dt["float32"]}
         entries.append(entry)
+    split_meta = {
+        "adain_split": ("weather_unet_tpu_torch/csrc/adain.cu",
+                        "weather_unet_tpu/kernels/adain_pallas.py:74",
+                        "wut_adain_stats + wut_adain_apply, the merge "
+                        "between them"),
+        "upsample_rows": ("weather_unet_tpu_torch/csrc/upsample.cu",
+                          "weather_unet_tpu/kernels/upsample_pallas.py:170",
+                          "wut_upsample2x_rows; float32's library_ms is one "
+                          "F.grid_sample (bilinear, align_corners) of the "
+                          "slab on the window's grid, built untimed; its "
+                          "grid takes the slab's dtype, and in bfloat16 "
+                          "misplaces the taps (its spatial_kernel records' "
+                          "library_max_abs_err), so "
+                          "bfloat16 has none")}
+    sites = {k: 1 for k in SPLIT_SITES}
+    for name, (source, replaces, note) in split_meta.items():
+        per_dt = {DT_NAME[dt]: totals(name, dt, sites) for dt in DTYPES}
+        entries.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces,
+                        "launches": split_totals[name],
+                        "graph_replay_launches": None,
+                        **per_dt["bfloat16"], "dtype": "bfloat16",
+                        "sites": sites, "float32": per_dt["float32"],
+                        "note": note})
     emit({"kernels": entries})
 
 
@@ -6005,6 +6568,9 @@ def main():
         phase_surface(counters, launch_totals, smi)
         phase_parallel(path, est_path, counters, launch_totals, smi)
         phase_tensor_parallel(path, est_path, counters, launch_totals, smi)
+        split_totals = {k: 0 for k in SPLIT_NAMES}
+        split_summary = phase_spatial(path, est_path, counters,
+                                      launch_totals, split_totals, smi)
         graph_totals = {k: 0 for k in counters}
         phase_aot(est_path, smi, graph_totals)
     for name, total in launch_totals.items():
@@ -6013,9 +6579,13 @@ def main():
         if graph_totals[name] == 0:
             raise AssertionError(f"{name} kernel never ran in a CUDA-graph "
                                  "replay of phase aot")
+    for name, total in split_totals.items():
+        if total == 0:
+            raise AssertionError(f"{name} never ran on the spatial paths")
     emit({"phase": "total", "seconds": time.perf_counter() - START,
           "cuts": CUTS})
-    kernels_line(summary, launch_totals, graph_totals)
+    kernels_line(summary, launch_totals, graph_totals, split_summary,
+                 split_totals)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

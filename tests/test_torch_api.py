@@ -211,6 +211,7 @@ def test_port_imports_no_jax():
     assert "weather_unet_tpu_torch.api" in out["modules"]
     assert "weather_unet_tpu_torch.cli.serve" in out["modules"]
     assert "weather_unet_tpu_torch.parallel.tp" in out["modules"]
+    assert "weather_unet_tpu_torch.parallel.spatial" in out["modules"]
     assert "weather_unet_tpu_torch.evaluation.transfer" in out["modules"]
     assert "weather_unet_tpu_torch.models.resnet" in out["modules"]
     assert "weather_unet_tpu_torch.kernels.bottleneck" in out["modules"]

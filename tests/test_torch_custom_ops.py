@@ -1,5 +1,7 @@
 """K1, K2 and K3 as ``torch.library`` custom ops (``wut::adain``,
-``wut::upsample2x``, ``wut::upconv``) on the CPU: ``torch.library.opcheck``
+``wut::upsample2x``, ``wut::upconv``, and the split forms
+``wut::adain_stats``, ``wut::adain_apply``, ``wut::upsample2x_rows``) on
+the CPU: ``torch.library.opcheck``
 (schema, fake implementation, autograd registration, tracing with dynamic
 shapes), and ``adain_fused`` / ``upsample2x_fused`` /
 ``upsample2x_conv3x3`` bit-equal, forward and gradients, to the
@@ -111,6 +113,31 @@ def test_opcheck(op):
     else:
         for args in ((x.requires_grad_(),), (x.transpose(2, 3),)):
             torch.library.opcheck(k2.upsample2x_op, args)
+
+
+@pytest.mark.parametrize("op", ["adain_stats", "adain_apply",
+                                "upsample2x_rows"])
+def test_opcheck_split_forms(op):
+    """K1's split-statistics ops and K2's row-window op (spatial
+    partitioning) pass ``opcheck`` too, a strided input included; their
+    gradients recompute through the plain pieces."""
+    x, y = inputs(torch.float32)
+    if op == "adain_stats":
+        for args in ((x.requires_grad_(),), (x[:, :, :, :6],)):
+            torch.library.opcheck(k1.adain_stats_op, args)
+    elif op == "adain_apply":
+        st = torch.stack([x.mean(dim=(2, 3)), x.var(dim=(2, 3)) + 0.5],
+                         dim=-1).detach()
+        for args in ((x.requires_grad_(), y.requires_grad_(),
+                      st.clone().requires_grad_(), 1e-5),
+                     (x[:, :, :, :6], y, st, 1e-3)):
+            torch.library.opcheck(k1.adain_apply_op, args)
+    else:
+        slab = torch.randn(2, 6, 6, 7)          # rows [4, 8) of 12, halo'd
+        for args in ((slab.requires_grad_(), 12, 4),
+                     (slab.transpose(2, 3).transpose(2, 3)[:, :, :, :6],
+                      12, 0)):
+            torch.library.opcheck(k2.upsample2x_rows_op, args)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -76,6 +76,19 @@ def assert_close(out, ref, dtype):
     assert err <= tol, (err, tol)
 
 
+def assert_stats_close(got, ref):
+    """Plane statistics (B, C, 2) = (mean, M2), each channel at its own
+    scale: one tolerance over both would be set by M2, the larger, and
+    pass a wrong mean."""
+    tol = TOL[torch.float32]
+    mean_err = float((got[..., 0] - ref[..., 0]).abs().max())
+    assert mean_err <= tol * max(1.0, float(ref[..., 0].abs().max())), (
+        "mean", mean_err)
+    m2_err = float(((got[..., 1] - ref[..., 1]).abs()
+                    / ref[..., 1].abs().clamp_min(1e-30)).max())
+    assert m2_err <= tol, ("M2", m2_err)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernels_match_plain(cuda, dtype):
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -970,3 +983,163 @@ def test_tensor_parallel_on_one_card_matches_unsharded(cuda, tmp_path):
     assert float((got - ref).abs().mean()) <= 1e-5
     info = doctor.collect(tensor_parallel=2)
     assert info["tensor_parallel"]["cUNet"]["split_pairs"][0] == "dconv_down1"
+
+
+# the decoder's AdaIN and upsample inputs of one shard at 256², B=16 and
+# degree 2 (rows 128 of 256), and of 224² at degree 4 (48 or 64 rows)
+SPLIT_SITES = [(16, 512, 16, 32), (16, 256, 32, 64), (16, 128, 64, 128),
+               (8, 512, 6, 28), (8, 128, 32, 112), (3, 5, 7, 9)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_adain_split_form_matches_plain(cuda, dtype):
+    """K1's split form at the shards' decoder sites and an odd shape, under
+    every plan: the local (mean, M2) against ``ops.norm.plane_stats`` and
+    the modulation with given statistics against
+    ``ops.norm.adain_from_stats`` (float32 statistics: the mean within
+    1e-5 of max(1, max |mean|), each plane's M2 within 1e-5 of itself; the
+    modulated values at the dtype's bar)."""
+    from weather_unet_tpu_torch.ops.norm import adain_from_stats, plane_stats
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for b, c, h, w in SPLIT_SITES:
+        x = (torch.randn(b, c, h, w, generator=g, device="cuda") * 3
+             + 1).to(dtype)
+        y = torch.randn(b, 4 * c, generator=g, device="cuda").to(dtype)
+        stats = plane_stats(x)
+        merged = torch.stack([stats[..., 0], stats[..., 1] / max(
+            h * w - 1, 1) * 1.5 + 0.1], dim=-1)
+        ref = adain_from_stats(x, y, merged, 1e-5)
+        for plan in k1.adain_plans(b, c, h, w, dtype):
+            got = k1.adain_stats_kernel(x, plan)
+            torch.cuda.synchronize()
+            assert_stats_close(got, stats)
+            out = k1.adain_apply_kernel(x, y, merged, 1e-5, plan)
+            torch.cuda.synchronize()
+            assert_close(out, ref, dtype)
+
+
+def test_upsample_row_window_matches_plain(cuda):
+    """K2's row-window form for every shard at the decoder's upsample
+    inputs of 256² at degree 2 and 224² at degree 4, float32 and bfloat16,
+    under the blocks of 2048-32768 outputs and the scalar path: against
+    ``ops.resize.upsample_x2_rows`` and against the rows of
+    ``F.interpolate`` of the whole image."""
+    import torch.nn.functional as F
+
+    from weather_unet_tpu_torch.ops.resize import upsample_x2_rows
+    from weather_unet_tpu_torch.parallel.mesh import row_cut
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for size, n, b in ((256, 2, 4), (224, 4, 2)):
+        for f, c in ((8, 512), (4, 256), (2, 128)):
+            total = size // f
+            for dtype in (torch.float32, torch.bfloat16):
+                whole = torch.randn(b, c, total, total, generator=g,
+                                    device="cuda").to(dtype)
+                full = F.interpolate(whole.float(), scale_factor=2,
+                                     mode="bilinear", align_corners=True)
+                for start0, rows0 in row_cut(size, n):
+                    s, h = start0 // f, rows0 // f
+                    slab = whole.new_zeros((b, c, h + 2, total))
+                    lo, hi = max(s - 1, 0), min(s + h + 1, total)
+                    slab[:, :, lo - s + 1:hi - s + 1] = whole[:, :, lo:hi]
+                    ref = upsample_x2_rows(slab, total, s)
+                    plans = [k2.plan_upsample(b, c, h, total, dtype, opb,
+                                              window=(total, s))
+                             for opb in (2048, 8192, 32768)]
+                    plans.append(k2.plan_upsample(
+                        b, c, h, total, dtype, vec_ok=False,
+                        window=(total, s)))
+                    for plan in plans:
+                        got = k2.upsample_rows_kernel(slab, total, s, plan)
+                        torch.cuda.synchronize()
+                        assert_close(got, ref, dtype)
+                    assert_close(got, full[:, :, 2 * s:2 * (s + h)], dtype)
+
+
+def test_spatial_forward_on_one_card_matches_unsharded(cuda):
+    """The use_pallas cUNet split by height over ``["cuda:0", "cuda:0"]``
+    (two shards in two threads) at 64², float32: within MAE 1e-5 of the
+    unsharded forward; on each shard a forward launches K1's two split
+    launches and K2's row window 3 times each, and no whole-plane K1 or
+    whole-image K2."""
+    from weather_unet_tpu_torch.parallel import spatial
+    from weather_unet_tpu_torch.parallel.mesh import (
+        make_mesh, put_host_local)
+
+    torch.manual_seed(0)
+    model = ConditionalUNet(5, use_pallas=True).cuda().eval()
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.uniform(-1, 1, (4, 64, 64, 3)).astype(
+        np.float32))
+    c = torch.from_numpy(np.eye(5, dtype=np.float32)[[0, 1, 2, 3]])
+    with torch.no_grad():
+        ref = model(x.permute(0, 3, 1, 2).cuda(), c.cuda()).permute(
+            0, 2, 3, 1)
+    plan = make_mesh(["cuda:0", "cuda:0"], model=2)
+    sm = spatial.SpatialModel(model, plan, 64)
+    k1.launches = k2.launches = 0
+    k1.stats_launches = k1.apply_launches = k2.rows_launches = 0
+    got = sm.join(sm(put_host_local(plan.spatial(input_size=64), x), c))
+    torch.cuda.synchronize()
+    assert (k1.stats_launches, k1.apply_launches, k2.rows_launches) == (
+        6, 6, 6)
+    assert (k1.launches, k2.launches) == (0, 0)
+    assert float((got - ref).abs().mean()) <= 1e-5
+
+
+F1_CHILD = r"""
+import hashlib, sys, torch
+from weather_unet_tpu_torch._device import refused_allocations
+from weather_unet_tpu_torch.models import ResNet
+from weather_unet_tpu_torch.cli.common import load_step_estimator
+from weather_unet_tpu_torch.train import checkpoint as ckpt
+from weather_unet_tpu_torch.train.gan import (
+    GanConfig, build_gan_state, make_gan_step)
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.benchmark = False
+est_path = sys.argv[1]
+cfg = GanConfig(input_size=64, batch_size=4)
+gen, disc, state = build_gan_state(cfg, 0, "cuda", use_pallas=True)
+est = load_step_estimator(est_path, device="cuda", route="k4")
+step = make_gan_step(gen, disc, est, cfg)
+g = torch.Generator(device="cuda").manual_seed(1)
+x = torch.rand(4, 3, 64, 64, generator=g, device="cuda") * 2 - 1
+r = torch.rand(4, 3, 64, 64, generator=g, device="cuda") * 2 - 1
+z = torch.zeros(4, dtype=torch.int64, device="cuda")
+g.manual_seed(2)
+st, _ = step(state, x, z, r, z, g, do_g=True)
+torch.cuda.synchronize()
+tree = ckpt.serialize(ckpt._to_host(ckpt.gan_tree(st, 0)))
+print(hashlib.sha256(tree).hexdigest(), refused_allocations())
+"""
+
+
+def test_f32_gan_step_is_reproducible_in_fresh_processes(cuda, tmp_path):
+    """Fault F1: the float32 GAN step (use_pallas G, the K4-routed
+    estimator, dropout 0.3 from a seeded generator, TF32 off, cuDNN
+    deterministic) taken in two fresh processes from the same seeds
+    writes the same state bit for bit, and no workspace allocation was
+    refused in either (a refused cuDNN workspace runs another engine:
+    ``_device.refused_allocations``)."""
+    import os
+    import subprocess
+    import sys
+
+    path = str(tmp_path / "est.pt")
+    torch.save(ResNet((1, 1, 1, 1), 5, generator=torch.Generator()
+                      .manual_seed(3)).state_dict(), path)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    outs = [subprocess.run([sys.executable, "-c", F1_CHILD, path],
+                           capture_output=True, text=True, env=env,
+                           timeout=300) for _ in range(2)]
+    for o in outs:
+        assert o.returncode == 0, o.stderr[-3000:]
+    got = [o.stdout.split()[-2:] for o in outs]
+    assert got[0][1] == got[1][1] == "0", got
+    assert got[0][0] == got[1][0], got

@@ -6,8 +6,9 @@ divisor of the batch, the same refusals with the same messages (the
 multi-process one with two processes of four devices each against JAX's
 eight); the JAX package's guards on tensor parallelism in the trainers
 and the API, a model axis without it (replicas), the trainers' one rank a
-process, and ``MeshPlan.spatial``'s refusal naming ``ROADMAP.md`` item 4c;
-the placement helpers
+process, and ``MeshPlan.spatial``'s guard with JAX's message (spatial
+partitioning itself: ``tests/test_torch_spatial.py``); the placement
+helpers
 over two local CPU devices; the same exports as the JAX package."""
 
 import shutil
@@ -28,7 +29,7 @@ from weather_unet_tpu_torch.parallel.mesh import (
     MeshPlan, batch_sharding, make_mesh, put_host_local, replicate,
     replicated_sharding, shard_batch)
 
-ITEM_4C = "item 4c, 'Spatial partitioning'"
+GUARD = "spatial partitioning degree"
 
 
 @pytest.fixture(autouse=True)
@@ -87,9 +88,10 @@ def test_multi_process_refusal_matches_jax(monkeypatch):
 
 
 def test_model_axis_and_spatial_refuse_naming_item_4b(tmp_path):
-    """Spatial partitioning names ROADMAP.md item 4c (item 4b, tensor
-    parallelism, is ported: tests/test_torch_tensor_parallel.py);
-    ``tensor_parallel`` without a model axis of 2 meets the JAX package's
+    """Spatial partitioning (item 4c, ported) meets JAX's guard with JAX's
+    message and places a 64² input; ``tensor_parallel`` (item 4b,
+    tests/test_torch_tensor_parallel.py) without a model axis of 2 meets
+    the JAX package's
     guard; a model axis without it keeps a replica on each device, as in
     JAX; a trainer given a plan of two devices in one process meets the
     one-rank-a-process refusal."""
@@ -101,8 +103,12 @@ def test_model_axis_and_spatial_refuse_naming_item_4b(tmp_path):
 
     tp = make_mesh(["cpu", "cpu"], model=2)
     assert tp.mesh_shape == {"data": 1, "model": 2}
-    with pytest.raises(NotImplementedError, match=ITEM_4C):
-        tp.spatial(input_size=64)
+    assert tp.spatial(input_size=64).spec == ("data", "model")
+    with pytest.raises(ValueError, match=GUARD) as perr:
+        tp.spatial(input_size=16)
+    with pytest.raises(ValueError) as jerr:
+        jax_make_mesh(jax.devices()[:2], model=2).spatial(input_size=16)
+    assert str(perr.value) == str(jerr.value)
     with pytest.raises(ValueError, match="tensor_parallel requires a "
                                          "MeshPlan with a 'model' axis"):
         WeatherTransfer(ConditionalUNet(5), plan=make_mesh(["cpu"]),

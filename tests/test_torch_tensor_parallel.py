@@ -43,6 +43,7 @@ from tests.test_torch_gan import jax_sds, load_jax_state
 from tests.torch_port_util import (  # noqa: F401
     launch_ranks, no_thread_left, one_torch_thread, rank_log)
 from weather_unet_tpu.data.transforms import normalize_batch as jax_norm
+from weather_unet_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from weather_unet_tpu.parallel.tp import tp_specs as jax_tp_specs
 from weather_unet_tpu.train import gan as jax_gan
 from weather_unet_tpu_torch.compat import torch_io
@@ -126,7 +127,8 @@ def test_refusals_carry_jax_messages(tmp_path):
     """A degree that splits no key of either network raises "NO leaf"
     (JAX's ``tp_shardings``); tensor parallelism without a model axis of 2
     raises JAX's guard, in the API and the trainer; a split model refuses
-    fuse_upconv and the AOT tier; spatial partitioning names item 4c."""
+    fuse_upconv and takes the AOT tier (which captures nothing); spatial
+    partitioning meets JAX's guard with JAX's message."""
     from weather_unet_tpu.api import WeatherTransfer as JaxWeatherTransfer
     from weather_unet_tpu.train.loops import (
         WeatherTransferTrainer as JaxTrainer)
@@ -166,11 +168,16 @@ def test_refusals_carry_jax_messages(tmp_path):
     with pytest.raises(ValueError, match="fuse_upconv serving"):
         WeatherTransfer(ConditionalUNet(5, fuse_upconv=True), plan=two,
                         tensor_parallel=True)
-    with pytest.raises(ValueError, match="aot_cache with tensor_parallel"):
-        WeatherTransfer(ConditionalUNet(5), plan=two, tensor_parallel=True,
-                        aot_cache=str(tmp_path / "aot"))
-    with pytest.raises(NotImplementedError, match="item 4c, 'Spatial"):
-        two.spatial(input_size=64)
+    tiered = WeatherTransfer(ConditionalUNet(5), plan=two,
+                             tensor_parallel=True,
+                             aot_cache=str(tmp_path / "aot"))
+    assert tiered.aot.stats["captures"] == 0
+    with pytest.raises(ValueError) as perr:
+        two.spatial(input_size=16)
+    with pytest.raises(ValueError) as jerr:
+        jax_make_mesh(jax.devices()[:2], model=2).spatial(input_size=16)
+    assert "spatial partitioning degree 2" in str(perr.value)
+    assert str(perr.value) == str(jerr.value)
 
 
 @pytest.fixture(scope="module")
@@ -229,6 +236,38 @@ def test_cunet_split_forward_in_one_process_is_jax(cunet_world, n):
     assert float((wt.sweep(w["x"][:2], est, num_frames=3)
                   - one.sweep(w["x"][:2], est, num_frames=3)).abs().max()
                  ) < 1e-5
+
+
+def test_aot_tier_serves_the_split_model(cunet_world, tmp_path):
+    """``aot_cache`` with ``tensor_parallel`` over two CPU shards: one
+    program per shape and no capture; translate within MAE 1e-5 of JAX's
+    tiered split ``WeatherTransfer`` and translate_u8 within 1 of its
+    wire; both bit-equal to the port's untiered split."""
+    from weather_unet_tpu.api import WeatherTransfer as JaxWeatherTransfer
+    from weather_unet_tpu_torch.api import WeatherTransfer
+
+    w = cunet_world
+    jt = JaxWeatherTransfer.load(
+        w["path"], plan=jax_make_mesh(jax.devices()[:2], model=2),
+        tensor_parallel=True, aot_cache=str(tmp_path / "jax_aot"))
+    want = np.asarray(jt.translate(w["x"], w["c"]))
+    want_u8 = np.asarray(jt.translate_u8(w["u8"], w["c"])).astype(np.int16)
+    plan = make_mesh(["cpu", "cpu"], model=2)
+    tiered = WeatherTransfer.load(w["path"], device="cpu", plan=plan,
+                                  tensor_parallel=True,
+                                  aot_cache=str(tmp_path / "aot"))
+    plain = WeatherTransfer.load(w["path"], device="cpu", plan=plan,
+                                 tensor_parallel=True)
+    got = tiered.translate(w["x"], w["c"])
+    u8 = tiered.translate_u8(w["u8"], w["c"])
+    assert float(np.abs(got.numpy() - want).mean()) < 1e-5
+    assert np.abs(u8.numpy().astype(np.int16) - want_u8).max() <= 1
+    assert torch.equal(got, plain.translate(w["x"], w["c"]))
+    assert torch.equal(u8, plain.translate_u8(w["u8"], w["c"]))
+    assert torch.equal(tiered.translate_to_classes(w["x"][:2]),
+                       plain.translate_to_classes(w["x"][:2]))
+    assert tiered.aot.stats["programs"] == 3
+    assert tiered.aot.stats["captures"] == 0
 
 
 def test_two_data_rows_of_two_shards(cunet_world):
@@ -555,3 +594,40 @@ def test_serve_tensor_parallel_answers_on_two_cpu_shards(cunet_world):
             t.join(10)
     # uint8 outputs within one step, then JPEG-encoded
     assert np.abs(answers[0] - answers[1]).mean() < 1.0
+
+
+def test_serve_tensor_parallel_with_aot_cache(cunet_world, tmp_path):
+    """``serve --tensor_parallel 2 --aot_cache D --device cpu`` answers on
+    two CPU shards with the bytes of the untiered split server."""
+    from PIL import Image
+    import io
+
+    from weather_unet_tpu_torch.cli import serve
+
+    buf = io.BytesIO()
+    Image.fromarray(cunet_world["u8"][1]).save(buf, format="PNG")
+    body = buf.getvalue()
+    answers = []
+    for extra in (["--aot_cache", str(tmp_path / "aot")], []):
+        server = serve.build_server(serve.build_parser().parse_args(
+            ["--cp_path", cunet_world["path"], "--host", "127.0.0.1",
+             "--port", "0", "--input_size", "32", "--device", "cpu",
+             "--no-warmup", "--tensor_parallel", "2"] + extra))
+        t = threading.Thread(target=server.serve_forever, daemon=True)
+        t.start()
+        try:
+            assert (server.transfer.aot is not None) == bool(extra)
+            url = (f"http://127.0.0.1:{server.server_address[1]}"
+                   "/translate?class=snow")
+            req = urllib.request.Request(url, data=body, method="POST")
+            with urllib.request.urlopen(req, timeout=60) as resp:
+                assert resp.status == 200
+                answers.append(resp.read())
+            if extra:
+                assert server.transfer.aot.stats["captures"] == 0
+                assert server.transfer.aot.stats["programs"] >= 1
+        finally:
+            server.shutdown()
+            server.server_close()
+            t.join(10)
+    assert answers[0] == answers[1]

@@ -22,6 +22,14 @@ the old K1 kernel alone, the old K1 wrapper (its PyTorch style statistics
 and the kernel), the new K1 (one kernel), the old and the new K2.  Prints
 the card's name and power limit first, one JSON line per site and dtype,
 and a last line with the sums over the three sites.  Needs a CUDA device.
+
+With ``--bitwise`` DIR holds sources with today's C entries ``wut_adain``
+and ``wut_upsample2x`` instead (a later commit's), and nothing is timed:
+both versions are called through the current wrappers (``adain_kernel``,
+``upsample_kernel``) on the same inputs under every plan (``adain_plans``,
+``upsample_plans``) at the three sites and an odd shape, float32 and
+bfloat16, and one JSON line gives the calls made and those whose outputs
+differ in any bit.  Exits 1 if any does.
 """
 
 from __future__ import annotations
@@ -62,6 +70,11 @@ def build_old(src_dir: Path, out_dir: Path) -> dict:
         if proc.returncode:
             raise RuntimeError(f"old {name}.cu failed to build:\n{log}")
         libs[name] = ctypes.CDLL(str(so))
+    return libs
+
+
+def old_entries(libs: dict) -> dict:
+    """The pre-plan C entries of ``build_old``'s libraries."""
     fa = libs["adain"].wut_adain
     fa.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_float, ctypes.c_int,
@@ -75,10 +88,55 @@ def build_old(src_dir: Path, out_dir: Path) -> dict:
     return {"adain": fa, "upsample": fu}
 
 
+def bitwise(libs: dict) -> int:
+    """``--bitwise``: the current wrappers over ``libs``' entries against
+    themselves over today's, bit for bit; 1 if any call differs."""
+    from weather_unet_tpu_torch.kernels import adain as k1, upsample as k2
+
+    current = {k1: k1._entry, k2: k2._entry}
+    olds = {}
+    for module, lib, name in ((k1, libs["adain"], "wut_adain"),
+                              (k2, libs["upsample"], "wut_upsample2x")):
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = (module._entry()[1].argtypes,
+                                   module._entry()[1].restype)
+        olds[module] = (lambda lib, fn: lambda: (lib, fn))(lib, fn)
+
+    def both(module, call):
+        module._entry = olds[module]
+        try:
+            old = call()
+        finally:
+            module._entry = current[module]
+        return old, call()
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    calls, differ = 0, []
+    for dt in (torch.float32, torch.bfloat16):
+        for b, c, h, w in [*SITES.values(), (2, 8, 5, 7)]:
+            x = torch.randn(b, c, h, w, generator=g, device="cuda").to(dt)
+            y = torch.randn(b, 4 * c, generator=g, device="cuda").to(dt)
+            runs = [("adain", plan, lambda p: k1.adain_kernel(x, y, 1e-5, p),
+                     k1) for plan in k1.adain_plans(b, c, h, w, dt)]
+            runs += [("upsample", plan, lambda p: k2.upsample_kernel(x, p),
+                      k2) for plan in k2.upsample_plans(b, c, h, w, dt)]
+            for kind, plan, call, module in runs:
+                old, new = both(module, lambda: call(plan))
+                calls += 1
+                if not torch.equal(old, new):
+                    differ.append(f"{kind} {b, c, h, w} {dt} "
+                                  f"{plan['name']}")
+    torch.cuda.synchronize()
+    print(json.dumps({"calls": calls, "differ": differ}), flush=True)
+    return 1 if differ else 0
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old", required=True, type=Path)
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--bitwise", action="store_true",
+                    help="DIR has today's C entries: compare bit for bit")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("compare_stream_kernels: no CUDA device")
@@ -90,7 +148,10 @@ def main():
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
-    old = build_old(args.old, ROOT / "_chip_tmp" / "old_build")
+    libs = build_old(args.old, ROOT / "_chip_tmp" / "old_build")
+    if args.bitwise:
+        return bitwise(libs)
+    old = old_entries(libs)
     _build.build_all()
     eps, dev = 1e-5, torch.device("cuda")
 
@@ -167,4 +228,4 @@ def main():
 
 if __name__ == "__main__":
     os.chdir(ROOT)
-    main()
+    sys.exit(main())

@@ -1,6 +1,8 @@
-"""One rank of a data- or tensor-parallel training run of the PyTorch
-port, for the tests and ``chip_smoke.py``: the GAN trainer (``--mode
-gan``, ``--tensor_parallel T`` to split its networks over T ranks),
+"""One rank of a data-, tensor- or spatially parallel training run of the
+PyTorch port, for the tests and ``chip_smoke.py``: the GAN trainer
+(``--mode gan``, ``--tensor_parallel T`` to split its networks over T
+ranks; ``--spatial N`` instead runs the combined GAN step itself, each
+image's rows cut over the N ranks of a data row, ``parallel/spatial.py``),
 ``train_supervised`` (``--mode sup``), the estimator CLI (``--mode cli``)
 or the GAN estimator CLI (``--mode est_cli``) for a few steps on seeded
 synthetic data, with what each rank saw written to ``--out``:
@@ -8,7 +10,10 @@ synthetic data, with what each rank saw written to ``--out``:
 * ``rank{r}.json``: the world, the device, each step's metrics (the ranks'
   means), each step's wall ms and all-reduce ms with ``--timing`` (under
   tensor parallelism the model-group sums apart: their count and ms a
-  step), and the K1/K2/K4 launches of the run;
+  step; under ``--spatial`` the exchanges of the data row likewise), and
+  the K1/K2/K4 launches of the run (and of K1's split-statistics and K2's
+  row-window forms), and the allocations the card refused (a refused cuDNN
+  workspace runs another engine: ``_device.refused_allocations``);
 * ``rank{r}.pt``: the rank's final train state as a checkpoint holds it
   (``train/checkpoint.py::serialize`` bytes);
 * with ``--snapshots``, rank 0's state after each step k as
@@ -289,6 +294,71 @@ def run_gan(args, device, dt, rec):
     return ckpt.gan_tree(tr.state, tr.seed)
 
 
+def run_spatial(args, device, dt, rec):
+    """``--spatial N``: the combined GAN step (``train/gan.py``) on this
+    rank's rows of its data row's images, ``steps`` steps over the seeded
+    synthetic sets in order (step k takes global rows ``[k B, (k + 1) B)``
+    of each), the dropout generator of step k seeded ``fold_seed(seed +
+    1, k)`` (folded with the data index over several data rows), from
+    ``--init`` (a checkpoint file) or the seeded initial state."""
+    from weather_unet_tpu_torch.core.rng import fold_seed
+    from weather_unet_tpu_torch.data.transforms import normalize_batch
+    from weather_unet_tpu_torch.parallel import spatial
+    from weather_unet_tpu_torch.parallel.launch import (
+        data_count, data_index, process_slice)
+    from weather_unet_tpu_torch.parallel.mesh import (
+        make_mesh, put_host_local)
+    from weather_unet_tpu_torch.train import checkpoint as ckpt
+    from weather_unet_tpu_torch.train.gan import (
+        GanConfig, build_gan_state, make_gan_step)
+
+    plan = make_mesh(model=args.spatial, batch_size=args.batch)
+    sharding = plan.spatial(input_size=args.size)
+    group = spatial.process_group(args.size)
+    kw = dict(input_size=args.size, batch_size=args.batch, lr=args.lr,
+              num_epoch=1, dropout_rate=args.dropout, dtype=dt)
+    if args.gan_mode == "cls":
+        kw.update(mode="cls", cross_ent=True)
+    cfg = GanConfig(**kw)
+    gen, disc, state = build_gan_state(cfg, args.seed, device,
+                                       use_pallas=device.type == "cuda")
+    if args.init:
+        ckpt.restore_checkpoint(args.init, state)
+    spatial.spatial_(gen, group)
+    spatial.spatial_(disc, group)
+    if args.estimator_path:
+        from weather_unet_tpu_torch.cli.common import load_step_estimator
+
+        est = load_step_estimator(args.estimator_path, dtype=dt,
+                                  device=device, route=args.route)
+    else:
+        est = linear_estimator
+    rec.tree_fn = lambda st: ckpt.gan_tree(st, args.seed)
+    rec.shards = group.shards
+    rec.shards.timed = rec.timing
+    if args.dump_activations:
+        watch_decoder(gen, args.out)
+    step = rec.wrap(make_gan_step(gen, disc, est, cfg))
+    n = args.steps * args.batch
+    sets = [GanItems(n, args.size), GanItems(n, args.size,
+                                             seed=DATA_SEED + 2)]
+    mine = process_slice(args.batch)
+    base = (args.seed + 1 if data_count() == 1
+            else fold_seed(args.seed + 1, data_index()))
+    g = torch.Generator(device=device)
+    for k in range(1, args.steps + 1):
+        rows = slice((k - 1) * args.batch, k * args.batch)
+        x, r = (put_host_local(sharding, ds.images[rows][mine])
+                for ds in sets)
+        labels = [torch.as_tensor(ds.labels[rows][mine]).to(device)
+                  for ds in sets]
+        g.manual_seed(fold_seed(base, k))
+        state, _ = step(state, normalize_batch(x).to(device), labels[0],
+                        normalize_batch(r).to(device), labels[1], g,
+                        do_g=True)
+    return ckpt.gan_tree(state, args.seed)
+
+
 def run_sup(args, device, dt, rec):
     from weather_unet_tpu_torch.models import ResNet
     from weather_unet_tpu_torch.parallel.mesh import make_mesh
@@ -382,6 +452,12 @@ def build_parser():
     p.add_argument("--aot_cache", default=None)
     p.add_argument("--tensor_parallel", type=int, default=1,
                    help="--mode gan: split the networks over T ranks")
+    p.add_argument("--spatial", type=int, default=1,
+                   help="--mode gan: cut each image's rows over N ranks "
+                        "of a data row (the combined step, not the "
+                        "trainer)")
+    p.add_argument("--init", default=None,
+                   help="--spatial: the start state (a checkpoint file)")
     p.add_argument("--model_axis", type=int, default=1,
                    help="--mode gan / sup: a plan with a model axis of M "
                         "and no tensor parallelism (replicas)")
@@ -413,7 +489,8 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.cli_args and args.cli_args[0] == "--":
         args.cli_args = args.cli_args[1:]
-    from weather_unet_tpu_torch._device import resolve_device
+    from weather_unet_tpu_torch._device import (
+        refused_allocations, resolve_device)
     from weather_unet_tpu_torch.kernels import adain, bottleneck, upsample
     from weather_unet_tpu_torch.parallel.launch import (
         maybe_initialize, process_count, process_index)
@@ -431,12 +508,19 @@ def main(argv=None) -> int:
                "bottleneck": bottleneck}
     for m in kernels.values():
         m.launches = 0
+    split = {"adain_stats": (adain, "stats_launches"),
+             "adain_apply": (adain, "apply_launches"),
+             "upsample_rows": (upsample, "rows_launches")}
+    for m, attr in split.values():
+        setattr(m, attr, 0)
     os.makedirs(args.out, exist_ok=True)
     rec = Recorder(device, args.timing,
                    args.out if args.snapshots else None,
                    args.out if args.dump_inputs else None)
     t0 = time.perf_counter()
-    if args.mode == "gan":
+    if args.mode == "gan" and args.spatial > 1:
+        tree = run_spatial(args, device, dt, rec)
+    elif args.mode == "gan":
         tree = run_gan(args, device, dt, rec)
     elif args.mode == "sup":
         tree = run_sup(args, device, dt, rec)
@@ -456,7 +540,10 @@ def main(argv=None) -> int:
                    "allreduce_ms": rec.allreduce_ms,
                    "tp_sums": rec.tp_sums, "tp_sum_ms": rec.tp_sum_ms,
                    "launches": {k: m.launches
-                                for k, m in kernels.items()}}, f)
+                                for k, m in kernels.items()},
+                   "split_launches": {k: getattr(m, attr) for k, (m, attr)
+                                      in split.items()},
+                   "refused_allocations": refused_allocations(device)}, f)
     if torch.distributed.is_initialized():
         torch.distributed.destroy_process_group()
     return 0

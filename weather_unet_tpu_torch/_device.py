@@ -35,3 +35,17 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the "
             "port on the CPU")
     return dev
+
+
+def refused_allocations(device: DeviceLike = None) -> int:
+    """Allocations the caching allocator has refused on a CUDA ``device`` so
+    far (its ``num_ooms``); 0 on the CPU.  PyTorch's cuDNN convolutions
+    catch a refused workspace and run the heuristics' next engine, which
+    sums in another order: a float32 step during which this count moved is
+    not the computation that a card with room for the workspaces makes
+    (``PERF.md`` §6, fault F1), so a comparison that needs the same bits
+    checks it before and after."""
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    if dev.type != "cuda":
+        return 0
+    return int(torch.cuda.memory_stats(dev).get("num_ooms", 0))

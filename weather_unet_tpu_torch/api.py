@@ -30,9 +30,12 @@ With ``aot_cache`` (a directory or ``core.aot.AotCache``), ``translate``,
 program per input shape (bucketing keeps them to the power-of-two
 batches), on a CUDA device the eager forward captured as a CUDA graph that
 reads the model's weights where they lie (``core/aot.py``).  Nothing is
-kept on disk: a restart captures again.  With ``tensor_parallel`` it is
-refused: a CUDA graph cannot hold the shards' threads meeting in host
-memory.
+kept on disk: a restart captures again.  With ``tensor_parallel`` each
+shape's program is the eager split forward, the tier's CPU form (a CUDA
+graph cannot hold the shards' threads meeting in host memory): the tier
+counts its programs and captures none, and the results are the untiered
+split's bit for bit, as the JAX package serves its split forwards
+through its tier.
 """
 
 from __future__ import annotations
@@ -69,11 +72,6 @@ class WeatherTransfer:
                     "fuse_upconv serving is single-device; rebuild the model "
                     "with fuse_upconv=False when passing a MeshPlan")
             devices = list(plan.devices)
-        if tensor_parallel and aot_cache is not None:
-            raise ValueError(
-                "aot_cache with tensor_parallel: a CUDA graph cannot hold "
-                "the in-process shards, which meet in host memory; serve "
-                "the split model eagerly")
         self.tensor_parallel = tensor_parallel
         # the devices by data row; a row is one replica, or one shard each
         rows = plan.rows() if tensor_parallel else [[d] for d in devices]
@@ -133,12 +131,14 @@ class WeatherTransfer:
     def _tier(self, aot_cache) -> None:
         """Route the three entry points of each replica through ``AotJit``:
         one program per input shape, a CUDA graph of the eager forward on
-        the card."""
+        the card (the eager forward itself under ``tensor_parallel``)."""
         from weather_unet_tpu_torch.core.aot import AotCache, AotJit
 
         self.aot = (aot_cache if isinstance(aot_cache, AotCache)
                     else AotCache(aot_cache))
-        self._fns = {name: [AotJit(f, self.aot) for f in fns]
+        capture = not self.tensor_parallel
+        self._fns = {name: [AotJit(f, self.aot, capture=capture)
+                            for f in fns]
                      for name, fns in self._fns.items()}
 
     @classmethod

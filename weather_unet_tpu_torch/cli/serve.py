@@ -488,8 +488,9 @@ def build_parser():
     p.add_argument("--no-warmup", dest="warmup", action="store_false")
     p.add_argument("--aot_cache", type=str, default=None,
                    help="AOT tier (core/aot.py): on CUDA each warmed "
-                        "bucket runs as a CUDA graph; nothing is written to "
-                        "the directory")
+                        "bucket runs as a CUDA graph (with "
+                        "--tensor_parallel, as the eager split forward); "
+                        "nothing is written to the directory")
     p.add_argument("--profile_dir", type=str, default=None,
                    help="enable POST /profile and write torch.profiler "
                         "traces under this directory (client-supplied paths "

@@ -34,7 +34,9 @@ only:
   stream, and runs one capture at a time.
 
 On the CPU there is no graph: each shape's program is the function itself,
-so the tier equals eager execution bit for bit there.
+so the tier equals eager execution bit for bit there.  A program made with
+``capture=False`` takes that form on the card too (a tensor-parallel
+serving forward, whose shards meet in host memory between their launches).
 
 ``stats`` keys: ``programs`` (shapes seen), ``captures`` (CUDA graphs),
 ``capture_s``.
@@ -264,15 +266,17 @@ class AotCache:
         return self._streams[device]
 
     def load_or_compile(self, fn: Callable, *args: Any,
-                        inplace_argnums: Sequence[int] = ()) -> Callable:
+                        inplace_argnums: Sequence[int] = (),
+                        capture: bool = True) -> Callable:
         """The program of ``fn`` at ``args``' shapes (values do not matter):
-        on a CUDA device its CUDA graph, captured now; ``inplace_argnums``
+        on a CUDA device its CUDA graph, captured now, unless ``capture``
+        is False (then ``fn`` itself, as on the CPU); ``inplace_argnums``
         are the arguments whose tensors the graph reads and writes where
         they lie."""
         device = _device_of(args)
         with self._lock:
             self.stats["programs"] += 1
-            if device.type != "cuda":
+            if device.type != "cuda" or not capture:
                 return fn
             t0 = time.perf_counter()
             exe = _Graphed(fn, args, inplace_argnums, self._stream(device))
@@ -292,14 +296,16 @@ class AotJit:
     under the program (an optimizer's first step creates its moments), so
     it is not part of the key.  Thread-safe: a graph's static buffers serve
     one call at a time, and the cache takes one capture at a time.  ``_cache_size`` is the number of shapes, as
-    ``jax.jit``'s is.
+    ``jax.jit``'s is.  ``capture=False``: every program is ``fn`` itself
+    (``AotCache.load_or_compile``).
     """
 
     def __init__(self, fn: Callable, cache: AotCache, *,
-                 inplace_argnums: Sequence[int] = ()):
+                 inplace_argnums: Sequence[int] = (), capture: bool = True):
         self._fn = fn
         self._cache = cache
         self._inplace = tuple(inplace_argnums)
+        self._capture = capture
         self._exes: dict = {}
         self._lock = threading.Lock()
 
@@ -310,7 +316,8 @@ class AotJit:
             exe = self._exes.get(key)
             if exe is None:
                 exe = self._cache.load_or_compile(
-                    self._fn, *args, inplace_argnums=self._inplace)
+                    self._fn, *args, inplace_argnums=self._inplace,
+                    capture=self._capture)
                 self._exes[key] = exe
             return exe(*args)
 

@@ -33,6 +33,14 @@
 //   the re-reading path of the same kernel: a block of 16 warps per plane,
 //   three passes over the plane in device memory (mean, deviations,
 //   modulate).
+//
+// Split statistics (spatial partitioning, parallel/spatial.py): a shard
+// holds some of each plane's rows, and the plane's statistics span the
+// shards.  wut_adain_stats runs the same kernel up to the plane's local
+// float32 mean and M2 (from registers, as above) and writes them; the
+// shards merge them exactly (Chan's formula); wut_adain_apply modulates
+// with the merged mean and variance in one pass.  Bytes again: x is read
+// twice and out written once, against once and once unsplit.
 
 #include "wut_kernels.h"
 
@@ -86,11 +94,39 @@ __device__ __forceinline__ float plane_sum(float v, float* buf, int wp,
   return s;
 }
 
-template <typename T, int kVW>
+// The plane's style statistics from its 4 projected values y_proj[4 plane
+// .. 4 plane + 3]: float32, two-pass, unbiased over the 4 values.
+__device__ __forceinline__ void style_stats(const void* y_proj, int y_bf16,
+                                            long long plane, float eps,
+                                            float* y_mean, float* y_scale) {
+  float ys[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const long long i = plane * 4 + k;
+    ys[k] = y_bf16 ? __bfloat162float(
+                         static_cast<const __nv_bfloat16*>(y_proj)[i])
+                   : static_cast<const float*>(y_proj)[i];
+  }
+  const float m = (ys[0] + ys[1] + ys[2] + ys[3]) / 4.f;
+  float ss = 0.f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) ss += (ys[k] - m) * (ys[k] - m);
+  *y_mean = m;
+  *y_scale = sqrtf(ss / 4.f * (4.f / 3.f) + eps);
+}
+
+// kMode: kWhole, the plane's statistics and its modulation in one launch;
+// kStats, the plane's float32 (mean, M2) into stats[2 * plane] (y_proj and
+// out unused); kApply, the modulation with the given float32 (mean,
+// unbiased variance) of stats[2 * plane] (one pass, any plan).
+enum Mode { kWhole = 0, kStats = 1, kApply = 2 };
+
+template <typename T, int kVW, int kMode>
 __global__ void __launch_bounds__(kMaxThreads, 2)
 adain_kernel(const T* __restrict__ x, const void* __restrict__ y_proj,
-             int y_bf16, T* __restrict__ out, long long planes,
-             long long hw, int wp, int ppb, int on_chip, float eps) {
+             int y_bf16, T* __restrict__ out, float* __restrict__ stats,
+             long long planes, long long hw, int wp, int ppb, int on_chip,
+             float eps) {
   constexpr int kN = kPerThread / kVW;  // loads a thread holds on chip
   __shared__ float red[2][kMaxThreads / 32];
   const int warp = threadIdx.x >> 5;
@@ -103,20 +139,28 @@ adain_kernel(const T* __restrict__ x, const void* __restrict__ y_proj,
   const T* xp = x + (live ? plane : 0) * hw;
   T* op = out + (live ? plane : 0) * hw;
 
-  // style statistics: float32, two-pass, unbiased over the 4 values
-  float ys[4];
+  if constexpr (kMode == kApply) {
+    // given statistics: stream the plane once, any plan
+    const long long sp = 2 * (live ? plane : 0);
+    float y_mean, y_scale;
+    style_stats(y_proj, y_bf16, live ? plane : 0, eps, &y_mean, &y_scale);
+    const float mean = stats[sp];
+    const float scale = y_scale * rsqrtf(stats[sp + 1] + eps);
+    if (!live) return;
+    float w[kVW];
+#pragma unroll 4
+    for (long long i = t; i < nv; i += nt) {
+      load<T, kVW>(xp + i * kVW, w);
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const long long i = (live ? plane : 0) * 4 + k;
-    ys[k] = y_bf16 ? __bfloat162float(
-                         static_cast<const __nv_bfloat16*>(y_proj)[i])
-                   : static_cast<const float*>(y_proj)[i];
+      for (int j = 0; j < kVW; ++j) w[j] = (w[j] - mean) * scale + y_mean;
+      store<T, kVW>(op + i * kVW, w);
+    }
+    return;
   }
-  const float y_mean = (ys[0] + ys[1] + ys[2] + ys[3]) / 4.f;
-  float y_ss = 0.f;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) y_ss += (ys[k] - y_mean) * (ys[k] - y_mean);
-  const float y_scale = sqrtf(y_ss / 4.f * (4.f / 3.f) + eps);
+
+  float y_mean = 0.f, y_scale = 0.f;  // unused by kStats
+  if constexpr (kMode == kWhole)
+    style_stats(y_proj, y_bf16, live ? plane : 0, eps, &y_mean, &y_scale);
   const float inv_n = 1.f / static_cast<float>(hw);
   const float inv_n1 = 1.f / static_cast<float>(hw > 1 ? hw - 1 : 1);
 
@@ -148,7 +192,15 @@ adain_kernel(const T* __restrict__ x, const void* __restrict__ y_proj,
         }
       }
     }
-    const float var = plane_sum(ss, red[1], wp, slot) * inv_n1;
+    const float m2 = plane_sum(ss, red[1], wp, slot);
+    if constexpr (kMode == kStats) {
+      if (live && t == 0) {
+        stats[2 * plane] = mean;
+        stats[2 * plane + 1] = m2;
+      }
+      return;
+    }
+    const float var = m2 * inv_n1;
     const float scale = y_scale * rsqrtf(var + eps);
 #pragma unroll
     for (int k = 0; k < kN; ++k) {
@@ -181,7 +233,15 @@ adain_kernel(const T* __restrict__ x, const void* __restrict__ y_proj,
 #pragma unroll
     for (int j = 0; j < kVW; ++j) ss += (w[j] - mean) * (w[j] - mean);
   }
-  const float var = plane_sum(ss, red[1], wp, slot) * inv_n1;
+  const float m2 = plane_sum(ss, red[1], wp, slot);
+  if constexpr (kMode == kStats) {
+    if (live && t == 0) {
+      stats[2 * plane] = mean;
+      stats[2 * plane + 1] = m2;
+    }
+    return;
+  }
+  const float var = m2 * inv_n1;
   const float scale = y_scale * rsqrtf(var + eps);
 #pragma unroll 4
   for (long long i = t; i < nv; i += nt) {
@@ -192,17 +252,38 @@ adain_kernel(const T* __restrict__ x, const void* __restrict__ y_proj,
   }
 }
 
-template <typename T, int kVW>
+template <typename T, int kVW, int kMode>
 cudaError_t launch(const void* x, const void* y, int y_bf16, void* out,
-                   long long planes, long long hw, int wp, int ppb,
-                   int on_chip, float eps, cudaStream_t st) {
+                   float* stats, long long planes, long long hw, int wp,
+                   int ppb, int on_chip, float eps, cudaStream_t st) {
   const long long blocks = (planes + ppb - 1) / ppb;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  adain_kernel<T, kVW><<<static_cast<unsigned>(blocks), wp * ppb * 32, 0,
-                         st>>>(static_cast<const T*>(x), y, y_bf16,
-                               static_cast<T*>(out), planes, hw, wp, ppb,
-                               on_chip, eps);
+  adain_kernel<T, kVW, kMode><<<static_cast<unsigned>(blocks),
+                                wp * ppb * 32, 0, st>>>(
+      static_cast<const T*>(x), y, y_bf16, static_cast<T*>(out), stats,
+      planes, hw, wp, ppb, on_chip, eps);
   return cudaGetLastError();
+}
+
+// the four instantiations of one mode by dtype and load width
+template <int kMode>
+cudaError_t dispatch(int dtype, int vec, const void* x, const void* y,
+                     int y_bf16, void* out, float* stats, long long planes,
+                     long long hw, int wp, int ppb, int on_chip, float eps,
+                     cudaStream_t st) {
+  if (dtype == WUT_F32) {
+    if (vec) return launch<float, 4, kMode>(x, y, y_bf16, out, stats, planes,
+                                            hw, wp, ppb, on_chip, eps, st);
+    return launch<float, 1, kMode>(x, y, y_bf16, out, stats, planes, hw, wp,
+                                   ppb, on_chip, eps, st);
+  }
+  if (dtype == WUT_BF16) {
+    if (vec) return launch<__nv_bfloat16, 8, kMode>(
+        x, y, y_bf16, out, stats, planes, hw, wp, ppb, on_chip, eps, st);
+    return launch<__nv_bfloat16, 1, kMode>(x, y, y_bf16, out, stats, planes,
+                                           hw, wp, ppb, on_chip, eps, st);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -222,18 +303,43 @@ WUT_API int wut_adain(int dtype, const void* x, const void* y_proj,
       (!on_chip && ppb != 1) || (y_dtype != WUT_F32 && y_dtype != WUT_BF16))
     return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int yb = y_dtype == WUT_BF16;
-  if (dtype == WUT_F32) {
-    if (vec) return launch<float, 4>(x, y_proj, yb, out, planes, hw, wp, ppb,
-                                     on_chip, eps, st);
-    return launch<float, 1>(x, y_proj, yb, out, planes, hw, wp, ppb, on_chip,
-                            eps, st);
-  }
-  if (dtype == WUT_BF16) {
-    if (vec) return launch<__nv_bfloat16, 8>(x, y_proj, yb, out, planes, hw,
-                                             wp, ppb, on_chip, eps, st);
-    return launch<__nv_bfloat16, 1>(x, y_proj, yb, out, planes, hw, wp, ppb,
-                                    on_chip, eps, st);
-  }
-  return cudaErrorInvalidValue;
+  return dispatch<kWhole>(dtype, vec, x, y_proj, y_dtype == WUT_BF16, out,
+                          nullptr, planes, hw, wp, ppb, on_chip, eps, st);
+}
+
+// The split-statistics form (spatial partitioning, parallel/spatial.py):
+// each plane of x holds a shard's rows of the image's plane.
+// wut_adain_stats writes each plane's float32 local mean and M2 (the sum of
+// squared deviations from that mean, two-pass, the plane read once where
+// the plan holds it on chip) into stats (planes, 2); the shards merge them
+// (ops/norm.py::merge_plane_stats).  wut_adain_apply modulates x with the
+// merged float32 (mean, unbiased variance) in stats (planes, 2) and the
+// style statistics of y_proj, in one streaming pass under any plan.
+WUT_API int wut_adain_stats(int dtype, const void* x, void* stats,
+                            long long planes, long long hw, int vec, int wp,
+                            int ppb, int on_chip, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (wp < 1 || ppb < 1 || wp * ppb * 32 > kMaxThreads ||
+      (on_chip && static_cast<long long>(wp) * 32 * kPerThread < hw) ||
+      (!on_chip && ppb != 1))
+    return cudaErrorInvalidValue;
+  return dispatch<kStats>(dtype, vec, x, nullptr, 0, nullptr,
+                          static_cast<float*>(stats), planes, hw, wp, ppb,
+                          on_chip, 0.f, static_cast<cudaStream_t>(stream));
+}
+
+WUT_API int wut_adain_apply(int dtype, const void* x, const void* y_proj,
+                            int y_dtype, const void* stats, void* out,
+                            long long planes, long long hw, int vec, int wp,
+                            int ppb, float eps, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (wp < 1 || ppb < 1 || wp * ppb * 32 > kMaxThreads ||
+      (y_dtype != WUT_F32 && y_dtype != WUT_BF16))
+    return cudaErrorInvalidValue;
+  return dispatch<kApply>(dtype, vec, x, y_proj, y_dtype == WUT_BF16, out,
+                          const_cast<float*>(static_cast<const float*>(stats)),
+                          planes, hw, wp, ppb, 0, eps,
+                          static_cast<cudaStream_t>(stream));
 }

@@ -44,6 +44,12 @@
 // (slower: 57 registers a thread leave 4 blocks an SM).
 // No integer division runs per element: the tables are read once per block
 // (row taps into shared memory) or once per thread (column taps).
+//
+// Row windows (wut_upsample2x_rows): under spatial partitioning a shard
+// holds h of the image's rows and writes its 2h rows of the whole image's
+// output grid.  Its input is a slab of h + 2 rows (one halo row above and
+// below, parallel/spatial.py) and its row taps are the whole image's,
+// offset into the slab: the same kernel with Ho = 2h output rows.
 
 #include <cstdint>
 
@@ -55,14 +61,15 @@ constexpr int kThreads = 256;
 
 struct Params {
   const void* x;
-  const int* tap_idx;     // [i0 rows (2H) | i1 rows (2H) | j0 (2W) | j1 (2W)]
-  const float* tap_frac;  // [fy (2H) | fx (2W)]
+  const int* tap_idx;     // [i0 rows (Ho) | i1 rows (Ho) | j0 (2W) | j1 (2W)]
+  const float* tap_frac;  // [fy (Ho) | fx (2W)]
   void* out;
   long long planes;
-  int H, W;
-  int rows;      // output rows a block owns (2H when it owns whole planes)
-  int pb;        // planes a block owns (1 unless rows == 2H)
-  int strips;    // blocks over one plane's rows: ceil(2H / rows)
+  int H, W;      // input rows and columns of a plane
+  int Ho;        // output rows of a plane: 2H, or a row window's 2h
+  int rows;      // output rows a block owns (Ho when it owns whole planes)
+  int pb;        // planes a block owns (1 unless rows == Ho)
+  int strips;    // blocks over one plane's rows: ceil(Ho / rows)
   int off_hb;    // byte offset of the float32 column-blended rows
   int off_taps;  // byte offset of the row taps (3 x rows 32-bit words)
 };
@@ -86,7 +93,7 @@ __global__ void __launch_bounds__(kThreads)
 upsample2x_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int kV = 16 / sizeof(T);  // elements in 16 bytes
-  const int H = p.H, W = p.W, H2 = 2 * H, W2 = 2 * W;
+  const int H = p.H, W = p.W, H2 = p.Ho, W2 = 2 * W;
   const int* h_i0 = p.tap_idx;
   const int* h_i1 = h_i0 + H2;
   const int* w_i0 = h_i0 + 2 * H2;
@@ -102,7 +109,8 @@ upsample2x_kernel(const Params p) {
   const int oy0 = strip * p.rows;
   const int ny = min(p.rows, H2 - oy0);
   // staged input rows: ra .. i1 of the last output row (np > 1 only with
-  // whole planes, so then ra = 0 and every plane's H rows are staged)
+  // whole planes: then the run starts at row ra of the first plane and
+  // ends at the last plane's i1, every plane H rows apart)
   const int ra = __ldg(h_i0 + oy0);
   const int nr = (np - 1) * H + __ldg(h_i1 + oy0 + ny - 1) - ra + 1;
 
@@ -197,24 +205,21 @@ cudaError_t launch(const Params& p, unsigned grid, int smem, cudaStream_t st) {
 
 }  // namespace
 
-// x: (planes = B*C, H, W); tap_idx: int32, tap_frac: float32 (see Params);
-// out: (planes, 2H, 2W), all contiguous, out 16-byte aligned when vec.  The
-// block shape (rows, pb, off_hb, off_taps, smem) and vec come from
-// kernels/upsample.py::plan_upsample.
-WUT_API int wut_upsample2x(int dtype, const void* x, const void* tap_idx,
-                           const void* tap_frac, void* out, long long planes,
-                           int H, int W, int vec, int rows, int pb,
-                           int off_hb, int off_taps, int smem, int device,
-                           void* stream) {
+namespace {
+
+cudaError_t run(int dtype, const void* x, const void* tap_idx,
+                const void* tap_frac, void* out, long long planes, int H,
+                int Ho, int W, int vec, int rows, int pb, int off_hb,
+                int off_taps, int smem, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (rows < 1 || pb < 1 || (pb > 1 && rows != 2 * H))
+  if (rows < 1 || pb < 1 || Ho < 1 || (pb > 1 && rows != Ho))
     return cudaErrorInvalidValue;
-  const int strips = (2 * H + rows - 1) / rows;
+  const int strips = (Ho + rows - 1) / rows;
   const long long grid = (planes + pb - 1) / pb * strips;
   if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
   const Params p{x, static_cast<const int*>(tap_idx),
-                 static_cast<const float*>(tap_frac), out, planes, H, W,
+                 static_cast<const float*>(tap_frac), out, planes, H, W, Ho,
                  rows, pb, strips, off_hb, off_taps};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const unsigned g = static_cast<unsigned>(grid);
@@ -225,4 +230,35 @@ WUT_API int wut_upsample2x(int dtype, const void* x, const void* tap_idx,
     return vec ? launch<__nv_bfloat16, true>(p, g, smem, st)
                : launch<__nv_bfloat16, false>(p, g, smem, st);
   return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// x: (planes = B*C, H, W); tap_idx: int32, tap_frac: float32 (see Params);
+// out: (planes, 2H, 2W), all contiguous, out 16-byte aligned when vec.  The
+// block shape (rows, pb, off_hb, off_taps, smem) and vec come from
+// kernels/upsample.py::plan_upsample.
+WUT_API int wut_upsample2x(int dtype, const void* x, const void* tap_idx,
+                           const void* tap_frac, void* out, long long planes,
+                           int H, int W, int vec, int rows, int pb,
+                           int off_hb, int off_taps, int smem, int device,
+                           void* stream) {
+  return run(dtype, x, tap_idx, tap_frac, out, planes, H, 2 * H, W, vec,
+             rows, pb, off_hb, off_taps, smem, device, stream);
+}
+
+// The row-window form (spatial partitioning, parallel/spatial.py): x is a
+// shard's slab of H = h + 2 rows (its h rows and one halo row above and
+// below), out its Ho = 2h rows of the WHOLE image's 2x grid; the row taps
+// (Ho of each) index the slab and come from the whole image's tables
+// (kernels/upsample.py::_tap_tables with a window).  The kernel is the one
+// above: nothing but the output row count and the tables differ.
+WUT_API int wut_upsample2x_rows(int dtype, const void* x, const void* tap_idx,
+                                const void* tap_frac, void* out,
+                                long long planes, int H, int Ho, int W,
+                                int vec, int rows, int pb, int off_hb,
+                                int off_taps, int smem, int device,
+                                void* stream) {
+  return run(dtype, x, tap_idx, tap_frac, out, planes, H, Ho, W, vec, rows,
+             pb, off_hb, off_taps, smem, device, stream);
 }

@@ -17,6 +17,16 @@ version, its fake implementation gives the shape and dtype only (the plan,
 which reads pointer alignment, is chosen inside the CUDA implementation),
 so ``torch.export`` can trace a model that calls it and a program that
 holds it runs wherever this module is imported.
+
+The split-statistics form serves spatial partitioning
+(``parallel/spatial.py``), where a plane's rows lie on several shards:
+``wut::adain_stats`` (``adain_stats_kernel``) writes each plane's float32
+local mean and M2 from one read of the plane, the shards merge them
+(``ops/norm.py::merge_plane_stats``), and ``wut::adain_apply``
+(``adain_apply_kernel``) modulates with the merged statistics;
+``adain_split_fused`` composes them.  Their launches are counted apart
+(``stats_launches``, ``apply_launches``) and their gradients recompute
+through the plain pieces.
 """
 
 from __future__ import annotations
@@ -27,9 +37,14 @@ import functools
 import torch
 
 from weather_unet_tpu_torch.kernels import _build
-from weather_unet_tpu_torch.ops.norm import adain
+from weather_unet_tpu_torch.ops.norm import (
+    adain, adain_from_stats, adain_split, plane_stats)
 
 launches = 0   # kernel launches so far (plain-version calls do not count)
+# launches of the split-statistics form (spatial partitioning): the local
+# statistics and the modulation with given statistics
+stats_launches = 0
+apply_launches = 0
 
 adain_fused_ref = adain   # the plain version
 
@@ -133,6 +148,98 @@ def adain_kernel(x: torch.Tensor, y_proj: torch.Tensor, eps: float,
     return out
 
 
+@functools.cache
+def _split_entries():
+    lib = _build.library("adain")
+    st = lib.wut_adain_stats
+    st.argtypes = ([ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                    ctypes.c_longlong, ctypes.c_longlong]
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    st.restype = ctypes.c_int
+    ap = lib.wut_adain_apply
+    ap.argtypes = ([ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                    ctypes.c_longlong, ctypes.c_longlong]
+                   + [ctypes.c_int] * 3
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    ap.restype = ctypes.c_int
+    return lib, st, ap
+
+
+def _check_x(x: torch.Tensor, what: str) -> None:
+    if x.dim() != 4 or x.dtype not in _build.DTYPE_CODES:
+        raise ValueError(f"{what} takes a 4-D float32/bfloat16 x, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    if not x.is_cuda or not x.is_contiguous():
+        raise ValueError(f"{what} takes a contiguous CUDA x")
+
+
+def adain_stats_kernel(x: torch.Tensor, plan: dict = None) -> torch.Tensor:
+    """K1's split form, first launch: each plane's float32 local ``(mean,
+    M2)`` (``ops.norm.plane_stats``) of a CUDA x (B, C, H, W), as (B, C,
+    2).  ``plan`` defaults to ``plan_adain`` (one of ``adain_plans``
+    forces another)."""
+    global stats_launches
+    _check_x(x, "adain stats kernel")
+    b, c, h, w = x.shape
+    stats = torch.empty((b, c, 2), dtype=torch.float32, device=x.device)
+    if x.numel() == 0:
+        return stats
+    if plan is None:
+        plan = plan_adain(b, c, h, w, x.dtype, vec_ok=x.data_ptr() % 16 == 0)
+    if plan["vec"] > 1 and x.data_ptr() % 16:
+        raise ValueError("adain stats kernel's 16-byte loads need a 16-byte "
+                         "aligned x")
+    lib, fn, _ = _split_entries()
+    err = fn(_build.DTYPE_CODES[x.dtype], x.data_ptr(), stats.data_ptr(),
+             b * c, h * w, int(plan["vec"] > 1), plan["wp"], plan["ppb"],
+             int(plan["on_chip"]), x.device.index, _build.stream_of(x))
+    _build.check_launch(lib, err, "adain stats")
+    with _build.COUNT_LOCK:
+        stats_launches += 1
+    return stats
+
+
+def adain_apply_kernel(x: torch.Tensor, y_proj: torch.Tensor,
+                       stats: torch.Tensor, eps: float,
+                       plan: dict = None) -> torch.Tensor:
+    """K1's split form, second launch: x (B, C, H, W) modulated with each
+    plane's given float32 ``(mean, unbiased variance)`` ``stats`` (B, C,
+    2) and the style statistics of ``y_proj`` (B, 4C)
+    (``ops.norm.adain_from_stats``), on CUDA tensors."""
+    global apply_launches
+    _check_x(x, "adain apply kernel")
+    b, c, h, w = x.shape
+    if y_proj.shape != (b, 4 * c) or y_proj.dtype not in _build.DTYPE_CODES:
+        raise ValueError(f"y_proj must be float32/bfloat16 of shape "
+                         f"{(b, 4 * c)}, got {tuple(y_proj.shape)} "
+                         f"{y_proj.dtype}")
+    if stats.shape != (b, c, 2) or stats.dtype != torch.float32:
+        raise ValueError(f"stats must be float32 of shape {(b, c, 2)}, got "
+                         f"{tuple(stats.shape)} {stats.dtype}")
+    for t in (y_proj, stats):
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError("adain apply kernel inputs must be contiguous "
+                             "on x's device")
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    if plan is None:
+        plan = plan_adain(b, c, h, w, x.dtype, vec_ok=x.data_ptr() % 16 == 0)
+    if plan["vec"] > 1 and (x.data_ptr() % 16 or out.data_ptr() % 16):
+        raise ValueError("adain apply kernel's 16-byte loads need 16-byte "
+                         "aligned x and out")
+    lib, _, fn = _split_entries()
+    err = fn(_build.DTYPE_CODES[x.dtype], x.data_ptr(), y_proj.data_ptr(),
+             _build.DTYPE_CODES[y_proj.dtype], stats.data_ptr(),
+             out.data_ptr(), b * c, h * w, int(plan["vec"] > 1), plan["wp"],
+             plan["ppb"], eps, x.device.index, _build.stream_of(x))
+    _build.check_launch(lib, err, "adain apply")
+    with _build.COUNT_LOCK:
+        apply_launches += 1
+    return out
+
+
 @torch.library.custom_op("wut::adain", mutates_args=(), device_types="cuda")
 def adain_op(x: torch.Tensor, y_proj: torch.Tensor,
              eps: float) -> torch.Tensor:
@@ -174,3 +281,86 @@ def adain_fused(x: torch.Tensor, y_proj: torch.Tensor, eps: float = 1e-5):
     plain version on CPU tensors; differentiable either way."""
     _build.is_cuda(x)          # refuses a device that is neither
     return adain_op(x, y_proj, eps)
+
+
+# --------------------------------------------------- split-statistics form
+
+@torch.library.custom_op("wut::adain_stats", mutates_args=(),
+                         device_types="cuda")
+def adain_stats_op(x: torch.Tensor) -> torch.Tensor:
+    """K1's local plane statistics on a CUDA tensor (made contiguous)."""
+    return adain_stats_kernel(x.contiguous())
+
+
+@adain_stats_op.register_kernel("cpu")
+def _adain_stats_cpu(x):
+    return plane_stats(x)
+
+
+@adain_stats_op.register_fake
+def _adain_stats_fake(x):
+    return x.new_empty((x.shape[0], x.shape[1], 2), dtype=torch.float32)
+
+
+def _stats_setup(ctx, inputs, output):
+    ctx.save_for_backward(inputs[0])
+
+
+def _stats_backward(ctx, g):
+    (x,) = ctx.saved_tensors
+    with torch.enable_grad():
+        xx = x.detach().requires_grad_()
+        (gx,) = torch.autograd.grad(plane_stats(xx), (xx,), g)
+    return gx
+
+
+adain_stats_op.register_autograd(_stats_backward, setup_context=_stats_setup)
+
+
+@torch.library.custom_op("wut::adain_apply", mutates_args=(),
+                         device_types="cuda")
+def adain_apply_op(x: torch.Tensor, y_proj: torch.Tensor,
+                   stats: torch.Tensor, eps: float) -> torch.Tensor:
+    """K1's modulation with given statistics on CUDA tensors (made
+    contiguous)."""
+    return adain_apply_kernel(x.contiguous(), y_proj.contiguous(),
+                              stats.contiguous(), eps)
+
+
+@adain_apply_op.register_kernel("cpu")
+def _adain_apply_cpu(x, y_proj, stats, eps):
+    return adain_from_stats(x, y_proj, stats, eps)
+
+
+@adain_apply_op.register_fake
+def _adain_apply_fake(x, y_proj, stats, eps):
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
+def _apply_setup(ctx, inputs, output):
+    x, y_proj, stats, eps = inputs
+    ctx.save_for_backward(x, y_proj, stats)
+    ctx.eps = eps
+
+
+def _apply_backward(ctx, g):
+    x, y_proj, stats = ctx.saved_tensors
+    with torch.enable_grad():
+        xs = [t.detach().requires_grad_() for t in (x, y_proj, stats)]
+        grads = torch.autograd.grad(adain_from_stats(*xs, ctx.eps), xs, g)
+    return (*grads, None)
+
+
+adain_apply_op.register_autograd(_apply_backward, setup_context=_apply_setup)
+
+
+def adain_split_fused(x: torch.Tensor, y_proj: torch.Tensor, eps: float,
+                      exchange, counts):
+    """``ops.norm.adain_split`` through K1's split form: the local
+    statistics and the modulation are K1's two launches on CUDA tensors
+    (their plain versions on CPU tensors), the exchange and the merge the
+    plain ones between them; the gradients recompute through the plain
+    pieces."""
+    _build.is_cuda(x)          # refuses a device that is neither
+    return adain_split(x, y_proj, eps, exchange, counts,
+                       stats=adain_stats_op, modulate=adain_apply_op)

@@ -14,6 +14,14 @@ kernel; CPU: the plain version; a fake implementation for tracing, so
 ``torch.export`` keeps it as one op; the plan is chosen inside the CUDA
 implementation), its backward as ``wut::upsample2x_backward``.
 
+The row-window form serves spatial partitioning (``parallel/spatial.py``):
+``wut::upsample2x_rows`` (``upsample_rows_kernel``) takes a shard's rows
+with one halo row above and below and writes the shard's rows of the
+whole image's output grid, with the whole image's row taps offset into
+the slab (``plan_upsample`` / ``staged_rows`` with ``window``); its
+launches are counted apart (``rows_launches``) and its backward
+(``wut::upsample2x_rows_backward``) applies the window's matrix.
+
 ``variant`` names one of the JAX package's five kernel bodies.  They are TPU
 layout variants of this one function, so the port checks the name and
 otherwise ignores it.
@@ -28,9 +36,11 @@ import torch
 
 from weather_unet_tpu_torch.kernels import _build
 from weather_unet_tpu_torch.ops.resize import (
-    _interp_matrix_np, _tap_tables, _x2_taps, upsample_bilinear_align_corners)
+    _interp_matrix_np, _tap_tables, _window_matrix_np, _x2_taps,
+    _x2_window_taps, upsample_bilinear_align_corners, upsample_x2_rows)
 
 launches = 0   # kernel launches so far (plain-version calls do not count)
+rows_launches = 0   # launches of the row-window form (spatial partitioning)
 
 VARIANTS = ("einsum", "loop", "blend", "blendmm", "shift")
 
@@ -42,11 +52,15 @@ SMEM_LIMIT = 227 * 1024     # dynamic shared memory a block may use (H100)
 OUT_PER_BLOCK = 8192
 
 
-def staged_rows(h: int, rows: int):
+def staged_rows(h: int, rows: int, window=None):
     """Mirror of the kernel's staging: for each strip of ``rows`` output rows
     of a plane with ``h`` input rows, the first and last input row the block
-    stages (i0 of the strip's first output row, i1 of its last)."""
-    i0, i1, _ = _x2_taps(h)
+    stages (i0 of the strip's first output row, i1 of its last).  With
+    ``window = (n_in, start)`` the plane is a shard's ``h`` rows of an image
+    of ``n_in`` and the rows are the slab's (``h + 2``, one halo row above
+    at 0 and one below at ``h + 1``)."""
+    i0, i1, _ = (_x2_taps(h) if window is None
+                 else _x2_window_taps(window[0], window[1], h))
     return [(int(i0[s]), int(i1[min(s + rows, 2 * h) - 1]))
             for s in range(0, 2 * h, rows)]
 
@@ -54,7 +68,7 @@ def staged_rows(h: int, rows: int):
 @functools.lru_cache(maxsize=256)
 def plan_upsample(b: int, c: int, h: int, w: int, dtype,
                   out_per_block: int = OUT_PER_BLOCK,
-                  vec_ok: bool = True) -> dict:
+                  vec_ok: bool = True, window=None) -> dict:
     """The kernel's block shape for x (b, c, h, w): output rows a block owns
     (``rows``), planes it owns (``pb``, more than 1 only when it owns whole
     planes), the staged input rows it may need (``staged``), the vector
@@ -62,6 +76,8 @@ def plan_upsample(b: int, c: int, h: int, w: int, dtype,
     an output row is not a multiple of 16 bytes or ``vec_ok`` is False), and
     its shared memory: the staged run of x at 0, the float32
     column-blended rows at ``off_hb``, the row taps at ``off_taps``.
+    ``window = (n_in, start)``: the row-window form, x a shard's ``h`` rows
+    of an image of ``n_in`` as a slab of ``h + 2`` (``staged_rows``).
     Mirrors csrc/upsample.cu."""
     esize = torch.empty((), dtype=dtype).element_size()
     kv = 16 // esize
@@ -73,9 +89,9 @@ def plan_upsample(b: int, c: int, h: int, w: int, dtype,
         rows, pb = max(1, min(ho, out_per_block // wo)), 1
     while True:
         if pb > 1:
-            staged = pb * h
+            staged = pb * (h if window is None else h + 2)
         else:
-            staged = max(z - a + 1 for a, z in staged_rows(h, rows))
+            staged = max(z - a + 1 for a, z in staged_rows(h, rows, window))
         off_hb = 16 * -(-(kv - 1 + staged * w) // kv)
         off_taps = off_hb + staged * wo * 4
         smem = off_taps + 12 * rows
@@ -156,6 +172,59 @@ def upsample_kernel(x: torch.Tensor, plan: dict = None) -> torch.Tensor:
     return out
 
 
+@functools.cache
+def _rows_entry():
+    lib = _build.library("upsample")
+    fn = lib.wut_upsample2x_rows
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
+                   + [ctypes.c_longlong] + [ctypes.c_int] * 10
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def upsample_rows_kernel(slab: torch.Tensor, n_in: int, start: int,
+                         plan: dict = None) -> torch.Tensor:
+    """Launch K2's row-window form on a CUDA tensor: ``slab`` (B, C, h + 2,
+    W) float32/bfloat16 contiguous, a shard's rows ``[start, start + h)``
+    of an image of ``n_in`` rows with one halo row above and below ->
+    (B, C, 2h, 2W), the shard's rows of the whole image's output
+    (``ops.resize.upsample_x2_rows``).  ``plan`` defaults to
+    ``plan_upsample(..., window=(n_in, start))``."""
+    global rows_launches
+    if slab.dim() != 4 or slab.dtype not in _build.DTYPE_CODES:
+        raise ValueError(f"upsample rows kernel takes a 4-D float32/bfloat16 "
+                         f"slab, got {tuple(slab.shape)} {slab.dtype}")
+    if not slab.is_cuda or not slab.is_contiguous():
+        raise ValueError("upsample rows kernel takes a contiguous CUDA slab")
+    b, c, hs, w = slab.shape
+    h = hs - 2
+    if h < 1 or start < 0 or start + h > n_in:
+        raise ValueError(f"a slab of {hs} rows is not rows [{start}, "
+                         f"{start + h}) of {n_in} with a halo row each side")
+    out = torch.empty((b, c, 2 * h, 2 * w), dtype=slab.dtype,
+                      device=slab.device)
+    if out.numel() == 0:
+        return out
+    window = (n_in, start)
+    if plan is None:
+        plan = plan_upsample(b, c, h, w, slab.dtype, window=window)
+    if plan["vec"] > 1 and out.data_ptr() % 16:
+        raise ValueError("upsample rows kernel output must be 16-byte "
+                         "aligned")
+    idx, frac = _tap_tables(h, w, slab.device, window)
+    lib, fn = _rows_entry()
+    err = fn(_build.DTYPE_CODES[slab.dtype], slab.data_ptr(), idx.data_ptr(),
+             frac.data_ptr(), out.data_ptr(), b * c, hs, 2 * h, w,
+             int(plan["vec"] > 1), plan["rows"], plan["pb"], plan["off_hb"],
+             plan["off_taps"], plan["smem"], slab.device.index,
+             _build.stream_of(slab))
+    _build.check_launch(lib, err, "upsample rows")
+    with _build.COUNT_LOCK:
+        rows_launches += 1
+    return out
+
+
 @functools.lru_cache(maxsize=64)
 def _interp_matrix(n_in: int, device: torch.device) -> torch.Tensor:
     """(2n, n) float32 interpolation matrix on ``device``."""
@@ -215,3 +284,67 @@ def upsample2x_fused(x: torch.Tensor, variant: str = "shift"):
                          f"{VARIANTS}")
     _build.is_cuda(x)          # refuses a device that is neither
     return upsample2x_op(x)
+
+
+# --------------------------------------------------------- row-window form
+
+@torch.library.custom_op("wut::upsample2x_rows", mutates_args=(),
+                         device_types="cuda")
+def upsample2x_rows_op(slab: torch.Tensor, n_in: int,
+                       start: int) -> torch.Tensor:
+    """K2's row-window form on a CUDA tensor (made contiguous)."""
+    return upsample_rows_kernel(slab.contiguous(), n_in, start)
+
+
+@upsample2x_rows_op.register_kernel("cpu")
+def _upsample2x_rows_cpu(slab, n_in, start):
+    return upsample_x2_rows(slab, n_in, start)
+
+
+@upsample2x_rows_op.register_fake
+def _upsample2x_rows_fake(slab, n_in, start):
+    b, c, hs, w = slab.shape
+    return slab.new_empty((b, c, 2 * (hs - 2), 2 * w))
+
+
+@functools.lru_cache(maxsize=256)
+def _window_matrix(n_in: int, start: int, h: int,
+                   device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(_window_matrix_np(n_in, start, h)).to(device)
+
+
+@torch.library.custom_op("wut::upsample2x_rows_backward", mutates_args=())
+def upsample2x_rows_backward_op(g: torch.Tensor, n_in: int,
+                                start: int) -> torch.Tensor:
+    """The row-window form's VJP on any device, g (B, C, 2h, 2W) -> the
+    slab's (B, C, h + 2, W): the window's interpolation matrix over the
+    slab (``ops/resize.py::_window_matrix_np``) and the column matrix,
+    transposed, in plain PyTorch.  The halo rows' gradients go back to
+    their owners through the halo exchange's backward."""
+    h, w = g.shape[2] // 2, g.shape[3] // 2
+    mh = _window_matrix(n_in, start, h, g.device).to(g.dtype)   # (2h, h+2)
+    mw = _interp_matrix(w, g.device).to(g.dtype)                # (2W, W)
+    return torch.einsum("oh,bcop,pw->bchw", mh, g, mw)
+
+
+@upsample2x_rows_backward_op.register_fake
+def _upsample2x_rows_backward_fake(g, n_in, start):
+    b, c, h2, w2 = g.shape
+    return g.new_empty((b, c, h2 // 2 + 2, w2 // 2))
+
+
+def _rows_setup(ctx, inputs, output):
+    ctx.n_in, ctx.start = inputs[1], inputs[2]
+
+
+upsample2x_rows_op.register_autograd(
+    lambda ctx, g: (upsample2x_rows_backward_op(g, ctx.n_in, ctx.start),
+                    None, None), setup_context=_rows_setup)
+
+
+def upsample2x_rows_fused(slab: torch.Tensor, n_in: int, start: int):
+    """The row-window 2x upsample (``ops.resize.upsample_x2_rows``): K2 on
+    CUDA tensors, the plain version on CPU tensors; differentiable either
+    way."""
+    _build.is_cuda(slab)       # refuses a device that is neither
+    return upsample2x_rows_op(slab, n_in, start)

@@ -51,14 +51,25 @@ class TorchConv(nn.Conv2d):
     takes its replicated inputs through the split's backward sum; a
     row-parallel conv2 holds its shard of the input channels, runs
     bias-free and returns the sum over the shards plus its bias.
+
+    ``sp`` (set by ``parallel/spatial.py::spatial_`` on a 3x3 conv): x (and
+    ``skip``) hold a shard's rows; each takes its halo rows and the conv
+    pads the width only.
     """
 
     tp = None
+    sp = None
 
     def forward(self, x, skip=None, fused_upsample: bool = False,
                 scale_shift=None):
         w = self.weight.to(x.dtype)
         bias = None if self.bias is None else self.bias.to(x.dtype)
+        padding = self.padding
+        if self.sp is not None:
+            if fused_upsample:
+                raise ValueError("fuse_upconv does not run split")
+            x, skip, padding = self.sp.conv_input(x, skip, self.stride[0],
+                                                  padding)
         if self.tp is not None:
             if fused_upsample:
                 raise ValueError("fuse_upconv does not run split")
@@ -68,8 +79,7 @@ class TorchConv(nn.Conv2d):
                     x, w, None, stride=self.stride, padding=self.padding),
                     self.bias)
         if skip is None:
-            return conv2d(x, w, bias, stride=self.stride,
-                          padding=self.padding)
+            return conv2d(x, w, bias, stride=self.stride, padding=padding)
         cx = x.shape[1]
         if fused_upsample:
             if (self.kernel_size != (3, 3) or self.stride != (1, 1)
@@ -80,10 +90,9 @@ class TorchConv(nn.Conv2d):
             scale, shift = scale_shift
             return upconv_block_fused(x, w[:, :cx], cb, scale, shift,
                                       relu=True)
-        out = conv2d(x, w[:, :cx], bias, stride=self.stride,
-                     padding=self.padding)
+        out = conv2d(x, w[:, :cx], bias, stride=self.stride, padding=padding)
         return out + conv2d(skip, w[:, cx:], None, stride=self.stride,
-                            padding=self.padding)
+                            padding=padding)
 
 
 class BatchNorm2d(nn.Module):
@@ -214,10 +223,13 @@ class _SpectralNorm(nn.Module):
     ``update_stats=True`` advances ``u`` (and stores ``v``) once; without it
     the forward reads ``u`` and changes nothing.  Split by
     ``parallel/tp.py`` (``tp``), the layer holds its shard and the power
-    iteration is the whole weight's (``ops/spectral.py``).
+    iteration is the whole weight's (``ops/spectral.py``).  Under spatial
+    partitioning (``sp``, a 3x3 conv) the weight is whole and the input a
+    shard's rows, which take their halo.
     """
 
     tp = None
+    sp = None
 
     def _init_sn(self, shape, gain: float, fan_in: int,
                  generator: Optional[torch.Generator]):
@@ -259,6 +271,9 @@ class SNConv(_SpectralNorm):
 
     def forward(self, x, update_stats: bool = False):
         w = self.normalized_weight(x.dtype, update_stats)
+        padding = self.padding
+        if self.sp is not None:
+            x, _, padding = self.sp.conv_input(x, None, self.stride, padding)
         if self.tp is not None:
             (x,) = self.tp.inputs(x)
             if self.tp.kind == "row":
@@ -266,7 +281,7 @@ class SNConv(_SpectralNorm):
                     x, w, None, stride=self.stride, padding=self.padding),
                     self.bias)
         return conv2d(x, w, self.bias.to(x.dtype), stride=self.stride,
-                      padding=self.padding)
+                      padding=padding)
 
 
 class SNDense(_SpectralNorm):

@@ -99,7 +99,11 @@ class AdaINBlock(nn.Module):
     C*4)`` then the reference statistics (``ops/norm.py``).  ``emb`` is the
     reference's ``nn.Embedding(num_classes, num_classes)``, never used in its
     forward, kept so the state_dict matches.  The projection runs in the
-    condition's dtype (its weights are cast to it)."""
+    condition's dtype (its weights are cast to it).  Under spatial
+    partitioning (``sp``) x holds a shard's rows and the plane statistics
+    span the shards (``parallel/spatial.py``)."""
+
+    sp = None
 
     def __init__(self, num_classes: int, channels: int, eps: float = 1e-5,
                  use_pallas: bool = False):
@@ -114,6 +118,8 @@ class AdaINBlock(nn.Module):
         if return_scale_shift:
             # factored form for the fused upsample+conv kernel
             return adain_scale_shift(x, y, self.eps)
+        if self.sp is not None:
+            return self.sp.adain(x, y, self.eps, self.use_pallas)
         if self.use_pallas:
             return adain_fused(x, y, self.eps)
         return adain(x, y, self.eps)
@@ -143,7 +149,14 @@ class ConditionalUNet(nn.Module):
     ``generator`` seeds the init (PyTorch's default distributions, drawn
     with ``ops/inits.py``); without it the layers keep their default init
     from the global generator.
+
+    Marked by ``parallel/spatial.py::spatial_`` (``sp``), the forward takes
+    a shard's rows: the convs take halos, the AdaINs split statistics
+    (K1's split form under ``use_pallas``), the upsamples row windows
+    (K2's row-window form), and dropout keeps the whole mask's rows.
     """
+
+    sp = None
 
     def __init__(self, num_classes: int = 5, dropout_rate: float = 0.3,
                  dtype: torch.dtype = torch.float32, use_pallas: bool = False,
@@ -196,6 +209,9 @@ class ConditionalUNet(nn.Module):
                              "the masks (core/rng.py::train_generator)")
         drop = make_dropout(self.dropout_rate, not train)
         fuse_levels = () if train else self.fuse_levels
+        sp = self.sp
+        if sp is not None and fuse_levels:
+            raise ValueError("fuse_upconv does not run split")
         x = x.to(self.dtype)
         c = c.to(self.dtype)
         conv1 = self.dconv_down1(x)
@@ -211,6 +227,10 @@ class ConditionalUNet(nn.Module):
                 scale_shift = blk(h, c, return_scale_shift=True)
                 h = up(h, skip=skip, fused_upsample=True,
                        scale_shift=scale_shift)
+            elif sp is not None:
+                u = sp.upsample(blk(h, c), self.use_pallas)
+                h = up(drop(u, generator, rows=sp.level(u.shape[2])),
+                       skip=skip)
             else:
                 upsample = (upsample2x_fused if self.use_pallas
                             else upsample_bilinear_align_corners)

@@ -50,7 +50,12 @@ class SNDoubleConv(nn.Sequential):
 
 
 class SNDisc(nn.Module):
-    """Projection discriminator with explicit spectral-norm state."""
+    """Projection discriminator with explicit spectral-norm state.  Marked by
+    ``parallel/spatial.py::spatial_`` (``sp``), x holds a shard's rows and
+    the global sum pool sums over the shards, so the logits are the whole
+    image's on every shard (the feature maps stay the shard's rows)."""
+
+    sp = None
 
     def __init__(self, num_classes: int = 5,
                  dtype: torch.dtype = torch.float32,
@@ -73,6 +78,8 @@ class SNDisc(nn.Module):
         c3 = self.conv3(c2, update_stats)
         c4 = self.conv4(c3, update_stats)
         feat = global_sum_pool(c4)                        # (B, 512)
+        if self.sp is not None:
+            feat = self.sp.sum(feat)
         out = self.l(feat, update_stats)
         e_c = self.embed(c.to(self.dtype), update_stats)
         out = out + (e_c * feat).sum(dim=1, keepdim=True)

@@ -34,12 +34,28 @@ import torch.nn as nn
 _VALID = ("bits16", "torch")
 
 
+def _drawn(x: torch.Tensor, rows):
+    """The shape a mask for ``x`` is drawn at, and how to cut x's part out of
+    it: x's own, or with ``rows = (start, total)`` (spatial partitioning:
+    x holds rows ``[start, start + x.shape[2])`` of ``total``) the whole
+    image's, of which x keeps its rows, so that every shard keeps the rows
+    of the one mask an unsharded step draws."""
+    if rows is None:
+        return x.shape, lambda t: t
+    start, total = rows
+    shape = x.shape[:2] + (total,) + x.shape[3:]
+    return shape, lambda t: t.narrow(2, start, x.shape[2])
+
+
 def _bernoulli_dropout(x: torch.Tensor, rate: float,
-                       generator: Optional[torch.Generator]) -> torch.Tensor:
+                       generator: Optional[torch.Generator],
+                       rows=None) -> torch.Tensor:
     """``nn.Dropout``'s rule: keep with probability ``1 - rate`` (a float32
     uniform draw), scale kept values by ``1 / (1 - rate)``."""
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    shape, cut = _drawn(x, rows)
+    mask = cut(torch.rand(shape, generator=generator, device=x.device)
+               < keep)
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
 
@@ -57,17 +73,20 @@ def _keep_scale(thresh: int, dtype: torch.dtype, device: torch.device,
 
 
 def bits_dropout(x: torch.Tensor, rate: float,
-                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                 generator: Optional[torch.Generator] = None,
+                 rows=None) -> torch.Tensor:
     """Inverted dropout from 16-bit random words (module docstring).  Falls
     back to the Bernoulli rule when a 16-bit threshold cannot express the
-    rate."""
+    rate.  ``rows = (start, total)``: x is a shard's rows of the image, and
+    its mask those rows of the whole image's."""
     if rate <= 0.0:
         return x
     thresh = round((1.0 - rate) * 65536.0)
     if not 0 < thresh < 65536:
-        return _bernoulli_dropout(x, rate, generator)
-    words = torch.randint(-32768, 32768, x.shape, generator=generator,
-                          device=x.device, dtype=torch.int16)
+        return _bernoulli_dropout(x, rate, generator, rows)
+    shape, cut = _drawn(x, rows)
+    words = cut(torch.randint(-32768, 32768, shape, generator=generator,
+                              device=x.device, dtype=torch.int16))
     mask = words < thresh - 32768
     scale = _keep_scale(thresh, x.dtype, x.device)
     return torch.where(mask, x * scale, torch.zeros((), dtype=x.dtype,
@@ -126,13 +145,15 @@ def default_impl() -> str:
 
 
 def make_dropout(rate: float, deterministic: bool) -> Callable:
-    """The default dropout as ``drop(x, generator) -> Tensor``: the identity
-    when ``deterministic`` or ``rate == 0``, else ``bits_dropout`` or, with
-    ``WUT_DROPOUT=torch``, the Bernoulli rule."""
+    """The default dropout as ``drop(x, generator, rows=None) -> Tensor``:
+    the identity when ``deterministic`` or ``rate == 0``, else
+    ``bits_dropout`` or, with ``WUT_DROPOUT=torch``, the Bernoulli rule
+    (``rows`` as ``bits_dropout``'s)."""
     impl = default_impl()
     if deterministic or rate == 0.0:
-        return lambda x, generator=None: x
+        return lambda x, generator=None, rows=None: x
     if impl == "torch":
-        return lambda x, generator=None: _bernoulli_dropout(x, rate,
-                                                            generator)
-    return lambda x, generator=None: bits_dropout(x, rate, generator)
+        return lambda x, generator=None, rows=None: _bernoulli_dropout(
+            x, rate, generator, rows)
+    return lambda x, generator=None, rows=None: bits_dropout(
+        x, rate, generator, rows)

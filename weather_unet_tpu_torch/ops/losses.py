@@ -1,5 +1,8 @@
 """Loss functions of the GAN training step -- the port of
-``weather_unet_tpu/ops/losses.py`` (reference ``ops.py:14-83``)."""
+``weather_unet_tpu/ops/losses.py`` (reference ``ops.py:14-83``).
+
+``group`` (``parallel/spatial.py::SpatialGroup``): the images hold a
+shard's rows, and the pixel means span the shards."""
 
 from __future__ import annotations
 
@@ -9,8 +12,10 @@ import torch
 import torch.nn.functional as F
 
 
-def l1_loss(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def l1_loss(a: torch.Tensor, b: torch.Tensor, group=None) -> torch.Tensor:
     """Mean absolute error."""
+    if group is not None:
+        return group.pixel_mean((a - b).abs(), tuple(range(a.dim())))
     return (a - b).abs().mean()
 
 
@@ -59,13 +64,16 @@ def gen_hinge(dis_fake: torch.Tensor) -> torch.Tensor:
 def reconstruction_con_loss(fake: torch.Tensor, real: torch.Tensor,
                             pred_labels: torch.Tensor,
                             rand_labels: torch.Tensor,
-                            eps: float = 1e-7) -> torch.Tensor:
+                            eps: float = 1e-7, group=None) -> torch.Tensor:
     """Distance-weighted reconstruction penalty ``loss_con`` (eps 1e-7
     semi-supervised, 1e-2 supervised):
 
       mean_b [ mean_pix |fake - real| / (mean_c |pred - rand| + eps) ]
     """
-    diff = (fake - real).abs().mean(dim=(1, 2, 3))
+    if group is not None:
+        diff = group.pixel_mean((fake - real).abs(), (1, 2, 3))
+    else:
+        diff = (fake - real).abs().mean(dim=(1, 2, 3))
     dist = (pred_labels - rand_labels).abs().mean(dim=1)
     return (diff / (dist + eps)).mean()
 

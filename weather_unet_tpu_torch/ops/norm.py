@@ -54,6 +54,59 @@ def adain(x: torch.Tensor, y_proj: torch.Tensor, eps: float = 1e-5):
     return out.to(x.dtype)
 
 
+def plane_stats(x: torch.Tensor) -> torch.Tensor:
+    """Each (b, c) plane's float32 ``(mean, M2)`` over its H x W values,
+    two-pass: ``M2 = sum((x - mean)^2)``.  Returns (B, C, 2)."""
+    xf = x.float()
+    mean = xf.mean(dim=(2, 3), keepdim=True)
+    m2 = (xf - mean).square().sum(dim=(2, 3))
+    return torch.stack([mean.squeeze((2, 3)), m2], dim=-1)
+
+
+def merge_plane_stats(stats: torch.Tensor, counts) -> torch.Tensor:
+    """Merge the shards' plane statistics: ``stats`` (n, B, C, 2) holds
+    shard k's ``(mean, M2)`` over its ``counts[k]`` values of each plane.
+    Chan's formula, in float32, the shards in order:
+    ``mean = sum_k n_k mean_k / N`` and ``M2 = sum_k M2_k + sum_k n_k
+    (mean_k - mean)^2``.  Returns (B, C, 2): the plane's mean and its
+    unbiased (ddof=1) variance ``M2 / (N - 1)``."""
+    total = sum(counts)
+    means, m2s = stats[..., 0], stats[..., 1]
+    mean = sum(n * means[k] for k, n in enumerate(counts)) / total
+    m2 = sum(m2s[k] for k in range(len(counts))) + sum(
+        n * (means[k] - mean).square() for k, n in enumerate(counts))
+    return torch.stack([mean, m2 / max(total - 1, 1)], dim=-1)
+
+
+def adain_from_stats(x: torch.Tensor, y_proj: torch.Tensor,
+                     stats: torch.Tensor, eps: float = 1e-5):
+    """``adain`` with each plane's float32 ``(mean, unbiased variance)``
+    given in ``stats`` (B, C, 2) instead of taken from x."""
+    b, c = x.shape[:2]
+    y_mean, y_std = _style_stats(y_proj, b, c, eps)
+    x_mean, x_var = stats[..., 0], stats[..., 1]
+    x_std = torch.sqrt(x_var + eps)
+    out = ((x.float() - x_mean[:, :, None, None]) / x_std[:, :, None, None]
+           * y_std[:, :, None, None] + y_mean[:, :, None, None])
+    return out.to(x.dtype)
+
+
+def adain_split(x: torch.Tensor, y_proj: torch.Tensor, eps: float,
+                exchange, counts, stats=plane_stats,
+                modulate=adain_from_stats):
+    """``adain`` of a plane whose rows lie on several shards, x being this
+    shard's rows: each shard's local ``stats(x)``, exchanged
+    (``exchange(t) -> (n, *t.shape)``, every shard's in order, its gradient
+    summed back), merged the same way on every shard
+    (``merge_plane_stats`` over ``counts``, each shard's values a plane),
+    then ``modulate``.  The result equals ``adain`` of the whole plane's
+    rows within float32 reassociation; differentiable where ``exchange``
+    is.  K1's split form passes its two kernels as ``stats`` and
+    ``modulate`` (``kernels/adain.py::adain_split_fused``)."""
+    merged = merge_plane_stats(exchange(stats(x)), counts)
+    return modulate(x, y_proj, merged, eps)
+
+
 def adain_scale_shift(x: torch.Tensor, y_proj: torch.Tensor,
                       eps: float = 1e-5):
     """AdaIN factored as a per-(sample, channel) affine: float32 ``(scale,

@@ -6,6 +6,10 @@ mode='bilinear', align_corners=True)``; the plain form here is that same
 call, ``F.interpolate`` (a PyTorch kernel, memory-bound, no dense matmul).
 Output row ``i`` reads source coordinate ``i * (n_in - 1) / (n_out - 1)``.
 
+``upsample_x2_rows`` is the row-window form of spatial partitioning
+(``parallel/spatial.py``): a shard's rows, one halo row above and below,
+to its rows of the whole image's output, with ``_x2_window_taps``.
+
 The numpy tables below are the JAX package's, copied: ``_x2_taps`` gives the
 2-tap indices and float32 weights that ``_tap_tables`` ships to the device
 for the upsample kernel (``kernels/upsample.py``) and the fused
@@ -81,17 +85,74 @@ def _x2_shift_weights(n_in: int):
     return a.astype(np.float32), b.astype(np.float32)
 
 
-@functools.lru_cache(maxsize=64)
-def _tap_tables(h: int, w: int, device: torch.device):
+@functools.lru_cache(maxsize=256)
+def _tap_tables(h: int, w: int, device: torch.device, window=None):
     """The kernels' tap tables of an (h, w) -> (2h, 2w) upsample on
     ``device``: int32 ``[i0 rows | i1 rows | i0 cols | i1 cols]`` and float32
-    ``[f rows | f cols]``."""
-    hi0, hi1, hf = _x2_taps(h)
+    ``[f rows | f cols]``.  With ``window = (n_in, start)`` the row taps are
+    those of ``_x2_window_taps(n_in, start, h)``: ``h`` rows of an image of
+    ``n_in``, read from a slab of ``h + 2``."""
+    hi0, hi1, hf = (_x2_taps(h) if window is None
+                    else _x2_window_taps(window[0], window[1], h))
     wi0, wi1, wf = _x2_taps(w)
     idx = np.concatenate([hi0, hi1, wi0, wi1]).astype(np.int32)
     frac = np.concatenate([hf, wf]).astype(np.float32)
     return (torch.from_numpy(idx).to(device),
             torch.from_numpy(frac).to(device))
+
+
+@functools.lru_cache(maxsize=256)
+def _x2_window_taps(n_in: int, start: int, h: int):
+    """The row taps of output rows ``[2 start, 2 (start + h))`` of an exact
+    2x align-corners upsample of ``n_in`` rows, indexing a slab of ``h +
+    2`` rows whose row 0 is input row ``start - 1`` (one halo row above
+    the shard's ``h`` rows and one below): ``(i0, i1, f)`` as
+    ``_x2_taps``.  The taps reach one row above the shard's rows at most,
+    and one below (slab rows 0 and h + 1), none beyond the image."""
+    i0, i1, f = _x2_taps(n_in)
+    win = slice(2 * start, 2 * (start + h))
+    off = start - 1
+    j0, j1 = i0[win] - off, i1[win] - off
+    if j0.min() < 0 or j1.max() > h + 1:
+        raise ValueError(f"rows [{start}, {start + h}) of {n_in}: the taps "
+                         f"leave the one-row halo")
+    return j0.astype(np.int32), j1.astype(np.int32), f[win]
+
+
+@functools.lru_cache(maxsize=256)
+def _window_matrix_np(n_in: int, start: int, h: int) -> np.ndarray:
+    """(2h, h + 2) float32 weights of the window's output rows over its
+    slab (``_x2_window_taps``), dense: the rows of ``_interp_matrix_np(2
+    n_in, n_in)`` for the window, over the slab's columns (the halo rows
+    beyond the image carry weight 0)."""
+    full = _interp_matrix_np(2 * n_in, n_in, True)
+    m = np.zeros((2 * h, h + 2), np.float32)
+    lo, hi = max(start - 1, 0), min(start + h + 1, n_in)
+    m[:, lo - (start - 1):hi - (start - 1)] = full[2 * start:2 * (start + h),
+                                                   lo:hi]
+    return m
+
+
+def upsample_x2_rows(slab: torch.Tensor, n_in: int,
+                     start: int) -> torch.Tensor:
+    """The row-window form of the exact 2x align-corners upsample (spatial
+    partitioning): ``slab`` (B, C, h + 2, W) holds input rows ``[start - 1,
+    start + h + 1)`` of an image of ``n_in`` rows (zeros where they leave
+    it); returns output rows ``[2 start, 2 (start + h))`` of the whole
+    image's (B, C, 2 n_in, 2W), which equal its ``upsample_bilinear_
+    align_corners`` there.  Columns then rows, blended in float32 with the
+    whole image's taps and rounded once, as K2's kernel does."""
+    h, w = slab.shape[2] - 2, slab.shape[3]
+    i0, i1, f = (torch.from_numpy(a).to(slab.device)
+                 for a in _x2_window_taps(n_in, start, h))
+    j0, j1, g = (torch.from_numpy(a).to(slab.device) for a in _x2_taps(w))
+    xf = slab.float()
+    cols = (xf.index_select(3, j0.long()) * (1 - g)
+            + xf.index_select(3, j1.long()) * g)
+    fr = f[:, None]
+    out = (cols.index_select(2, i0.long()) * (1 - fr)
+           + cols.index_select(2, i1.long()) * fr)
+    return out.to(slab.dtype)
 
 
 def upsample_x2_gather(x: torch.Tensor) -> torch.Tensor:

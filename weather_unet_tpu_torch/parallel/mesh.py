@@ -20,8 +20,12 @@ the gradients, the evaluation sums and BatchNorm's moments go).  Without
 tensor parallelism each model position holds a full replica and steps on
 its data row's rows, as in the JAX package.
 
-Spatial partitioning over the ``'model'`` axis is not ported yet
-(``ROADMAP.md`` queue 1 item 4c): :meth:`MeshPlan.spatial` raises.
+Spatial partitioning uses the same grid: :meth:`MeshPlan.spatial` places
+NHWC images with the batch over the data rows and the height over the
+model axis, cut at multiples of the deepest feature map's stride
+(:func:`row_cut`), and ``parallel/spatial.py`` runs the networks on the
+shards, one rank a shard over the model group, or in threads of one
+process.
 """
 
 from __future__ import annotations
@@ -33,8 +37,6 @@ import numpy as np
 import torch
 
 from weather_unet_tpu_torch.parallel import launch
-
-MODEL_AXIS_ITEM = "ROADMAP.md queue 1 item 4c, 'Spatial partitioning'"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,10 +78,26 @@ class MeshPlan:
                 for i in range(0, len(self.devices), m)]
 
     def spatial(self, input_size: Optional[int] = None,
-                deepest_stride: int = 16):
-        """Image height over ``'model'``: not ported yet."""
-        raise NotImplementedError(
-            f"spatial partitioning is not ported yet ({MODEL_AXIS_ITEM})")
+                deepest_stride: int = 16) -> "Sharding":
+        """Batch over ``'data'`` and image height over ``'model'``: NHWC
+        images split like the JAX package's ``P("data", "model", None,
+        None)``, the rows cut at multiples of ``deepest_stride``
+        (:func:`row_cut`), so every feature map down to the deepest
+        (cUNet: H/8; SNDisc: H/16, hence the default) holds whole rows on
+        every shard.  The JAX package's guard, with its message: a model
+        axis larger than the deepest feature map's height
+        (``input_size // deepest_stride``) is refused; without
+        ``input_size`` nothing is checked here (the placement cuts what it
+        is given)."""
+        n_model = self.n_model
+        if input_size is not None and n_model > max(
+                input_size // deepest_stride, 1):
+            raise ValueError(
+                f"spatial partitioning degree {n_model} exceeds the deepest "
+                f"feature-map height {input_size // deepest_stride} "
+                f"(input_size={input_size}, deepest_stride={deepest_stride}); "
+                f"use a smaller 'model' axis or a larger input")
+        return Sharding(self, ("data", "model"), deepest_stride)
 
 
 def require_model_axis(plan: Optional["MeshPlan"],
@@ -96,10 +114,30 @@ def require_model_axis(plan: Optional["MeshPlan"],
 @dataclasses.dataclass(frozen=True)
 class Sharding:
     """How a tree is laid out over a plan: ``("data",)`` splits dimension 0
-    by rank and then over the rank's devices, ``()`` copies it to each."""
+    by rank and then over the rank's devices, ``()`` copies it to each,
+    ``("data", "model")`` splits an NHWC leaf's dimension 0 over the data
+    rows and its dimension 1 (height) over the model axis, cut at
+    multiples of ``unit`` rows (:func:`row_cut`)."""
 
     plan: MeshPlan
     spec: tuple
+    unit: int = 1
+
+
+def row_cut(height: int, n: int, unit: int = 16) -> list:
+    """``(start, rows)`` of each of ``n`` shards of ``height`` rows: cuts at
+    multiples of ``unit``, as even as that allows (shard k starts at
+    ``unit * floor(k * units / n)``: 224 rows at degree 4 and unit 16 are
+    48/64/48/64), so that a feature map ``unit`` times smaller still holds
+    whole rows on every shard.  Refused where a shard would hold none or
+    ``height`` is not a multiple of ``unit``."""
+    units = height // unit if unit else 0
+    if n < 1 or units * unit != height or units < n:
+        raise ValueError(
+            f"{height} rows do not cut into {n} shard(s) of whole "
+            f"multiples of {unit} rows")
+    starts = [unit * (k * units // n) for k in range(n)] + [height]
+    return [(starts[k], starts[k + 1] - starts[k]) for k in range(n)]
 
 
 def _local_devices(devices) -> list:
@@ -228,13 +266,40 @@ def _as_tensor(x) -> torch.Tensor:
         np.asarray(x))
 
 
-def _place(plan: MeshPlan, spec: tuple, x):
+def _place_spatial(plan: MeshPlan, unit: int, t: torch.Tensor) -> list:
+    """An NHWC leaf over the local devices: this process's rows split over
+    its data rows, each data row's images cut by height over the model
+    axis (the device at grid position p holds data row ``p // model``'s
+    images, rows ``row_cut[p % model]``)."""
+    if t.dim() != 4:
+        raise ValueError(f"spatial placement takes NHWC images, got shape "
+                         f"{tuple(t.shape)}")
+    m = plan.n_model
+    first = plan.process_index * len(plan.devices)
+    pos = [first + i for i in range(len(plan.devices))]
+    rows = sorted({p // m for p in pos})
+    if t.shape[0] % len(rows):
+        raise ValueError(f"{t.shape[0]} rows do not split evenly over "
+                         f"{len(rows)} data row(s)")
+    chunks = dict(zip(rows, t.chunk(len(rows))))
+    cut = row_cut(t.shape[1], m, unit)
+    out = []
+    for p, d in zip(pos, plan.devices):
+        start, n = cut[p % m]
+        out.append(chunks[p // m].narrow(1, start, n).to(d, copy=True)
+                   .contiguous())
+    return out
+
+
+def _place(plan: MeshPlan, spec: tuple, x, unit: int = 1):
     """One leaf onto the plan's devices: one tensor for one device, else a
     tuple of one tensor a device (the rows split evenly for ``("data",)``,
-    copies for ``()``)."""
+    copies for ``()``, rows and height for ``("data", "model")``)."""
     t = _as_tensor(x)
     devs = plan.devices
-    if spec:
+    if spec == ("data", "model"):
+        parts = _place_spatial(plan, unit, t)
+    elif spec:
         if t.shape[0] % len(devs):
             raise ValueError(f"{t.shape[0]} rows do not split evenly over "
                              f"{len(devs)} device(s)")
@@ -248,7 +313,8 @@ def put_host_local(sharding: Sharding, tree):
     """Place this process's view of a value: for ``("data",)`` its rows as
     given (a rank's rows stay its own), for ``()`` the whole value, which
     the caller holds the same on every rank.  Nothing crosses ranks."""
-    return _map(lambda x: _place(sharding.plan, sharding.spec, x), tree)
+    return _map(lambda x: _place(sharding.plan, sharding.spec, x,
+                                 sharding.unit), tree)
 
 
 def shard_batch(plan: MeshPlan, tree):

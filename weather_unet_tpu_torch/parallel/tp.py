@@ -196,6 +196,26 @@ class Shards:
         """Whether this shard counts the sum (one count a sum)."""
         return True
 
+    def _gather(self, t: torch.Tensor, shapes) -> list:
+        raise NotImplementedError
+
+    def all_gather(self, t: torch.Tensor, shapes=None) -> list:
+        """Every shard's ``t`` in shard order, exact (new tensors on ``t``'s
+        device; shard j's of shape ``shapes[j]``, default ``t``'s).
+        Counted and timed with the sums."""
+        shapes = [tuple(t.shape)] * self.n if shapes is None else [
+            tuple(sh) for sh in shapes]
+        if self.timed and t.is_cuda:
+            torch.cuda.synchronize(t.device)
+        t0 = time.perf_counter()
+        out = self._gather(t.detach(), shapes)
+        if self.timed and t.is_cuda:
+            torch.cuda.synchronize(t.device)
+        if self._counts():
+            self.sums += 1
+            self.sum_s += time.perf_counter() - t0
+        return out
+
 
 class ProcessShards(Shards):
     """One shard a process: the ranks of this rank's model group."""
@@ -218,6 +238,17 @@ class ProcessShards(Shards):
     def broadcast_(self, t: torch.Tensor, index: int) -> None:
         """Shard ``index``'s ``t`` into every shard's, in place (exact)."""
         torch.distributed.broadcast(t, self.ranks[index], group=self.pg)
+
+    def _gather(self, t, shapes):
+        # one broadcast from each shard: exact, and gloo carries CUDA
+        # tensors for it
+        out = []
+        for j, shape in enumerate(shapes):
+            buf = (t.contiguous().clone() if j == self._index
+                   else t.new_empty(shape))
+            self.broadcast_(buf, j)
+            out.append(buf)
+        return out
 
 
 class ThreadShards(Shards):
@@ -256,6 +287,13 @@ class ThreadShards(Shards):
             acc += self._slots[j].to(t.device, torch.float32)
         self._wait()
         return acc
+
+    def _gather(self, t, shapes):
+        self._slots[self.index] = t
+        self._wait()
+        out = [self._slots[j].to(t.device, copy=True) for j in range(self.n)]
+        self._wait()
+        return out
 
     def run(self, fn: Callable[[int, torch.device], object]) -> list:
         """``fn(index, device)`` on every shard at once, shard 0 on the

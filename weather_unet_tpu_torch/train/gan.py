@@ -38,6 +38,14 @@ networks split by ``parallel/tp.py`` the split convs sum over the model
 group inside the forward and backward; a split parameter's gradient (and
 so Adam's moments) is its shard's, and a parameter every shard holds whole
 gets the same gradient on each with no further sum.
+
+With both networks marked by ``parallel/spatial.py::spatial_`` and the
+images placed by ``plan.spatial()`` (each rank of a data row holds rows of
+its images), the losses and logits are the whole images' on every shard
+(sums over the data row's shards), the frozen estimator runs on the
+gathered whole images, each shard backpropagates the replicated loss
+divided by the degree, and each parameter's gradient is summed over the
+shards before the data-group mean: the parameters stay replicated.
 """
 
 from __future__ import annotations
@@ -55,6 +63,7 @@ from weather_unet_tpu_torch.core.state import GanTrainState, TrainState
 from weather_unet_tpu_torch.models.cunet import ConditionalUNet
 from weather_unet_tpu_torch.models.sndisc import SNDisc
 from weather_unet_tpu_torch.ops import losses
+from weather_unet_tpu_torch.parallel import spatial
 from weather_unet_tpu_torch.parallel.mesh import (
     all_reduce_mean, data_parallel)
 
@@ -104,7 +113,7 @@ def build_gan_state(cfg: GanConfig, seed: int, device: DeviceLike = None,
 
 
 def _apply_gradients(ts: TrainState, loss: torch.Tensor,
-                     metrics: dict) -> None:
+                     metrics: dict, group=None) -> None:
     """One optimizer step on the gradient of ``loss`` with respect to the
     state's own parameters only (the other network's are not touched); the
     update count is the caller's (host counters stay out of a step's device
@@ -112,9 +121,14 @@ def _apply_gradients(ts: TrainState, loss: torch.Tensor,
     parameter the loss does not use (the cUNet's ``adain{i}.emb``, absent
     from the JAX model) gets no gradient, so Adam leaves it as it is.
     Under a process group the gradients and ``metrics`` (replaced in place)
-    are averaged over the ranks in one bucket first."""
+    are averaged over the ranks in one bucket first.  Under spatial
+    partitioning (``group``) each shard's gradient of the replicated loss
+    divided by the degree is summed over the shards first."""
     params = [p for p in ts.module.parameters() if p.requires_grad]
-    grads = list(torch.autograd.grad(loss, params, allow_unused=True))
+    grads = list(torch.autograd.grad(loss / group.n if group else loss,
+                                     params, allow_unused=True))
+    if group is not None:
+        grads = spatial.sum_gradients(group, grads)
     if data_parallel():
         used = [i for i, g in enumerate(grads) if g is not None]
         keys = list(metrics)
@@ -152,6 +166,16 @@ def make_gan_step(gen: ConditionalUNet, disc: SNDisc, est_apply: Callable,
     (``train/loops.py::_tiered_steps``)."""
     n_cls = cfg.num_classes
     cls_ce = cfg.mode == "cls" and cfg.cross_ent
+    group = spatial.group_of(gen)
+    if (spatial.group_of(disc) is None) != (group is None):
+        raise ValueError("under spatial partitioning both networks are "
+                         "marked (parallel/spatial.py::spatial_)")
+    if group is not None:
+        # the frozen estimator sees whole images, the same on every shard
+        est_rows = est_apply
+
+        def est_apply(images):
+            return est_rows(group.gather_rows(images))
 
     def conditions_from(images):
         out = est_apply(images)
@@ -177,7 +201,7 @@ def make_gan_step(gen: ConditionalUNet, disc: SNDisc, est_apply: Callable,
         fake_out, _ = disc(fake_detached, rand_labels, update_stats=True)
         d_loss = losses.dis_hinge(fake_out, real_out)
         metrics = {"d_loss": d_loss.detach()}
-        _apply_gradients(state.disc, d_loss, metrics)
+        _apply_gradients(state.disc, d_loss, metrics, group)
 
         if do_g:
             # ------------- generator update (t_est_train.py:214-259)
@@ -196,13 +220,14 @@ def make_gan_step(gen: ConditionalUNet, disc: SNDisc, est_apply: Callable,
             else:
                 g_w = losses.mse_loss(conditions_from(fake), rand_labels)
             loss_con = losses.reconstruction_con_loss(
-                fake, images, pred_labels, rand_labels, eps=cfg.con_eps)
-            g_l1 = losses.l1_loss(fake, images)
+                fake, images, pred_labels, rand_labels, eps=cfg.con_eps,
+                group=group)
+            g_l1 = losses.l1_loss(fake, images, group)
             g_loss = g_adv + loss_con + g_w
             g_metrics = {k: v.detach() for k, v in (
                 ("g_loss", g_loss), ("g_loss_adv", g_adv), ("g_loss_w", g_w),
                 ("loss_con", loss_con), ("g_loss_l1", g_l1))}
-            _apply_gradients(state.gen, g_loss, g_metrics)
+            _apply_gradients(state.gen, g_loss, g_metrics, group)
             metrics.update(g_metrics)
         return metrics
 
@@ -235,7 +260,12 @@ def make_eval_step(gen: ConditionalUNet, disc: SNDisc, est_apply: Callable,
     train mode (dropout on, masks from ``generator``), ``g_loss_w`` scores
     the estimator's raw outputs in both modes, and D reads its ``u`` without
     advancing it.  A loop over the reference conditions stands in for the
-    JAX package's ``vmap``; nothing here builds a graph."""
+    JAX package's ``vmap``; nothing here builds a graph.  Spatially split
+    networks are refused (the eval step over spatial shards is not
+    ported)."""
+    if spatial.group_of(gen) is not None:
+        raise ValueError("the evaluation step does not run spatially split "
+                         "networks")
 
     @torch.no_grad()
     def eval_step(state: GanTrainState, images, labels, ref_labels,
