@@ -35,17 +35,25 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                ResNet-101 layer (B=16, 224x224 input) and one odd shape,
                with folded weights from random running statistics and
                non-zero biases; one backward per autograd.Function.
-               In bfloat16 K3 and K4 run their tensor-core kernels (asserted
-               from their counters; the records name the plan that ran and
-               the TFLOP/s reached), K4 also once under every other plan
-               that fits the site (tile rows x width, "/n" for a cluster of n
-               blocks sharing the tile, "k64" for reduction chunks of 64); in
-               float32, and at the odd K3 shape, the CUDA-core kernels.
+               K3 and K4 run their tensor-core kernels where the rule
+               (takes_tensor_cores) sends them (asserted from their
+               counters; the records name the plan that ran and the
+               TFLOP/s reached), K4 also once under every other plan that
+               fits the site (tile rows x width, "/n" for a cluster of n
+               blocks sharing the tile, "k64" for reduction chunks of 64):
+               bfloat16 on bf16 operands, float32 as split float32 (three
+               TF32 mmas a product), whose records add the CUDA-core kernel
+               they replace, called directly ("cuda_core_ms", its error
+               and bound) and take their bound on the 3xTF32 rate
+               (495/3 TFLOP/s); the odd K3 shape (C = 8) and the odd K4
+               shape in float32 (P = 16) run the CUDA-core kernels.
                Tolerances (max abs error):
                  K1, K2 and K4 also at the GAN step's sites (decoder at a
                224x224 input, batch 8; ResNet-101 at batch 8).
                float32:  1e-5 * max(1, max|plain|) -- float32 reassociation
-                           over up to 4608 products (TF32 is off here);
+                           over up to 4608 products (cuDNN's TF32 is off
+                           here), and in the split float32 forms ~2^-21 a
+                           product;
                  bfloat16: 2^-6 * max(1, max|plain|) -- the plain chain
                            rounds to bf16 after each op, the kernel once (K4
                            and its plain version round at the same points
@@ -340,11 +348,17 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                steps at 224x224, B=8, f32 (TF32 off, cuDNN
                deterministic), dropout 0, K1, K2 and the K4-routed
                estimator; its checkpoint bit-equal to the run without
-               the launcher.  (b) Two gloo ranks sharing cuda:0, the same
-               run at global B=8: the ranks' checkpoints byte-equal, each
-               step at the GAN f32 bars against the one-process step from
-               rank 0's state before it (sign-flip bound 2.2 * lr *
-               sqrt(k)) (its bf16 timing run is cut: CUTS).  (c) Two gloo ranks of train_estimator,
+               the launcher.  (b) Two gloo ranks sharing cuda:0, alone on
+               it, the same run at global B=8: the ranks' checkpoints
+               byte-equal, no refused allocation, each step against the
+               one-process step (a child process) from rank 0's state
+               before it on the ranks' inputs joined, at the bars of
+               phase tensor_parallel (b) (the float32 floor also from the
+               step with its weights moved by one rounding: at B=4 a rank
+               runs other cuDNN and cuBLAS engines than B=8, which
+               re-rounds every conv) plus twice the K4 route's
+               sensitivity to the split (its bf16 timing run is cut:
+               CUTS).  (c) Two gloo ranks of train_estimator,
                2 steps at 224x224, global B=64, f32, each step against the
                one-process step on the ranks' joined rows (losses rel
                1e-4; BN statistics and the sign-flip bound, each plus
@@ -502,6 +516,9 @@ SEED = 0
 PEAK_BYTES_PER_S = 3.35e12                       # H100 SXM HBM3
 PEAK_FLOPS = {torch.float32: 67e12,              # CUDA cores, no tensor cores
               torch.bfloat16: 989e12}            # tensor cores, dense
+# float32-accurate work on the tensor cores: split float32, three TF32 mmas
+# (495 TFLOP/s dense) a product -- the rate of K3's and K4's float32 forms
+PEAK_FLOPS_3XTF32 = 495e12 / 3
 TOL_REL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -6}
 DTYPES = (torch.float32, torch.bfloat16)
 DT_NAME = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
@@ -656,6 +673,45 @@ def bound(n_bytes: int, flops: float, dtype) -> tuple:
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def bound_3xtf32(n_bytes: int, flops: float) -> tuple:
+    """``bound`` for a float32 form on the tensor cores."""
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS_3XTF32 * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations (3xTF32)")
+
+
+# the float32 tensor-core forms, each a kernel of the kernels line under a
+# name of its own, and the module whose counter counts its launches
+TF32_FORMS = {"bottleneck_3xtf32": "bottleneck", "upconv_3xtf32": "upconv"}
+
+
+def tf32_counts(counters, zero=False):
+    """The float32 tensor-core forms' launch counts (K4's and K3's
+    ``f32_tensor_core_launches``); with ``zero`` set them to 0 first."""
+    mods = {name: counters[k] for name, k in TF32_FORMS.items()}
+    if zero:
+        for m in mods.values():
+            m.f32_tensor_core_launches = 0
+    return {name: m.f32_tensor_core_launches for name, m in mods.items()}
+
+
+def tf32_run(fn, counters, tf32_totals, want, what):
+    """Run ``fn`` with the float32 forms' counts set to 0 just before it
+    and read just after; they join ``tf32_totals`` and must equal ``want``
+    (form -> launches)."""
+    tf32_counts(counters, zero=True)
+    out = fn()
+    torch.cuda.synchronize()
+    got = tf32_counts(counters)
+    for name in got:
+        tf32_totals[name] += got[name]
+    if got != {name: want.get(name, 0) for name in got}:
+        raise AssertionError(f"{what}: float32 tensor-core launches {got} "
+                             f"!= {want}")
+    return out
+
+
 def on_main_path(kernel, site) -> bool:
     return site in MAIN_SITES[kernel] or site in GAN_SITES.get(kernel, {})
 
@@ -782,7 +838,9 @@ def phase_kernels():
             plain_ms = time_ms(lambda: k3.upconv_block_ref(x, wt, cb, sc, sh,
                                                            True))
             flops = 2.0 * b * o * 4 * h * w * (9 * c + 1)
-            bms, by = bound(nbytes(x, wt, cb, sc, sh, out), flops, dt)
+            moved = nbytes(x, wt, cb, sc, sh, out)
+            bms, by = bound(moved, flops, dt)
+            esize = x.element_size()
             rec = {"phase": "kernel", "kernel": "upconv", "site": site,
                    "dtype": DT_NAME[dt], "shape": [b, c, h, w, o],
                    "max_abs_err": err, "tol": tol, "combos_max_abs_err": combos,
@@ -790,8 +848,21 @@ def phase_kernels():
                    "plain_ms": plain_ms, "bound_ms": bms,
                    "bound_by": by, "gflop": flops / 1e9,
                    "tflops": flops / launch_ms / 1e9,
-                   "variant": ("tensor cores " + k3.plan_upconv(c, o)["name"]
-                               if on_tc else "cuda cores")}
+                   "variant": ("tensor cores " + k3.plan_upconv(
+                       c, o, esize=esize)["name"] if on_tc else "cuda cores")}
+            if on_tc and dt == torch.float32:
+                # the 3xTF32 form: bound on its own rate, and the CUDA-core
+                # kernel it replaces, called directly, beside it
+                rec["cuda_core_bound_ms"], rec["cuda_core_bound_by"] = bms, by
+                rec["bound_ms"], rec["bound_by"] = bound_3xtf32(moved, flops)
+                cc = k3.upconv_kernel(x, wt, cb, sc, sh, True,
+                                      cuda_cores=True)
+                rec["cuda_core_max_abs_err"] = max_err(cc, ref)
+                check(f"upconv {site} float32 cuda cores",
+                      rec["cuda_core_max_abs_err"], ref, dt, failures)
+                rec["cuda_core_ms"] = time_ms(lambda: k3.upconv_kernel(
+                    x, wt, cb, sc, sh, True, cuda_cores=True))
+                del cc
             emit(rec)
             summary["upconv"].setdefault(dt, {})[site] = rec
         for site, (b, c, h, w) in K2_SITES.items():
@@ -846,9 +917,13 @@ def phase_kernels():
                 raise AssertionError("bottleneck biases must be non-zero")
             ref = k4.bottleneck_eval_reference(x, *wts)
             on_tc = k4.takes_tensor_cores(dt, c, p, h, w)
+            f32_tc = on_tc and dt == torch.float32
+            esize = x.element_size()
             # the model packs the tensor-core kernel's weights once
-            # (fused_resnet_eval), so the timed call takes them packed
-            args = (k4.pack_bottleneck(*wts, dt),) if on_tc else wts
+            # (fused_resnet_eval; float32 split), so the timed call takes
+            # them packed
+            args = ((k4.pack_bottleneck(*wts, dt, f32_tc),) if on_tc
+                    else wts)
             tc_before = k4.tensor_core_launches
             out = k4.fused_bottleneck_eval(x, *wts)
             if (k4.tensor_core_launches - tc_before == 1) != on_tc:
@@ -860,7 +935,8 @@ def phase_kernels():
             ms = time_ms(lambda: k4.fused_bottleneck_eval(x, *args))
             plain_ms = time_ms(lambda: k4.bottleneck_eval_reference(x, *wts))
             flops = 2.0 * b * h * w * (2 * c * p + 9 * p * p)
-            bms, by = bound(nbytes(x, out, *wts), flops, dt)
+            moved = nbytes(x, out, *wts)
+            bms, by = bound(moved, flops, dt)
             rec = {"phase": "kernel", "kernel": "bottleneck", "site": site,
                    "dtype": DT_NAME[dt], "shape": [b, c, h, w],
                    "max_abs_err": err, "tol": tol, "ms": ms,
@@ -869,10 +945,21 @@ def phase_kernels():
                    "gflop": flops / 1e9, "tflops": flops / ms / 1e9,
                    "variant": "cuda cores",
                    "nonzero_share": float((out != 0).float().mean())}
+            if f32_tc:
+                # the 3xTF32 form: bound on its own rate, and the CUDA-core
+                # kernel it replaces, called directly, beside it
+                rec["cuda_core_bound_ms"], rec["cuda_core_bound_by"] = bms, by
+                rec["bound_ms"], rec["bound_by"] = bound_3xtf32(moved, flops)
+                rec["cuda_core_max_abs_err"] = max_err(
+                    k4.bottleneck_kernel(x, *wts), ref)
+                check(f"bottleneck {site} float32 cuda cores",
+                      rec["cuda_core_max_abs_err"], ref, dt, failures)
+                rec["cuda_core_ms"] = time_ms(
+                    lambda: k4.bottleneck_kernel(x, *wts))
             if on_tc:
                 # every tile plan that fits, the chosen one first; the others
                 # forced, checked, and timed at one repetition
-                plans = k4.bottleneck_plans(b, c, p, h, w)
+                plans = k4.bottleneck_plans(b, c, p, h, w, esize=esize)
                 rec["variant"] = "tensor cores " + plans[0]["name"]
                 rec["plans"] = {}
                 for plan in plans:
@@ -950,7 +1037,26 @@ def check_backward(k1, k2, k3):
     return failures
 
 
-def phase_e2e(path, counters, launch_totals):
+def tf32_want(counters, dt, kernel, sites):
+    """Launches of ``kernel``'s float32 tensor-core form in one forward
+    over ``sites`` (site -> count): the sites the rule sends there."""
+    if dt != torch.float32:
+        return 0
+    return tc_want(counters, dt, kernel, sites)
+
+
+def tc_want(counters, dt, kernel, sites):
+    """Launches of ``kernel`` on the tensor cores in one forward over
+    ``sites`` (site -> count), by the rule."""
+    m = counters[kernel]
+    if kernel == "upconv":
+        return sum(n for s, n in sites.items()
+                   if m.takes_tensor_cores(dt, K3_SITES[s][1]))
+    return sum(n for s, n in sites.items() if m.takes_tensor_cores(
+        dt, K4_SITES[s][1], K4_SITES[s][1] // 4, *K4_SITES[s][2:]))
+
+
+def phase_e2e(path, counters, launch_totals, tf32_totals):
     """The three configurations end to end; returns the transfers by
     (configuration, dtype) for the later phases."""
     from weather_unet_tpu_torch.api import WeatherTransfer
@@ -982,8 +1088,14 @@ def phase_e2e(path, counters, launch_totals):
             wt = wts[config, dt] = build(config, dt)
             for k in counters:
                 counters[k].launches = 0
-            out_u8 = wt.translate_u8(u8, conds)
-            out = wt.translate(xf, conds)
+            # fuse_upconv in float32: K3's 3xTF32 form at its three sites
+            n_tf32 = (tf32_want(counters, dt, "upconv",
+                                MAIN_SITES["upconv"])
+                      if config == "fuse_upconv" else 0)
+            out_u8, out = tf32_run(
+                lambda: (wt.translate_u8(u8, conds), wt.translate(xf, conds)),
+                counters, tf32_totals, {"upconv_3xtf32": 2 * n_tf32},
+                f"e2e {config} {DT_NAME[dt]}")
             torch.cuda.synchronize()
             got = {k: m.launches for k, m in counters.items()}
             want = {k: 2 * expect[config].get(k, 0) for k in counters}
@@ -1008,6 +1120,7 @@ def phase_e2e(path, counters, launch_totals):
             rec = {"phase": "e2e", "config": config, "dtype": DT_NAME[dt],
                    "batch": b, "size": size, "launches_per_forward":
                    {k: v // 2 for k, v in got.items()},
+                   "upconv_3xtf32_launches_per_forward": n_tf32,
                    "img_per_s": ips, "p50_ms_batch1": p50}
             if config != "plain":
                 ref, ref_u8 = outs["plain", dt]
@@ -1048,7 +1161,8 @@ def phase_e2e(path, counters, launch_totals):
     if not rec["use_pallas_vs_plain_float32_mae"] <= 1e-5:
         raise AssertionError(f"e2e B=1: {rec}")
     # float32 serving as a user gets it: PyTorch's default lets cuDNN run
-    # float32 convs in TF32 (the kernels never use TF32)
+    # float32 convs in TF32 (the kernels' float32 forms stay float32-
+    # accurate: split float32, three TF32 products)
     torch.backends.cudnn.allow_tf32 = True
     try:
         for config in ("plain", "use_pallas", "fuse_upconv"):
@@ -1198,7 +1312,7 @@ def ips_of(fn, batch, n=10):
     return n * batch / (time.perf_counter() - t0)
 
 
-def phase_estimator(path, transfer, counters, launch_totals):
+def phase_estimator(path, transfer, counters, launch_totals, tf32_totals):
     """The frozen ResNet-101 through load_estimator (plain module) and
     through fused_resnet_eval (K4), then the class-transfer consistency
     evaluation over the use_pallas transfer and the fused classifier."""
@@ -1234,8 +1348,14 @@ def phase_estimator(path, transfer, counters, launch_totals):
         fused = fused_by_dt[dt] = fused_resnet_eval(plain.model)
         got_plain = counted(lambda: plain(x), {})
         k4.tensor_core_launches = 0
-        got_fused = counted(lambda: fused(x_nchw), {"bottleneck": 29})
-        want_tc = 29 if dt == torch.bfloat16 else 0
+        # float32: K4's 3xTF32 form wherever the rule sends a site
+        want_f32 = tf32_want(counters, dt, "bottleneck",
+                             MAIN_SITES["bottleneck"])
+        got_fused = tf32_run(
+            lambda: counted(lambda: fused(x_nchw), {"bottleneck": 29}),
+            counters, tf32_totals, {"bottleneck_3xtf32": want_f32},
+            f"estimator {DT_NAME[dt]}")
+        want_tc = tc_want(counters, dt, "bottleneck", MAIN_SITES["bottleneck"])
         if k4.tensor_core_launches != want_tc:
             raise AssertionError(
                 f"estimator {DT_NAME[dt]}: {k4.tensor_core_launches} of the "
@@ -1249,6 +1369,7 @@ def phase_estimator(path, transfer, counters, launch_totals):
         rec = {"phase": "estimator", "dtype": DT_NAME[dt], "batch": b,
                "size": size, "k4_launches_per_forward": 29,
                "k4_tensor_core_launches_per_forward": want_tc,
+               "k4_3xtf32_launches_per_forward": want_f32,
                "max_abs_logit": float(ref.abs().max()),
                "fused_vs_plain_rel": rel(got_fused, got_plain)}
         # the plain module as a caller without a graph runs it (under
@@ -1456,6 +1577,8 @@ def gan_states_agree(a, b, lr, tol, what, floor, extra=0.0):
     if not rec["u_max_abs_err"] <= 1e-4:
         fails.append(f"u max abs err {rec['u_max_abs_err']}")
     rec.update(tol=tol, extra=extra, float32_floor=floor)
+    rec["worst_moment_share_of_bar"] = max(
+        rec[k] / (tol + 2 * floor[k] + extra) for k in MOMENT_KEYS)
     if fails:
         raise AssertionError(f"{what}: " + "; ".join(fails))
     return rec
@@ -1567,7 +1690,7 @@ def wall_ms(fn, n=3):
     return float(np.median(times)) * 1e3
 
 
-def phase_gan(est_path, counters, launch_totals):
+def phase_gan(est_path, counters, launch_totals, tf32_totals):
     """The GAN combined step (train/gan.py) on the card at full width: the
     7.8 M-parameter cUNet (plain and use_pallas = K1 + K2), the SNDisc, and
     the seeded ResNet-101 through load_estimator (plain, or its no-grad
@@ -1644,10 +1767,15 @@ def phase_gan(est_path, counters, launch_totals):
         if count:
             want = {"adain": 6 * use_pallas, "upsample": 6 * use_pallas,
                     "bottleneck": 58 * (route == "k4")}
-            (state, m), _ = counted_run(
-                run, counters, launch_totals, want,
-                f"gan parity {DT_NAME[dt]} use_pallas={use_pallas} "
-                f"est={route}")
+            what = (f"gan parity {DT_NAME[dt]} use_pallas={use_pallas} "
+                    f"est={route}")
+            # the K4 route in float32: the 3xTF32 form, two estimator
+            # forwards without autograd a step
+            n_f32 = 2 * tf32_want(counters, dt, "bottleneck",
+                                  GAN_SITES["bottleneck"]) * (route == "k4")
+            (state, m), _ = tf32_run(
+                lambda: counted_run(run, counters, launch_totals, want, what),
+                counters, tf32_totals, {"bottleneck_3xtf32": n_f32}, what)
         else:
             state, m = run()
         return gan_snapshot(state, m)
@@ -4124,69 +4252,45 @@ def dp_concurrently(*calls):
         return [f.result() for f in futs]
 
 
-def dp_gan_parity(tmp, est_path, out, recs, rec):
-    """Each of the ranks' f32 steps k, taken again in this process by the
-    one-process step (K1, K2, K4 route, B = the global batch) from the
-    state the ranks took it from (rank 0's state after step k - 1), at
-    the GAN f32 bars of PERF.md §2 with the sign-flip bound 2.2 * lr *
-    sqrt(k); the K4 route's extra is its sensitivity to the batch being
-    split (K4 at B=4 per rank against B=8)."""
-    import argparse
-
-    from weather_unet_tpu_torch.core.rng import train_generator
-    from weather_unet_tpu_torch.data.transforms import normalize_batch
+def dp_gan_parity(tmp, est_path, out, seed="0", route="k4", rec=None):
+    """(b) each f32 step k of the data-parallel ranks (model ``seed``, the
+    estimator by ``route``) against the one-process step at global B
+    (gan_step_parity) from the seeded state or rank 0's state after step
+    k - 1, on the ranks' inputs of step k joined.  Besides the float32
+    floors, the estimator route's sensitivity to the batch being split
+    (each rank's estimator at B/2 against B) is added to the bars."""
     from weather_unet_tpu_torch.train import checkpoint as ckpt
-    from weather_unet_tpu_torch.train.gan import (
-        GanConfig, build_gan_state, make_gan_step)
+    from weather_unet_tpu_torch.train.gan import GanConfig, build_gan_state
 
     cfg = GanConfig(input_size=DP_SIZE, batch_size=DP_BATCH, num_epoch=1,
                     dropout_rate=0.0)
-    gen, disc, state = build_gan_state(cfg, 0, "cuda", use_pallas=True)
-    _, _, ranks = build_gan_state(cfg, 0, "cuda", use_pallas=True)
-    init = os.path.join(tmp, "dp_init.pt")
+    _, _, ranks = build_gan_state(cfg, int(seed), "cuda", use_pallas=True)
+    init = os.path.join(tmp, f"dp_init{seed}.pt")
     with open(init, "wb") as f:
-        f.write(ckpt.serialize(ckpt._to_host(ckpt.gan_tree(state, 0))))
-    est = estimators(est_path, torch.float32, "k4", {})
-    step = make_gan_step(gen, disc, est, cfg)
-    zeros = torch.zeros(DP_BATCH, dtype=torch.long, device="cuda")
-    w = dp_worker_module()
-    args = argparse.Namespace(steps=DP_STEPS, batch=DP_BATCH, size=DP_SIZE)
+        f.write(ckpt.serialize(ckpt._to_host(ckpt.gan_tree(ranks,
+                                                            int(seed)))))
+    est = estimators(est_path, torch.float32, route, {})
     half = DP_BATCH // 2
 
     def split(x):
         return torch.cat([est(x[:half]), est(x[half:])])
 
-    batches = []
-    for make in w.gan_loaders(args):
-        ld = make()
-        ld.set_epoch(0)
-        batches.append([b[0] for b in ld])
-    steps = []
-    deterministic = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True       # as the ranks run
-    for k, (xu, ru) in enumerate(zip(*batches), 1):
-        x = normalize_batch(torch.from_numpy(xu).cuda(), DP_SIZE)
-        r = normalize_batch(torch.from_numpy(ru).cuda(), DP_SIZE)
-        start = init if k == 1 else os.path.join(out, f"rank0_s{k - 1}.pt")
-
-        def run(images):
-            ckpt.restore_checkpoint(start, state)
-            st, m = step(state, images, zeros, r, zeros,
-                         train_generator(0, "cuda"), do_g=True)
-            return gan_snapshot(st, m)
-
-        one = run(x)
-        floor = float32_floor(run, x, one)
+    def case(k):
+        rows = [torch.load(os.path.join(out, f"rank{r}_in{k}.pt"),
+                           weights_only=True) for r in range(2)]
+        inputs = tuple(torch.cat(ts) for ts in zip(*rows))
         ckpt.restore_checkpoint(os.path.join(out, f"rank0_s{k}.pt"), ranks)
-        got = gan_snapshot(ranks, recs[0]["metrics"][k - 1])
-        sens, _ = route_sensitivity(est, split, x, r, cfg.con_eps)
-        steps.append(gan_states_agree(
-            got, one, cfg.lr * np.sqrt(k), GAN_TOL,
-            f"parallel (b) step {k} against the one-process step", floor,
-            extra=2 * sens))
-    torch.backends.cudnn.deterministic = deterministic
-    rec["b_parity"] = steps
-    del gen, disc, state, ranks, step
+        return ("parallel (b)", None, inputs,
+                gan_snapshot(ranks, rec["b_metrics"][k - 1]))
+
+    def extra(inputs):
+        x, _, r, _ = (t.cuda() for t in inputs)
+        return 2 * route_sensitivity(est, split, x, r, cfg.con_eps)[0]
+
+    rec["b_parity"], rec["b_refused_allocations_in_reference"] = (
+        gan_step_parity("parallel (b)", cfg, est, DP_STEPS, init, out, case,
+                        extra=extra))
+    del ranks, est
     free_cuda()
 
 
@@ -4363,13 +4467,12 @@ def phase_parallel(cunet_path, est_path, counters, launch_totals, smi):
     through the launcher: the est trainer, 3 steps at 224², B=8, f32 (TF32
     off, cuDNN deterministic), dropout 0, K1, K2 and the K4-routed
     estimator, its checkpoint bit-equal to the same run without the
-    launcher.  (b) Two gloo ranks on cuda:0, the same run at global B=8:
-    the ranks' checkpoints byte-equal, each step held to the one-process
-    step (dp_gan_parity).  (c) Two gloo ranks: train_estimator, 2 steps
-    at 224², global B=64, f32, against the one-process step
-    (dp_sup_parity).  (d)
-    dp_replicas.  The ranks' K1, K2 and K4 launches join the main-path
-    totals."""
+    launcher.  (b) Two gloo ranks on cuda:0, the same run at global B=8,
+    alone on the card: the ranks' checkpoints byte-equal, each step held
+    to the one-process step (dp_gan_parity, in a child process).  (c)
+    Two gloo ranks: train_estimator, 2 steps at 224², global B=64, f32,
+    against the one-process step (dp_sup_parity).  (d) dp_replicas.  The
+    ranks' K1, K2 and K4 launches join the main-path totals."""
     t_phase = time.perf_counter()
     modes = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit,compute_mode",
@@ -4419,15 +4522,24 @@ def phase_parallel(cunet_path, est_path, counters, launch_totals, smi):
                str(DP_SUP_BATCH), "--num_epoch", "1", "--num_workers", "4",
                "--save_path", os.path.join(tmp, "cp_c"), "--log_dir",
                os.path.join(tmp, "runs"), "--name", "est"]
-        # the f32 runs of (a), (b) and (c) at once: none of them is timed
-        a1, a0, b, c = dp_concurrently(
+        # the f32 runs of (a) and (c) at once (none of them is timed), then
+        # (b) alone on the card: ranks started beside others can find no
+        # room for a cuDNN workspace and run another engine (F1), which
+        # their refused-allocation counts would show
+        a1, a0, c = dp_concurrently(
             lambda: dp_run(1, at("a1") + f32, os.path.join(logs, "a1")),
             lambda: dp_run(0, at("a0") + f32 + ["--device", "cuda"],
                            os.path.join(logs, "a0")),
-            lambda: dp_run(2, at("b") + f32 + ["--snapshots"],
-                           os.path.join(logs, "b"), backend="gloo"),
             lambda: dp_run(2, cli, os.path.join(logs, "c"), backend="gloo"))
-        rec["a_b_c_seconds"] = time.perf_counter() - t0
+        rec["a_c_seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        b = dp_run(2, at("b") + f32 + ["--snapshots", "--dump_inputs"],
+                   os.path.join(logs, "b"), backend="gloo")
+        rec["b_seconds"] = time.perf_counter() - t0
+        rec["b_refused_allocations"] = [r["refused_allocations"] for r in b]
+        if any(rec["b_refused_allocations"]):
+            raise AssertionError(f"parallel (b): refused allocations "
+                                 f"{rec['b_refused_allocations']} (F1)")
         with open(os.path.join(logs, "a1", "rank0.log"),
                   errors="replace") as f:
             if "(nccl, cuda:0)" not in f.read():
@@ -4459,7 +4571,10 @@ def phase_parallel(cunet_path, est_path, counters, launch_totals, smi):
                     r["launches"]["bottleneck"] == 0):
                 raise AssertionError(f"rank launches {r['launches']}")
         t0 = time.perf_counter()
-        dp_gan_parity(tmp, est_path, os.path.join(tmp, "b"), b, rec)
+        rec["b_metrics"] = b[0]["metrics"]
+        parity_child("dp_gan_parity", (tmp, est_path, os.path.join(
+            tmp, "b")), tmp, rec, ("b_parity",
+                                   "b_refused_allocations_in_reference"))
         dp_sup_parity(os.path.join(tmp, "c"), c, rec)
         rec["b_c_parity_seconds"] = time.perf_counter() - t0
         # no bf16 timing run of the two data-parallel ranks here (CUTS):
@@ -4616,17 +4731,20 @@ def f1_step_digest(init, est_path, out):
             "refused_allocations": refused_allocations() - refused}
 
 
-def gan_step_parity(what, cfg, est, n_steps, init, out, case):
-    """Each f32 step k (1..n_steps) of split ranks against the one-process
-    step from the state they took it from, at phase parallel (b)'s bars
-    with the float32 floor the larger of two: the step with its input
-    moved by one rounding (float32_floor), and the step with every weight
-    moved by one rounding, which re-rounds every conv's output as the
-    split's partial sums do.  ``case(k)`` gives step k's label, start
+def gan_step_parity(what, cfg, est, n_steps, init, out, case, extra=None):
+    """Each f32 step k (1..n_steps) of parallel ranks against the
+    one-process step from the state they took it from, at the GAN f32
+    bars (gan_states_agree) with the float32 floor the larger of two: the
+    step with its input moved by one rounding (float32_floor), and the
+    step with every weight moved by one rounding, which re-rounds every
+    conv's output as a split does (a tensor-parallel split's partial sums,
+    a spatial split's halos, a batch split's other cuDNN and cuBLAS
+    engines at the ranks' batch).  ``case(k)`` gives step k's label, start
     state (None: ``init`` at k = 1, else rank 0's after step k - 1), the
-    one-process step's inputs and the ranks' snapshot.  No allocation may
-    be refused during the reference steps (F1).  Returns the steps'
-    records and the allocations refused."""
+    one-process step's inputs and the ranks' snapshot; ``extra(inputs)``,
+    where given, is added to every bar.  No allocation may be refused
+    during the reference steps (F1).  Returns the steps' records and the
+    allocations refused."""
     from weather_unet_tpu_torch._device import refused_allocations
     from weather_unet_tpu_torch.core.rng import fold_seed
     from weather_unet_tpu_torch.train import checkpoint as ckpt
@@ -4670,7 +4788,8 @@ def gan_step_parity(what, cfg, est, n_steps, init, out, case):
         no_refusal(what, refused)
         steps.append(gan_states_agree(
             got, want, cfg.lr * np.sqrt(k), GAN_TOL,
-            f"{label} step {k} against the one-process step", floor))
+            f"{label} step {k} against the one-process step", floor,
+            extra=extra(inputs) if extra else 0.0))
         steps[-1]["float32_floors"] = parts
     torch.backends.cudnn.deterministic = deterministic
     del gen, disc, state, step
@@ -6448,7 +6567,7 @@ def phase_jax_resume(est_path, counters, launch_totals, smi):
 
 
 def kernels_line(summary, launch_totals, graph_totals, split_summary,
-                 split_totals):
+                 split_totals, tf32_totals):
     meta = {
         "adain": ("weather_unet_tpu_torch/csrc/adain.cu",
                   "weather_unet_tpu/kernels/adain_pallas.py:74"),
@@ -6478,7 +6597,9 @@ def kernels_line(summary, launch_totals, graph_totals, split_summary,
                "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
                "bound_by": max(recs, key=lambda rn: rn[1] * rn[0]["bound_ms"]
                                )[0]["bound_by"],
-               "library_ms": total("library_ms")}
+               "library_ms": total("library_ms"),
+               "cuda_core_ms": total("cuda_core_ms"),
+               "cuda_core_bound_ms": total("cuda_core_bound_ms")}
         if "gflop" in recs[0][0]:
             out["tflops"] = total("gflop") / out["launch_only_ms"]
             out["variant"] = {s: r["variant"]
@@ -6525,6 +6646,29 @@ def kernels_line(summary, launch_totals, graph_totals, split_summary,
                         **per_dt["bfloat16"], "dtype": "bfloat16",
                         "sites": sites, "float32": per_dt["float32"],
                         "note": note})
+    # the float32 tensor-core forms: their numbers are the float32
+    # records of their kernel's sites, which the rule sent there
+    tf32_meta = {
+        "bottleneck_3xtf32": "built as csrc/bottleneck_f32tc16{,c}.cu; "
+                             "float32 as split float32, three TF32 mmas a "
+                             "product; cuda_core_ms: bottleneck_kernel, "
+                             "the kernel it replaces",
+        "upconv_3xtf32": "tc::run<float>; float32 as split float32, three "
+                         "TF32 mmas a product; cuda_core_ms: the CUDA-core "
+                         "upconv_kernel it replaces"}
+    for name, kernel in TF32_FORMS.items():
+        source, replaces = meta[kernel]
+        entry = {"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces, "launches": tf32_totals[name],
+                 "graph_replay_launches": None,
+                 **totals(kernel, torch.float32, MAIN_SITES[kernel]),
+                 "dtype": "float32", "sites": MAIN_SITES[kernel],
+                 "gan_sites": GAN_SITES.get(kernel),
+                 "note": tf32_meta[name]}
+        if kernel in GAN_SITES:
+            entry["gan_step_forward"] = totals(kernel, torch.float32,
+                                               GAN_SITES[kernel])
+        entries.append(entry)
     emit({"kernels": entries})
 
 
@@ -6551,41 +6695,68 @@ def main():
         path = os.path.join(tmp, "cunet.pt")
         torch.save({"inference": ConditionalUNet(5).state_dict(), "epoch": 0,
                     "global_step": 0}, path)
-        wts = phase_e2e(path, counters, launch_totals)
+        tf32_totals = {name: 0 for name in TF32_FORMS}
+        wts = phase_e2e(path, counters, launch_totals, tf32_totals)
         phase_serve(wts["fuse_upconv", torch.float32], counters,
                     launch_totals)
         est_path = os.path.join(tmp, "estimator.pt")
         make_estimator_checkpoint(est_path)
         phase_estimator(est_path, wts["use_pallas", torch.float32], counters,
-                        launch_totals)
-        gan_records = phase_gan(est_path, counters, launch_totals)
-        phase_dynamics(counters, launch_totals, smi)
-        phase_jax_resume(est_path, counters, launch_totals, smi)
-        phase_train(est_path, counters, launch_totals, gan_records, smi)
-        phase_supervised(counters, launch_totals, smi)
-        phase_serving_cli(est_path, counters, launch_totals, smi)
-        phase_eval_export(counters, launch_totals, smi)
-        phase_surface(counters, launch_totals, smi)
-        phase_parallel(path, est_path, counters, launch_totals, smi)
-        phase_tensor_parallel(path, est_path, counters, launch_totals, smi)
+                        launch_totals, tf32_totals)
+        gan_records = phase_gan(est_path, counters, launch_totals,
+                                tf32_totals)
+        # the phases whose results no later phase reads: a failed check is
+        # recorded and the script goes on, so that one run shows every
+        # phase and the kernels line; it still exits nonzero, without the
+        # last line, at its end
+        failed = []
+
+        def checked(name, phase, *args):
+            try:
+                phase(*args)
+            except AssertionError as e:
+                failed.append(f"{name}: {e}")
+                emit({"phase": f"{name}_failed", "error": str(e)[:4000]})
+                free_cuda()
+
+        checked("dynamics", phase_dynamics, counters, launch_totals, smi)
+        checked("jax_resume", phase_jax_resume, est_path, counters,
+                launch_totals, smi)
+        checked("train", phase_train, est_path, counters, launch_totals,
+                gan_records, smi)
+        checked("supervised", phase_supervised, counters, launch_totals, smi)
+        checked("serving_cli", phase_serving_cli, est_path, counters,
+                launch_totals, smi)
+        checked("eval_export", phase_eval_export, counters, launch_totals,
+                smi)
+        checked("surface", phase_surface, counters, launch_totals, smi)
+        checked("parallel", phase_parallel, path, est_path, counters,
+                launch_totals, smi)
+        checked("tensor_parallel", phase_tensor_parallel, path, est_path,
+                counters, launch_totals, smi)
         split_totals = {k: 0 for k in SPLIT_NAMES}
         split_summary = phase_spatial(path, est_path, counters,
                                       launch_totals, split_totals, smi)
         graph_totals = {k: 0 for k in counters}
-        phase_aot(est_path, smi, graph_totals)
+        checked("aot", phase_aot, est_path, smi, graph_totals)
     for name, total in launch_totals.items():
         if total == 0:
-            raise AssertionError(f"{name} kernel never ran on the main path")
+            failed.append(f"{name} kernel never ran on the main path")
         if graph_totals[name] == 0:
-            raise AssertionError(f"{name} kernel never ran in a CUDA-graph "
-                                 "replay of phase aot")
+            failed.append(f"{name} kernel never ran in a CUDA-graph replay "
+                          "of phase aot")
     for name, total in split_totals.items():
         if total == 0:
-            raise AssertionError(f"{name} never ran on the spatial paths")
+            failed.append(f"{name} never ran on the spatial paths")
+    for name, total in tf32_totals.items():
+        if total == 0:
+            failed.append(f"{name} never ran on the float32 paths")
     emit({"phase": "total", "seconds": time.perf_counter() - START,
-          "cuts": CUTS})
+          "cuts": CUTS, "failed": failed})
     kernels_line(summary, launch_totals, graph_totals, split_summary,
-                 split_totals)
+                 split_totals, tf32_totals)
+    if failed:
+        raise AssertionError("chip_smoke failed:\n" + "\n".join(failed))
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -58,7 +58,8 @@ def test_collect_reports_the_host_without_a_gpu(no_gpu):
         "weather_unet_tpu_torch", "_build"))
     assert set(kernels["built"]) == {
         "adain", "upsample", "upconv", "bottleneck", "bottleneck_tc32",
-        "bottleneck_tc32c", "bottleneck_tc64", "bottleneck_tc64c"}
+        "bottleneck_tc32c", "bottleneck_tc64", "bottleneck_tc64c",
+        "bottleneck_f32tc16", "bottleneck_f32tc16c"}
     assert info["native_runtime"]["mode"] in ("jpeg", "augment-only",
                                               "not built")
     assert info["wut_env"] == {k: v for k, v in os.environ.items()

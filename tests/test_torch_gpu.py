@@ -8,13 +8,16 @@ so there run it as
     python -m pytest --noconftest -q tests/test_torch_gpu.py
 
 Tolerances: float32 max abs error 1e-5 * max(1, max|plain|) with TF32 off
-(summation order only); bfloat16 2^-6 * max(1, max|plain|) (the plain chain
-rounds to bf16 after every op, the kernels once; K4 and its plain version
-round at the same points and differ by summation order).
+(summation order, and in the tensor-core forms split float32's ~2^-21 a
+product); bfloat16 2^-6 * max(1, max|plain|) (the plain chain rounds to bf16
+after every op, the kernels once; K4 and its plain version round at the
+same points and differ by summation order).
 
-In bfloat16 K3 and K4 run their tensor-core kernels where the shape allows
-(``takes_tensor_cores``).  A K4 tile plan is forced by passing one of
-``bottleneck_plans(...)`` to ``bottleneck_tc_kernel(x, packed, plan)``; a K1
+K3 and K4 run their tensor-core kernels where the shape allows
+(``takes_tensor_cores``), float32 as split float32 (three TF32 mmas a
+product).  A K4 tile plan is forced by passing one of ``bottleneck_plans(
+..., esize=)`` to ``bottleneck_tc_kernel(x, packed, plan)``, a K3 tile by
+passing ``plan_upconv(..., esize=, wide=)`` to ``upconv_kernel``; a K1
 or K2 plan by passing one of ``adain_plans(...)`` / ``upsample_plans(...)``
 to ``adain_kernel(x, y_proj, eps, plan)`` / ``upsample_kernel(x, plan)``.
 """
@@ -345,49 +348,61 @@ def test_bottleneck_matches_plain(cuda):
 
 
 def test_bottleneck_tensor_cores_under_every_plan(cuda):
-    """bfloat16 K4 under every tile plan that fits: ragged last tiles (H not
-    a multiple of the tile's rows), rows whose staged segments are misaligned
-    (W = 7, 21, 30), non-zero b1, and the zero halo."""
-    dt = torch.bfloat16
+    """K4's tensor-core forms, bfloat16 and float32 (split float32), under
+    every tile plan that fits: ragged last tiles (H not a multiple of the
+    tile's rows), rows whose staged segments are misaligned (W = 7, 21, 30),
+    non-zero b1, and the zero halo.  The plans are forced where the rule
+    would take the CUDA cores (float32 with P < 64); the wrapper follows the
+    rule."""
     g = torch.Generator(device=cuda).manual_seed(7)
     shapes = ((2, 64, 5, 7), (3, 128, 23, 21), (2, 64, 9, 30), (1, 32, 4, 4),
-              (2, 512, 15, 14), (2, 2048, 7, 7), (1, 64, 3, 100))
-    for b, c, h, w in shapes:
-        p = max(c // 4, 16)
-        x = torch.randn(b, c, h, w, generator=g, device=cuda).to(dt)
-        wts = bottleneck_weights(c, p, dt, cuda)
-        assert float(wts[1].abs().min()) > 0
-        ref = k4.bottleneck_eval_reference(x, *wts)
-        packed = k4.pack_bottleneck(*wts, dt)
-        plans = k4.bottleneck_plans(b, c, p, h, w)
-        assert plans and k4.takes_tensor_cores(dt, c, p, h, w)
-        n, n_tc = k4.launches, k4.tensor_core_launches
-        for plan in plans:
-            assert_close(k4.bottleneck_tc_kernel(x, packed, plan), ref, dt)
-        # the wrapper takes the same route, packed or not
-        assert_close(k4.fused_bottleneck_eval(x, *wts), ref, dt)
-        assert_close(k4.fused_bottleneck_eval(x, packed), ref, dt)
-        torch.cuda.synchronize()
-        assert k4.launches - n == k4.tensor_core_launches - n_tc == len(plans) + 2
-    # the 3x3 pads t1 with 0, not relu(b1): x = 0, w1 = 0, w2 = 1 count the
-    # in-image neighbours of each pixel, under every plan
-    p = 16
-    z = torch.zeros(p, device=cuda)
-    packed = k4.pack_bottleneck(
-        torch.zeros(p, p, device=cuda), torch.full((p,), 2.0, device=cuda),
-        torch.ones(9, p, p, device=cuda), z, torch.eye(p, device=cuda), z, dt)
-    x = torch.zeros(1, p, 5, 6, device=cuda, dtype=dt)
-    for plan in k4.bottleneck_plans(1, p, p, 5, 6):
-        out = k4.bottleneck_tc_kernel(x, packed, plan)
-        assert [float(out[0, 0, i, j]) for i, j in ((2, 3), (0, 3), (4, 5))] == [
-            9 * p * 2.0, 6 * p * 2.0, 4 * p * 2.0], plan["name"]
-    # a shape no tile fits goes to the CUDA cores, by the rule
-    x = torch.randn(1, 64, 2, 300, generator=g, device=cuda).to(dt)
-    wts = bottleneck_weights(64, 16, dt, cuda)
-    n_tc = k4.tensor_core_launches
-    assert_close(k4.fused_bottleneck_eval(x, *wts),
-                 k4.bottleneck_eval_reference(x, *wts), dt)
-    assert k4.tensor_core_launches == n_tc
+              (2, 512, 15, 14), (2, 2048, 7, 7), (1, 64, 3, 100),
+              (2, 256, 12, 10))
+    for dt in (torch.bfloat16, torch.float32):
+        f32, esize = dt == torch.float32, 4 if dt == torch.float32 else 2
+        for b, c, h, w in shapes:
+            p = max(c // 4, 16)
+            x = torch.randn(b, c, h, w, generator=g, device=cuda).to(dt)
+            wts = bottleneck_weights(c, p, dt, cuda)
+            assert float(wts[1].abs().min()) > 0
+            ref = k4.bottleneck_eval_reference(x, *wts)
+            packed = k4.pack_bottleneck(*wts, dt, f32)
+            plans = k4.bottleneck_plans(b, c, p, h, w, esize=esize)
+            rule = k4.takes_tensor_cores(dt, c, p, h, w)
+            assert plans and rule == (not f32 or p >= k4.F32_MIN_P)
+            n, n_tc = k4.launches, k4.tensor_core_launches
+            n_f32 = k4.f32_tensor_core_launches
+            for plan in plans:
+                assert_close(k4.bottleneck_tc_kernel(x, packed, plan), ref, dt)
+            # the wrapper takes the rule's route, packed or not
+            assert_close(k4.fused_bottleneck_eval(x, *wts), ref, dt)
+            assert_close(k4.fused_bottleneck_eval(x, packed), ref, dt)
+            torch.cuda.synchronize()
+            want = len(plans) + 2 * rule
+            assert k4.launches - n == len(plans) + 2
+            assert k4.tensor_core_launches - n_tc == want
+            assert k4.f32_tensor_core_launches - n_f32 == want * f32
+        # the 3x3 pads t1 with 0, not relu(b1): x = 0, w1 = 0, w2 = 1 count
+        # the in-image neighbours of each pixel, under every plan
+        p = 16
+        z = torch.zeros(p, device=cuda)
+        packed = k4.pack_bottleneck(
+            torch.zeros(p, p, device=cuda), torch.full((p,), 2.0, device=cuda),
+            torch.ones(9, p, p, device=cuda), z, torch.eye(p, device=cuda), z,
+            dt, f32)
+        x = torch.zeros(1, p, 5, 6, device=cuda, dtype=dt)
+        for plan in k4.bottleneck_plans(1, p, p, 5, 6, esize=esize):
+            out = k4.bottleneck_tc_kernel(x, packed, plan)
+            assert [float(out[0, 0, i, j])
+                    for i, j in ((2, 3), (0, 3), (4, 5))] == [
+                9 * p * 2.0, 6 * p * 2.0, 4 * p * 2.0], plan["name"]
+        # a shape no tile fits goes to the CUDA cores, by the rule
+        x = torch.randn(1, 64, 2, 300, generator=g, device=cuda).to(dt)
+        wts = bottleneck_weights(64, 16, dt, cuda)
+        n_tc = k4.tensor_core_launches
+        assert_close(k4.fused_bottleneck_eval(x, *wts),
+                     k4.bottleneck_eval_reference(x, *wts), dt)
+        assert k4.tensor_core_launches == n_tc
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -419,6 +434,14 @@ def test_upconv_every_option_ragged_and_wide(cuda, dtype):
         assert k3.launches == n + 8
         assert k3.tensor_core_launches - n_tc == (
             8 if k3.takes_tensor_cores(dtype, c) else 0)
+        # both tiles of the tensor-core form (float32 as split float32)
+        if k3.takes_tensor_cores(dtype, c):
+            esize = 4 if dtype == torch.float32 else 2
+            ref = k3.upconv_block_ref(x, wt, cb, sc, sh, True)
+            for wide in (False, True):
+                plan = k3.plan_upconv(c, o, esize=esize, wide=wide)
+                assert_close(k3.upconv_kernel(x, wt, cb, sc, sh, True, plan),
+                             ref, dtype)
     # zero padding after modulation: a constant image with a shift has its
     # border pixels see fewer taps
     x = torch.zeros(1, 16, 4, 4, device=cuda, dtype=dtype)

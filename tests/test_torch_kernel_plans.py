@@ -140,7 +140,8 @@ def test_rule_that_picks_the_tensor_core_kernels():
     bf, f32 = torch.bfloat16, torch.float32
     assert k4.takes_tensor_cores(bf, 256, 64)
     assert k4.takes_tensor_cores(bf, 64, 16)          # the odd site's P = 16
-    assert not k4.takes_tensor_cores(f32, 256, 64)    # 1e-5 bar: no TF32
+    assert k4.takes_tensor_cores(f32, 256, 64)        # split float32
+    assert not k4.takes_tensor_cores(f32, 64, 16)     # P < 64: CUDA cores
     assert not k4.takes_tensor_cores(bf, 4, 4)
     assert not k4.takes_tensor_cores(bf, 256, 24)
     assert not k4.takes_tensor_cores(bf, 40, 16)
@@ -150,7 +151,8 @@ def test_rule_that_picks_the_tensor_core_kernels():
     assert not k4.takes_tensor_cores(bf, 64, 16, 2, 300)   # a row over 256 px
     assert not k4.takes_tensor_cores(bf, 256, 64, 200, 200)
     assert k3.takes_tensor_cores(bf, 128) and k3.takes_tensor_cores(bf, 16)
-    assert not k3.takes_tensor_cores(f32, 128)
+    assert k3.takes_tensor_cores(f32, 128)            # split float32
+    assert not k3.takes_tensor_cores(f32, 8)
     assert not k3.takes_tensor_cores(bf, 8)           # the odd site's C = 8
     assert not k3.takes_tensor_cores(bf, 24)
 

@@ -158,9 +158,11 @@ def load_step_estimator(path: str, num_classes: int = 5,
     forward whose gradient reaches G through the module; ``"plain"``: every
     forward through the module.  ``None`` picks K4 in bfloat16 on CUDA and
     the module otherwise: on an H100 in bf16 the K4 route took 82-164 ms a
-    step against 97-246 with 2076 fewer launches, while in float32 K4's
-    CUDA-core kernel adds 27-30 device ms and the step is no faster
-    (``PERF.md`` §5, NVIDIA H100 80GB HBM3, 700 W)."""
+    step against 97-246 with 2076 fewer launches.  In float32 K4 runs its
+    split-float32 tensor-core form, and the step took 146.5-150.2 ms by the
+    K4 route against 174.3-183.5 by the module (two runs; ``PERF.md`` §5,
+    NVIDIA H100 80GB HBM3, 700 W); whether float32 should default to K4 is
+    left to a benchmark cell."""
     device = resolve_device(device)
     if route is None:
         route = ("k4" if device.type == "cuda" and dtype == torch.bfloat16

@@ -17,10 +17,11 @@
 // Two kernels, chosen by the wrapper on dtype and shape alone
 // (kernels/bottleneck.py::takes_tensor_cores):
 //
-//   * bfloat16 with C and P multiples of 16: the tensor-core kernel
-//     (bottleneck_tc.cuh, built as bottleneck_tc32.cu and bottleneck_tc64.cu,
-//     one library per size of its reduction chunks, so that the two compile
-//     side by side).  The TPU kernel holds a whole image in VMEM; here a
+//   * C and P multiples of 16 (in float32 also P >= 64): the tensor-core
+//     kernel (bottleneck_tc.cuh, built as bottleneck_tc{32,64}{,c}.cu in
+//     bf16 and bottleneck_f32tc16{,c}.cu in float32, one library per operand
+//     type, size of its reduction chunks and cluster use, so that they
+//     compile side by side).  The TPU kernel holds a whole image in VMEM; here a
 //     block owns TH full rows of one image (the whole image where it fits)
 //     and runs three matrix products back to back with mma.sync m16n8k16
 //     (bf16 operands, float32 accumulators):
@@ -65,12 +66,23 @@
 //     the two differ by float32 reassociation and, where that flips the
 //     rounding of t1, t2 or the output, by one bf16 step.  The measured error
 //     is therefore no longer exactly 0; the bound stays 2^-6 * max(1, max|y|).
+//     float32 runs the same kernel on split float32 operands (wut_mma.cuh):
+//     each product is three TF32 mmas (lo.hi, hi.lo, hi.hi) of m16n8k8 on
+//     the same ldmatrix byte addresses (a k8 step is 32 bytes, as a bf16
+//     k16 step), the weights split once by pack_bottleneck(split=True) and
+//     streamed as hi and lo through one ring slot, the activations split in
+//     registers.  t1 and t2 stay float32 (no rounding point, as the plain
+//     version), which doubles their bytes: the whole-image tiles of bf16 do
+//     not fit, and float32 takes tiles of 1, 2 or 4 rows with a recomputed
+//     halo (plan_bottleneck with esize=4), with 4 m-tiles a warp (the split
+//     fragments need the registers) and chunks of 16 values.  A single TF32
+//     product (10 mantissa bits) could not meet float32's bar of 1e-5 *
+//     max|y|; the split one keeps each product within ~2^-21.
 //
-//   * float32, and bfloat16 shapes with C or P not a multiple of 16: the
-//     CUDA-core kernel (the first version of this port, this file): float32 fmaf
-//     over 4x4 register tiles.  float32 is held to 1e-5 * max|y| of cuDNN with
-//     TF32 off; a TF32 mma keeps 10 mantissa bits and cannot meet that, so
-//     float32 stays off the tensor cores.
+//   * bfloat16 shapes with C or P not a multiple of 16, float32 ones also
+//     with P < 64: the CUDA-core kernel (the first version of this port, this
+//     file): float32 fmaf over 4x4 register tiles.  float32 is held to 1e-5 *
+//     max|y| of cuDNN with TF32 off.
 //
 // CUDA-core kernel.  A block owns a TH x TW tile of output pixels of one
 // image, plus a 1-pixel halo for t1.  Three phases, separated by

@@ -1,11 +1,15 @@
-// K4's tensor-core kernel (bfloat16, C and P multiples of 16); see
-// bottleneck.cu for what K4 computes and for the design.  This header holds
-// the kernel and its launcher as templates on KC, the number of reduction
-// values a staged chunk holds, and on whether a cluster shares a tile;
-// bottleneck_tc{32,64}.cu (single blocks) and bottleneck_tc{32,64}c.cu
-// (clusters) each build one of the four into a library of their own, so that
-// they compile side by side.
+// K4's tensor-core kernel (C and P multiples of 16); see bottleneck.cu for
+// what K4 computes and for the design.  This header holds the kernel and its
+// launcher as templates on the operand type E (bf16, or float32 taken as
+// split float32: three TF32 mmas a product, wut_mma.cuh), on KC, the number
+// of reduction values a staged chunk holds, and on whether a cluster shares
+// a tile; bottleneck_tc{32,64}.cu (single blocks) and bottleneck_tc{32,64}c.cu
+// (clusters) each build one of the four bf16 forms, bottleneck_f32tc16.cu and
+// bottleneck_f32tc16c.cu the two float32 forms, into a library of their own,
+// so that they compile side by side.
 #pragma once
+
+#include <type_traits>
 
 #include "wut_kernels.h"
 #include "wut_mma.cuh"
@@ -14,25 +18,31 @@ namespace tc {
 
 using bf16 = __nv_bfloat16;
 
-// KC below: the reduction chunk, 32 or 64 channels (the plan's choice: 64
-// halves the barriers and waits where shared memory has the room); a staged
-// chunk's rows are KC + kPad long
+// KC below: the reduction chunk, in bf16 32 or 64 channels (the plan's
+// choice: 64 halves the barriers and waits where shared memory has the
+// room), in float32 16; a staged chunk's rows are KC + Operand<E>::kPad long
 constexpr int kMI = 6;                   // m-tiles a warp at most: 96 rows
+constexpr int kMI32 = 4;                 // ... in float32 (registers: each
+                                         // fragment is split in two)
 constexpr int kNI = 4;                   // n-tiles a warp: 32 columns
 constexpr int kWarps = 8;
 constexpr int kTcThreads = kWarps * 32;
 constexpr int kMaxNT = 256;              // tile pixels at most
 constexpr int kPieces = 4;               // 16-byte pieces of a run a lane
 
+// In float32 each weight array is followed by its lo part (pack_bottleneck
+// with split=True: (2, P, C) etc., hi then lo), which the kernel streams
+// beside the hi part into the same ring slot.
+template <typename E>
 struct Params {
-  const bf16* x;
-  const bf16* w1;    // (P, C)     [out][in]
-  const bf16* w2;    // (9, P, P)  [tap][out][in]
-  const bf16* w3;    // (C, P)     [out][in]
+  const E* x;
+  const E* w1;       // (P, C)     [out][in]
+  const E* w2;       // (9, P, P)  [tap][out][in]
+  const E* w3;       // (C, P)     [out][in]
   const float* b1;
   const float* b2;
   const float* b3;
-  bf16* out;
+  E* out;
   long long total;   // elements of x
   int C, P, H, W;
   int TH;            // tile rows; a tile is TH full rows of the image
@@ -51,46 +61,66 @@ __device__ __forceinline__ int ceil_div(int a, int b) {
 
 // one chunk of weights, rows [n0, n0 + NB) x columns [k0, k0 + KC) of a
 // matrix whose rows are ldk long and which starts at element w_off of w, to
-// dst [NB][KC + kPad]; rows >= nvalid and columns >= kv are zero-filled.
-// With KC / 8 pieces a row, thread t copies piece t % (KC / 8) of every
-// (256 / (KC / 8))-th row.
-template <int KC>
-__device__ __forceinline__ void fetch_w(uint32_t dst, const bf16* w, int w_off,
+// dst [NB][KC + pad]; rows >= nvalid and columns >= kv are zero-filled.
+// With KC / P pieces of P elements (16 bytes) a row, thread t copies piece
+// t % (KC / P) of every (256 / (KC / P))-th row.
+template <typename E, int KC>
+__device__ __forceinline__ void fetch_w(uint32_t dst, const E* w, int w_off,
                                         int ldk, int n0, int nvalid, int NB,
                                         int k0, int kv, int tid) {
-  constexpr int kLDK = KC + wut::kPad, kRowPieces = KC / 8;
+  constexpr int kP = wut::Operand<E>::kPiece;
+  constexpr int kLDK = KC + wut::Operand<E>::kPad, kRowPieces = KC / kP;
   constexpr int kRows = kTcThreads / kRowPieces;     // rows a pass
-  const int pc8 = (tid % kRowPieces) * 8;
-  const bool kok = pc8 < kv;
+  const int pcp = (tid % kRowPieces) * kP;
+  const bool kok = pcp < kv;
   int n = tid / kRowPieces;
-  int off = w_off + (n0 + n) * ldk + k0 + pc8;
-  uint32_t d = dst + (n * kLDK + pc8) * 2;
+  int off = w_off + (n0 + n) * ldk + k0 + pcp;
+  uint32_t d = dst + (n * kLDK + pcp) * sizeof(E);
   for (; n < NB; n += kRows) {
     const bool ok = kok && n < nvalid;
     wut::cp_async16(d, ok ? w + off : w, ok ? 16 : 0);
     off += kRows * ldk;
-    d += kRows * kLDK * 2;
+    d += kRows * kLDK * sizeof(E);
   }
 }
 
-// the products of one staged chunk (kv = 16, 32, .. KC values of k): the
-// fragments of k16 step s + 1 are loaded before the mma of step s
-template <int MI, int KC>
+// the products of one staged chunk (kv = one or more mma steps of k, up to
+// KC values): the fragments of step s + 1 are loaded before the mma of step
+// s.  A step is 32 bytes of a row in either form; in float32 the lo part of
+// the weights lies b_lo bytes behind the hi part.
+template <typename E, int MI, int KC>
 __device__ __forceinline__ void mma_chunk(float (&acc)[MI][kNI][4],
                                           const uint32_t (&a_row)[MI],
                                           uint32_t a_off, int mi_cnt,
-                                          uint32_t b_row, int kv) {
-  constexpr uint32_t kBPair = 16 * (KC + wut::kPad) * 2;   // n-tile pairs
-  wut::Frags<MI, kNI> f[2];
-  const int steps = kv >> 4;
-  wut::load_frags(f[0], a_row, a_off, mi_cnt, b_row, kBPair);
+                                          uint32_t b_row, int kv,
+                                          uint32_t b_lo) {
+  constexpr int kStep = wut::Operand<E>::kStep;
+  constexpr uint32_t kBPair =                        // n-tile pairs
+      16 * (KC + wut::Operand<E>::kPad) * sizeof(E);
+  const int steps = kv / kStep;
+  if constexpr (!wut::Operand<E>::kSplit) {
+    wut::Frags<MI, kNI> f[2];
+    wut::load_frags(f[0], a_row, a_off, mi_cnt, b_row, kBPair);
 #pragma unroll
-  for (int ks = 0; ks < KC / 16; ++ks) {
-    if (ks < steps) {
-      if (ks + 1 < steps)
-        wut::load_frags(f[(ks + 1) & 1], a_row, a_off + (ks + 1) * 32, mi_cnt,
-                        b_row + (ks + 1) * 32, kBPair);
-      wut::mma_frags(acc, f[ks & 1], mi_cnt);
+    for (int ks = 0; ks < KC / kStep; ++ks) {
+      if (ks < steps) {
+        if (ks + 1 < steps)
+          wut::load_frags(f[(ks + 1) & 1], a_row, a_off + (ks + 1) * 32,
+                          mi_cnt, b_row + (ks + 1) * 32, kBPair);
+        wut::mma_frags(acc, f[ks & 1], mi_cnt);
+      }
+    }
+  } else {
+    wut::Frags3<MI, kNI> f[2];
+    wut::load_frags3(f[0], a_row, a_off, mi_cnt, b_row, kBPair, b_lo);
+#pragma unroll
+    for (int ks = 0; ks < KC / kStep; ++ks) {
+      if (ks < steps) {
+        if (ks + 1 < steps)
+          wut::load_frags3(f[(ks + 1) & 1], a_row, a_off + (ks + 1) * 32,
+                           mi_cnt, b_row + (ks + 1) * 32, kBPair, b_lo);
+        wut::mma_frags3(acc, f[ks & 1], mi_cnt);
+      }
     }
   }
 }
@@ -100,10 +130,10 @@ __device__ __forceinline__ void mma_chunk(float (&acc)[MI][kNI][4],
 // channel 0's from element base of x and out.  VEC elements a thread and
 // step (1, or 4 where every run starts 8-byte aligned); four steps' residual
 // loads are started before the first store.
-template <int VEC>
+template <typename E, int VEC>
 __device__ __forceinline__ void store_tile(const float* stage,
-                                           const bf16* __restrict__ x,
-                                           bf16* __restrict__ out,
+                                           const E* __restrict__ x,
+                                           E* __restrict__ out,
                                            long long base, int HW, int len,
                                            int nvalid, int tid) {
   const int vpc = len / VEC;                 // steps a channel
@@ -119,7 +149,14 @@ __device__ __forceinline__ void store_tile(const float* stage,
       g[j] = base + static_cast<long long>(ch) * HW + e * VEC;
       so[j] = ch * len + e * VEC;
       const bool ok = v + j * kTcThreads < total;
-      if constexpr (VEC == 4) {
+      if constexpr (VEC == 4 && std::is_same_v<E, float>) {
+        float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (ok) t = *reinterpret_cast<const float4*>(x + g[j]);
+        res[j][0] = t.x;
+        res[j][1] = t.y;
+        res[j][2] = t.z;
+        res[j][3] = t.w;
+      } else if constexpr (VEC == 4) {
         uint2 t = make_uint2(0u, 0u);
         if (ok) t = *reinterpret_cast<const uint2*>(x + g[j]);
         const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&t.x);
@@ -129,7 +166,7 @@ __device__ __forceinline__ void store_tile(const float* stage,
         res[j][2] = __low2float(hi);
         res[j][3] = __high2float(hi);
       } else {
-        res[j][0] = ok ? __bfloat162float(x[g[j]]) : 0.f;
+        res[j][0] = ok ? wut::to_f32(x[g[j]]) : 0.f;
       }
       ch += q;
       e += r;
@@ -141,7 +178,14 @@ __device__ __forceinline__ void store_tile(const float* stage,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       if (v + j * kTcThreads >= total) continue;
-      if constexpr (VEC == 4) {
+      if constexpr (VEC == 4 && std::is_same_v<E, float>) {
+        const float4 sv = *reinterpret_cast<const float4*>(stage + so[j]);
+        *reinterpret_cast<float4*>(out + g[j]) =
+            make_float4(fmaxf(sv.x + res[j][0], 0.f),
+                        fmaxf(sv.y + res[j][1], 0.f),
+                        fmaxf(sv.z + res[j][2], 0.f),
+                        fmaxf(sv.w + res[j][3], 0.f));
+      } else if constexpr (VEC == 4) {
         const float4 sv = *reinterpret_cast<const float4*>(stage + so[j]);
         uint2 t;
         t.x = wut::pack_bf16x2(fmaxf(sv.x + res[j][0], 0.f),
@@ -150,7 +194,7 @@ __device__ __forceinline__ void store_tile(const float* stage,
                                fmaxf(sv.w + res[j][3], 0.f));
         *reinterpret_cast<uint2*>(out + g[j]) = t;
       } else {
-        out[g[j]] = __float2bfloat16(fmaxf(stage[so[j]] + res[j][0], 0.f));
+        out[g[j]] = wut::from_f32<E>(fmaxf(stage[so[j]] + res[j][0], 0.f));
       }
     }
   }
@@ -158,10 +202,14 @@ __device__ __forceinline__ void store_tile(const float* stage,
 
 // CLUSTER = false is the single-block plan (p.CS == 1), compiled without the
 // cluster's stores and barriers
-template <int MI, bool CLUSTER, int KC>
+template <typename E, int MI, bool CLUSTER, int KC>
 __global__ void __launch_bounds__(kTcThreads, 1)
-bottleneck_tc_kernel(const Params p) {
-  constexpr int kKC = KC, kLDK = KC + wut::kPad;
+bottleneck_tc_kernel(const Params<E> p) {
+  using Op = wut::Operand<E>;
+  constexpr int ES = sizeof(E), kP = Op::kPiece;
+  constexpr int kKC = KC, kLDK = KC + Op::kPad;
+  // weights a ring slot holds: the hi part, and in float32 the lo part
+  constexpr int kParts = Op::kSplit ? 2 : 1;
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, tig = lane & 3;
@@ -171,23 +219,26 @@ bottleneck_tc_kernel(const Params p) {
   const int NH = (TH + 2) * HW2;            // halo region positions
   const int NT = TH * W;                    // tile pixels
   const int MH = (NH + 15) & ~15, MT = (NT + 15) & ~15;
-  const int LD1 = P + wut::kPad;            // row stride of t1 and t2
+  const int LD1 = P + Op::kPad;             // row stride of t1 and t2
   const int S = p.S, RS = p.RS;
 
-  // region A: t1 [MH][LD1] bf16; in phase 3 the output stage [NB][NT] f32
-  // region B: t2 [MT][LD1] bf16; in phase 1 the repacked x [2][MH][kLDK] and
+  // region A: t1 [MH][LD1] E; in phase 3 the output stage [NB][NT] f32
+  // region B: t2 [MT][LD1] E; in phase 1 the repacked x [2][MH][kLDK] and
   //           the staged x [S][kKC][RS]: a channel's rows of the halo
   //           region as they lie in its plane, one contiguous run
-  // region W: the weight ring [S][NBmax][kLDK]
+  // region W: the weight ring [S][kParts][NBmax][kLDK]
   // region T: per halo position, where its x lies in a staged channel
-  bf16* t1s = reinterpret_cast<bf16*>(smem);
+  E* t1s = reinterpret_cast<E*>(smem);
   float* ostage = reinterpret_cast<float*>(smem);
-  bf16* t2s = reinterpret_cast<bf16*>(smem + p.offB);
-  bf16* abuf = t2s;
-  bf16* rawb = abuf + 2 * MH * kLDK;
+  E* t2s = reinterpret_cast<E*>(smem + p.offB);
+  E* abuf = t2s;
+  E* rawb = abuf + 2 * MH * kLDK;
   int* postab = reinterpret_cast<int*>(smem + p.offT);
   const int raw_slot = kKC * RS;                            // elements
-  const int w_slot = (p.wgn12 > p.wgn3 ? p.wgn12 : p.wgn3) * 32 * kLDK;
+  // one part of a ring slot (elements); the lo part lies b_lo bytes behind
+  const int w_part = (p.wgn12 > p.wgn3 ? p.wgn12 : p.wgn3) * 32 * kLDK;
+  const int w_slot = kParts * w_part;
+  const uint32_t b_lo = static_cast<uint32_t>(w_part * ES);
   const uint32_t t1_addr = wut::smem_u32(t1s);
   const uint32_t t2_addr = wut::smem_u32(t2s);
   const uint32_t abuf_addr = wut::smem_u32(abuf);
@@ -203,13 +254,26 @@ bottleneck_tc_kernel(const Params p) {
   const int tile_id = blockIdx.x / CS;
   const int b = tile_id / p.tiles_per_img;
   const int y0 = (tile_id % p.tiles_per_img) * TH;
-  // two bf16 to element `at` of t1 or t2, here and in the cluster's others
-  auto put2 = [&](bf16* at, uint32_t v) {
-    if constexpr (!CLUSTER) {
-      *reinterpret_cast<uint32_t*>(at) = v;
+  // two values to element `at` of t1 or t2, here and in the cluster's
+  // others: rounded to bf16, or float32 as they are (no rounding point)
+  auto put2 = [&](E* at, float v0, float v1) {
+    if constexpr (Op::kSplit) {
+      if constexpr (!CLUSTER) {
+        *reinterpret_cast<float2*>(at) = make_float2(v0, v1);
+      } else {
+        const uint32_t a = wut::smem_u32(at);
+        const uint64_t u = static_cast<uint64_t>(__float_as_uint(v1)) << 32 |
+                           __float_as_uint(v0);   // v0 at the lower address
+        for (int d = 0; d < CS; ++d) wut::st_cluster_u64(a, d, u);
+      }
     } else {
-      const uint32_t a = wut::smem_u32(at);
-      for (int d = 0; d < CS; ++d) wut::st_cluster_u32(a, d, v);
+      const uint32_t v = wut::pack_bf16x2(v0, v1);
+      if constexpr (!CLUSTER) {
+        *reinterpret_cast<uint32_t*>(at) = v;
+      } else {
+        const uint32_t a = wut::smem_u32(at);
+        for (int d = 0; d < CS; ++d) wut::st_cluster_u32(a, d, v);
+      }
     }
   };
   const long long plane_b = static_cast<long long>(b) * C * HW;
@@ -218,17 +282,18 @@ bottleneck_tc_kernel(const Params p) {
   const int yhi = y0 + TH + 1 < H ? y0 + TH + 1 : H;
   const int nrows = yhi - ylo;
 
-  const int a_lr = wut::a_lane_row(lane), a_lk = wut::a_lane_k(lane);
+  // the lanes' ldmatrix offsets: a row, and 0 or 16 bytes along k
+  const int a_lr = wut::a_lane_row(lane), a_lkb = wut::a_lane_k(lane) * 2;
   const uint32_t b_lane =
-      (wut::b_lane_row(lane) * kLDK + wut::b_lane_k(lane)) * 2;
+      wut::b_lane_row(lane) * kLDK * ES + wut::b_lane_k(lane) * 2;
 
   // once per block: the repacked-x buffers start as zeros (positions outside
   // the image are never written, so they multiply as zeros), and for every
   // halo position inside the image its offset in a staged channel's run
   // ((row - ylo) * W + column); the run starts at the channel's misalignment
-  // (its first element's offset in x modulo 8: only whole 16-byte pieces are
-  // copied)
-  for (int i = tid; i < MH * kLDK; i += kTcThreads)
+  // (its first element's offset in x modulo kP: only whole 16-byte pieces
+  // are copied)
+  for (int i = tid; i < 2 * MH * kLDK * ES / 4; i += kTcThreads)
     reinterpret_cast<uint32_t*>(abuf)[i] = 0u;
   for (int pos = tid; pos < NH; pos += kTcThreads) {
     const int hy = pos / HW2, hx = pos - hy * HW2;
@@ -245,19 +310,19 @@ bottleneck_tc_kernel(const Params p) {
   // channels kk = warp + 8 i, a lane up to kPieces of the 16-byte pieces that
   // cover the channel's run
   auto stage_x = [&](int slot, int k0, int kv) {
-    const uint32_t dst0 = raw_addr + slot * raw_slot * 2;
+    const uint32_t dst0 = raw_addr + slot * raw_slot * ES;
     for (int kk = warp; kk < kv; kk += kWarps) {
       const long long g0 =
           plane_b + static_cast<long long>(k0 + kk) * HW + ylo * W;
-      const long long ga0 = g0 & ~7LL;
+      const long long ga0 = g0 & ~static_cast<long long>(kP - 1);
 #pragma unroll
       for (int s2 = 0; s2 < kPieces; ++s2) {
         const int pc = lane + 32 * s2;
-        const long long ga = ga0 + 8 * pc;
+        const long long ga = ga0 + kP * pc;
         if (ga < g0 + run) {
           const long long left = p.total - ga;
-          wut::cp_async16(dst0 + (kk * RS + 8 * pc) * 2, p.x + ga,
-                          left >= 8 ? 16 : static_cast<int>(left) * 2);
+          wut::cp_async16(dst0 + (kk * RS + kP * pc) * ES, p.x + ga,
+                          left >= kP ? 16 : static_cast<int>(left) * ES);
         }
       }
     }
@@ -300,8 +365,10 @@ bottleneck_tc_kernel(const Params p) {
     const int n_mb = ceil_div(mtiles, wgm * MI);
     const int mi_cnt = ceil_div(mtiles, wgm * n_mb);
     const int nchunks = ceil_div(C, kKC);
-    // repack: this thread's two channels of every 32
-    const int rk0 = (warp & 3) * 8 + 2 * (lane & 3);
+    // repack: kRG warps across the channels, 8 channels each, this thread's
+    // two of every kRG * 8; the other warps across the positions
+    constexpr int kRG = (kKC < 32 ? kKC : 32) / 8;
+    const int rk0 = (warp % kRG) * 8 + 2 * (lane & 3);
     const int nend = (rank + 1) * (P / CS);
     for (int n0 = rank * (P / CS); n0 < nend; n0 += NB) {
       for (int mb = 0; mb < n_mb; ++mb) {
@@ -319,39 +386,48 @@ bottleneck_tc_kernel(const Params p) {
 #pragma unroll
         for (int mi = 0; mi < MI; ++mi)   // unused m-tiles point at tile 0
           a_row[mi] = abuf_addr +
-                      (((mi < my_cnt ? tile0 + mi : 0) * 16 + a_lr) * kLDK +
-                       a_lk) * 2;
+                      ((mi < my_cnt ? tile0 + mi : 0) * 16 + a_lr) * kLDK *
+                          ES + a_lkb;
         const int nvalid = nend - n0 < NB ? nend - n0 : NB;
 
         auto fetch = [&](int ch, int slot) {
           const int k0 = ch * kKC;
           const int kv = C - k0 < kKC ? C - k0 : kKC;
-          fetch_w<kKC>(w_addr + slot * w_slot * 2, p.w1, 0, C, n0, nvalid, NB,
-                       k0, kv, tid);
+          const uint32_t dst = w_addr + slot * w_slot * ES;
+          fetch_w<E, kKC>(dst, p.w1, 0, C, n0, nvalid, NB, k0, kv, tid);
+          if constexpr (Op::kSplit)
+            fetch_w<E, kKC>(dst + b_lo, p.w1 + P * C, 0, C, n0, nvalid, NB,
+                            k0, kv, tid);
           stage_x(slot, k0, kv);
         };
         // staged rows of chunk ch (ring slot) -> abuf[buf] as [position][k]
         auto repack = [&](int ch, int slot, int buf) {
           const int kv = C - ch * kKC < kKC ? C - ch * kKC : kKC;
 #pragma unroll
-          for (int rk = rk0; rk < kKC; rk += 32) {
+          for (int rk = rk0; rk < kKC; rk += kRG * 8) {
             if (rk >= kv) break;
             // the two channels' runs, each from its misalignment on
+            constexpr unsigned kMis = kP - 1;
             const unsigned lo = base_lo + static_cast<unsigned>(rk) * HW;
-            const bf16* r0 = rawb + slot * raw_slot + rk * RS + (lo & 7u);
-            const bf16* r1 = r0 + RS - (lo & 7u) + ((lo + HW) & 7u);
-            bf16* dst = abuf + buf * MH * kLDK + rk;
-            for (int pos = (warp >> 2) * 8 + (lane >> 2); pos < NH;
-                 pos += 16) {
+            const E* r0 = rawb + slot * raw_slot + rk * RS + (lo & kMis);
+            const E* r1 = r0 + RS - (lo & kMis) + ((lo + HW) & kMis);
+            E* dst = abuf + buf * MH * kLDK + rk;
+            for (int pos = (warp / kRG) * 8 + (lane >> 2); pos < NH;
+                 pos += (kWarps / kRG) * 8) {
               const int at = postab[pos];
               if (at < 0) continue;
-              const unsigned short v0 =
-                  *reinterpret_cast<const unsigned short*>(r0 + at);
-              const unsigned short v1 =
-                  *reinterpret_cast<const unsigned short*>(r1 + at);
-              *reinterpret_cast<uint32_t*>(dst + pos * kLDK) =
-                  static_cast<uint32_t>(v0) |
-                  (static_cast<uint32_t>(v1) << 16);
+              if constexpr (Op::kSplit) {
+                *reinterpret_cast<float2*>(dst + pos * kLDK) =
+                    make_float2(r0[at], r1[at]);
+              } else {
+                const unsigned short v0 =
+                    *reinterpret_cast<const unsigned short*>(r0 + at);
+                const unsigned short v1 =
+                    *reinterpret_cast<const unsigned short*>(r1 + at);
+                *reinterpret_cast<uint32_t*>(dst + pos * kLDK) =
+                    static_cast<uint32_t>(v0) |
+                    (static_cast<uint32_t>(v1) << 16);
+              }
             }
           }
         };
@@ -374,10 +450,11 @@ bottleneck_tc_kernel(const Params p) {
           auto products = [&]() {
             if (my_cnt == 0) return;
             const int kv = C - ch * kKC < kKC ? C - ch * kKC : kKC;
-            mma_chunk<MI, kKC>(acc, a_row, (ch & 1) * MH * kLDK * 2, my_cnt,
-                               w_addr + mslot * w_slot * 2 +
-                                   wn * 32 * kLDK * 2 + b_lane,
-                               kv);
+            mma_chunk<E, MI, kKC>(acc, a_row, (ch & 1) * MH * kLDK * ES,
+                                  my_cnt,
+                                  w_addr + mslot * w_slot * ES +
+                                      wn * 32 * kLDK * ES + b_lane,
+                                  kv, b_lo);
           };
           if (warp & 1) products();            // see kloop
           if (ch + S - 1 < nchunks) fetch(ch + S - 1, islot);
@@ -405,7 +482,7 @@ bottleneck_tc_kernel(const Params p) {
               const float v1 =
                   in ? fmaxf(acc[mi][ni][half * 2 + 1] + p.b1[n + 1], 0.f)
                      : 0.f;
-              put2(t1s + m * LD1 + n, wut::pack_bf16x2(v0, v1));
+              put2(t1s + m * LD1 + n, v0, v1);
             }
           }
         }
@@ -444,7 +521,7 @@ bottleneck_tc_kernel(const Params p) {
         for (int mi = 0; mi < MI; ++mi) {
           const int m = (tile0 + mi) * 16 + a_lr;
           const int pos0 = m < NT ? (m / W) * HW2 + m % W : 0;
-          a_row[mi] = t1_addr + (pos0 * LD1 + a_lk) * 2;
+          a_row[mi] = t1_addr + pos0 * LD1 * ES + a_lkb;
         }
         const int nvalid = nend - n0 < NB ? nend - n0 : NB;
         int i_tap = 0, i_k0 = 0;            // next chunk to fetch
@@ -452,9 +529,13 @@ bottleneck_tc_kernel(const Params p) {
         kloop(
             9 * nck,
             [&](int slot) {
-              fetch_w<kKC>(w_addr + slot * w_slot * 2, p.w2, i_tap * P * P, P,
-                           n0, nvalid, NB, i_k0,
-                           P - i_k0 < kKC ? P - i_k0 : kKC, tid);
+              const uint32_t dst = w_addr + slot * w_slot * ES;
+              const int kv = P - i_k0 < kKC ? P - i_k0 : kKC;
+              fetch_w<E, kKC>(dst, p.w2, i_tap * P * P, P, n0, nvalid, NB,
+                              i_k0, kv, tid);
+              if constexpr (Op::kSplit)
+                fetch_w<E, kKC>(dst + b_lo, p.w2 + 9 * P * P, i_tap * P * P,
+                                P, n0, nvalid, NB, i_k0, kv, tid);
               i_k0 += kKC;
               if (i_k0 >= P) {
                 i_k0 = 0;
@@ -463,11 +544,12 @@ bottleneck_tc_kernel(const Params p) {
             },
             [&](int slot) {
               if (my_cnt > 0)
-                mma_chunk<MI, kKC>(acc, a_row,
-                              ((m_dy * HW2 + m_dx) * LD1 + m_k0) * 2, my_cnt,
-                              w_addr + slot * w_slot * 2 + wn * 32 * kLDK * 2 +
-                                  b_lane,
-                              P - m_k0 < kKC ? P - m_k0 : kKC);
+                mma_chunk<E, MI, kKC>(
+                    acc, a_row, ((m_dy * HW2 + m_dx) * LD1 + m_k0) * ES,
+                    my_cnt,
+                    w_addr + slot * w_slot * ES + wn * 32 * kLDK * ES +
+                        b_lane,
+                    P - m_k0 < kKC ? P - m_k0 : kKC, b_lo);
               m_k0 += kKC;
               if (m_k0 >= P) {
                 m_k0 = 0;
@@ -489,9 +571,8 @@ bottleneck_tc_kernel(const Params p) {
             for (int half = 0; half < 2; ++half) {
               const int m = (tile0 + mi) * 16 + g + half * 8;
               put2(t2s + m * LD1 + n,
-                   wut::pack_bf16x2(
-                       fmaxf(acc[mi][ni][half * 2] + bias0, 0.f),
-                       fmaxf(acc[mi][ni][half * 2 + 1] + bias1, 0.f)));
+                   fmaxf(acc[mi][ni][half * 2] + bias0, 0.f),
+                   fmaxf(acc[mi][ni][half * 2 + 1] + bias1, 0.f));
             }
           }
         }
@@ -531,23 +612,28 @@ bottleneck_tc_kernel(const Params p) {
 #pragma unroll
         for (int mi = 0; mi < MI; ++mi)   // unused m-tiles point at tile 0
           a_row[mi] = t2_addr +
-                      (((mi < my_cnt ? tile0 + mi : 0) * 16 + a_lr) * LD1 +
-                       a_lk) * 2;
+                      ((mi < my_cnt ? tile0 + mi : 0) * 16 + a_lr) * LD1 *
+                          ES + a_lkb;
         const int nvalid = nend - n0 < NB ? nend - n0 : NB;
         int i_k0 = 0, m_k0 = 0;
         kloop(
             nck,
             [&](int slot) {
-              fetch_w<kKC>(w_addr + slot * w_slot * 2, p.w3, 0, P, n0, nvalid,
-                           NB, i_k0, P - i_k0 < kKC ? P - i_k0 : kKC, tid);
+              const uint32_t dst = w_addr + slot * w_slot * ES;
+              const int kv = P - i_k0 < kKC ? P - i_k0 : kKC;
+              fetch_w<E, kKC>(dst, p.w3, 0, P, n0, nvalid, NB, i_k0, kv, tid);
+              if constexpr (Op::kSplit)
+                fetch_w<E, kKC>(dst + b_lo, p.w3 + C * P, 0, P, n0, nvalid,
+                                NB, i_k0, kv, tid);
               i_k0 += kKC;
             },
             [&](int slot) {
               if (my_cnt > 0)
-                mma_chunk<MI, kKC>(acc, a_row, m_k0 * 2, my_cnt,
-                              w_addr + slot * w_slot * 2 + wn * 32 * kLDK * 2 +
-                                  b_lane,
-                              P - m_k0 < kKC ? P - m_k0 : kKC);
+                mma_chunk<E, MI, kKC>(
+                    acc, a_row, m_k0 * ES, my_cnt,
+                    w_addr + slot * w_slot * ES + wn * 32 * kLDK * ES +
+                        b_lane,
+                    P - m_k0 < kKC ? P - m_k0 : kKC, b_lo);
               m_k0 += kKC;
             });
         // float32 sums + b3 -> the stage [channel][pixel] (t1 is dead by
@@ -574,22 +660,24 @@ bottleneck_tc_kernel(const Params p) {
         const long long base =
             plane_b + static_cast<long long>(n0) * HW + y0 * W;
         if (vec4)
-          store_tile<4>(ostage, p.x, p.out, base, HW, len, nvalid, tid);
+          store_tile<E, 4>(ostage, p.x, p.out, base, HW, len, nvalid, tid);
         else
-          store_tile<1>(ostage, p.x, p.out, base, HW, len, nvalid, tid);
+          store_tile<E, 1>(ostage, p.x, p.out, base, HW, len, nvalid, tid);
       }
     }
   }
 }
 
-template <int MI, int KC, bool CLUSTER>
-cudaError_t launch_tc(const Params& p, int blocks, int smem, cudaStream_t st) {
+template <typename E, int MI, int KC, bool CLUSTER>
+cudaError_t launch_tc(const Params<E>& p, int blocks, int smem,
+                      cudaStream_t st) {
   cudaError_t err = cudaFuncSetAttribute(
-      bottleneck_tc_kernel<MI, CLUSTER, KC>,
+      bottleneck_tc_kernel<E, MI, CLUSTER, KC>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   if (!CLUSTER) {
-    bottleneck_tc_kernel<MI, CLUSTER, KC><<<blocks, kTcThreads, smem, st>>>(p);
+    bottleneck_tc_kernel<E, MI, CLUSTER, KC>
+        <<<blocks, kTcThreads, smem, st>>>(p);
     return cudaGetLastError();
   }
   cudaLaunchConfig_t cfg = {};
@@ -604,21 +692,22 @@ cudaError_t launch_tc(const Params& p, int blocks, int smem, cudaStream_t st) {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, bottleneck_tc_kernel<MI, CLUSTER, KC>, p);
+  err = cudaLaunchKernelEx(&cfg, bottleneck_tc_kernel<E, MI, CLUSTER, KC>, p);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-// The entry of the tensor-core kernel with chunks of KC values, for clusters
-// (cs > 1) or for single blocks (cs == 1).  x, out:
-// (B, C, H, W) bfloat16; w1: (P, C), w2: (9, P, P) as [tap][out][in], w3:
-// (C, P), bfloat16 (pack_bottleneck); b1, b2: (P,), b3: (C,) float32.  All
+// The entry of the tensor-core kernel with operands E and chunks of KC
+// values, for clusters (cs > 1) or for single blocks (cs == 1).  x, out:
+// (B, C, H, W) of E; bf16: w1 (P, C), w2 (9, P, P) as [tap][out][in], w3
+// (C, P); float32: the same, each as (2, ...), its hi and lo parts
+// (pack_bottleneck with split=True); b1, b2: (P,), b3: (C,) float32.  All
 // contiguous and 16-byte aligned; C and P multiples of 16.  The plan
 // (kernels/bottleneck.py::plan_bottleneck): a tile of th full rows (th * W <=
 // 256 pixels), cs blocks a cluster that share a tile (1, 2, 4 or 8; C and P
 // multiples of 32 * cs), kc = KC reduction values a chunk, ring stages (3 or
 // 4), stride rs of a staged channel of x, warps along N in phases 1-2 and 3,
 // byte offsets of shared-memory regions B, W and T, total shared memory.
-template <int KC, bool CLUSTER>
+template <typename E, int KC, bool CLUSTER>
 int run(const void* x, const void* w1, const void* b1, const void* w2,
         const void* b2, const void* w3, const void* b3, void* out, int B,
         int C, int P, int H, int W, int th, int cs, int kc, int stages, int rs,
@@ -629,22 +718,23 @@ int run(const void* x, const void* w1, const void* b1, const void* w2,
   const auto pow2_le8 = [](int v) {
     return v == 1 || v == 2 || v == 4 || v == 8;
   };
+  constexpr int kP = wut::Operand<E>::kPiece;
   if (C % 16 || P % 16 || th < 1 || th * W > kMaxNT ||
       !pow2_le8(cs) || (cs > 1 && (C % (32 * cs) || P % (32 * cs))) ||
-      kc != KC || (cs > 1) != CLUSTER || stages < 3 || stages > 4 || rs % 8 ||
-      rs < ((th + 2) * W + 7 + 7) / 8 * 8 || rs / 8 > 32 * kPieces ||
-      !pow2_le8(wgn12) || !pow2_le8(wgn3) || off_b % 16 || off_w % 16 ||
-      off_t % 16)
+      kc != KC || (cs > 1) != CLUSTER || stages < 3 || stages > 4 ||
+      rs % kP || rs < ((th + 2) * W + kP - 1 + kP - 1) / kP * kP ||
+      rs / kP > 32 * kPieces || !pow2_le8(wgn12) || !pow2_le8(wgn3) ||
+      off_b % 16 || off_w % 16 || off_t % 16)
     return cudaErrorInvalidValue;
-  Params p;
-  p.x = static_cast<const bf16*>(x);
-  p.w1 = static_cast<const bf16*>(w1);
-  p.w2 = static_cast<const bf16*>(w2);
-  p.w3 = static_cast<const bf16*>(w3);
+  Params<E> p;
+  p.x = static_cast<const E*>(x);
+  p.w1 = static_cast<const E*>(w1);
+  p.w2 = static_cast<const E*>(w2);
+  p.w3 = static_cast<const E*>(w3);
   p.b1 = static_cast<const float*>(b1);
   p.b2 = static_cast<const float*>(b2);
   p.b3 = static_cast<const float*>(b3);
-  p.out = static_cast<bf16*>(out);
+  p.out = static_cast<E*>(out);
   p.total = static_cast<long long>(B) * C * H * W;
   p.C = C; p.P = P; p.H = H; p.W = W;
   p.TH = th;
@@ -656,7 +746,9 @@ int run(const void* x, const void* w1, const void* b1, const void* w2,
   const long long blocks = static_cast<long long>(B) * p.tiles_per_img * cs;
   if (blocks < 1 || blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return launch_tc<kMI, KC, CLUSTER>(p, static_cast<int>(blocks), smem, st);
+  constexpr int kMIe = wut::Operand<E>::kSplit ? kMI32 : kMI;
+  return launch_tc<E, kMIe, KC, CLUSTER>(p, static_cast<int>(blocks), smem,
+                                         st);
 }
 
 }  // namespace tc

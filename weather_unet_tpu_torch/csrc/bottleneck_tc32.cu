@@ -9,7 +9,7 @@ WUT_API int wut_bottleneck_tc(const void* x, const void* w1, const void* b1,
                               int rs, int wgn12, int wgn3, int off_b,
                               int off_w, int off_t, int smem, int device,
                               void* stream) {
-  return tc::run<32, false>(
+  return tc::run<tc::bf16, 32, false>(
       x, w1, b1, w2, b2, w3, b3, out, B, C, P, H, W, th, cs, kc, stages, rs,
       wgn12, wgn3, off_b, off_w, off_t, smem, device, stream);
 }

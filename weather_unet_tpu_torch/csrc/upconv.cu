@@ -16,7 +16,7 @@
 // Two kernels, chosen by the wrapper on dtype and shape alone
 // (kernels/upconv.py::takes_tensor_cores):
 //
-//   * bfloat16 with C a multiple of 16: the tensor-core kernel (namespace tc
+//   * C a multiple of 16: the tensor-core kernel (namespace tc
 //     below), an implicit GEMM with mma.sync m16n8k16 (bf16 operands, float32
 //     accumulators).  A block owns M = TH x TW output pixels (8x16, or 16x16
 //     where O <= 64) times NB = 128 or 64 output channels, so the patch is
@@ -43,11 +43,21 @@
 //     along W.  Rounding the patch to bf16 is what the plain chain does after
 //     its upsample, so the bf16 bound 2^-6 * max(1, max|y|) holds.  Output
 //     channels beyond O are zero-filled rows of the weight ring.
+//     float32 (tc::run<float>, wut_upconv_tc_f32) runs the same kernel on
+//     split float32 operands (wut_mma.cuh): the patch is blended and
+//     modulated in float32 and stored float32, split into TF32 hi and lo on
+//     the A fragment; the weights come split by pack_upconv_weight(split=
+//     True) as (2, 9, O, C) and stream as hi and lo through one ring slot; k
+//     runs in chunks of 8 channels (a k8 step, 32 bytes a row, as bf16's
+//     k16), each product three m16n8k8 TF32 mmas.  It takes the 16x16 x 64
+//     tile at every O (measured faster than 8x16 x 128 at O = 128, 256) and
+//     one block an SM (the split fragments need the registers).  A single
+//     TF32 product (10 mantissa bits) could not meet float32's bar of 1e-5 *
+//     max|y|; the split one keeps each product within ~2^-21.
 //
-//   * float32, and bfloat16 with C not a multiple of 16: the CUDA-core kernel
-//     (the first version of this port): a direct convolution, float32 fmaf.
-//     float32 is held to 1e-5 * max|y| of cuDNN with TF32 off, which a TF32
-//     mma (10 mantissa bits) cannot meet.
+//   * C not a multiple of 16: the CUDA-core kernel (the first version of
+//     this port): a direct convolution, float32 fmaf.  float32 is held to
+//     1e-5 * max|y| of cuDNN with TF32 off.
 //
 // CUDA-core kernel.  A block owns a 16x16 tile of output pixels times 64
 // output channels.  For each chunk of 8 input channels it stages in shared
@@ -245,22 +255,32 @@ namespace tc {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kKC = 16;                  // input channels a chunk: one k16
-constexpr int kLDK = kKC + wut::kPad;    // row stride of patch and weights
 constexpr int kMI = 4, kNI = 4;          // warp tile: 64 pixels x 32 channels
 constexpr int kWarps = 8;
 constexpr int kTcThreads = kWarps * 32;
 constexpr int kS = 3;                    // stages of the weight ring
 
+// Per operand type E (bf16, or float32 taken as split float32): the input
+// channels of a chunk, one mma step of k (32 bytes: 16 bf16 or 8 float32),
+// and the row stride of patch and weights (plus 16 bytes of padding).
+template <typename E>
+struct Chunk {
+  static constexpr int kKC = wut::Operand<E>::kStep;
+  static constexpr int kLDK = kKC + wut::Operand<E>::kPad;
+};
+
+// In float32 the weights (9, O, C) are followed by their lo part
+// (pack_upconv_weight with split=True: (2, 9, O, C), hi then lo).
+template <typename E>
 struct Params {
-  const bf16* x;
-  const bf16* w;        // (9, O, C)  [tap][out][in]
-  const bf16* cb;       // (B, O, 2H, 2W) or null
+  const E* x;
+  const E* w;           // (9, O, C)  [tap][out][in]
+  const E* cb;          // (B, O, 2H, 2W) or null
   const float* scale;   // (B, C) or null
   const float* shift;
   const int* tap_idx;
   const float* tap_frac;
-  bf16* out;
+  E* out;
   long long total;      // elements of x
   int C, H, W, O, relu;
   int TH, TW, tiles_x;
@@ -269,8 +289,16 @@ struct Params {
   int off_mod, off_patch, off_raw, off_w;   // byte offsets in shared memory
 };
 
-__global__ void __launch_bounds__(kTcThreads, 2)
-upconv_tc_kernel(const Params p) {
+// two blocks an SM in bf16; one in float32, whose split fragments need the
+// registers
+template <typename E>
+__global__ void __launch_bounds__(kTcThreads,
+                                  wut::Operand<E>::kSplit ? 1 : 2)
+upconv_tc_kernel(const Params<E> p) {
+  using Op = wut::Operand<E>;
+  constexpr int ES = sizeof(E);
+  constexpr int kKC = Chunk<E>::kKC, kLDK = Chunk<E>::kLDK;
+  constexpr int kParts = Op::kSplit ? 2 : 1;   // hi, and in float32 lo
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, tig = lane & 3;
@@ -285,12 +313,14 @@ upconv_tc_kernel(const Params p) {
   int* posi = reinterpret_cast<int*>(smem);               // [NPOS] tap rows/cols
   float2* posf = reinterpret_cast<float2*>(smem + ((NPOS * 4 + 7) & ~7));
   float2* smod = reinterpret_cast<float2*>(smem + p.off_mod);     // [C]
-  bf16* patch = reinterpret_cast<bf16*>(smem + p.off_patch);      // [2][NPOS][kLDK]
-  bf16* rawb = reinterpret_cast<bf16*>(smem + p.off_raw);         // [2][kKC][LH][RS]
+  E* patch = reinterpret_cast<E*>(smem + p.off_patch);      // [2][NPOS][kLDK]
+  E* rawb = reinterpret_cast<E*>(smem + p.off_raw);         // [2][kKC][LH][RS]
   float* ostage = reinterpret_cast<float*>(smem + p.off_patch);   // [NB][M + 4]
   const int patch_buf = NPOS * kLDK;                      // elements
   const int raw_slot = kKC * LH * RS;
-  const int w_slot = 3 * NB * kLDK;
+  const int w_part = 3 * NB * kLDK;       // one part of a ring slot
+  const int w_slot = kParts * w_part;
+  const uint32_t b_lo = static_cast<uint32_t>(w_part * ES);
   const uint32_t patch_addr = wut::smem_u32(patch);
   const uint32_t raw_addr = wut::smem_u32(rawb);
   const uint32_t w_addr = wut::smem_u32(smem + p.off_w);
@@ -336,7 +366,7 @@ upconv_tc_kernel(const Params p) {
                   ? make_float2(p.scale[static_cast<size_t>(b) * C + c],
                                 p.shift[static_cast<size_t>(b) * C + c])
                   : make_float2(1.f, 0.f);
-  for (int i = tid; i < patch_buf; i += kTcThreads)   // 2 buffers, 2 per word
+  for (int i = tid; i < 2 * patch_buf * ES / 4; i += kTcThreads)   // 2 buffers
     reinterpret_cast<uint32_t*>(patch)[i] = 0u;
 
   const int wn = warp % p.wgn, wm = warp / p.wgn;
@@ -352,48 +382,56 @@ upconv_tc_kernel(const Params p) {
 #pragma unroll
   for (int mi = 0; mi < kMI; ++mi) {
     const int m = (wm * kMI + mi) * 16 + wut::a_lane_row(lane);
-    a_row[mi] = patch_addr +
-                (((m / TW) * PW + m % TW) * kLDK + wut::a_lane_k(lane)) * 2;
+    a_row[mi] = patch_addr + ((m / TW) * PW + m % TW) * kLDK * ES +
+                wut::a_lane_k(lane) * 2;
   }
   const uint32_t b_lane =
-      ((wn * 32 + wut::b_lane_row(lane)) * kLDK + wut::b_lane_k(lane)) * 2;
-  constexpr uint32_t kBPair = 16 * kLDK * 2;
+      (wn * 32 + wut::b_lane_row(lane)) * kLDK * ES + wut::b_lane_k(lane) * 2;
+  constexpr uint32_t kBPair = 16 * kLDK * ES;
 
   const int nchunks = C / kKC;
   const int nunits = 3 * nchunks;           // a unit: one row of taps of a chunk
 
   auto fetch_raw = [&](int k) {
-    wut::stage_rows_async(raw_addr + (k & 1) * raw_slot * 2, p.x, p.total,
+    wut::stage_rows_async<E>(raw_addr + (k & 1) * raw_slot * ES, p.x, p.total,
                           plane_b + static_cast<long long>(k) * kKC * HW, HW,
                           W, kKC, ly0, nrows, lx0, ncols, LH, RS, tid,
                           kTcThreads);
   };
   auto fetch_w = [&](int u) {
     const int k = u / 3, dy = u - 3 * k;
-    const uint32_t dst = w_addr + (u % kS) * w_slot * 2;
-    for (int i = tid; i < 3 * NB * 2; i += kTcThreads) {
-      const int pc = i & 1, row = i >> 1;       // row = dx * NB + n
+    const uint32_t dst = w_addr + (u % kS) * w_slot * ES;
+    constexpr int kP = Op::kPiece;
+    // two 16-byte pieces a row, a part after the other
+    for (int i = tid; i < kParts * 3 * NB * 2; i += kTcThreads) {
+      const int pc = i & 1, row = (i >> 1) % (3 * NB);   // dx * NB + n
+      const int part = (i >> 1) / (3 * NB);
       const int dx = row / NB, n = row - dx * NB;
       const bool ok = n0 + n < O;
-      const bf16* src =
-          ok ? p.w + (static_cast<size_t>(dy * 3 + dx) * O + n0 + n) * C +
-                   k * kKC + pc * 8
+      const E* src =
+          ok ? p.w + static_cast<size_t>(part) * 9 * O * C +
+                   (static_cast<size_t>(dy * 3 + dx) * O + n0 + n) * C +
+                   k * kKC + pc * kP
              : p.w;
-      wut::cp_async16(dst + (row * kLDK + pc * 8) * 2, src, ok ? 16 : 0);
+      wut::cp_async16(dst + part * b_lo + (row * kLDK + pc * kP) * ES, src,
+                      ok ? 16 : 0);
     }
   };
   // chunk k: staged low-res rows -> modulated, upsampled patch [position][c]
+  // kG warps across the chunk's channels (8 each, two a thread), the others
+  // across the positions
+  constexpr int kG = kKC / 8;
   auto build = [&](int k) {
-    const int kk = (warp & 1) * 8 + 2 * (lane & 3);
+    const int kk = (warp % kG) * 8 + 2 * (lane & 3);
     const int c = k * kKC + kk;
     const float2 m0 = smod[c], m1 = smod[c + 1];
     const unsigned pl0 =
         static_cast<unsigned>(plane_b) + static_cast<unsigned>(c) * HW;
     const unsigned pl1 = pl0 + HW;
-    const bf16* r0 = rawb + (k & 1) * raw_slot + kk * LH * RS;
-    const bf16* r1 = r0 + LH * RS;
-    bf16* dst = patch + (k & 1) * patch_buf + kk;
-    for (int pg = warp >> 1; pg * 8 < NPOS; pg += 4) {
+    const E* r0 = rawb + (k & 1) * raw_slot + kk * LH * RS;
+    const E* r1 = r0 + LH * RS;
+    E* dst = patch + (k & 1) * patch_buf + kk;
+    for (int pg = warp / kG; pg * 8 < NPOS; pg += kWarps / kG) {
       const int pos = pg * 8 + (lane >> 2);
       if (pos >= NPOS) continue;
       const int e = posi[pos];
@@ -404,20 +442,24 @@ upconv_tc_kernel(const Params p) {
       float v[2];
 #pragma unroll
       for (int ch = 0; ch < 2; ++ch) {
-        const bf16* r = ch ? r1 : r0;
+        const E* r = ch ? r1 : r0;
         const unsigned pl = ch ? pl1 : pl0;
         const float2 md = ch ? m1 : m0;
-        const bf16* ra = r + j0 * RS + wut::raw_phase(pl, ly0 + j0, W, lx0);
-        const bf16* rb = r + j1 * RS + wut::raw_phase(pl, ly0 + j1, W, lx0);
-        const float a00 = __bfloat162float(ra[q0]) * md.x + md.y;
-        const float a01 = __bfloat162float(ra[q1]) * md.x + md.y;
-        const float a10 = __bfloat162float(rb[q0]) * md.x + md.y;
-        const float a11 = __bfloat162float(rb[q1]) * md.x + md.y;
+        const E* ra = r + j0 * RS + wut::raw_phase<E>(pl, ly0 + j0, W, lx0);
+        const E* rb = r + j1 * RS + wut::raw_phase<E>(pl, ly0 + j1, W, lx0);
+        const float a00 = wut::to_f32(ra[q0]) * md.x + md.y;
+        const float a01 = wut::to_f32(ra[q1]) * md.x + md.y;
+        const float a10 = wut::to_f32(rb[q0]) * md.x + md.y;
+        const float a11 = wut::to_f32(rb[q1]) * md.x + md.y;
         v[ch] = (1.f - f.x) * ((1.f - f.y) * a00 + f.y * a01) +
                 f.x * ((1.f - f.y) * a10 + f.y * a11);
       }
-      *reinterpret_cast<uint32_t*>(dst + pos * kLDK) =
-          wut::pack_bf16x2(v[0], v[1]);
+      // rounded once to bf16, or kept in float32 (split on the A fragment)
+      if constexpr (Op::kSplit)
+        *reinterpret_cast<float2*>(dst + pos * kLDK) = make_float2(v[0], v[1]);
+      else
+        *reinterpret_cast<uint32_t*>(dst + pos * kLDK) =
+            wut::pack_bf16x2(v[0], v[1]);
     }
   };
 
@@ -448,17 +490,29 @@ upconv_tc_kernel(const Params p) {
     }
     wut::cp_async_commit();
     if (dy == 0 && k + 1 < nchunks) build(k + 1);
-    const uint32_t wb = w_addr + (u % kS) * w_slot * 2 + b_lane;
-    const uint32_t ab = (k & 1) * patch_buf * 2 + dy * PW * kLDK * 2;
+    const uint32_t wb = w_addr + (u % kS) * w_slot * ES + b_lane;
+    const uint32_t ab = (k & 1) * patch_buf * ES + dy * PW * kLDK * ES;
     // the fragments of tap dx + 1 are loaded before the products of tap dx
-    wut::Frags<kMI, kNI> f[2];
-    wut::load_frags(f[0], a_row, ab, kMI, wb, kBPair);
+    if constexpr (!Op::kSplit) {
+      wut::Frags<kMI, kNI> f[2];
+      wut::load_frags(f[0], a_row, ab, kMI, wb, kBPair);
 #pragma unroll
-    for (int dx = 0; dx < 3; ++dx) {
-      if (dx < 2)
-        wut::load_frags(f[(dx + 1) & 1], a_row, ab + (dx + 1) * kLDK * 2, kMI,
-                        wb + (dx + 1) * NB * kLDK * 2, kBPair);
-      wut::mma_frags(acc, f[dx & 1], kMI);
+      for (int dx = 0; dx < 3; ++dx) {
+        if (dx < 2)
+          wut::load_frags(f[(dx + 1) & 1], a_row, ab + (dx + 1) * kLDK * ES,
+                          kMI, wb + (dx + 1) * NB * kLDK * ES, kBPair);
+        wut::mma_frags(acc, f[dx & 1], kMI);
+      }
+    } else {
+      wut::Frags3<kMI, kNI> f[2];
+      wut::load_frags3(f[0], a_row, ab, kMI, wb, kBPair, b_lo);
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx) {
+        if (dx < 2)
+          wut::load_frags3(f[(dx + 1) & 1], a_row, ab + (dx + 1) * kLDK * ES,
+                           kMI, wb + (dx + 1) * NB * kLDK * ES, kBPair, b_lo);
+        wut::mma_frags3(acc, f[dx & 1], kMI);
+      }
     }
   }
 
@@ -494,54 +548,68 @@ upconv_tc_kernel(const Params p) {
       if (goff[i] < 0) continue;
       float2 v = *reinterpret_cast<const float2*>(
           ostage + nl * LDO + 2 * (lane + 32 * i));
-      if (p.cb != nullptr) {
-        const __nv_bfloat162 t =
-            *reinterpret_cast<const __nv_bfloat162*>(p.cb + base + goff[i]);
-        v.x += __low2float(t);
-        v.y += __high2float(t);
+      if constexpr (Op::kSplit) {
+        if (p.cb != nullptr) {
+          const float2 t =
+              *reinterpret_cast<const float2*>(p.cb + base + goff[i]);
+          v.x += t.x;
+          v.y += t.y;
+        }
+        if (p.relu) {
+          v.x = fmaxf(v.x, 0.f);
+          v.y = fmaxf(v.y, 0.f);
+        }
+        *reinterpret_cast<float2*>(p.out + base + goff[i]) = v;
+      } else {
+        if (p.cb != nullptr) {
+          const __nv_bfloat162 t =
+              *reinterpret_cast<const __nv_bfloat162*>(p.cb + base + goff[i]);
+          v.x += __low2float(t);
+          v.y += __high2float(t);
+        }
+        if (p.relu) {
+          v.x = fmaxf(v.x, 0.f);
+          v.y = fmaxf(v.y, 0.f);
+        }
+        *reinterpret_cast<__nv_bfloat162*>(p.out + base + goff[i]) =
+            __floats2bfloat162_rn(v.x, v.y);
       }
-      if (p.relu) {
-        v.x = fmaxf(v.x, 0.f);
-        v.y = fmaxf(v.y, 0.f);
-      }
-      *reinterpret_cast<__nv_bfloat162*>(p.out + base + goff[i]) =
-          __floats2bfloat162_rn(v.x, v.y);
     }
   }
 }
 
-}  // namespace tc
-
-// The tensor-core kernel.  x: (B, C, H, W) bfloat16, C a multiple of 16; w:
-// (9, O, C) as [tap][out][in] (pack_upconv_weight); cb, scale, shift, the tap
-// tables and out as for wut_upconv.  All contiguous, x 16-byte aligned.  The
-// plan (kernels/upconv.py::plan_upconv): tile th x tw with tw even and
-// th * tw = (8 / wgn) * 64, wgn warps along N, lh rows of rs elements of
-// staged low-res x a channel, byte offsets of the shared-memory regions, total
+// x: (B, C, H, W) of E, C a multiple of the chunk (16 bf16, 8 float32); w:
+// (9, O, C) as [tap][out][in] (pack_upconv_weight), in float32 (2, 9, O, C),
+// hi then lo (split=True); cb, scale, shift, the tap tables and out as for
+// wut_upconv.  All contiguous, x 16-byte aligned, cb 8-byte aligned.  The
+// plan (kernels/upconv.py::plan_upconv): tile th x tw with tw even and th *
+// tw = (8 / wgn) * 64, wgn warps along N, lh rows of rs elements of staged
+// low-res x a channel, byte offsets of the shared-memory regions, total
 // shared memory.
-WUT_API int wut_upconv_tc(const void* x, const void* w, const void* cb,
-                          const void* scale, const void* shift,
-                          const void* tap_idx, const void* tap_frac, void* out,
-                          int B, int C, int H, int W, int O, int relu, int th,
-                          int tw, int wgn, int lh, int rs, int off_mod,
-                          int off_patch, int off_raw, int off_w, int smem,
-                          int device, void* stream) {
+template <typename E>
+int run(const void* x, const void* w, const void* cb, const void* scale,
+        const void* shift, const void* tap_idx, const void* tap_frac,
+        void* out, int B, int C, int H, int W, int O, int relu, int th,
+        int tw, int wgn, int lh, int rs, int off_mod, int off_patch,
+        int off_raw, int off_w, int smem, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (C % tc::kKC || C < tc::kKC || (wgn != 2 && wgn != 4) || tw % 2 ||
-      th * tw != (tc::kWarps / wgn) * tc::kMI * 16 || lh < th / 2 + 3 ||
-      rs % 8 || rs < (tw / 2 + 3 + 7 + 7) / 8 * 8 || off_mod % 16 ||
-      off_patch % 16 || off_raw % 16 || off_w % 16 || B > 65535)
+  constexpr int kKC = Chunk<E>::kKC, kP = wut::Operand<E>::kPiece;
+  if (C % kKC || C < kKC || (wgn != 2 && wgn != 4) || tw % 2 ||
+      th * tw != (kWarps / wgn) * kMI * 16 || lh < th / 2 + 3 ||
+      rs % kP || rs < (tw / 2 + 3 + kP - 1 + kP - 1) / kP * kP ||
+      off_mod % 16 || off_patch % 16 || off_raw % 16 || off_w % 16 ||
+      B > 65535)
     return cudaErrorInvalidValue;
-  tc::Params p;
-  p.x = static_cast<const tc::bf16*>(x);
-  p.w = static_cast<const tc::bf16*>(w);
-  p.cb = static_cast<const tc::bf16*>(cb);
+  Params<E> p;
+  p.x = static_cast<const E*>(x);
+  p.w = static_cast<const E*>(w);
+  p.cb = static_cast<const E*>(cb);
   p.scale = static_cast<const float*>(scale);
   p.shift = static_cast<const float*>(shift);
   p.tap_idx = static_cast<const int*>(tap_idx);
   p.tap_frac = static_cast<const float*>(tap_frac);
-  p.out = static_cast<tc::bf16*>(out);
+  p.out = static_cast<E*>(out);
   p.total = static_cast<long long>(B) * C * H * W;
   p.C = C; p.H = H; p.W = W; p.O = O; p.relu = relu;
   p.TH = th; p.TW = tw;
@@ -549,12 +617,39 @@ WUT_API int wut_upconv_tc(const void* x, const void* w, const void* cb,
   p.wgn = wgn; p.LH = lh; p.RS = rs;
   p.off_mod = off_mod; p.off_patch = off_patch;
   p.off_raw = off_raw; p.off_w = off_w;
-  err = cudaFuncSetAttribute(tc::upconv_tc_kernel,
+  err = cudaFuncSetAttribute(upconv_tc_kernel<E>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const int nb = wgn * 32;
   const dim3 grid(p.tiles_x * ((2 * H + th - 1) / th), (O + nb - 1) / nb, B);
-  tc::upconv_tc_kernel<<<grid, tc::kTcThreads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(p);
+  upconv_tc_kernel<E><<<grid, kTcThreads, smem,
+                        static_cast<cudaStream_t>(stream)>>>(p);
   return cudaGetLastError();
+}
+
+}  // namespace tc
+
+// The tensor-core kernels (tc::run): bfloat16, and float32 as split float32
+// (three TF32 mmas a product).
+WUT_API int wut_upconv_tc(const void* x, const void* w, const void* cb,
+                          const void* scale, const void* shift,
+                          const void* tap_idx, const void* tap_frac, void* out,
+                          int B, int C, int H, int W, int O, int relu, int th,
+                          int tw, int wgn, int lh, int rs, int off_mod,
+                          int off_patch, int off_raw, int off_w, int smem,
+                          int device, void* stream) {
+  return tc::run<tc::bf16>(x, w, cb, scale, shift, tap_idx, tap_frac, out, B,
+                           C, H, W, O, relu, th, tw, wgn, lh, rs, off_mod,
+                           off_patch, off_raw, off_w, smem, device, stream);
+}
+WUT_API int wut_upconv_tc_f32(const void* x, const void* w, const void* cb,
+                              const void* scale, const void* shift,
+                              const void* tap_idx, const void* tap_frac,
+                              void* out, int B, int C, int H, int W, int O,
+                              int relu, int th, int tw, int wgn, int lh,
+                              int rs, int off_mod, int off_patch, int off_raw,
+                              int off_w, int smem, int device, void* stream) {
+  return tc::run<float>(x, w, cb, scale, shift, tap_idx, tap_frac, out, B, C,
+                        H, W, O, relu, th, tw, wgn, lh, rs, off_mod,
+                        off_patch, off_raw, off_w, smem, device, stream);
 }

@@ -10,12 +10,16 @@ PyTorch ops.  Gradients recompute through the plain version, as the JAX
 package's VJPs do.
 
 On CUDA tensors one of two kernels runs, by a rule on dtype and shape alone
-(``takes_tensor_cores``): bfloat16 with ``C`` a multiple of 16 goes to the
-tensor-core kernel (an implicit GEMM with ``mma.sync`` on bf16 operands, the
-weights pre-arranged by ``pack_upconv_weight``, the tile chosen by
-``plan_upconv``); float32, and bfloat16 at other channel counts, go to the
-CUDA-core kernel.  float32 stays off the tensor cores because its bar is 1e-5
-of cuDNN with TF32 off, which a TF32 product (10 mantissa bits) cannot meet.
+(``takes_tensor_cores``): ``C`` a multiple of 16 goes to the tensor-core
+kernel (an implicit GEMM with ``mma.sync``, the weights pre-arranged by
+``pack_upconv_weight``, the tile chosen by ``plan_upconv``), other channel
+counts to the CUDA-core kernel.  bfloat16 runs bf16 operands, k in steps of
+16; float32 runs split float32 ("3xTF32", ``kernels/bottleneck.py::
+split_tf32``), k in steps of 8: the patch is blended and modulated in
+float32 and stays float32, split on the A fragment, and the weights are
+split by ``pack_upconv_weight(..., split=True)``; three TF32 mmas a product
+keep it within ~2^-21 of the float32 product, inside float32's bar of 1e-5
+* max|y|, which a single TF32 product (2^-11) would miss.
 """
 
 from __future__ import annotations
@@ -28,16 +32,16 @@ import torch
 import torch.nn.functional as F
 
 from weather_unet_tpu_torch.kernels import _build
+from weather_unet_tpu_torch.kernels.bottleneck import split_tf32
 from weather_unet_tpu_torch.ops.convs import conv2d
 from weather_unet_tpu_torch.ops.resize import (
     _tap_tables, upsample_bilinear_align_corners)
 
 launches = 0   # kernel launches so far (plain-version calls do not count)
 tensor_core_launches = 0   # those of them that ran the tensor-core kernel
+f32_tensor_core_launches = 0   # ... and of those, the float32 (3xTF32) form
 
 SMEM_LIMIT = 232_448   # bytes of shared memory a block can opt in to (sm_90)
-_KC = 16               # csrc/upconv.cu: tc::kKC, input channels a chunk
-_LDK = _KC + 8         # ... tc::kLDK, padded row of patch and weights
 
 
 def upsample2x_conv3x3_ref(x, weight, *, cb=None, scale=None, shift=None,
@@ -60,20 +64,33 @@ def upconv_block_ref(x, weight, cb, scale, shift, relu: bool = True):
 
 
 def takes_tensor_cores(dtype, c: int) -> bool:
-    """The rule that picks the CUDA kernel: bfloat16 with ``C`` a multiple of
-    16 runs on the tensor cores, everything else on the CUDA cores."""
-    return dtype == torch.bfloat16 and c >= 16 and c % 16 == 0
+    """The rule that picks the CUDA kernel: bfloat16 and float32 with ``C``
+    a multiple of 16 run on the tensor cores, other channel counts on the
+    CUDA cores."""
+    return (dtype in (torch.bfloat16, torch.float32) and c >= 16
+            and c % 16 == 0)
 
 
-def pack_upconv_weight(weight: torch.Tensor) -> torch.Tensor:
+def pack_upconv_weight(weight: torch.Tensor,
+                       split: bool = False) -> torch.Tensor:
     """OIHW ``(O, C, 3, 3)`` -> the tensor-core kernel's ``(9, O, C)`` as
-    [tap][out][in], the reduction index contiguous: a permutation."""
+    [tap][out][in], the reduction index contiguous: a permutation.  With
+    ``split`` (float32) ``(2, 9, O, C)``: the hi and lo parts of
+    ``split_tf32``, which the float32 tensor-core kernel streams."""
     o, c = weight.shape[:2]
-    return weight.permute(2, 3, 0, 1).reshape(9, o, c).contiguous()
+    packed = weight.permute(2, 3, 0, 1).reshape(9, o, c).contiguous()
+    if split:
+        if weight.dtype != torch.float32:
+            raise ValueError(f"split weights are float32, not {weight.dtype}")
+        packed = torch.stack(split_tf32(packed))
+    return packed
 
 
 def unpack_upconv_weight(packed: torch.Tensor) -> torch.Tensor:
-    """Inverse of ``pack_upconv_weight``."""
+    """Inverse of ``pack_upconv_weight``: split weights come back as
+    ``hi + lo``."""
+    if packed.dim() == 4:
+        packed = packed[0] + packed[1]
     _, o, c = packed.shape
     return packed.reshape(3, 3, o, c).permute(2, 3, 0, 1).contiguous()
 
@@ -83,26 +100,40 @@ def _round_up(a: int, m: int) -> int:
 
 
 @functools.lru_cache(maxsize=128)
-def plan_upconv(c: int, o: int, smem_limit: int = SMEM_LIMIT) -> dict:
+def plan_upconv(c: int, o: int, smem_limit: int = SMEM_LIMIT,
+                esize: int = 2, wide: Optional[bool] = None) -> dict:
     """The tensor-core kernel's plan for ``C`` input and ``O`` output
-    channels: 8 warps of 64 pixels x 32 channels each.  With more than 64
-    output channels a block owns 8x16 pixels x 128 channels (the patch is
-    built ``ceil(O / 128)`` times per tile), otherwise 16x16 pixels x 64
-    channels (built once, and less halo per pixel).  Mirrors
-    csrc/upconv.cu."""
-    th, tw, wgn = (8, 16, 4) if o > 64 else (16, 16, 2)
+    channels of ``esize``-byte elements (2: bf16, 4: float32): 8 warps of
+    64 pixels x 32 channels each.  A wide block owns 8x16 pixels x 128
+    channels (the patch is built ``ceil(O / 128)`` times per tile), a narrow
+    one 16x16 pixels x 64 channels (less halo per pixel).  By default
+    (``wide=None``) bf16 takes the wide block where O > 64, and float32
+    always the narrow one: at the cUNet's decoder sites (256x256 input, B=16)
+    it measured 4.56 against 5.05 ms (O = 256) and 4.70 against 5.18 (O =
+    128) on an H100 (tools/compare_tc_kernels.py).  A chunk of k is one mma
+    step, 32 bytes: 16 bf16 or 8 float32 channels; float32's weight ring
+    holds hi and lo.  Mirrors csrc/upconv.cu."""
+    piece = 16 // esize                # elements of 16 bytes: a row's pad
+    kc = 2 * piece                     # tc::Chunk<E>::kKC
+    ldk = kc + piece                   # ... kLDK, padded row of patch, ring
+    parts = 2 if esize == 4 else 1     # weight copies in the ring
+    if wide is None:
+        wide = o > 64 and esize == 2
+    th, tw, wgn = (8, 16, 4) if wide else (16, 16, 2)
     nb, m, npos = 32 * wgn, th * tw, (th + 2) * (tw + 2)
-    lh, rs = th // 2 + 3, _round_up(tw // 2 + 3 + 7, 8)
+    lh, rs = th // 2 + 3, _round_up(tw // 2 + 3 + piece - 1, piece)
     off_mod = _round_up(_round_up(npos * 4, 8) + npos * 8, 16)
     off_patch = _round_up(off_mod + c * 8, 128)
-    off_raw = off_patch + 2 * npos * _LDK * 2
-    off_w = off_raw + 2 * _KC * lh * rs * 2
-    smem = max(off_w + 3 * 3 * nb * _LDK * 2, off_patch + nb * (m + 4) * 4)
+    off_raw = off_patch + 2 * npos * ldk * esize
+    off_w = off_raw + 2 * kc * lh * rs * esize
+    smem = max(off_w + 3 * 3 * nb * ldk * esize * parts,
+               off_patch + nb * (m + 4) * 4)
     if smem > smem_limit:
         raise ValueError(f"the upconv kernel's tile needs {smem} bytes of "
                          f"shared memory at C={c}, over {smem_limit}")
     return {"name": f"{th}x{tw}x{nb}", "th": th, "tw": tw, "wgn": wgn,
-            "nb": nb, "lh": lh, "rs": rs, "off_mod": off_mod,
+            "nb": nb, "kc": kc, "esize": esize, "lh": lh, "rs": rs,
+            "off_mod": off_mod,
             "off_patch": off_patch, "off_raw": off_raw, "off_w": off_w,
             "smem": smem}
 
@@ -114,10 +145,12 @@ def _entry():
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
                    + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    tc = lib.wut_upconv_tc
-    tc.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 17
-                   + [ctypes.c_void_p])
-    tc.restype = ctypes.c_int
+    tc = {}   # element size -> the tensor-core entry
+    for esize, entry in ((2, lib.wut_upconv_tc), (4, lib.wut_upconv_tc_f32)):
+        entry.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 17
+                          + [ctypes.c_void_p])
+        entry.restype = ctypes.c_int
+        tc[esize] = entry
     return lib, fn, tc
 
 
@@ -126,13 +159,17 @@ def _ptr(t):
 
 
 def upconv_kernel(x, weight, cb=None, scale=None, shift=None,
-                  relu: bool = False) -> torch.Tensor:
+                  relu: bool = False, plan: Optional[dict] = None,
+                  cuda_cores: bool = False) -> torch.Tensor:
     """Launch K3 on CUDA tensors.  x (B, C, H, W) and cb (B, O, 2H, 2W)
     contiguous, weight (O, C, 3, 3), all of one dtype (float32/bfloat16);
-    scale, shift (B, C) float32 contiguous, both or neither.  bfloat16 with
-    C a multiple of 16 runs the tensor-core kernel, everything else the
-    CUDA-core kernel (``takes_tensor_cores``)."""
-    global launches, tensor_core_launches
+    scale, shift (B, C) float32 contiguous, both or neither.  C a multiple
+    of 16 runs the tensor-core kernel (float32 as split float32), other
+    channel counts the CUDA-core kernel (``takes_tensor_cores``).  ``plan``
+    (a ``plan_upconv`` at x's element size) forces the tensor-core kernel's
+    tile; ``cuda_cores`` runs the CUDA-core kernel at any shape (to time
+    the kernel a tensor-core form replaces)."""
+    global launches, tensor_core_launches, f32_tensor_core_launches
     if x.dim() != 4 or x.dtype not in _build.DTYPE_CODES:
         raise ValueError(f"upconv kernel takes a 4-D float32/bfloat16 x, got "
                          f"{tuple(x.shape)} {x.dtype}")
@@ -164,12 +201,19 @@ def upconv_kernel(x, weight, cb=None, scale=None, shift=None,
         return out
     idx, frac = _tap_tables(h, w, x.device)
     lib, fn, tc = _entry()
-    if takes_tensor_cores(x.dtype, c):
-        if x.data_ptr() % 16 or (cb is not None and cb.data_ptr() % 4):
+    if takes_tensor_cores(x.dtype, c) and not cuda_cores:
+        f32 = x.dtype == torch.float32
+        esize = 4 if f32 else 2
+        if x.data_ptr() % 16 or (cb is not None
+                                 and cb.data_ptr() % (2 * esize)):
             raise ValueError("upconv kernel inputs must be 16-byte aligned")
-        plan = plan_upconv(c, o)
-        w_t = pack_upconv_weight(weight)              # (9, O, C)
-        err = tc(x.data_ptr(), w_t.data_ptr(), _ptr(cb), _ptr(scale),
+        if plan is None:
+            plan = plan_upconv(c, o, esize=esize)
+        if plan["esize"] != esize:
+            raise ValueError(f"plan {plan['name']} is for {plan['esize']}-"
+                             f"byte elements, x has {esize}")
+        w_t = pack_upconv_weight(weight, f32)   # (9, O, C), (2, 9, O, C)
+        err = tc[esize](x.data_ptr(), w_t.data_ptr(), _ptr(cb), _ptr(scale),
                  _ptr(shift), idx.data_ptr(), frac.data_ptr(), out.data_ptr(),
                  b, c, h, w, o, int(relu), plan["th"], plan["tw"],
                  plan["wgn"], plan["lh"], plan["rs"], plan["off_mod"],
@@ -177,6 +221,7 @@ def upconv_kernel(x, weight, cb=None, scale=None, shift=None,
                  plan["smem"], x.device.index, _build.stream_of(x))
         _build.check_launch(lib, err, "upconv (tensor cores)")
         tensor_core_launches += 1
+        f32_tensor_core_launches += f32
     else:
         w_t = weight.permute(1, 2, 3, 0).contiguous()     # (C, 3, 3, O)
         err = fn(_build.DTYPE_CODES[x.dtype], x.data_ptr(), w_t.data_ptr(),
