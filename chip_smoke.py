@@ -410,14 +410,20 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
 11d. spatial -- spatial partitioning (parallel/spatial.py): image height
                cut over a model axis at multiples of 16 rows.  K1's split
                form (local plane statistics, the mean and M2 each at its
-               own scale; modulation with merged ones, also against the
-               merge of the plain statistics) and K2's row window against
-               their plain versions at every shard shape below, float32
-               and bfloat16, timed at shard 0 of 256x256, B=16, degree 2,
-               K2's window also as one F.grid_sample (float32).  (a) The use_pallas cUNet from the
-               seeded .pt through SpatialModel over cuda:0 named 2 and 4
-               times (threads), 256x256, B=16: float32 (TF32 off) within
-               MAE 1e-5 of the unsharded forward, bfloat16 within 1e-3 of
+               own scale; the apply launch's merge of the shards'
+               statistics bit for bit merge_plane_stats, also at n = 2, 3,
+               4 and 14 uneven shards under every plan, and its
+               modulation, also against the plain statistics) and K2's
+               row window against their plain versions at every shard
+               shape below, float32 and bfloat16, timed at shard 0 of
+               256x256, B=16, degree 2 (K1's pair under torch.profiler:
+               its two kernels, the exchange's stand-in on a line of its
+               own, and exactly these three device kernels a call), K2's
+               window also as one F.grid_sample (float32).  (a) The
+               use_pallas cUNet from the seeded .pt through SpatialModel
+               over cuda:0 named 2 and 4 times (threads), 256x256,
+               B=16: float32 (TF32 off) within MAE 1e-5 of the
+               unsharded forward, bfloat16 within 1e-3 of
                its own float32, 3 of each split launch a shard and no
                whole-plane K1 or whole-image K2, 20 exchanges a forward;
                224x224 at degree 4 (rows 48/64/48/64) in float32.  (b) Two
@@ -604,15 +610,12 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return float(np.median([s.elapsed_time(e) for s, e in pairs]))
 
 
-def device_kernels(fn, reps: int = 1, tries: int = 5):
-    """(names, device ms per call) of the GPU work ``fn`` launches, from the
-    kernel durations torch.profiler (CUPTI) records, no host time: per
-    kernel name the median duration times its launches a call (rounded, at
-    least 1), so a profile that loses some records still counts each
-    kernel of the call once.  A profile can also come back with no device
-    record at all (seen on the H100 after many profiles in a row); it is
-    taken again, up to ``tries`` times.  ([], None) if every one was
-    empty."""
+def kernel_records(fn, reps: int = 1, tries: int = 5) -> dict:
+    """{kernel name: [duration us, ...]} of the GPU work of ``reps`` calls
+    of ``fn``, as torch.profiler (CUPTI) records it.  A profile can come
+    back with no device record at all (seen on the H100 after many
+    profiles in a row); it is taken again, up to ``tries`` times.  {} if
+    every one was empty."""
     for _ in range(tries):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -626,10 +629,32 @@ def device_kernels(fn, reps: int = 1, tries: int = 5):
                 by_name.setdefault(e.name, []).append(
                     e.time_range.elapsed_us())
         if by_name:
-            ms = sum(float(np.median(us)) * max(1, round(len(us) / reps))
-                     for us in by_name.values()) / 1e3
-            return [n for n, us in by_name.items() for _ in us], ms
-    return [], None
+            return by_name
+    return {}
+
+
+def per_call(by_name: dict, reps: int) -> dict:
+    """{kernel name: (device ms a call, launches a call)} from
+    ``kernel_records``: the median duration times its launches a call
+    (rounded, at least 1), so a profile that loses some records still
+    counts each kernel of the call once."""
+    out = {}
+    for name, us in by_name.items():
+        n = max(1, round(len(us) / reps))
+        out[name] = (float(np.median(us)) * n / 1e3, n)
+    return out
+
+
+def device_kernels(fn, reps: int = 1, tries: int = 5):
+    """(names, device ms per call) of the GPU work ``fn`` launches, from the
+    kernel durations torch.profiler (CUPTI) records, no host time
+    (``kernel_records``, ``per_call``).  ([], None) if every profile was
+    empty."""
+    by_name = kernel_records(fn, reps, tries)
+    if not by_name:
+        return [], None
+    ms = sum(t for t, _ in per_call(by_name, reps).values())
+    return [n for n, us in by_name.items() for _ in us], ms
 
 
 def device_ms(fn, reps: int = 10, warmup: int = 2):
@@ -5078,17 +5103,28 @@ def window_grid(slab, n_in, start):
         slab.device, slab.dtype).expand(b, -1, -1, -1).contiguous()
 
 
+def bits(t):
+    return t.contiguous().view(torch.int32)
+
+
 def split_records(k1, k2, dt, site, shape, window, timed, failures):
     """K1's split form and K2's row window at one shard shape against their
     plain versions (ops/norm.py::plane_stats, each channel at its own
-    scale; adain_from_stats with the merge of the kernel's statistics and
-    with the merge of the plain ones; ops/resize.py::upsample_x2_rows);
-    with ``timed`` their ms, plain ms, bound and library ms (K2's:
-    ``F.grid_sample`` on the slab with the window's grid)."""
+    scale; the apply kernel's merge of this shard's statistics and a
+    second shard's, the same, bit for bit against merge_plane_stats, and
+    its output against adain_from_stats with that merge and
+    adain_from_shard_stats of the plain statistics;
+    ops/resize.py::upsample_x2_rows); with ``timed`` their ms, plain ms,
+    bound and library ms (K2's: ``F.grid_sample`` on the slab with the
+    window's grid) and K1's pair under torch.profiler: each of its two
+    kernels' device ms, the exchange's stand-in's (``torch.stack`` of the
+    shards' statistics), and its device kernels a call, which must be
+    those three."""
     import torch.nn.functional as F
 
     from weather_unet_tpu_torch.ops.norm import (
-        adain_from_stats, merge_plane_stats, plane_stats)
+        adain_from_shard_stats, adain_from_stats, merge_plane_stats,
+        plane_stats)
     from weather_unet_tpu_torch.ops.resize import upsample_x2_rows
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 61)
@@ -5098,19 +5134,26 @@ def split_records(k1, k2, dt, site, shape, window, timed, failures):
     y = torch.randn(b, 4 * c, generator=gen, device="cuda").to(dt)
     stats = k1.adain_stats_kernel(x)
     ref_stats = plane_stats(x)
-    # the merge of this shard with a second shard of the same values
-    merged = merge_plane_stats(torch.stack([stats, stats]), [h * w] * 2)
-    plain_merged = merge_plane_stats(torch.stack([ref_stats, ref_stats]),
-                                     [h * w] * 2)
-    out = k1.adain_apply_kernel(x, y, merged, 1e-5)
-    ref = adain_from_stats(x, y, merged, 1e-5)
-    plain = adain_from_stats(x, y, plain_merged, 1e-5)
+    # this shard beside a second shard of the same values, stacked as the
+    # exchange stacks them
+    counts = [h * w] * 2
+    shards = torch.stack([stats, stats])
+    out, merged = k1.adain_apply_kernel(x, y, shards, counts, 1e-5,
+                                        merged=True)
+    want = merge_plane_stats(shards, counts)
+    ref = adain_from_stats(x, y, want, 1e-5)
+    plain = adain_from_shard_stats(x, y, torch.stack([ref_stats] * 2),
+                                   counts, 1e-5)
     name = f"adain_split {site} {DT_NAME[dt]}"
     mean_err, m2_err = stats_errs(stats, ref_stats)
     for what, e in (("mean", mean_err), ("M2", m2_err)):
         if not e <= TOL_REL[torch.float32]:
             failures.append(f"{name} stats: {what} relative err {e} > "
                             f"tol {TOL_REL[torch.float32]}")
+    merge_equal = torch.equal(bits(merged), bits(want))
+    if not merge_equal:
+        failures.append(f"{name}: the kernel's merged statistics differ "
+                        f"from merge_plane_stats")
     err = max_err(out, ref)
     tol = check(name, err, ref, dt, failures)
     plain_err = max_err(out, plain)
@@ -5120,7 +5163,7 @@ def split_records(k1, k2, dt, site, shape, window, timed, failures):
              err, plain_err), "apply_max_abs_err": err,
          "plain_stats_max_abs_err": plain_err,
          "stats_mean_rel_err": mean_err, "stats_m2_rel_err": m2_err,
-         "tol": tol}
+         "merge_bit_equal": merge_equal, "tol": tol}
     n_in, start = window
     slab = torch.randn(b, c, h + 2, w, generator=gen, device="cuda").to(dt)
     if start == 0:
@@ -5138,23 +5181,29 @@ def split_records(k1, k2, dt, site, shape, window, timed, failures):
          "max_abs_err": uerr, "tol": utol}
     if timed:
         def pair():
-            k1.adain_apply_kernel(x, y, merge_plane_stats(torch.stack(
-                [k1.adain_stats_kernel(x)] * 2), [h * w] * 2), 1e-5)
+            st = k1.adain_stats_kernel(x)
+            return k1.adain_apply_kernel(x, y, torch.stack([st] * 2), counts,
+                                         1e-5)
 
         def plain_pair():
-            adain_from_stats(x, y, merge_plane_stats(torch.stack(
-                [plane_stats(x)] * 2), [h * w] * 2), 1e-5)
+            st = plane_stats(x)
+            return adain_from_shard_stats(x, y, torch.stack([st] * 2),
+                                          counts, 1e-5)
 
         a["ms"] = time_ms(pair)
-        a["device_ms"] = a["launch_only_ms"] = device_ms(pair)
+        a.update(pair_profile(pair, name, failures))
         a["cold_l2_ms"] = None
         a["plain_ms"] = time_ms(plain_pair)
-        # stats: x read, (mean, M2) written; modulate: x, y_proj and the
-        # merged statistics read, out written
+        # stats: x read, (mean, M2) written; apply: x, y_proj and the n
+        # shards' statistics read, out written
         a["bound_ms"], a["bound_by"] = bound(
-            2 * nbytes(x) + 3 * nbytes(stats) + nbytes(y, out),
-            6.0 * x.numel(), dt)
+            2 * nbytes(x) + (1 + len(counts)) * nbytes(stats)
+            + nbytes(y, out), 6.0 * x.numel(), dt)
         a["library_ms"] = None
+        emit({"phase": "spatial_stand_in", "site": site,
+              "dtype": DT_NAME[dt], "what": "torch.stack of the shards' "
+              "statistics, the exchange's stand-in between K1's two "
+              "launches", "device_ms": a["stand_in_device_ms"]})
         u["ms"] = time_ms(lambda: k2.upsample_rows_kernel(slab, n_in, start))
         u["device_ms"] = u["launch_only_ms"] = device_ms(
             lambda: k2.upsample_rows_kernel(slab, n_in, start))
@@ -5182,6 +5231,89 @@ def split_records(k1, k2, dt, site, shape, window, timed, failures):
     return a, u
 
 
+K1_MODE = re.compile(r"adain_kernel<[^>]*,\s*(\d)>")   # csrc/adain.cu Mode
+PAIR_KERNELS = {"1": "wut_adain_stats", "2": "wut_adain_apply"}
+
+
+def pair_profile(pair, name, failures, reps: int = 10) -> dict:
+    """K1's split pair under torch.profiler: the device ms of its stats and
+    apply kernels (by the kernel template's mode), of everything else (the
+    exchange's stand-in), and the device kernels a call, which must be the
+    two K1 launches and the stand-in, one each."""
+    for _ in range(2):                       # warm-up
+        pair()
+    calls = per_call(kernel_records(pair, reps), reps)
+    by_kernel, other, n_other = {}, 0.0, 0
+    for kname, (ms, n) in calls.items():
+        m = K1_MODE.search(kname)
+        if m and m.group(1) in PAIR_KERNELS:
+            key = PAIR_KERNELS[m.group(1)]
+            by_kernel[key] = by_kernel.get(key, 0.0) + ms
+            if n != 1:
+                failures.append(f"{name}: {key} {n} launches a call")
+        else:
+            other += ms
+            n_other += n
+    count = sum(n for _, n in calls.values())
+    if sorted(by_kernel) != sorted(PAIR_KERNELS.values()) or count != 3:
+        failures.append(f"{name}: the pair ran {count} device kernels a "
+                        f"call ({sorted(calls)}), expected wut_adain_stats, "
+                        f"the stand-in and wut_adain_apply")
+    device = sum(by_kernel.values()) if len(by_kernel) == 2 else None
+    return {"device_ms": device, "launch_only_ms": device,
+            "device_ms_by_kernel": by_kernel, "stand_in_device_ms": other,
+            "stand_in_kernels_a_call": n_other,
+            "device_kernels_a_call": count}
+
+
+MERGE_SHAPE = (16, 256, 67, 64)    # adain2's planes, 67 rows: uneven cuts
+MERGE_SHARDS = (2, 3, 4, 14)
+
+
+def merge_records(k1, rec, failures):
+    """The apply kernel's merge of n = 2, 3, 4 and 14 shards' statistics
+    (uneven rows of a 67-row plane, each shard's from the stats kernel),
+    under every plan, float32 and bfloat16: bit for bit merge_plane_stats
+    on the card, and its output at the dtype's bar against
+    adain_from_stats with that merge."""
+    from weather_unet_tpu_torch.ops.norm import (
+        adain_from_stats, merge_plane_stats)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 62)
+    b, c, h, w = MERGE_SHAPE
+    out = {}
+    for dt in DTYPES:
+        x = (torch.randn(b, c, h, w, generator=gen, device="cuda") * 2
+             + 0.5).to(dt)
+        y = torch.randn(b, 4 * c, generator=gen, device="cuda").to(dt)
+        for n in MERGE_SHARDS:
+            rows = [h // n + (k < h % n) for k in range(n)]
+            starts = np.cumsum([0] + rows[:-1])
+            parts = [x[:, :, s:s + r].contiguous()
+                     for s, r in zip(starts, rows)]
+            counts = [r * w for r in rows]
+            shards = torch.stack([k1.adain_stats_kernel(p) for p in parts])
+            want = merge_plane_stats(shards, counts)
+            ref = adain_from_stats(parts[0], y, want, 1e-5)
+            key = f"{DT_NAME[dt]} n={n}"
+            r = {"rows": rows, "plans": 0, "bit_equal": True, "err": 0.0}
+            for plan in k1.adain_plans(b, c, rows[0], w, dt):
+                got, merged = k1.adain_apply_kernel(
+                    parts[0], y, shards, counts, 1e-5, plan, merged=True)
+                r["plans"] += 1
+                if not torch.equal(bits(merged), bits(want)):
+                    r["bit_equal"] = False
+                    failures.append(f"merge {key} {plan['name']}: merged "
+                                    f"statistics differ from "
+                                    f"merge_plane_stats")
+                e = max_err(got, ref)
+                r["err"] = max(r["err"], e)
+                r["tol"] = check(f"merge {key} {plan['name']}", e, ref, dt,
+                                 failures)
+            out[key] = r
+    rec["merge"] = out
+
+
 def sp_kernels(k1, k2, rec):
     """K1's split form and K2's row window at every shard shape of the
     phase in float32 and bfloat16 against their plain versions; the three
@@ -5200,6 +5332,7 @@ def sp_kernels(k1, k2, rec):
                 if tsite is not None:
                     emit(r)
                     summary[r["kernel"]].setdefault(dt, {})[tsite] = r
+    merge_records(k1, rec, failures)
     rec["kernel_max_abs_err"] = {f"{k} {d}": v for (k, d), v in
                                  worst.items()}
     rec["kernel_shapes_checked"] = len(shard_shapes())
@@ -6625,8 +6758,12 @@ def kernels_line(summary, launch_totals, graph_totals, split_summary,
     split_meta = {
         "adain_split": ("weather_unet_tpu_torch/csrc/adain.cu",
                         "weather_unet_tpu/kernels/adain_pallas.py:74",
-                        "wut_adain_stats + wut_adain_apply, the merge "
-                        "between them"),
+                        "wut_adain_stats + wut_adain_apply (which "
+                        "merges the shards' statistics itself); device_ms "
+                        "is the two kernels' (device_ms_by_kernel in the "
+                        "spatial_kernel records), the exchange's "
+                        "stand-in's on the spatial_stand_in lines; ms is "
+                        "the wall of the pair, stand-in included"),
         "upsample_rows": ("weather_unet_tpu_torch/csrc/upsample.cu",
                           "weather_unet_tpu/kernels/upsample_pallas.py:170",
                           "wut_upsample2x_rows; float32's library_ms is one "

@@ -126,11 +126,15 @@ def test_opcheck_split_forms(op):
         for args in ((x.requires_grad_(),), (x[:, :, :, :6],)):
             torch.library.opcheck(k1.adain_stats_op, args)
     elif op == "adain_apply":
-        st = torch.stack([x.mean(dim=(2, 3)), x.var(dim=(2, 3)) + 0.5],
-                         dim=-1).detach()
+        # two shards' stacked local (mean, M2) at uneven counts
+        st = torch.stack([torch.stack([x.mean(dim=(2, 3)) + d,
+                                       x.var(dim=(2, 3)) * n + 0.5], dim=-1)
+                          for d, n in ((0.0, 20), (0.3, 30))]).detach()
         for args in ((x.requires_grad_(), y.requires_grad_(),
-                      st.clone().requires_grad_(), 1e-5),
-                     (x[:, :, :, :6], y, st, 1e-3)):
+                      st.clone().requires_grad_(), [21, 31], 1e-5),
+                     (x[:, :, :, :6], y, st, [21, 31], 1e-3),
+                     (x.detach(), y, st.transpose(1, 2).contiguous()
+                      .transpose(1, 2), [21, 31], 1e-5)):
             torch.library.opcheck(k1.adain_apply_op, args)
     else:
         slab = torch.randn(2, 6, 6, 7)          # rows [4, 8) of 12, halo'd

@@ -1018,11 +1018,12 @@ SPLIT_SITES = [(16, 512, 16, 32), (16, 256, 32, 64), (16, 128, 64, 128),
 def test_adain_split_form_matches_plain(cuda, dtype):
     """K1's split form at the shards' decoder sites and an odd shape, under
     every plan: the local (mean, M2) against ``ops.norm.plane_stats`` and
-    the modulation with given statistics against
-    ``ops.norm.adain_from_stats`` (float32 statistics: the mean within
-    1e-5 of max(1, max |mean|), each plane's M2 within 1e-5 of itself; the
-    modulated values at the dtype's bar)."""
-    from weather_unet_tpu_torch.ops.norm import adain_from_stats, plane_stats
+    the apply launch, fed two shards' stacked statistics at uneven counts,
+    against ``ops.norm.adain_from_shard_stats`` (float32 statistics: the
+    mean within 1e-5 of max(1, max |mean|), each plane's M2 within 1e-5 of
+    itself; the modulated values at the dtype's bar)."""
+    from weather_unet_tpu_torch.ops.norm import (
+        adain_from_shard_stats, plane_stats)
 
     g = torch.Generator(device="cuda").manual_seed(0)
     for b, c, h, w in SPLIT_SITES:
@@ -1030,16 +1031,49 @@ def test_adain_split_form_matches_plain(cuda, dtype):
              + 1).to(dtype)
         y = torch.randn(b, 4 * c, generator=g, device="cuda").to(dtype)
         stats = plane_stats(x)
-        merged = torch.stack([stats[..., 0], stats[..., 1] / max(
-            h * w - 1, 1) * 1.5 + 0.1], dim=-1)
-        ref = adain_from_stats(x, y, merged, 1e-5)
+        other = torch.stack([stats[..., 0] + 0.3, stats[..., 1] * 1.5 + 0.1],
+                            dim=-1)
+        shards = torch.stack([stats, other])
+        counts = [h * w, h * w + 7 * w]
+        ref = adain_from_shard_stats(x, y, shards, counts, 1e-5)
         for plan in k1.adain_plans(b, c, h, w, dtype):
             got = k1.adain_stats_kernel(x, plan)
             torch.cuda.synchronize()
             assert_stats_close(got, stats)
-            out = k1.adain_apply_kernel(x, y, merged, 1e-5, plan)
+            out = k1.adain_apply_kernel(x, y, shards, counts, 1e-5, plan)
             torch.cuda.synchronize()
             assert_close(out, ref, dtype)
+
+
+@pytest.mark.parametrize("n", [2, 3, 4, 14])
+def test_adain_apply_merge_is_merge_plane_stats_bitwise(cuda, n):
+    """The apply launch's merge of n shards' statistics (uneven rows of a
+    67-row plane, each shard's from the stats kernel), under every plan,
+    float32 and bfloat16: bit for bit ``ops.norm.merge_plane_stats`` on
+    the card; more than 16 shards is refused."""
+    from weather_unet_tpu_torch.ops.norm import merge_plane_stats
+
+    g = torch.Generator(device="cuda").manual_seed(n)
+    b, c, h, w = 4, 64, 67, 40
+    rows = [h // n + (k < h % n) for k in range(n)]
+    starts = np.cumsum([0] + rows[:-1])
+    counts = [r * w for r in rows]
+    for dtype in (torch.float32, torch.bfloat16):
+        x = (torch.randn(b, c, h, w, generator=g, device="cuda") * 3
+             + 1).to(dtype)
+        y = torch.randn(b, 4 * c, generator=g, device="cuda").to(dtype)
+        parts = [x[:, :, s:s + r].contiguous() for s, r in zip(starts, rows)]
+        shards = torch.stack([k1.adain_stats_kernel(p) for p in parts])
+        want = merge_plane_stats(shards, counts)
+        for plan in k1.adain_plans(b, c, rows[0], w, dtype):
+            _, merged = k1.adain_apply_kernel(parts[0], y, shards, counts,
+                                              1e-5, plan, merged=True)
+            torch.cuda.synchronize()
+            assert torch.equal(merged.view(torch.int32),
+                               want.view(torch.int32)), plan["name"]
+    with pytest.raises(ValueError, match="1 to 16 shards"):
+        k1.adain_apply_kernel(parts[0], y, shards.new_zeros(17, b, c, 2),
+                              [w] * 17, 1e-5)
 
 
 def test_upsample_row_window_matches_plain(cuda):
@@ -1081,12 +1115,14 @@ def test_upsample_row_window_matches_plain(cuda):
                     assert_close(got, full[:, :, 2 * s:2 * (s + h)], dtype)
 
 
-def test_spatial_forward_on_one_card_matches_unsharded(cuda):
+def test_spatial_forward_on_one_card_matches_unsharded(cuda, monkeypatch):
     """The use_pallas cUNet split by height over ``["cuda:0", "cuda:0"]``
     (two shards in two threads) at 64², float32: within MAE 1e-5 of the
     unsharded forward; on each shard a forward launches K1's two split
     launches and K2's row window 3 times each, and no whole-plane K1 or
-    whole-image K2."""
+    whole-image K2; no PyTorch merge of the statistics runs between K1's
+    two launches (``ops.norm.merge_plane_stats`` is never called)."""
+    from weather_unet_tpu_torch.ops import norm
     from weather_unet_tpu_torch.parallel import spatial
     from weather_unet_tpu_torch.parallel.mesh import (
         make_mesh, put_host_local)
@@ -1104,11 +1140,20 @@ def test_spatial_forward_on_one_card_matches_unsharded(cuda):
     sm = spatial.SpatialModel(model, plan, 64)
     k1.launches = k2.launches = 0
     k1.stats_launches = k1.apply_launches = k2.rows_launches = 0
+    merges = []
+    plain_merge = norm.merge_plane_stats
+
+    def counted_merge(*args):
+        merges.append(args[1])
+        return plain_merge(*args)
+
+    monkeypatch.setattr(norm, "merge_plane_stats", counted_merge)
     got = sm.join(sm(put_host_local(plan.spatial(input_size=64), x), c))
     torch.cuda.synchronize()
     assert (k1.stats_launches, k1.apply_launches, k2.rows_launches) == (
         6, 6, 6)
     assert (k1.launches, k2.launches) == (0, 0)
+    assert merges == []
     assert float((got - ref).abs().mean()) <= 1e-5
 
 

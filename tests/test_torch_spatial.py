@@ -10,6 +10,9 @@
   1e-5, 64²), the uneven cut (48², 16 + 32 rows), the SNDisc with
   ``update_stats`` (out atol 2e-4, ``u`` atol 1e-5), dropout masks that
   are the unsharded mask's rows;
+* the plain apply step (``adain_from_shard_stats``) and K1's apply op on
+  CPU tensors against the merge, then the modulation, bit for bit, for 2,
+  3 and 4 uneven shards;
 * the split AdaIN and the row-window upsample, plain and through K1's /
   K2's registered ops (their CPU forms), values and gradients against
   JAX's ``ops.norm.adain`` and ``ops.resize`` over three uneven shards
@@ -275,6 +278,40 @@ def test_split_adain_values_and_gradients_are_jax(use_pallas):
     np.testing.assert_allclose(gy.numpy(), np.asarray(gy_want), atol=1e-5)
 
 
+@pytest.mark.parametrize("n", [2, 3, 4])
+def test_adain_from_shard_stats_is_merge_then_modulate(n):
+    """The plain apply step (``ops.norm.adain_from_shard_stats``) and K1's
+    apply op on CPU tensors (``wut::adain_apply``), fed n shards' stacked
+    local statistics at uneven counts (uneven rows of 23-row planes),
+    equal ``adain_from_stats`` of ``merge_plane_stats`` bit for bit, and
+    the merge is the whole planes' mean and unbiased variance within
+    1e-6."""
+    from weather_unet_tpu_torch.kernels import adain as k1
+    from weather_unet_tpu_torch.ops.norm import (
+        _mean_var_unbiased, adain_from_shard_stats, adain_from_stats,
+        merge_plane_stats, plane_stats)
+
+    rng = np.random.default_rng(10 + n)
+    x = torch.from_numpy(rng.standard_normal((2, 5, 23, 6))
+                         .astype(np.float32) * 2 + 0.5)
+    y = torch.from_numpy(rng.standard_normal((2, 20)).astype(np.float32))
+    rows = [23 // n + (k < 23 % n) for k in range(n)]
+    assert len(set(rows)) == 2
+    parts = torch.split(x, rows, dim=2)
+    shards = torch.stack([plane_stats(p) for p in parts])
+    counts = [r * 6 for r in rows]
+    merged = merge_plane_stats(shards, counts)
+    want = adain_from_stats(x, y, merged, 1e-5)
+    assert torch.equal(adain_from_shard_stats(x, y, shards, counts, 1e-5),
+                       want)
+    assert torch.equal(k1.adain_apply_op(x, y, shards, counts, 1e-5), want)
+    mean, var = _mean_var_unbiased(x, (2, 3))
+    np.testing.assert_allclose(merged[..., 0].numpy(), mean.numpy(),
+                               atol=1e-6)
+    np.testing.assert_allclose(merged[..., 1].numpy(), var.numpy(),
+                               rtol=1e-6)
+
+
 @pytest.mark.parametrize("use_pallas", [False, True])
 def test_window_upsample_values_and_gradients_are_jax(use_pallas):
     """The 2x align-corners upsample of 40 rows over shards of 8, 16 and
@@ -447,7 +484,10 @@ def test_refusals():
     with pytest.raises(ValueError, match="CUDA"):
         k1.adain_stats_kernel(x)
     with pytest.raises(ValueError, match="CUDA"):
-        k1.adain_apply_kernel(x, torch.zeros(1, 8), torch.zeros(1, 2, 2),
-                              1e-5)
+        k1.adain_apply_kernel(x, torch.zeros(1, 8), torch.zeros(2, 1, 2, 2),
+                              [32, 32], 1e-5)
+    with pytest.raises(ValueError, match="1 to 16 shards"):
+        k1.adain_apply_kernel(x, torch.zeros(1, 8),
+                              torch.zeros(17, 1, 2, 2), [4] * 17, 1e-5)
     with pytest.raises(ValueError, match="CUDA"):
         k2.upsample_rows_kernel(torch.zeros(1, 2, 10, 8), 16, 0)

@@ -3,6 +3,7 @@
 against the current one, on one GPU, in turns old, new, new, old.
 
     python3 tools/compare_stream_kernels.py --old DIR [--reps 20]
+        [--bitwise | --split]
 
 DIR holds the earlier ``adain.cu``, ``upsample.cu`` and ``wut_kernels.h``
 with the plain C interface they had before plans (``wut_adain(dtype, x,
@@ -30,6 +31,21 @@ both versions are called through the current wrappers (``adain_kernel``,
 ``upsample_plans``) at the three sites and an odd shape, float32 and
 bfloat16, and one JSON line gives the calls made and those whose outputs
 differ in any bit.  Exits 1 if any does.
+
+With ``--split`` DIR holds sources whose ``wut_adain_apply`` takes the
+merged statistics (``wut_adain_apply(dtype, x, y_proj, y_dtype, stats,
+out, planes, hw, vec, wp, ppb, eps, device, stream)``, before the apply
+launch merged the shards' itself).  K1's split pair of each version, at
+shard 0 of a 256x256, B=16 forward at degree 2 (``chip_smoke.SPLIT_SITES``)
+and an odd shape, float32 and bfloat16: the old pair is its stats launch,
+the exchange's stand-in (``torch.stack`` of two shards' statistics), the
+plain ``merge_plane_stats`` and its apply launch; the new pair the stats
+launch, the stand-in and the merging apply launch.  Their outputs must be
+equal bit for bit under every plan (uneven counts); then, at the three
+sites, each pair is timed in turns old, new, new, old: device ms of all
+its kernels and of K1's two alone (torch.profiler), device kernels a call
+and wall ms (CUDA events).  One JSON line a site and dtype, a last line
+with the sums over the sites.  Exits 1 if any output differs.
 """
 
 from __future__ import annotations
@@ -47,7 +63,8 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import device_ms, time_ms  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    K1_MODE, SPLIT_SITES, device_ms, kernel_records, per_call, time_ms)
 
 SITES = {"3": (16, 512, 32, 32), "2": (16, 256, 64, 64),
          "1": (16, 128, 128, 128)}
@@ -131,12 +148,114 @@ def bitwise(libs: dict) -> int:
     return 1 if differ else 0
 
 
+def split(libs: dict, reps: int) -> int:
+    """``--split``: K1's split pair over ``libs``' entries against today's
+    (module docstring); 1 if any output differs."""
+    from weather_unet_tpu_torch.kernels import _build, adain as k1
+    from weather_unet_tpu_torch.ops.norm import merge_plane_stats
+
+    lib = libs["adain"]
+    old_stats = lib.wut_adain_stats
+    old_stats.argtypes = k1._split_entries()[1].argtypes
+    old_apply = lib.wut_adain_apply
+    old_apply.argtypes = ([ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                           ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                           ctypes.c_longlong, ctypes.c_longlong]
+                          + [ctypes.c_int] * 3
+                          + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    old_stats.restype = old_apply.restype = ctypes.c_int
+    eps = 1e-5
+
+    def old_pair(x, y, other, counts, plan):
+        b, c, h, w = x.shape
+        vec, dev = int(plan["vec"] > 1), x.device.index
+        st = _build.stream_of(x)
+        stats = torch.empty((b, c, 2), dtype=torch.float32, device=x.device)
+        assert old_stats(_build.DTYPE_CODES[x.dtype], x.data_ptr(),
+                         stats.data_ptr(), b * c, h * w, vec, plan["wp"],
+                         plan["ppb"], int(plan["on_chip"]), dev, st) == 0
+        merged = merge_plane_stats(torch.stack([stats, other(stats)]),
+                                   counts)
+        out = torch.empty_like(x)
+        assert old_apply(_build.DTYPE_CODES[x.dtype], x.data_ptr(),
+                         y.data_ptr(), _build.DTYPE_CODES[y.dtype],
+                         merged.data_ptr(), out.data_ptr(), b * c, h * w,
+                         vec, plan["wp"], plan["ppb"], eps, dev, st) == 0
+        return out
+
+    def new_pair(x, y, other, counts, plan):
+        stats = k1.adain_stats_kernel(x, plan)
+        return k1.adain_apply_kernel(
+            x, y, torch.stack([stats, other(stats)]), counts, eps, plan)
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    calls, differ = 0, []
+    sums = {}
+    shapes = {**SPLIT_SITES, "odd": (3, 5, 7, 9)}
+    for dt in (torch.bfloat16, torch.float32):
+        dname = str(dt).split(".")[-1]
+        for site, (b, c, h, w) in shapes.items():
+            x = (torch.randn(b, c, h, w, generator=g, device="cuda") * 2
+                 + 0.5).to(dt)
+            y = torch.randn(b, 4 * c, generator=g, device="cuda").to(dt)
+            shift = torch.tensor([0.25, 3.0], device="cuda")
+
+            def uneven(stats):      # a second shard: other values, rows
+                return stats * shift
+
+            counts = [h * w, h * w + 2 * w]
+            for plan in k1.adain_plans(b, c, h, w, dt):
+                calls += 1
+                if not torch.equal(old_pair(x, y, uneven, counts, plan),
+                                   new_pair(x, y, uneven, counts, plan)):
+                    differ.append(f"{site} {dname} {plan['name']}")
+            if site == "odd":
+                continue
+            plan = k1.plan_adain(b, c, h, w, dt)
+
+            def same(stats):        # the timed pair: a shard of the same
+                return stats
+
+            pairs = {"old": lambda: old_pair(x, y, same, [h * w] * 2, plan),
+                     "new": lambda: new_pair(x, y, same, [h * w] * 2, plan)}
+            rec = {"dtype": dname, "site": site, "shape": [b, c, h, w],
+                   "turns": []}
+            for name in ("old", "new", "new", "old"):
+                for _ in range(2):
+                    pairs[name]()
+                kern = per_call(kernel_records(pairs[name], reps), reps)
+                k1_ms = sum(ms for kn, (ms, _) in kern.items()
+                            if K1_MODE.search(kn))
+                rec["turns"].append({
+                    "pair": name, "device_ms": sum(
+                        ms for ms, _ in kern.values()),
+                    "k1_device_ms": k1_ms,
+                    "kernels_a_call": sum(n for _, n in kern.values()),
+                    "wall_ms": time_ms(pairs[name], reps)})
+            for name in ("old", "new"):
+                turns = [t for t in rec["turns"] if t["pair"] == name]
+                for key in ("device_ms", "k1_device_ms", "wall_ms"):
+                    v = sum(t[key] for t in turns) / 2
+                    rec[f"{name}_{key}"] = v
+                    sums[f"{dname} {name}_{key}"] = sums.get(
+                        f"{dname} {name}_{key}", 0.0) + v
+                rec[f"{name}_kernels_a_call"] = turns[0]["kernels_a_call"]
+            print(json.dumps(rec), flush=True)
+    torch.cuda.synchronize()
+    print(json.dumps({"calls": calls, "differ": differ,
+                      "sum_over_sites": sums}), flush=True)
+    return 1 if differ else 0
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old", required=True, type=Path)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--bitwise", action="store_true",
                     help="DIR has today's C entries: compare bit for bit")
+    ap.add_argument("--split", action="store_true",
+                    help="DIR's apply launch takes merged statistics: "
+                         "K1's split pairs, bit for bit, then timed")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("compare_stream_kernels: no CUDA device")
@@ -151,6 +270,8 @@ def main():
     libs = build_old(args.old, ROOT / "_chip_tmp" / "old_build")
     if args.bitwise:
         return bitwise(libs)
+    if args.split:
+        return split(libs, args.reps)
     old = old_entries(libs)
     _build.build_all()
     eps, dev = 1e-5, torch.device("cuda")

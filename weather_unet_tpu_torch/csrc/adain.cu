@@ -38,9 +38,17 @@
 // holds some of each plane's rows, and the plane's statistics span the
 // shards.  wut_adain_stats runs the same kernel up to the plane's local
 // float32 mean and M2 (from registers, as above) and writes them; the
-// shards merge them exactly (Chan's formula); wut_adain_apply modulates
-// with the merged mean and variance in one pass.  Bytes again: x is read
-// twice and out written once, against once and once unsplit.
+// shards exchange them; wut_adain_apply reads every shard's (mean, M2) of
+// its plane, merges them in registers (Chan's formula, in the shard and
+// operation order of ops/norm.py::merge_plane_stats, each float32
+// operation rounded on its own, so the merged statistics are the plain
+// merge's on the card bit for bit) and modulates in one pass.  A site is
+// these two launches around the exchange, with no PyTorch arithmetic
+// between them.  Bytes again: x is read twice and out written once,
+// against once and once unsplit; the n shards' statistics (8 n bytes a
+// plane) are read by lane k of each warp of the plane, and the merge holds
+// two of them a lane, so the apply launch keeps the registers, and the
+// occupancy, of a plain streaming pass.
 
 #include "wut_kernels.h"
 
@@ -48,6 +56,18 @@ namespace {
 
 constexpr int kMaxThreads = 512;
 constexpr int kPerThread = 32;  // values a thread holds on chip
+constexpr int kMaxShards = 16;  // shards whose statistics kApply merges
+
+// The shards kApply merges, passed by value: their number, each one's
+// value count of a plane as a float, and the float32 reciprocals of the
+// plane's count and of that count less one, computed on the host as
+// PyTorch computes the reciprocal of a Python number it divides by.
+struct Shards {
+  int n;
+  float count[kMaxShards];
+  float inv_total;
+  float inv_total1;
+};
 
 // kVW consecutive elements of T as float32, one load (16 bytes, or one
 // element when kVW == 1)
@@ -115,18 +135,61 @@ __device__ __forceinline__ void style_stats(const void* y_proj, int y_bf16,
   *y_scale = sqrtf(ss / 4.f * (4.f / 3.f) + eps);
 }
 
+// The plane's float32 (mean, unbiased variance) from the n shards' local
+// (mean, M2) stats[2 (k planes + plane)] over sh.count[k] values each:
+// ops/norm.py::merge_plane_stats on the card, bit for bit.  Its Python sums
+// start at 0 and add the shards in order; `count * t` multiplies by the
+// count as a float; `t / total`, a tensor over a Python number, is
+// PyTorch's multiply by the number's float32 reciprocal (sh.inv_total);
+// `.square()` is d * d.  Every operation is an intrinsic rounded on its
+// own, so nvcc contracts none into an FMA.  Lane k of the warp loads shard
+// k's pair, so the loads are one round trip, and the sums take them in
+// order by shuffles (the warp is whole: kApply retires only whole warps).
+__device__ __forceinline__ void merge_stats(const float* __restrict__ stats,
+                                            long long planes,
+                                            long long plane, const Shards& sh,
+                                            float* mean, float* var) {
+  const int lane = threadIdx.x & 31;
+  float lm = 0.f, lm2 = 0.f;
+  if (lane < sh.n) {
+    const long long i = 2 * (lane * planes + plane);
+    lm = __ldg(stats + i);
+    lm2 = __ldg(stats + i + 1);
+  }
+  float acc = 0.f, s2 = 0.f, dev = 0.f;
+#pragma unroll
+  for (int k = 0; k < kMaxShards; ++k) {
+    if (k < sh.n) {
+      acc = __fadd_rn(acc,
+                      __fmul_rn(sh.count[k], __shfl_sync(~0u, lm, k)));
+      s2 = __fadd_rn(s2, __shfl_sync(~0u, lm2, k));
+    }
+  }
+  const float mu = __fmul_rn(acc, sh.inv_total);
+#pragma unroll
+  for (int k = 0; k < kMaxShards; ++k) {
+    if (k < sh.n) {
+      const float d = __fsub_rn(__shfl_sync(~0u, lm, k), mu);
+      dev = __fadd_rn(dev, __fmul_rn(sh.count[k], __fmul_rn(d, d)));
+    }
+  }
+  *mean = mu;
+  *var = __fmul_rn(__fadd_rn(s2, dev), sh.inv_total1);
+}
+
 // kMode: kWhole, the plane's statistics and its modulation in one launch;
 // kStats, the plane's float32 (mean, M2) into stats[2 * plane] (y_proj and
-// out unused); kApply, the modulation with the given float32 (mean,
-// unbiased variance) of stats[2 * plane] (one pass, any plan).
+// out unused); kApply, the merge of the sh.n shards' (mean, M2) in stats
+// (sh.n, planes, 2), written to merged[2 * plane] where merged is not
+// null, and the modulation with it (one pass, any plan).
 enum Mode { kWhole = 0, kStats = 1, kApply = 2 };
 
 template <typename T, int kVW, int kMode>
 __global__ void __launch_bounds__(kMaxThreads, 2)
 adain_kernel(const T* __restrict__ x, const void* __restrict__ y_proj,
              int y_bf16, T* __restrict__ out, float* __restrict__ stats,
-             long long planes, long long hw, int wp, int ppb, int on_chip,
-             float eps) {
+             float* __restrict__ merged, Shards sh, long long planes,
+             long long hw, int wp, int ppb, int on_chip, float eps) {
   constexpr int kN = kPerThread / kVW;  // loads a thread holds on chip
   __shared__ float red[2][kMaxThreads / 32];
   const int warp = threadIdx.x >> 5;
@@ -140,13 +203,16 @@ adain_kernel(const T* __restrict__ x, const void* __restrict__ y_proj,
   T* op = out + (live ? plane : 0) * hw;
 
   if constexpr (kMode == kApply) {
-    // given statistics: stream the plane once, any plan
-    const long long sp = 2 * (live ? plane : 0);
-    float y_mean, y_scale;
-    style_stats(y_proj, y_bf16, live ? plane : 0, eps, &y_mean, &y_scale);
-    const float mean = stats[sp];
-    const float scale = y_scale * rsqrtf(stats[sp + 1] + eps);
+    // the shards' statistics merged, then stream the plane once, any plan
     if (!live) return;
+    float y_mean, y_scale, mean, var;
+    style_stats(y_proj, y_bf16, plane, eps, &y_mean, &y_scale);
+    merge_stats(stats, planes, plane, sh, &mean, &var);
+    if (merged != nullptr && t == 0) {
+      merged[2 * plane] = mean;
+      merged[2 * plane + 1] = var;
+    }
+    const float scale = y_scale * rsqrtf(var + eps);
     float w[kVW];
 #pragma unroll 4
     for (long long i = t; i < nv; i += nt) {
@@ -252,36 +318,46 @@ adain_kernel(const T* __restrict__ x, const void* __restrict__ y_proj,
   }
 }
 
+// What a launch is given besides its plan: x, y_proj, out and the
+// statistics' buffers, and the shards kApply merges.
+struct Args {
+  const void* x;
+  const void* y;
+  int y_bf16;
+  void* out;
+  float* stats;
+  float* merged;
+  Shards sh;
+  float eps;
+};
+
 template <typename T, int kVW, int kMode>
-cudaError_t launch(const void* x, const void* y, int y_bf16, void* out,
-                   float* stats, long long planes, long long hw, int wp,
-                   int ppb, int on_chip, float eps, cudaStream_t st) {
+cudaError_t launch(const Args& a, long long planes, long long hw, int wp,
+                   int ppb, int on_chip, cudaStream_t st) {
   const long long blocks = (planes + ppb - 1) / ppb;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   adain_kernel<T, kVW, kMode><<<static_cast<unsigned>(blocks),
                                 wp * ppb * 32, 0, st>>>(
-      static_cast<const T*>(x), y, y_bf16, static_cast<T*>(out), stats,
-      planes, hw, wp, ppb, on_chip, eps);
+      static_cast<const T*>(a.x), a.y, a.y_bf16, static_cast<T*>(a.out),
+      a.stats, a.merged, a.sh, planes, hw, wp, ppb, on_chip, a.eps);
   return cudaGetLastError();
 }
 
 // the four instantiations of one mode by dtype and load width
 template <int kMode>
-cudaError_t dispatch(int dtype, int vec, const void* x, const void* y,
-                     int y_bf16, void* out, float* stats, long long planes,
-                     long long hw, int wp, int ppb, int on_chip, float eps,
+cudaError_t dispatch(int dtype, int vec, const Args& a, long long planes,
+                     long long hw, int wp, int ppb, int on_chip,
                      cudaStream_t st) {
   if (dtype == WUT_F32) {
-    if (vec) return launch<float, 4, kMode>(x, y, y_bf16, out, stats, planes,
-                                            hw, wp, ppb, on_chip, eps, st);
-    return launch<float, 1, kMode>(x, y, y_bf16, out, stats, planes, hw, wp,
-                                   ppb, on_chip, eps, st);
+    if (vec) return launch<float, 4, kMode>(a, planes, hw, wp, ppb, on_chip,
+                                            st);
+    return launch<float, 1, kMode>(a, planes, hw, wp, ppb, on_chip, st);
   }
   if (dtype == WUT_BF16) {
-    if (vec) return launch<__nv_bfloat16, 8, kMode>(
-        x, y, y_bf16, out, stats, planes, hw, wp, ppb, on_chip, eps, st);
-    return launch<__nv_bfloat16, 1, kMode>(x, y, y_bf16, out, stats, planes,
-                                           hw, wp, ppb, on_chip, eps, st);
+    if (vec) return launch<__nv_bfloat16, 8, kMode>(a, planes, hw, wp, ppb,
+                                                    on_chip, st);
+    return launch<__nv_bfloat16, 1, kMode>(a, planes, hw, wp, ppb, on_chip,
+                                           st);
   }
   return cudaErrorInvalidValue;
 }
@@ -302,19 +378,24 @@ WUT_API int wut_adain(int dtype, const void* x, const void* y_proj,
       (on_chip && static_cast<long long>(wp) * 32 * kPerThread < hw) ||
       (!on_chip && ppb != 1) || (y_dtype != WUT_F32 && y_dtype != WUT_BF16))
     return cudaErrorInvalidValue;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dispatch<kWhole>(dtype, vec, x, y_proj, y_dtype == WUT_BF16, out,
-                          nullptr, planes, hw, wp, ppb, on_chip, eps, st);
+  const Args a{x, y_proj, y_dtype == WUT_BF16, out, nullptr, nullptr, {},
+               eps};
+  return dispatch<kWhole>(dtype, vec, a, planes, hw, wp, ppb, on_chip,
+                          static_cast<cudaStream_t>(stream));
 }
 
 // The split-statistics form (spatial partitioning, parallel/spatial.py):
 // each plane of x holds a shard's rows of the image's plane.
 // wut_adain_stats writes each plane's float32 local mean and M2 (the sum of
 // squared deviations from that mean, two-pass, the plane read once where
-// the plan holds it on chip) into stats (planes, 2); the shards merge them
-// (ops/norm.py::merge_plane_stats).  wut_adain_apply modulates x with the
-// merged float32 (mean, unbiased variance) in stats (planes, 2) and the
-// style statistics of y_proj, in one streaming pass under any plan.
+// the plan holds it on chip) into stats (planes, 2); the shards exchange
+// them.  wut_adain_apply takes every shard's in shard_stats (shards,
+// planes, 2), contiguous, and their value counts of a plane in counts
+// (shards of them, a host array; 1 <= shards <= 16), merges them
+// (ops/norm.py::merge_plane_stats, bit for bit), writes the merged float32
+// (mean, unbiased variance) into merged (planes, 2) unless it is null, and
+// modulates x with them and the style statistics of y_proj, in one
+// streaming pass under any plan.
 WUT_API int wut_adain_stats(int dtype, const void* x, void* stats,
                             long long planes, long long hw, int vec, int wp,
                             int ppb, int on_chip, int device, void* stream) {
@@ -324,22 +405,36 @@ WUT_API int wut_adain_stats(int dtype, const void* x, void* stats,
       (on_chip && static_cast<long long>(wp) * 32 * kPerThread < hw) ||
       (!on_chip && ppb != 1))
     return cudaErrorInvalidValue;
-  return dispatch<kStats>(dtype, vec, x, nullptr, 0, nullptr,
-                          static_cast<float*>(stats), planes, hw, wp, ppb,
-                          on_chip, 0.f, static_cast<cudaStream_t>(stream));
+  const Args a{x, nullptr, 0, nullptr, static_cast<float*>(stats), nullptr,
+               {}, 0.f};
+  return dispatch<kStats>(dtype, vec, a, planes, hw, wp, ppb, on_chip,
+                          static_cast<cudaStream_t>(stream));
 }
 
 WUT_API int wut_adain_apply(int dtype, const void* x, const void* y_proj,
-                            int y_dtype, const void* stats, void* out,
+                            int y_dtype, const void* shard_stats, int shards,
+                            const long long* counts, void* merged, void* out,
                             long long planes, long long hw, int vec, int wp,
                             int ppb, float eps, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (wp < 1 || ppb < 1 || wp * ppb * 32 > kMaxThreads ||
-      (y_dtype != WUT_F32 && y_dtype != WUT_BF16))
+      (y_dtype != WUT_F32 && y_dtype != WUT_BF16) || shards < 1 ||
+      shards > kMaxShards)
     return cudaErrorInvalidValue;
-  return dispatch<kApply>(dtype, vec, x, y_proj, y_dtype == WUT_BF16, out,
-                          const_cast<float*>(static_cast<const float*>(stats)),
-                          planes, hw, wp, ppb, 0, eps,
+  Shards sh{shards, {}, 0.f, 0.f};
+  long long total = 0;
+  for (int k = 0; k < shards; ++k) {
+    if (counts[k] < 1) return cudaErrorInvalidValue;
+    sh.count[k] = static_cast<float>(counts[k]);
+    total += counts[k];
+  }
+  // PyTorch's CUDA division of a tensor by a CPU scalar b: a * (1.0f / b)
+  sh.inv_total = 1.0f / static_cast<float>(total);
+  sh.inv_total1 = 1.0f / static_cast<float>(total > 1 ? total - 1 : 1);
+  const Args a{x, y_proj, y_dtype == WUT_BF16, out,
+               const_cast<float*>(static_cast<const float*>(shard_stats)),
+               static_cast<float*>(merged), sh, eps};
+  return dispatch<kApply>(dtype, vec, a, planes, hw, wp, ppb, 0,
                           static_cast<cudaStream_t>(stream));
 }

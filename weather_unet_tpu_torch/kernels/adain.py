@@ -21,24 +21,26 @@ holds it runs wherever this module is imported.
 The split-statistics form serves spatial partitioning
 (``parallel/spatial.py``), where a plane's rows lie on several shards:
 ``wut::adain_stats`` (``adain_stats_kernel``) writes each plane's float32
-local mean and M2 from one read of the plane, the shards merge them
-(``ops/norm.py::merge_plane_stats``), and ``wut::adain_apply``
-(``adain_apply_kernel``) modulates with the merged statistics;
-``adain_split_fused`` composes them.  Their launches are counted apart
-(``stats_launches``, ``apply_launches``) and their gradients recompute
-through the plain pieces.
+local mean and M2 from one read of the plane, the shards exchange them,
+and ``wut::adain_apply`` (``adain_apply_kernel``) merges every shard's
+statistics itself, as ``ops/norm.py::merge_plane_stats`` does and bit for
+bit on the card, and modulates; ``adain_split_fused`` composes them, so a
+site is two launches around the exchange.  Their launches are counted
+apart (``stats_launches``, ``apply_launches``) and their gradients
+recompute through the plain pieces.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import List
 
 import torch
 
 from weather_unet_tpu_torch.kernels import _build
 from weather_unet_tpu_torch.ops.norm import (
-    adain, adain_from_stats, adain_split, plane_stats)
+    adain, adain_from_shard_stats, adain_split, plane_stats)
 
 launches = 0   # kernel launches so far (plain-version calls do not count)
 # launches of the split-statistics form (spatial partitioning): the local
@@ -50,6 +52,7 @@ adain_fused_ref = adain   # the plain version
 
 MAX_THREADS = 512    # a block of the kernel (csrc/adain.cu kMaxThreads)
 PER_THREAD = 32      # values a thread holds on chip (kPerThread)
+MAX_SHARDS = 16      # shards whose statistics the apply kernel merges
 BLOCK_WARPS = 8      # warps a block aims at when planes are small
 
 
@@ -158,8 +161,9 @@ def _split_entries():
     st.restype = ctypes.c_int
     ap = lib.wut_adain_apply
     ap.argtypes = ([ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                    ctypes.c_longlong, ctypes.c_longlong]
+                    ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                    ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p,
+                    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong]
                    + [ctypes.c_int] * 3
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     ap.restype = ctypes.c_int
@@ -200,30 +204,52 @@ def adain_stats_kernel(x: torch.Tensor, plan: dict = None) -> torch.Tensor:
     return stats
 
 
+def _check_shards(shard_stats: torch.Tensor, counts, planes: tuple) -> list:
+    """``counts`` as a list of ints after checking it against
+    ``shard_stats``: float32 (n, *planes, 2) with n = len(counts), 1 <= n
+    <= ``MAX_SHARDS``, every count at least 1.  More shards than the
+    kernel merges is refused."""
+    counts = [int(n) for n in counts]
+    if not 1 <= len(counts) <= MAX_SHARDS:
+        raise ValueError(f"the adain apply kernel merges 1 to {MAX_SHARDS} "
+                         f"shards, got {len(counts)}")
+    if min(counts) < 1:
+        raise ValueError(f"shard counts must be positive, got {counts}")
+    want = (len(counts), *planes, 2)
+    if shard_stats.shape != want or shard_stats.dtype != torch.float32:
+        raise ValueError(f"shard_stats must be float32 of shape {want}, got "
+                         f"{tuple(shard_stats.shape)} {shard_stats.dtype}")
+    return counts
+
+
 def adain_apply_kernel(x: torch.Tensor, y_proj: torch.Tensor,
-                       stats: torch.Tensor, eps: float,
-                       plan: dict = None) -> torch.Tensor:
-    """K1's split form, second launch: x (B, C, H, W) modulated with each
-    plane's given float32 ``(mean, unbiased variance)`` ``stats`` (B, C,
-    2) and the style statistics of ``y_proj`` (B, 4C)
-    (``ops.norm.adain_from_stats``), on CUDA tensors."""
+                       shard_stats: torch.Tensor, counts, eps: float,
+                       plan: dict = None, merged: bool = False):
+    """K1's split form, second launch, on CUDA tensors: the n shards' local
+    float32 ``(mean, M2)`` ``shard_stats`` (n, B, C, 2) over ``counts[k]``
+    values of a plane each, merged in the kernel
+    (``ops.norm.merge_plane_stats``, bit for bit), and x (B, C, H, W)
+    modulated with them and the style statistics of ``y_proj`` (B, 4C)
+    (``ops.norm.adain_from_shard_stats``).  Returns the output, and with
+    ``merged`` also the merged float32 ``(mean, unbiased variance)`` (B,
+    C, 2) the kernel modulated with."""
     global apply_launches
+    counts = _check_shards(shard_stats, counts, tuple(x.shape[:2]))
     _check_x(x, "adain apply kernel")
     b, c, h, w = x.shape
     if y_proj.shape != (b, 4 * c) or y_proj.dtype not in _build.DTYPE_CODES:
         raise ValueError(f"y_proj must be float32/bfloat16 of shape "
                          f"{(b, 4 * c)}, got {tuple(y_proj.shape)} "
                          f"{y_proj.dtype}")
-    if stats.shape != (b, c, 2) or stats.dtype != torch.float32:
-        raise ValueError(f"stats must be float32 of shape {(b, c, 2)}, got "
-                         f"{tuple(stats.shape)} {stats.dtype}")
-    for t in (y_proj, stats):
+    for t in (y_proj, shard_stats):
         if t.device != x.device or not t.is_contiguous():
             raise ValueError("adain apply kernel inputs must be contiguous "
                              "on x's device")
     out = torch.empty_like(x)
+    stats = (torch.empty((b, c, 2), dtype=torch.float32, device=x.device)
+             if merged else None)
     if x.numel() == 0:
-        return out
+        return (out, stats) if merged else out
     if plan is None:
         plan = plan_adain(b, c, h, w, x.dtype, vec_ok=x.data_ptr() % 16 == 0)
     if plan["vec"] > 1 and (x.data_ptr() % 16 or out.data_ptr() % 16):
@@ -231,13 +257,15 @@ def adain_apply_kernel(x: torch.Tensor, y_proj: torch.Tensor,
                          "aligned x and out")
     lib, _, fn = _split_entries()
     err = fn(_build.DTYPE_CODES[x.dtype], x.data_ptr(), y_proj.data_ptr(),
-             _build.DTYPE_CODES[y_proj.dtype], stats.data_ptr(),
-             out.data_ptr(), b * c, h * w, int(plan["vec"] > 1), plan["wp"],
-             plan["ppb"], eps, x.device.index, _build.stream_of(x))
+             _build.DTYPE_CODES[y_proj.dtype], shard_stats.data_ptr(),
+             len(counts), (ctypes.c_longlong * len(counts))(*counts),
+             stats.data_ptr() if merged else None, out.data_ptr(), b * c,
+             h * w, int(plan["vec"] > 1), plan["wp"], plan["ppb"], eps,
+             x.device.index, _build.stream_of(x))
     _build.check_launch(lib, err, "adain apply")
     with _build.COUNT_LOCK:
         apply_launches += 1
-    return out
+    return (out, stats) if merged else out
 
 
 @torch.library.custom_op("wut::adain", mutates_args=(), device_types="cuda")
@@ -320,35 +348,37 @@ adain_stats_op.register_autograd(_stats_backward, setup_context=_stats_setup)
 @torch.library.custom_op("wut::adain_apply", mutates_args=(),
                          device_types="cuda")
 def adain_apply_op(x: torch.Tensor, y_proj: torch.Tensor,
-                   stats: torch.Tensor, eps: float) -> torch.Tensor:
-    """K1's modulation with given statistics on CUDA tensors (made
-    contiguous)."""
+                   shard_stats: torch.Tensor, counts: List[int],
+                   eps: float) -> torch.Tensor:
+    """K1's merge of the shards' statistics and its modulation with them on
+    CUDA tensors (made contiguous)."""
     return adain_apply_kernel(x.contiguous(), y_proj.contiguous(),
-                              stats.contiguous(), eps)
+                              shard_stats.contiguous(), counts, eps)
 
 
 @adain_apply_op.register_kernel("cpu")
-def _adain_apply_cpu(x, y_proj, stats, eps):
-    return adain_from_stats(x, y_proj, stats, eps)
+def _adain_apply_cpu(x, y_proj, shard_stats, counts, eps):
+    return adain_from_shard_stats(x, y_proj, shard_stats, counts, eps)
 
 
 @adain_apply_op.register_fake
-def _adain_apply_fake(x, y_proj, stats, eps):
+def _adain_apply_fake(x, y_proj, shard_stats, counts, eps):
     return torch.empty_like(x, memory_format=torch.contiguous_format)
 
 
 def _apply_setup(ctx, inputs, output):
-    x, y_proj, stats, eps = inputs
-    ctx.save_for_backward(x, y_proj, stats)
-    ctx.eps = eps
+    x, y_proj, shard_stats, counts, eps = inputs
+    ctx.save_for_backward(x, y_proj, shard_stats)
+    ctx.counts, ctx.eps = counts, eps
 
 
 def _apply_backward(ctx, g):
-    x, y_proj, stats = ctx.saved_tensors
+    x, y_proj, shard_stats = ctx.saved_tensors
     with torch.enable_grad():
-        xs = [t.detach().requires_grad_() for t in (x, y_proj, stats)]
-        grads = torch.autograd.grad(adain_from_stats(*xs, ctx.eps), xs, g)
-    return (*grads, None)
+        xs = [t.detach().requires_grad_() for t in (x, y_proj, shard_stats)]
+        grads = torch.autograd.grad(
+            adain_from_shard_stats(*xs, ctx.counts, ctx.eps), xs, g)
+    return (*grads, None, None)
 
 
 adain_apply_op.register_autograd(_apply_backward, setup_context=_apply_setup)
@@ -357,10 +387,9 @@ adain_apply_op.register_autograd(_apply_backward, setup_context=_apply_setup)
 def adain_split_fused(x: torch.Tensor, y_proj: torch.Tensor, eps: float,
                       exchange, counts):
     """``ops.norm.adain_split`` through K1's split form: the local
-    statistics and the modulation are K1's two launches on CUDA tensors
-    (their plain versions on CPU tensors), the exchange and the merge the
-    plain ones between them; the gradients recompute through the plain
-    pieces."""
+    statistics and the merge with the modulation are K1's two launches on
+    CUDA tensors (their plain versions on CPU tensors), the exchange alone
+    between them; the gradients recompute through the plain pieces."""
     _build.is_cuda(x)          # refuses a device that is neither
     return adain_split(x, y_proj, eps, exchange, counts,
                        stats=adain_stats_op, modulate=adain_apply_op)

@@ -91,20 +91,31 @@ def adain_from_stats(x: torch.Tensor, y_proj: torch.Tensor,
     return out.to(x.dtype)
 
 
+def adain_from_shard_stats(x: torch.Tensor, y_proj: torch.Tensor,
+                           shard_stats: torch.Tensor, counts,
+                           eps: float = 1e-5):
+    """``adain_from_stats`` with the statistics merged from the shards'
+    local ``(mean, M2)`` ``shard_stats`` (n, B, C, 2), as the exchange
+    returns them, over ``counts`` (``merge_plane_stats``): the plain version
+    of K1's apply launch, which merges them itself."""
+    return adain_from_stats(x, y_proj, merge_plane_stats(shard_stats, counts),
+                            eps)
+
+
 def adain_split(x: torch.Tensor, y_proj: torch.Tensor, eps: float,
                 exchange, counts, stats=plane_stats,
-                modulate=adain_from_stats):
+                modulate=adain_from_shard_stats):
     """``adain`` of a plane whose rows lie on several shards, x being this
     shard's rows: each shard's local ``stats(x)``, exchanged
     (``exchange(t) -> (n, *t.shape)``, every shard's in order, its gradient
-    summed back), merged the same way on every shard
-    (``merge_plane_stats`` over ``counts``, each shard's values a plane),
-    then ``modulate``.  The result equals ``adain`` of the whole plane's
-    rows within float32 reassociation; differentiable where ``exchange``
-    is.  K1's split form passes its two kernels as ``stats`` and
-    ``modulate`` (``kernels/adain.py::adain_split_fused``)."""
-    merged = merge_plane_stats(exchange(stats(x)), counts)
-    return modulate(x, y_proj, merged, eps)
+    summed back), then ``modulate(x, y_proj, shard_stats, counts, eps)``,
+    which merges them the same way on every shard (``merge_plane_stats``
+    over ``counts``, each shard's values a plane) and modulates.  The
+    result equals ``adain`` of the whole plane's rows within float32
+    reassociation; differentiable where ``exchange`` is.  K1's split form
+    passes its two kernels as ``stats`` and ``modulate``
+    (``kernels/adain.py::adain_split_fused``)."""
+    return modulate(x, y_proj, exchange(stats(x)), counts, eps)
 
 
 def adain_scale_shift(x: torch.Tensor, y_proj: torch.Tensor,

@@ -151,7 +151,8 @@ class SpatialGroup:
               use_pallas: bool) -> torch.Tensor:
         """AdaIN whose plane statistics span the shards
         (``ops/norm.py::adain_split``; K1's split form with
-        ``use_pallas``)."""
+        ``use_pallas``: the stacked statistics go straight to its apply
+        launch, which merges them)."""
         from weather_unet_tpu_torch.kernels.adain import adain_split_fused
         from weather_unet_tpu_torch.ops.norm import adain_split
 
