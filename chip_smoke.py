@@ -429,15 +429,26 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                224x224 at degree 4 (rows 48/64/48/64) in float32.  (b) Two
                gloo ranks sharing cuda:0 (tools/dp_train_torch.py --spatial
                2) take 3 combined GAN steps at 224x224, B=8, est mode,
-               dropout 0.3, the K4-routed estimator on the gathered rows,
-               float32 (TF32 off, cuDNN deterministic): the ranks' states
-               byte-equal, 6 of each split launch and 58 K4 launches a step
-               and rank, no refused allocation; each step against the
-               one-process step (a child process) from rank 0's state
-               before it on the ranks' rows joined, at phase
-               tensor_parallel (b)'s bars; then 3 bf16 steps timed (step
-               ms, exchange ms).  The split launches are reported as
-               "adain_split" and "upsample_rows" on the kernels line.
+               dropout 0.3, the K4-routed ResNet-101 marked: its
+               stop-gradient forwards through K4 whole on the gathered
+               rows, the forward whose gradient reaches G through the
+               split module on the rank's own rows of the estimator's cut
+               (128/96), float32 (TF32 off, cuDNN deterministic): the
+               ranks' states byte-equal, 6 of each split launch and 58 K4
+               launches a step and rank, no refused allocation, the
+               estimator's input no more than its cut's rows plus the
+               stem's 5, each rank's peak memory and exchanges a step
+               recorded; each step against the one-process step (a child
+               process) from rank 0's state before it on the ranks' rows
+               joined, at phase tensor_parallel (b)'s bars; then one
+               evaluation step on the two ranks (4 reference conditions,
+               dropout 0; 29 K4 launches and 3 of each split launch a
+               reference condition) against the one-process evaluation
+               step from the ranks' final state (losses rel 1e-4, the
+               ranks' fakes joined within MAE 1e-5); then 3 bf16 steps
+               timed (step ms, exchange ms).  The split launches are
+               reported as "adain_split" and "upsample_rows" on the
+               kernels line.
 12. aot      -- the AOT tier (core/aot.py) at full width, each program a
                CUDA graph held to its eager counterpart: the use_pallas
                cUNet at 256x256 through WeatherTransfer(aot_cache=) at
@@ -5409,14 +5420,21 @@ def sp_serving(cunet_path, counters, split_totals, rec):
     rec["a_serving"] = out
 
 
+SP_EVAL_REFS = 4                  # (b)'s evaluation step: reference conditions
+
+
 def sp_gan_ranks(tmp, est_path, init, name, dtype, timing=False):
+    """(b)'s two ranks (the estimator marked by the worker); the timed run
+    takes no evaluation step."""
     out = os.path.join(tmp, name)
     argv = ["--out", out, "--mode", "gan", "--spatial", "2", "--size",
             str(SP_GAN_SIZE), "--batch", str(SP_GAN_BATCH), "--steps",
             str(SP_STEPS), "--dropout", "0.3", "--estimator_path", est_path,
             "--route", "k4", "--dtype", dtype, "--init", init,
             "--deterministic"]
-    argv += ["--timing"] if timing else ["--snapshots", "--dump_inputs"]
+    argv += (["--timing", "--eval_refs", "0"] if timing else
+             ["--snapshots", "--dump_inputs", "--eval_refs",
+              str(SP_EVAL_REFS)])
     return out, dp_run(2, argv, os.path.join(tmp, "logs", name),
                        backend="gloo")
 
@@ -5442,17 +5460,63 @@ def sp_step_parity(tmp, est_path, out, init, rec):
         return ("spatial (b)", None, inputs,
                 gan_snapshot(ranks, rec["b_metrics"][k - 1]))
 
+    est = estimators(est_path, torch.float32, "k4", {})
     rec["b_parity"], rec["b_refused_allocations_in_reference"] = (
-        gan_step_parity("spatial (b)", cfg, estimators(
-            est_path, torch.float32, "k4", {}), SP_STEPS, init, out, case))
+        gan_step_parity("spatial (b)", cfg, est, SP_STEPS, init, out, case))
     del ranks
     free_cuda()
+    rec["b_eval_parity"] = sp_eval_parity(out, est)
+    del est
+    free_cuda()
+
+
+def sp_eval_parity(out, est):
+    """(b)'s evaluation step on the two ranks against the one-process
+    evaluation step from their final state (dropout 0) on their rows
+    joined: each loss within rel 1e-4 (GAN_TOL), the ranks' fakes joined
+    within MAE 1e-5 of the one-process fakes."""
+    from weather_unet_tpu_torch.train import checkpoint as ckpt
+    from weather_unet_tpu_torch.train.gan import (
+        GanConfig, build_gan_state, make_eval_step)
+
+    cfg = GanConfig(input_size=SP_GAN_SIZE, batch_size=SP_GAN_BATCH,
+                    num_epoch=1, dropout_rate=0.0)
+    gen, disc, state = build_gan_state(cfg, 0, "cuda", use_pallas=True)
+    ckpt.restore_checkpoint(os.path.join(out, "rank0.pt"), state)
+    ranks = [torch.load(os.path.join(out, f"rank{r}_eval.pt"),
+                        weights_only=True) for r in range(2)]
+    metrics = []
+    for r in range(2):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            metrics.append(json.load(f)["eval"]["metrics"])
+    x = torch.cat([ranks[0][0], ranks[1][0]], dim=2).cuda()
+    labels, refs = (t.cuda() for t in ranks[0][1:3])
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True       # as the ranks run
+    want, fakes = make_eval_step(gen, disc, est, cfg)(
+        state, x, labels, refs, torch.Generator(device="cuda"))
+    torch.cuda.synchronize()
+    torch.backends.cudnn.deterministic = deterministic
+    got = torch.cat([ranks[0][3], ranks[1][3]], dim=3)
+    rec = {"loss_rel_err": {k: abs(m[k] - float(v)) / max(abs(float(v)),
+                                                           1e-30)
+                            for m in metrics for k, v in want.items()},
+           "ranks_metrics_equal": metrics[0] == metrics[1],
+           "fakes_mae": float((got - fakes.float().cpu()).abs().mean()),
+           "fakes_max_abs_err": float((got - fakes.float().cpu()).abs()
+                                      .max())}
+    if not (rec["ranks_metrics_equal"] and rec["fakes_mae"] <= 1e-5 and all(
+            v <= GAN_TOL for v in rec["loss_rel_err"].values())):
+        raise AssertionError(f"spatial (b) evaluation step: {rec}")
+    del gen, disc, state, fakes
+    return rec
 
 
 def phase_spatial(cunet_path, est_path, counters, launch_totals,
                   split_totals, smi):
     """Phase spatial (module docstring, 11d).  Returns the split forms'
     summary for the kernels line."""
+    from weather_unet_tpu_torch.parallel.mesh import estimator_cut
     from weather_unet_tpu_torch.train import checkpoint as ckpt
     from weather_unet_tpu_torch.train.gan import GanConfig, build_gan_state
 
@@ -5487,26 +5551,39 @@ def phase_spatial(cunet_path, est_path, counters, launch_totals,
                                  {**r["launches"], **r["split_launches"]}
                                  .items()} for r in b],
             "exchanges_a_step": [r["tp_sums"] for r in b],
+            "estimator_input_rows": [r["estimator_input_rows"] for r in b],
+            "estimator_cut": estimator_cut(SP_GAN_SIZE, 2),
+            "peak_mib": [r["peak_mib"] for r in b],
+            "eval": [r["eval"] for r in b],
             "refused_allocations": [r["refused_allocations"] for r in b]}
         rec["b_metrics"] = b[0]["metrics"]
-        for r in b:
-            launch_totals["bottleneck"] += r["launches"]["bottleneck"]
-            split_totals["adain_split"] += (r["split_launches"]["adain_stats"]
-                                            + r["split_launches"][
-                                                "adain_apply"])
-            split_totals["upsample_rows"] += r["split_launches"][
-                "upsample_rows"]
+        eval_want = {"launches": {"adain": 0, "upsample": 0,
+                                  "bottleneck": 29 * SP_EVAL_REFS},
+                     "split_launches": {k: 3 * SP_EVAL_REFS for k in want}}
+        for i, r in enumerate(b):
+            ev = r["eval"]
+            for got in (r, ev):
+                launch_totals["bottleneck"] += got["launches"]["bottleneck"]
+                split_totals["adain_split"] += (
+                    got["split_launches"]["adain_stats"]
+                    + got["split_launches"]["adain_apply"])
+                split_totals["upsample_rows"] += got["split_launches"][
+                    "upsample_rows"]
             per = {k: v / SP_STEPS for k, v in r["split_launches"].items()}
             if (per != want or r["launches"]["bottleneck"] != 58 * SP_STEPS
                     or r["launches"]["adain"] or r["launches"]["upsample"]
-                    or r["refused_allocations"]):
+                    or r["refused_allocations"]
+                    or {k: ev[k] for k in eval_want} != eval_want
+                    or r["estimator_input_rows"]
+                    > rec["b"]["estimator_cut"][i][1] + 5):
                 raise AssertionError(f"spatial (b) launches {r}")
         if not rec["b"]["ranks_byte_equal"] or len(b[0]["metrics"]) != (
                 SP_STEPS):
             raise AssertionError(f"spatial (b): {rec['b']}")
         t0 = time.perf_counter()
         parity_child("sp_step_parity", (tmp, est_path, out, init), tmp, rec,
-                     ("b_parity", "b_refused_allocations_in_reference"))
+                     ("b_parity", "b_refused_allocations_in_reference",
+                      "b_eval_parity"))
         rec["b_parity_seconds"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         _, bf = sp_gan_ranks(tmp, est_path, init, "bf16", "bf16",

@@ -1157,6 +1157,119 @@ def test_spatial_forward_on_one_card_matches_unsharded(cuda, monkeypatch):
     assert float((got - ref).abs().mean()) <= 1e-5
 
 
+def random_bn_resnet(counts, seed, calibrate=None):
+    """A ResNet with its BatchNorms' scale and shift drawn at random and
+    their statistics drawn at random too, or with ``calibrate`` (a batch)
+    set to that batch's statistics, which keeps a deep net's activations
+    O(1) (default ones with random statistics would kill the ReLUs)."""
+    from weather_unet_tpu_torch.models.common import BatchNorm2d
+
+    model = ResNet(counts, 5, generator=torch.Generator().manual_seed(seed))
+    g = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for name, buf in model.named_buffers():
+            if name.endswith("running_var"):
+                buf.uniform_(0.5, 2.0, generator=g)
+            elif name.endswith("running_mean"):
+                buf.normal_(0.0, 0.1, generator=g)
+        for name, par in model.named_parameters():
+            if "bn" in name or "downsample.1" in name:
+                par.copy_(torch.rand(par.shape, generator=g) + 0.5
+                          if name.endswith("weight")
+                          else 0.1 * torch.randn(par.shape, generator=g))
+        if calibrate is not None:
+            bns = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
+            for bn in bns:
+                bn.momentum = 1.0
+            model.to(calibrate.device).train()(calibrate)
+            for bn in bns:
+                bn.momentum = 0.1
+    return model.eval().requires_grad_(False)
+
+
+def test_marked_resnet101_on_one_card_matches_unsharded(cuda):
+    """ResNet-101 marked over ``cuda:0`` named twice (two shards in two
+    threads), 224², B=2, float32 with TF32 off: the re-cut keeps 128 and
+    96 rows (the cUNet's 112/112), both shards' logits within 2e-4 *
+    max(1, max|logits|) of the unsharded module; at 64² over four shards
+    (32/32/0/0) likewise."""
+    import copy
+
+    from weather_unet_tpu_torch.parallel import spatial, tp
+
+    model = random_bn_resnet((3, 4, 23, 3), 7, calibrate=torch.rand(
+        4, 3, 64, 64, generator=torch.Generator().manual_seed(8)).to(
+        cuda) * 2 - 1)
+    for size, n, rows in ((224, 2, {0: 128, 1: 96}),
+                          (64, 4, {0: 32, 1: 32, 2: 0, 3: 0})):
+        x = torch.rand(2, 3, size, size, generator=torch.Generator()
+                       .manual_seed(size), device="cpu").to(cuda) * 2 - 1
+        with torch.no_grad():
+            want = model(x)
+        group = spatial.SpatialGroup(tp.ThreadShards(["cuda:0"] * n), size)
+        shards = [spatial.spatial_(copy.deepcopy(model), group, i)
+                  for i in range(n)]
+        outs = group.shards.run(lambda i, dev: shards[i](x.narrow(
+            2, *group.cut[i]).contiguous()))
+        torch.cuda.synchronize()
+        assert group.estimator_view().input_rows == rows
+        for out in outs:
+            assert float((out - want).abs().max()) <= 2e-4 * max(
+                1.0, float(want.abs().max()))
+
+
+def test_eval_step_on_one_card_over_two_shards(cuda, tmp_path):
+    """The GAN evaluation step over ``cuda:0`` named twice, 64², B=2, 2
+    reference conditions, dropout 0, the use_pallas G and a marked
+    ResNet(2, 2, 2, 2) by the K4 route (its forwards gather the rows and
+    run K4 whole): the metrics within rel 1e-4 of the one-process eval
+    step, the shards' fakes joined within MAE 1e-5; K1's split pair and
+    K2's row window 3 times a reference condition and shard, K4 4 times
+    (its identity blocks), no whole-plane K1 or whole-image K2."""
+    import copy
+
+    from weather_unet_tpu_torch.cli.common import load_step_estimator
+    from weather_unet_tpu_torch.parallel import spatial, tp
+    from weather_unet_tpu_torch.train.gan import make_eval_step
+
+    path = tmp_path / "est.pt"
+    torch.save(random_bn_resnet((2, 2, 2, 2), 9).state_dict(), path)
+    cfg = GanConfig(input_size=64, batch_size=2, dropout_rate=0.0)
+    gen, disc, state = build_gan_state(cfg, 0, cuda, use_pallas=True)
+    g = torch.Generator().manual_seed(4)
+    x = (torch.rand(2, 3, 64, 64, generator=g) * 2 - 1).to(cuda)
+    labels = torch.randn(2, 5, generator=g).to(cuda)
+    refs = torch.randn(2, 5, generator=g).to(cuda)
+    est = load_step_estimator(str(path), device=cuda, route="k4")
+    want, want_fakes = make_eval_step(gen, disc, est, cfg)(
+        state, x, labels, refs, None)
+    group = spatial.SpatialGroup(tp.ThreadShards(["cuda:0"] * 2), 64)
+    steps, states = [], []
+    for i in range(2):
+        st = copy.deepcopy(state)
+        spatial.spatial_(st.gen.module, group, i)
+        spatial.spatial_(st.disc.module, group, i)
+        e = load_step_estimator(str(path), device=cuda, route="k4")
+        spatial.spatial_(e.model, group, i)
+        steps.append(make_eval_step(st.gen.module, st.disc.module, e, cfg))
+        states.append(st)
+    k1.launches = k2.launches = k4.launches = 0
+    k1.stats_launches = k1.apply_launches = k2.rows_launches = 0
+    res = group.shards.run(lambda i, dev: steps[i](
+        states[i], x.narrow(2, *group.cut[i]).contiguous(), labels, refs,
+        None))
+    torch.cuda.synchronize()
+    assert (k1.stats_launches, k1.apply_launches, k2.rows_launches) == (
+        12, 12, 12)
+    assert (k1.launches, k2.launches, k4.launches) == (0, 0, 16)
+    for m, _ in res:
+        for k, v in want.items():
+            assert abs(float(m[k]) - float(v)) <= 1e-4 * abs(float(v)) + (
+                1e-6), k
+    fakes = torch.cat([f for _, f in res], dim=3)
+    assert float((fakes - want_fakes).abs().mean()) <= 1e-5
+
+
 F1_CHILD = r"""
 import hashlib, sys, torch
 from weather_unet_tpu_torch._device import refused_allocations

@@ -50,13 +50,13 @@ from weather_unet_tpu.parallel.mesh import MeshPlan as JaxMeshPlan
 from weather_unet_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from weather_unet_tpu.train import gan as jax_gan
 from weather_unet_tpu_torch.compat import torch_io
-from weather_unet_tpu_torch.models import ConditionalUNet, SNDisc
+from weather_unet_tpu_torch.models import ConditionalUNet, ResNet, SNDisc
 from weather_unet_tpu_torch.parallel import spatial, tp
 from weather_unet_tpu_torch.parallel.mesh import (
     make_mesh, put_host_local, row_cut)
 from weather_unet_tpu_torch.train import checkpoint as ckpt
 from weather_unet_tpu_torch.train.gan import (
-    GanConfig, build_gan_state, make_gan_step, make_eval_step)
+    GanConfig, build_gan_state, make_gan_step)
 
 
 @pytest.fixture(autouse=True)
@@ -453,10 +453,10 @@ def test_gan_step_on_two_ranks_is_jax_step(tmp_path):
 
 def test_refusals():
     """``spatial_`` refuses a ``fuse_upconv`` model, a tensor-parallel
-    split and a second marking; the GAN step refuses one marked network
-    and the eval step a marked pair; autograd over in-process shards is
-    for CPU devices only; placement takes NHWC images only; K1's split
-    launches and K2's row-window launch refuse CPU tensors."""
+    split and a second marking; the GAN step refuses one marked network;
+    a marked ResNet refuses train-mode BatchNorm; placement takes NHWC
+    images only; K1's split launches and K2's row-window launch refuse CPU
+    tensors."""
     from weather_unet_tpu_torch.kernels import adain as k1
     from weather_unet_tpu_torch.kernels import upsample as k2
 
@@ -475,8 +475,9 @@ def test_refusals():
     with pytest.raises(ValueError, match="both networks"):
         make_gan_step(gen, disc, lambda x: x.mean(dim=(2, 3)), cfg)
     spatial.spatial_(disc, group, 0)
-    with pytest.raises(ValueError, match="spatially split"):
-        make_eval_step(gen, disc, lambda x: x.mean(dim=(2, 3)), cfg)
+    est = spatial.spatial_(ResNet((1, 1, 1, 1), 5), group, 0)
+    with pytest.raises(ValueError, match="train-mode BatchNorm"):
+        est(torch.zeros(1, 3, 16, 32))
     plan = make_mesh(["cpu"] * 2, model=2)
     with pytest.raises(ValueError, match="NHWC"):
         put_host_local(plan.spatial(input_size=32), np.zeros((2, 32)))

@@ -11,9 +11,13 @@ synthetic data, with what each rank saw written to ``--out``:
   means), each step's wall ms and all-reduce ms with ``--timing`` (under
   tensor parallelism the model-group sums apart: their count and ms a
   step; under ``--spatial`` the exchanges of the data row likewise), and
-  the K1/K2/K4 launches of the run (and of K1's split-statistics and K2's
-  row-window forms), and the allocations the card refused (a refused cuDNN
-  workspace runs another engine: ``_device.refused_allocations``);
+  the K1/K2/K4 launches of the run's train steps (and of K1's
+  split-statistics and K2's row-window forms), and the allocations the
+  card refused (a refused cuDNN workspace runs another engine:
+  ``_device.refused_allocations``); under ``--spatial`` also the card's
+  peak memory over the train steps, the rows the marked estimator's input
+  kept, and the evaluation step run after the train steps (``eval``: its
+  metrics, the digest of the rank's fakes, its launches and exchanges);
 * ``rank{r}.pt``: the rank's final train state as a checkpoint holds it
   (``train/checkpoint.py::serialize`` bytes);
 * with ``--snapshots``, rank 0's state after each step k as
@@ -22,7 +26,9 @@ synthetic data, with what each rank saw written to ``--out``:
   apart); with ``--dump_inputs`` each rank's step inputs (images,
   targets) of the supervised modes as ``rank{r}_in{k}.pt``, which joined
   are step k's global batch, and of the GAN modes each rank's content
-  images, labels, condition images and labels; with
+  images, labels, condition images and labels (under ``--spatial`` also
+  the evaluation step's images, labels, reference conditions and the
+  rank's fakes, ``rank{r}_eval.pt``); with
   ``--dump_activations`` each rank's input of the generator's last
   decoder block (after the dropout) at its first forward,
   ``rank{r}_act.pt``;
@@ -153,6 +159,9 @@ class Recorder:
         self.shards = None          # parallel/tp.py::Shards of a split model
         self.metrics, self.step_ms, self.allreduce_ms = [], [], []
         self.tp_sums, self.tp_sum_ms = [], []
+        self.extra = {}             # further keys of the rank's record
+        self.counts = None          # () -> (launches, split launches)
+        self.steps_counts = None    # counts() after the train steps
         self._ar = 0.0
         if timing:
             inner = torch.distributed.all_reduce
@@ -300,17 +309,23 @@ def run_spatial(args, device, dt, rec):
     synthetic sets in order (step k takes global rows ``[k B, (k + 1) B)``
     of each), the dropout generator of step k seeded ``fold_seed(seed +
     1, k)`` (folded with the data index over several data rows), from
-    ``--init`` (a checkpoint file) or the seeded initial state."""
+    ``--init`` (a checkpoint file) or the seeded initial state; the
+    estimator of ``--estimator_path`` is marked too (it runs on the rank's
+    rows).  Then one evaluation step (``make_eval_step``) on ``--eval_refs``
+    seeded reference conditions and B seeded test images, at dropout 0 (a
+    one-process reference then needs no masks)."""
+    import hashlib
+
     from weather_unet_tpu_torch.core.rng import fold_seed
     from weather_unet_tpu_torch.data.transforms import normalize_batch
     from weather_unet_tpu_torch.parallel import spatial
     from weather_unet_tpu_torch.parallel.launch import (
-        data_count, data_index, process_slice)
+        data_count, data_index, process_index, process_slice)
     from weather_unet_tpu_torch.parallel.mesh import (
         make_mesh, put_host_local)
     from weather_unet_tpu_torch.train import checkpoint as ckpt
     from weather_unet_tpu_torch.train.gan import (
-        GanConfig, build_gan_state, make_gan_step)
+        GanConfig, build_gan_state, make_eval_step, make_gan_step)
 
     plan = make_mesh(model=args.spatial, batch_size=args.batch)
     sharding = plan.spatial(input_size=args.size)
@@ -331,6 +346,7 @@ def run_spatial(args, device, dt, rec):
 
         est = load_step_estimator(args.estimator_path, dtype=dt,
                                   device=device, route=args.route)
+        spatial.spatial_(est.model, group)
     else:
         est = linear_estimator
     rec.tree_fn = lambda st: ckpt.gan_tree(st, args.seed)
@@ -356,6 +372,40 @@ def run_spatial(args, device, dt, rec):
         state, _ = step(state, normalize_batch(x).to(device), labels[0],
                         normalize_batch(r).to(device), labels[1], g,
                         do_g=True)
+    if device.type == "cuda":
+        rec.extra["peak_mib"] = (torch.cuda.max_memory_allocated(device)
+                                 / 2 ** 20)
+    if args.estimator_path:
+        rec.extra["estimator_input_rows"] = est.model.sp.input_rows.get(
+            group.index)
+    if args.eval_refs:
+        rec.steps_counts = rec.counts()
+        rng = np.random.default_rng(DATA_SEED + 3)
+        test = GanItems(args.batch, args.size, seed=DATA_SEED + 3)
+        x = normalize_batch(put_host_local(sharding, test.images[mine])).to(
+            device)
+        labels = torch.from_numpy(rng.standard_normal(
+            (args.batch, 5)).astype(np.float32))[mine].to(device)
+        refs = torch.from_numpy(rng.standard_normal(
+            (args.eval_refs, 5)).astype(np.float32)).to(device)
+        gen.dropout_rate = 0.0
+        ex0 = group.exchanges
+        metrics, fakes = make_eval_step(gen, disc, est, cfg)(
+            state, x, labels, refs, None)
+        host = fakes.float().cpu().contiguous()
+        (k0, s0), (k1, s1) = rec.steps_counts, rec.counts()
+        rec.extra["eval"] = {
+            "metrics": {k: float(v) for k, v in metrics.items()},
+            "fakes_shape": list(fakes.shape),
+            "fakes_digest": hashlib.sha256(host.numpy().tobytes())
+            .hexdigest()[:16],
+            "exchanges": group.exchanges - ex0,
+            "launches": {k: k1[k] - k0[k] for k in k1},
+            "split_launches": {k: s1[k] - s0[k] for k in s1}}
+        if rec.dump_dir is not None:
+            torch.save((x.cpu(), labels.cpu(), refs.cpu(), host),
+                       os.path.join(rec.dump_dir,
+                                    f"rank{process_index()}_eval.pt"))
     return ckpt.gan_tree(state, args.seed)
 
 
@@ -458,6 +508,9 @@ def build_parser():
                         "trainer)")
     p.add_argument("--init", default=None,
                    help="--spatial: the start state (a checkpoint file)")
+    p.add_argument("--eval_refs", type=int, default=4,
+                   help="--spatial: reference conditions of the evaluation "
+                        "step after the train steps (0: none)")
     p.add_argument("--model_axis", type=int, default=1,
                    help="--mode gan / sup: a plan with a model axis of M "
                         "and no tensor parallelism (replicas)")
@@ -517,6 +570,9 @@ def main(argv=None) -> int:
     rec = Recorder(device, args.timing,
                    args.out if args.snapshots else None,
                    args.out if args.dump_inputs else None)
+    rec.counts = lambda: ({k: m.launches for k, m in kernels.items()},
+                          {k: getattr(m, attr)
+                           for k, (m, attr) in split.items()})
     t0 = time.perf_counter()
     if args.mode == "gan" and args.spatial > 1:
         tree = run_spatial(args, device, dt, rec)
@@ -532,6 +588,7 @@ def main(argv=None) -> int:
         torch.cuda.synchronize(device)
     rank = process_index()
     save_tree(os.path.join(args.out, f"rank{rank}.pt"), tree)
+    launches, split_launches = rec.steps_counts or rec.counts()
     with open(os.path.join(args.out, f"rank{rank}.json"), "w") as f:
         json.dump({"rank": rank, "world": process_count(),
                    "device": str(device),
@@ -539,11 +596,9 @@ def main(argv=None) -> int:
                    "metrics": rec.metrics, "step_ms": rec.step_ms,
                    "allreduce_ms": rec.allreduce_ms,
                    "tp_sums": rec.tp_sums, "tp_sum_ms": rec.tp_sum_ms,
-                   "launches": {k: m.launches
-                                for k, m in kernels.items()},
-                   "split_launches": {k: getattr(m, attr) for k, (m, attr)
-                                      in split.items()},
-                   "refused_allocations": refused_allocations(device)}, f)
+                   "launches": launches, "split_launches": split_launches,
+                   "refused_allocations": refused_allocations(device),
+                   **rec.extra}, f)
     if torch.distributed.is_initialized():
         torch.distributed.destroy_process_group()
     return 0

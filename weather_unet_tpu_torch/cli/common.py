@@ -162,7 +162,13 @@ def load_step_estimator(path: str, num_classes: int = 5,
     split-float32 tensor-core form, and the step took 146.5-150.2 ms by the
     K4 route against 174.3-183.5 by the module (two runs; ``PERF.md`` §5,
     NVIDIA H100 80GB HBM3, 700 W); whether float32 should default to K4 is
-    left to a benchmark cell."""
+    left to a benchmark cell.
+
+    Either route's ``model`` is the module: marked by
+    ``parallel/spatial.py::spatial_``, it takes a shard's rows, and the K4
+    route gathers the rows once for each stop-gradient forward, which runs
+    whole (as the JAX package's partitioner runs a Pallas call it cannot
+    split)."""
     device = resolve_device(device)
     if route is None:
         route = ("k4" if device.type == "cuda" and dtype == torch.bfloat16
@@ -174,15 +180,21 @@ def load_step_estimator(path: str, num_classes: int = 5,
     def plain(images):
         return apply(images.permute(0, 2, 3, 1))
 
+    plain.model = apply.model
     if route == "plain":
         return plain
     from weather_unet_tpu_torch.kernels.bottleneck import fused_resnet_eval
+    from weather_unet_tpu_torch.parallel import spatial
 
     fused = fused_resnet_eval(apply.model)
 
     def k4_routed(images):
-        return plain(images) if torch.is_grad_enabled() else fused(images)
+        if torch.is_grad_enabled():
+            return plain(images)
+        group = spatial.group_of(apply.model)
+        return fused(images if group is None else group.gather_rows(images))
 
+    k4_routed.model = apply.model
     return k4_routed
 
 

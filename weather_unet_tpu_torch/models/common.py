@@ -52,9 +52,10 @@ class TorchConv(nn.Conv2d):
     row-parallel conv2 holds its shard of the input channels, runs
     bias-free and returns the sum over the shards plus its bias.
 
-    ``sp`` (set by ``parallel/spatial.py::spatial_`` on a 3x3 conv): x (and
-    ``skip``) hold a shard's rows; each takes its halo rows and the conv
-    pads the width only.
+    ``sp`` (set by ``parallel/spatial.py::spatial_`` on a 3x3 conv, and on
+    every conv of a ResNet): x (and ``skip``) hold a shard's rows; each
+    takes its halo rows and the conv pads the width only; on a shard that
+    holds no rows (the estimator's cut) the conv passes on none.
     """
 
     tp = None
@@ -68,8 +69,12 @@ class TorchConv(nn.Conv2d):
         if self.sp is not None:
             if fused_upsample:
                 raise ValueError("fuse_upconv does not run split")
-            x, skip, padding = self.sp.conv_input(x, skip, self.stride[0],
-                                                  padding)
+            x, skip, padding = self.sp.conv_input(
+                x, skip, self.stride[0], padding, self.kernel_size[0])
+            if self.sp.empty:
+                return self.sp.no_rows(x, self.out_channels, (
+                    x.shape[3] + 2 * padding[1] - self.kernel_size[1])
+                    // self.stride[1] + 1)
         if self.tp is not None:
             if fused_upsample:
                 raise ValueError("fuse_upconv does not run split")

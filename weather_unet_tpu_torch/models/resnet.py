@@ -76,7 +76,16 @@ class Bottleneck(nn.Module):
 
 class ResNet(nn.Module):
     """Generic torchvision-style bottleneck ResNet.  ``generator`` seeds the
-    conv and fc init (the global generator when None)."""
+    conv and fc init (the global generator when None).
+
+    Marked by ``parallel/spatial.py::spatial_`` (``sp``, a group's
+    estimator view), the forward takes a shard's rows of the cUNet's cut,
+    re-cuts them to the estimator's (multiples of 32 rows), runs its own
+    rows with halos and returns the whole images' logits on every shard.
+    It runs in eval mode only: train-mode BatchNorm under a spatial group
+    is refused (the JAX package has no spatially split supervised step)."""
+
+    sp = None
 
     def __init__(self, block_counts: Sequence[int] = (3, 4, 23, 3),
                  num_classes: int = 5, dtype: torch.dtype = torch.float32,
@@ -118,12 +127,25 @@ class ResNet(nn.Module):
     def forward(self, x, *, features_only: bool = False):
         """x: images (B, 3, H, W); returns logits (B, num_classes), or the
         pooled (B, 2048) features with ``features_only``."""
+        sp = self.sp
+        if sp is not None and self.training:
+            raise ValueError(
+                "a spatially split ResNet runs in eval mode (running "
+                "BatchNorm statistics); train-mode BatchNorm under a spatial "
+                "group is not supported, as the JAX package has no "
+                "spatially split supervised step")
         x = x.to(self.dtype)
+        if sp is not None:
+            x = sp.enter(x)
         x = F.relu(self.bn1(self.conv1(x)))
-        x = max_pool(x, window=3, stride=2, padding=1)
+        if sp is None:
+            x = max_pool(x, window=3, stride=2, padding=1)
+        else:
+            x = sp.max_pool(x)
         for layer in self.layers:
             x = layer(x)
-        x = x.mean(dim=(2, 3))          # adaptive avg pool (1, 1)
+        # adaptive avg pool (1, 1)
+        x = x.mean(dim=(2, 3)) if sp is None else sp.mean_pool(x)
         if features_only:
             return x
         return F.linear(x, self.fc.weight.to(x.dtype),

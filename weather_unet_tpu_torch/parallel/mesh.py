@@ -140,6 +140,28 @@ def row_cut(height: int, n: int, unit: int = 16) -> list:
     return [(starts[k], starts[k + 1] - starts[k]) for k in range(n)]
 
 
+def estimator_cut(height: int, n: int, unit: int = 32) -> list:
+    """``(start, rows)`` of each of ``n`` shards of the frozen ResNet
+    estimator's ``height`` input rows, at multiples of its deepest stride
+    ``unit`` (32: a cut at 16 would start a stride-2 layer on an odd row),
+    as even as that allows with the larger shards first (224 rows at
+    degree 2 are 128/96, at degree 4 64/64/64/32).  Where ``n`` exceeds
+    the units the trailing shards hold no rows (64 rows at degree 4:
+    32/32/0/0).  Refused where ``height`` is not a whole number of units."""
+    units = height // unit if unit else 0
+    if n < 1 or units < 1 or units * unit != height:
+        raise ValueError(
+            f"the estimator's {height} rows do not cut at multiples of its "
+            f"deepest stride {unit}")
+    q, r = divmod(units, n)
+    out, start = [], 0
+    for k in range(n):
+        rows = unit * (q + (k < r))
+        out.append((start, rows))
+        start += rows
+    return out
+
+
 def _local_devices(devices) -> list:
     if devices is not None:
         return [torch.device(d) for d in devices]

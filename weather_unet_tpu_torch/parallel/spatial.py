@@ -35,6 +35,17 @@ parameter's gradient is summed over the data row's shards
 (``train/gan.py``).  Dropout masks are the unsharded mask's rows: each
 shard draws the whole mask from the same generator and keeps its rows.
 
+The frozen ResNet estimator has a row cut of its own
+(:meth:`SpatialGroup.estimator_view`, ``mesh.estimator_cut``: multiples of
+its deepest stride 32, 224 at degree 2 is 128/96, and where the degree
+exceeds H/32 the trailing shards hold no rows).  A marked ResNet takes the
+shard's rows of the cUNet's cut, gathers the 3-channel images whole and
+keeps its own rows of that cut; from there on only halos move: the 7x7/2
+stem takes 3 rows above and 2 below, the 3x3/2 max pool the row above
+(-inf beyond the image only), the stride-2 convs the row above, and the
+global average pool sums over the shards.  A shard without rows takes part
+in every exchange and passes on tensors of no rows.
+
 The group is one of ``parallel/tp.py``'s two kinds: ``ThreadShards`` (the
 shards in threads of one process, without autograd, as a serving forward
 runs) or ``ProcessShards`` (one rank a shard, with autograd: the GAN step).
@@ -46,6 +57,7 @@ import dataclasses
 from typing import List, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from weather_unet_tpu_torch.parallel import mesh, tp
 
@@ -53,20 +65,35 @@ from weather_unet_tpu_torch.parallel import mesh, tp
 class SpatialGroup:
     """The shards of one data row under spatial partitioning of images of
     ``input_size`` rows: shard k holds rows ``cut[k] = (start, rows)``
-    (``mesh.row_cut`` at ``unit``).  ``shards`` is a ``tp.ThreadShards``
-    or ``tp.ProcessShards`` of the row.  ``exchanges`` counts the
-    collectives this shard took part in (each counted once)."""
+    (``mesh.row_cut`` at ``unit``, or the ``cut`` given).  ``shards`` is a
+    ``tp.ThreadShards`` or ``tp.ProcessShards`` of the row.  ``exchanges``
+    counts the collectives this shard took part in (each counted once)."""
 
     def __init__(self, shards: tp.Shards, input_size: int,
-                 unit: int = 16):
+                 unit: int = 16, cut: Optional[list] = None):
         self.shards = shards
         self.n = shards.n
         self.input_size = input_size
-        self.cut = mesh.row_cut(input_size, self.n, unit)
+        self.unit = unit
+        self.cut = mesh.row_cut(input_size, self.n, unit) if cut is None \
+            else cut
+        self.holds = [rows > 0 for _, rows in self.cut]
+        self._estimator = None
 
     @property
     def index(self) -> int:
         return self.shards.index
+
+    @property
+    def empty(self) -> bool:
+        """Whether this shard holds no rows (only on the estimator's cut)."""
+        return not self.holds[self.index]
+
+    def estimator_view(self) -> "EstimatorRows":
+        """This group on the frozen estimator's cut (one view a group)."""
+        if self._estimator is None:
+            self._estimator = EstimatorRows(self)
+        return self._estimator
 
     @property
     def exchanges(self) -> int:
@@ -124,15 +151,31 @@ class SpatialGroup:
         return (self.sum(t.float().sum(dim=dims)) / count).to(t.dtype)
 
     # -------------------------------------------------------- the layers
-    def conv_input(self, x, skip, stride: int, padding) -> tuple:
-        """The halo'd inputs of a 3x3 pad-1 conv and its padding: one row
-        above and below at stride 1, the row above at stride 2."""
+    def conv_input(self, x, skip, stride: int, padding,
+                   kernel: int = 3) -> tuple:
+        """The halo'd inputs of a ``kernel``-row conv and its padding (the
+        width's only): ``ph`` rows above and ``kernel - 1 - ph`` below at
+        stride 1; at stride 2 (every shard starts on an even row) ``ph``
+        above and ``kernel - 2 - ph`` below: a 3x3 pad-1 conv one row each
+        side, or the row above at stride 2; the 7x7/2 stem 3 above and 2
+        below; a 1x1 conv none (no exchange)."""
         ph, pw = _pair(padding)
-        if ph != 1 or stride not in (1, 2):
-            raise ValueError(f"a spatially split conv takes padding 1 and "
-                             f"stride 1 or 2, got {padding}, {stride}")
-        x, skip = self.halo((x, skip), 1, 1 if stride == 1 else 0)
+        below = kernel - 1 - ph if stride == 1 else max(kernel - 2 - ph, 0)
+        if stride not in (1, 2) or not 0 <= ph < kernel:
+            raise ValueError(f"a spatially split conv takes stride 1 or 2 "
+                             f"and a padding within its {kernel} rows, got "
+                             f"{padding}, {stride}")
+        if ph or below:
+            x, skip = self.halo((x, skip), ph, below)
         return x, skip, (0, pw)
+
+    def no_rows(self, x: torch.Tensor, channels: int,
+                width: int) -> torch.Tensor:
+        """What a shard without rows passes on: a (B, ``channels``, 0,
+        ``width``) tensor in ``x``'s graph, so that the backwards of the
+        exchanges ``x`` came through run on this shard too."""
+        return (x.new_zeros(x.shape[0], channels, 0, width)
+                + x.flatten()[:0].sum())
 
     def upsample(self, x: torch.Tensor, use_pallas: bool) -> torch.Tensor:
         """The 2x align-corners upsample of this shard's rows: its rows of
@@ -161,6 +204,58 @@ class SpatialGroup:
         return fn(x, y_proj, eps, self.stack, counts)
 
 
+class EstimatorRows(SpatialGroup):
+    """A :class:`SpatialGroup` (``parent``) on the frozen ResNet
+    estimator's cut (``mesh.estimator_cut``), sharing its shards: the
+    layers a marked ResNet runs beyond the cUNet's.  ``input_rows[k]`` is
+    the rows shard k's last :meth:`enter` kept."""
+
+    def __init__(self, parent: SpatialGroup):
+        try:
+            cut = mesh.estimator_cut(parent.input_size, parent.n)
+        except ValueError as e:
+            raise ValueError(
+                f"{e}: a spatially split ResNet needs images of a multiple "
+                f"of 32 rows (leave it unmarked: the GAN steps gather the "
+                f"rows for an unmarked estimator)") from None
+        super().__init__(parent.shards, parent.input_size, 32, cut)
+        self.parent = parent
+        self.input_rows = {}
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """This shard's rows of the estimator's cut, from ``x``: its rows of
+        the parent's cut.  The 3-channel images are gathered whole (the
+        gather's backward sums the gradient over the shards and keeps this
+        shard's rows); a shard without rows keeps none."""
+        whole = self.parent.gather_rows(x)
+        if whole.shape[2] != self.input_size:
+            raise ValueError(f"the estimator's shards cut {self.input_size} "
+                             f"rows, the images have {whole.shape[2]}")
+        start, rows = self.cut[self.index]
+        self.input_rows[self.index] = rows
+        return whole.narrow(2, start, rows)
+
+    def max_pool(self, x: torch.Tensor) -> torch.Tensor:
+        """ResNet's 3x3/2 max pool (padding 1) of this shard's rows: the
+        row above from the shard above, -inf above the image and beside it
+        (the pool's padding), real data at a shard's edge."""
+        (slab,) = self.halo((x,), 1, 0)
+        if self.empty:
+            return self.no_rows(slab, x.shape[1], (x.shape[3] - 1) // 2 + 1)
+        if self.index == 0:
+            slab = torch.cat([torch.full_like(slab[:, :, :1], -float("inf")),
+                              slab[:, :, 1:]], dim=2)
+        return F.max_pool2d(slab, kernel_size=3, stride=2, padding=(0, 1))
+
+    def mean_pool(self, x: torch.Tensor) -> torch.Tensor:
+        """The global average pool (B, C, h, W) -> (B, C) of the whole
+        images at the deepest level (``input_size / 32`` rows): the
+        shards' float32 sums summed (a shard without rows adds zero), in
+        ``x``'s dtype."""
+        count = self.input_size // self.unit * x.shape[3]
+        return (self.sum(x.float().sum(dim=(2, 3))) / count).to(x.dtype)
+
+
 def _pair(v) -> tuple:
     return tuple(v) if isinstance(v, (tuple, list)) else (v, v)
 
@@ -169,7 +264,8 @@ class _Halo(torch.autograd.Function):
     """Halo rows of several tensors in one exchange: every shard sends its
     top ``below`` and bottom ``above`` rows of each, flattened into one
     buffer; the backward sends the halo rows' gradients back the same
-    way and adds them to the owners' edge rows."""
+    way and adds them to the owners' edge rows.  A shard without rows
+    sends zeros and is no one's neighbour (zero rows in its place)."""
 
     @staticmethod
     def forward(ctx, group, above, below, *xs):
@@ -178,17 +274,21 @@ class _Halo(torch.autograd.Function):
         parts = []
         for x in xs:
             h = x.shape[2]
-            if h < max(above, below):
+            if h == 0:
+                x = x.new_zeros(x.shape[:2] + (max(above, below),)
+                                + x.shape[3:])
+                h = x.shape[2]
+            elif h < max(above, below):
                 raise ValueError(f"{h} rows cannot give a halo of "
                                  f"{max(above, below)}")
             parts += [x[:, :, :below], x[:, :, h - above:]]
         edges = _exchange(group, parts)
-        i, n = group.index, group.n
+        i, n, has = group.index, group.n, group.holds
         out = []
         for t, x in enumerate(xs):
-            top = (edges[i - 1][2 * t + 1] if i > 0
+            top = (edges[i - 1][2 * t + 1] if i > 0 and has[i - 1]
                    else x.new_zeros(x.shape[:2] + (above,) + x.shape[3:]))
-            bot = (edges[i + 1][2 * t] if i < n - 1
+            bot = (edges[i + 1][2 * t] if i < n - 1 and has[i + 1]
                    else x.new_zeros(x.shape[:2] + (below,) + x.shape[3:]))
             out.append(torch.cat([top, x, bot], dim=2))
         return tuple(out)
@@ -201,14 +301,14 @@ class _Halo(torch.autograd.Function):
             hs = g.shape[2]
             parts += [g[:, :, :above], g[:, :, hs - below:]]
         back = _exchange(group, parts)
-        i, n = group.index, group.n
+        i, n, has = group.index, group.n, group.holds
         out = []
         for t, (g, (shape, dtype)) in enumerate(zip(gs, ctx.meta)):
             h = shape[2]
             gx = g[:, :, above:above + h].clone()
-            if i < n - 1 and above:       # my bottom rows, the next's top halo
-                gx[:, :, h - above:] += back[i + 1][2 * t]
-            if i > 0 and below:           # my top rows, the previous' bottom
+            if h and i < n - 1 and above and has[i + 1]:
+                gx[:, :, h - above:] += back[i + 1][2 * t]  # the next's halo
+            if h and i > 0 and below:     # my top rows, the previous' bottom
                 gx[:, :, :below] += back[i - 1][2 * t + 1]
             out.append(gx.to(dtype))
         return (None, None, None, *out)
@@ -293,12 +393,23 @@ def spatial_(module: torch.nn.Module, group: SpatialGroup,
     """Mark ``module`` (a cUNet or SNDisc, or any module of their layers)
     to run as shard ``index`` (default: the group's own) of ``group``: its
     3x3 convs take halos, its AdaINs split statistics, its upsamples row
-    windows, its pools and means sum over the shards.  The weights are not
-    touched (they are replicated).  A model with ``fuse_upconv`` levels, a
-    tensor-parallel split and a second marking are refused."""
+    windows, its pools and means sum over the shards.
+
+    A ResNet (the frozen estimator) is marked on the group's
+    :meth:`~SpatialGroup.estimator_view`: the module re-cuts the shard's
+    rows of the cUNet's cut to its own, its convs take halos (the stem's 3
+    + 2 rows, the 3x3 convs' 1 + 1 or the row above at stride 2; the 1x1
+    convs none, but on a shard without rows each passes on none), its max
+    pool the row above, its global average pool sums over the shards;
+    images whose rows do not cut at multiples of 32 are refused.
+
+    The weights are not touched (they are replicated).  A model with
+    ``fuse_upconv`` levels, a tensor-parallel split and a second marking
+    are refused."""
     from weather_unet_tpu_torch.models.common import SNConv, TorchConv
     from weather_unet_tpu_torch.models.cunet import (
         AdaINBlock, ConditionalUNet)
+    from weather_unet_tpu_torch.models.resnet import ResNet
     from weather_unet_tpu_torch.models.sndisc import SNDisc
 
     if getattr(module, "fuse_levels", ()):
@@ -311,6 +422,14 @@ def spatial_(module: torch.nn.Module, group: SpatialGroup,
     if layout_of(module) is not None:
         raise ValueError("the module is spatially split already")
     index = group.index if index is None else index
+    if isinstance(module, ResNet):
+        view = group.estimator_view()
+        for m in module.modules():
+            if isinstance(m, TorchConv):
+                m.sp = view
+        module.sp = view
+        module.sp_layout = Layout(group, index)
+        return module
     for m in module.modules():
         if isinstance(m, (TorchConv, SNConv)):
             k = (m.kernel_size[0] if isinstance(m, TorchConv)

@@ -42,10 +42,15 @@ gets the same gradient on each with no further sum.
 With both networks marked by ``parallel/spatial.py::spatial_`` and the
 images placed by ``plan.spatial()`` (each rank of a data row holds rows of
 its images), the losses and logits are the whole images' on every shard
-(sums over the data row's shards), the frozen estimator runs on the
-gathered whole images, each shard backpropagates the replicated loss
-divided by the degree, and each parameter's gradient is summed over the
-shards before the data-group mean: the parameters stay replicated.
+(sums over the data row's shards), each shard backpropagates the
+replicated loss divided by the degree, and each parameter's gradient is
+summed over the shards before the data-group mean: the parameters stay
+replicated.  The frozen estimator takes the shard's rows where it is a
+marked ResNet (or a callable whose ``model`` is one: the K4 route of
+``cli/common.py::load_step_estimator`` gathers the rows for its
+stop-gradient forwards itself); any other callable runs on the gathered
+whole images.  The evaluation step runs over the shards by the same rules
+and returns each shard's rows of the fakes.
 """
 
 from __future__ import annotations
@@ -143,6 +148,35 @@ def _apply_gradients(ts: TrainState, loss: torch.Tensor,
     ts.optimizer.zero_grad(set_to_none=True)
 
 
+def _spatial_group(gen, disc):
+    """The networks' spatial group (None unsplit); both or neither marked."""
+    group = spatial.group_of(gen)
+    if (spatial.group_of(disc) is None) != (group is None):
+        raise ValueError("under spatial partitioning both networks are "
+                         "marked (parallel/spatial.py::spatial_)")
+    return group
+
+
+def _estimator_on_rows(est_apply: Callable, group) -> Callable:
+    """``est_apply`` as the steps call it on a shard's rows under ``group``:
+    a marked estimator (a module, or a callable whose ``model`` is one)
+    takes them as they are; any other callable gets the whole images,
+    gathered, the same on every shard."""
+    model = getattr(est_apply, "model", est_apply)
+    est_group = (spatial.group_of(model)
+                 if isinstance(model, torch.nn.Module) else None)
+    if est_group is group:
+        return est_apply
+    if est_group is not None:
+        raise ValueError("a spatially split estimator runs in the steps of "
+                         "networks split over its own group")
+
+    def on_whole_images(images):
+        return est_apply(group.gather_rows(images))
+
+    return on_whole_images
+
+
 def _check_state(state: GanTrainState, gen, disc) -> None:
     if state.gen.module is not gen or state.disc.module is not disc:
         raise ValueError("the state's modules are not the gen and disc the "
@@ -166,16 +200,8 @@ def make_gan_step(gen: ConditionalUNet, disc: SNDisc, est_apply: Callable,
     (``train/loops.py::_tiered_steps``)."""
     n_cls = cfg.num_classes
     cls_ce = cfg.mode == "cls" and cfg.cross_ent
-    group = spatial.group_of(gen)
-    if (spatial.group_of(disc) is None) != (group is None):
-        raise ValueError("under spatial partitioning both networks are "
-                         "marked (parallel/spatial.py::spatial_)")
-    if group is not None:
-        # the frozen estimator sees whole images, the same on every shard
-        est_rows = est_apply
-
-        def est_apply(images):
-            return est_rows(group.gather_rows(images))
+    group = _spatial_group(gen, disc)
+    est_apply = _estimator_on_rows(est_apply, group)
 
     def conditions_from(images):
         out = est_apply(images)
@@ -260,12 +286,12 @@ def make_eval_step(gen: ConditionalUNet, disc: SNDisc, est_apply: Callable,
     train mode (dropout on, masks from ``generator``), ``g_loss_w`` scores
     the estimator's raw outputs in both modes, and D reads its ``u`` without
     advancing it.  A loop over the reference conditions stands in for the
-    JAX package's ``vmap``; nothing here builds a graph.  Spatially split
-    networks are refused (the eval step over spatial shards is not
-    ported)."""
-    if spatial.group_of(gen) is not None:
-        raise ValueError("the evaluation step does not run spatially split "
-                         "networks")
+    JAX package's ``vmap``; nothing here builds a graph.  Over spatial
+    shards (both networks marked) the metrics are the whole batch's on
+    every shard, the estimator runs as in the combined step, and ``fakes``
+    holds this shard's rows, (B_ref, B, 3, h, W)."""
+    group = _spatial_group(gen, disc)
+    est_apply = _estimator_on_rows(est_apply, group)
 
     @torch.no_grad()
     def eval_step(state: GanTrainState, images, labels, ref_labels,
@@ -280,7 +306,7 @@ def make_eval_step(gen: ConditionalUNet, disc: SNDisc, est_apply: Callable,
             fake_out, _ = disc(fake, ref_expand)
             per_ref.append({
                 "g_loss_adv": losses.gen_hinge(fake_out),
-                "g_loss_l1": losses.l1_loss(fake, images),
+                "g_loss_l1": losses.l1_loss(fake, images, group),
                 "g_loss_w": losses.mse_loss(est_apply(fake), ref_expand),
                 "d_loss": losses.dis_hinge(fake_out, real_out)})
             fakes.append(fake)
